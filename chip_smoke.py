@@ -1,0 +1,297 @@
+"""On-card smoke run of the PyTorch/CUDA port, ``torchmetrics_tpu_torch``, on one GPU.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each, in order:
+
+1. build: compile the port's CUDA kernel (``sepconv7``) from ``torchmetrics_tpu_torch/csrc/``
+   with nvcc for ``sm_90a``, and report the seconds and what ptxas says.
+2. kernel: hold ``sepconv7`` against its plain PyTorch version at the shapes the
+   InceptionV3 trunk gives it (B=512 in bf16 and f32, B=64 in f32; 17x17; both axes);
+   time the kernel, the plain version and ``F.conv2d`` (the library yardstick).
+3. fid: ``FrechetInceptionDistance(feature=InceptionV3Features(...), normalize=True)`` on
+   299x299 images, bf16 trunk at batch 512 and f32 trunk at batch 64: images/s, exactly 26
+   kernel launches per trunk forward, a finite ``compute()``, and the card's features
+   held against the CPU's on a small input.
+4. classification: the fused step ``MetricCollection({acc, f1, confmat}).as_pure().apply``
+   with 5 classes at batch 65536, held against the same step on the CPU.
+
+After each FID trunk and after the classification step, a profile line: one more step
+under ``torch.profiler``, with device time by kernel and the device's idle share.
+
+Then the card's name and power limit (nvidia-smi), the kernels line and the result line.
+Any failed check raises, so the script exits non-zero and prints no result line. Without
+CUDA it exits with code 2.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import torch
+
+# H100 SXM published peaks (dense); float32 runs on the CUDA cores.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES_PER_S = 3.35e12
+# bf16 outputs are rounded once from f32 sums: half a bf16 ulp is 0.0156 for |y| < 8,
+# the bound docs/pallas_conv_experiment.md:15 states for the TPU kernel.
+ERR_LIMIT = {torch.bfloat16: 0.016, torch.float32: 1e-4}
+SEPCONV_PER_FORWARD = 26
+SPATIAL = 17
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def trunk_sepconv_shapes():
+    """(C, O, axis) of the trunk's 26 separable convs, in forward order: three 1x7 and
+    three 7x1 in each of Mixed_6b-6e (c7 = 128, 160, 160, 192), one of each in Mixed_7a."""
+    shapes = []
+    for c7 in (128, 160, 160, 192):
+        shapes += [(c7, c7, "W"), (c7, 192, "H"), (c7, c7, "H"), (c7, c7, "W"), (c7, c7, "H"), (c7, 192, "W")]
+    return shapes + [(192, 192, "W"), (192, 192, "H")]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile_step(label: str, step) -> None:
+    """Run ``step`` once under ``torch.profiler``: device time by kernel name, the
+    sepconv7 launches' share of it, and the device's idle share of the step's wall time
+    (the wall time less the union of the spans in which a kernel, copy or set ran)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - start) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError(f"profile {label}: the profiler recorded no device activity")
+    busy_us, reach, by_name = 0.0, -math.inf, {}
+    for begin, end, name in spans:
+        busy_us += max(0.0, end - max(begin, reach))
+        reach = max(reach, end)
+        total, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + end - begin, count + 1)
+    top = sorted(by_name.items(), key=lambda item: -item[1][0])[:12]
+    emit({"phase": "profile", "step": label, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+          "idle_share": 1.0 - busy_us / wall_us,
+          "device_ms": sum(total for total, _ in by_name.values()) / 1e3,
+          "sepconv7_ms": sum(total for name, (total, _) in by_name.items() if "sepconv7" in name) / 1e3,
+          "top": [[name[:100], total / 1e3, count] for name, (total, count) in top]})
+
+
+def sepconv_bound_ms(batch: int, c: int, o: int, dtype: torch.dtype):
+    """Least time for one launch: the larger of its operations over the peak rate for
+    its dtype and its bytes (x and w read once, out written once) over memory bandwidth."""
+    plane = SPATIAL * SPATIAL
+    flops = 2 * batch * plane * o * c * 7
+    nbytes = (batch * c * plane + o * c * 7 + batch * o * plane) * torch.empty((), dtype=dtype).element_size()
+    return 1e3 * max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S), flops
+
+
+def build_phase(kernel) -> None:
+    kernel.build()
+    ptxas = [line.strip() for line in kernel.build_log.splitlines() if "registers" in line or "spill" in line]
+    emit({"phase": "build", "kernel": "sepconv7", "seconds": kernel.build_seconds, "ptxas": ptxas,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+
+def kernel_phase(gen: torch.Generator) -> dict:
+    """Every distinct (C, O, axis) of the trunk, in each (dtype, batch) the main path or
+    the kernel's contract uses; returns the per-case results keyed by (dtype, B, C, O, axis)."""
+    import torch.nn.functional as F
+
+    from torchmetrics_tpu_torch.kernels.sepconv import sepconv7, sepconv7_reference
+
+    results = {}
+    for dtype, batch in ((torch.bfloat16, 512), (torch.float32, 512), (torch.float32, 64)):
+        for c, o, axis in sorted(set(trunk_sepconv_shapes())):
+            x = torch.randn((batch, c, SPATIAL, SPATIAL), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((o, c, 7), generator=gen, device="cuda") / math.sqrt(7 * c)).to(dtype)
+            out = sepconv7(x, w, axis)
+            torch.cuda.synchronize()
+            # the plain version on the same values in f32: the kernel's only extra step is
+            # the final rounding to x's dtype
+            err = float((out.float() - sepconv7_reference(x.float(), w.float(), axis)).abs().max())
+            if not err <= ERR_LIMIT[dtype]:
+                raise AssertionError(f"sepconv7 {dtype} B={batch} C={c} O={o} axis={axis}: max_abs_err {err}")
+            w4 = w[:, :, None, :] if axis == "W" else w[:, :, :, None]
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):  # the same f32 function
+                library_ms = cuda_ms(lambda: F.conv2d(x, w4, padding="same"), iters=20)
+            bound_ms, flops = sepconv_bound_ms(batch, c, o, dtype)
+            case = {
+                "dtype": str(dtype).replace("torch.", ""), "B": batch, "C": c, "O": o, "axis": axis,
+                "max_abs_err": err, "limit": ERR_LIMIT[dtype],
+                "ms": cuda_ms(lambda: sepconv7(x, w, axis), iters=20),
+                "plain_ms": cuda_ms(lambda: sepconv7_reference(x, w, axis), iters=5),
+                "library_ms": library_ms, "bound_ms": bound_ms,
+            }
+            case["tflops"] = flops / case["ms"] / 1e9
+            emit({"phase": "kernel", **case})
+            results[(dtype, batch, c, o, axis)] = case
+    return results
+
+
+def fid_phase(gen: torch.Generator, cases: dict) -> int:
+    """FID through the InceptionV3 trunk on the card; returns the kernel launches counted
+    over the measured updates. ``cases`` (the kernel phase's timings) give the share of
+    an update that the trunk's 26 sepconv7 launches take."""
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance, InceptionV3Features
+    from torchmetrics_tpu_torch.kernels.sepconv import sepconv7
+
+    launches = 0
+    for trunk, batch, iters in (("bfloat16", 512, 4), ("float32", 64, 6)):
+        fid = FrechetInceptionDistance(feature=InceptionV3Features(compute_dtype=trunk, seed=0), normalize=True)
+        imgs = torch.rand((batch, 3, 299, 299), generator=gen, device="cuda")
+        fid.update(imgs, real=True)  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        sepconv7.launches = 0
+        start = time.perf_counter()
+        for i in range(iters):
+            fid.update(imgs, real=i % 2 == 1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counted = sepconv7.launches
+        if counted != SEPCONV_PER_FORWARD * iters:
+            raise AssertionError(f"{trunk} trunk: {counted} sepconv7 launches over {iters} forwards")
+        launches += counted
+        value = float(fid.compute())
+        if not math.isfinite(value):
+            raise AssertionError(f"{trunk} FID is not finite: {value}")
+        dtype = torch.bfloat16 if trunk == "bfloat16" else torch.float32
+        sepconv_ms = sum(cases[(dtype, batch, c, o, axis)]["ms"] for c, o, axis in trunk_sepconv_shapes())
+        emit({"phase": "fid", "trunk": trunk, "batch": batch, "updates": iters,
+              "images_per_s": iters * batch / seconds, "update_ms": seconds / iters * 1e3,
+              "sepconv7_ms_per_forward": sepconv_ms, "sepconv7_launches": counted,
+              "launches_per_forward": counted / iters, "fid": value,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+        profile_step(f"fid_update_{trunk}_B{batch}", lambda: fid.update(imgs, real=False))
+    return launches
+
+
+def trunk_reference_phase(gen: torch.Generator) -> None:
+    """The card's trunk features against the same trunk on the CPU (plain versions of
+    every kernel) on a small input: f32 within 1e-4 of the largest feature, bf16 within
+    2% relative L2 (the bounds of tests/test_torch_inception.py)."""
+    from torchmetrics_tpu_torch.image import InceptionV3Features
+
+    imgs = torch.rand((2, 3, 299, 299), generator=gen, device="cuda")
+    want = InceptionV3Features(seed=0, device="cpu")(imgs.cpu())
+    for trunk in ("float32", "bfloat16"):
+        got = InceptionV3Features(seed=0, compute_dtype=trunk)(imgs).cpu()
+        if got.shape != (2, 2048) or not torch.isfinite(got).all():
+            raise AssertionError(f"{trunk} trunk features: shape {tuple(got.shape)} or non-finite values")
+        max_rel = float((got - want).abs().max() / want.abs().max())
+        l2_rel = float((got - want).norm() / want.norm())
+        limit_ok = max_rel <= 1e-4 if trunk == "float32" else l2_rel <= 2e-2
+        if not limit_ok:
+            raise AssertionError(f"{trunk} trunk on the card vs the CPU: max_rel {max_rel}, l2_rel {l2_rel}")
+        emit({"phase": "trunk_vs_cpu", "trunk": trunk, "max_rel_err": max_rel, "l2_rel_err": l2_rel})
+
+
+def classification_phase(gen: torch.Generator) -> None:
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import (
+        MulticlassAccuracy,
+        MulticlassConfusionMatrix,
+        MulticlassF1Score,
+    )
+
+    def pure_step(device):
+        return MetricCollection({
+            "acc": MulticlassAccuracy(5, average="micro", validate_args=False, device=device),
+            "f1": MulticlassF1Score(5, average="macro", validate_args=False, device=device),
+            "confmat": MulticlassConfusionMatrix(5, validate_args=False, device=device),
+        }, device=device).as_pure()
+
+    batch = 65536
+    preds = torch.randn((batch, 5), generator=gen, device="cuda")
+    target = torch.randint(0, 5, (batch,), generator=gen, device="cuda")
+    pure = pure_step(None)
+    _, values = pure.apply(pure.init(), preds, target)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    iters = 20
+    for _ in range(iters):
+        pure.apply(pure.init(), preds, target)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) / iters * 1e3
+    cpu = pure_step("cpu")
+    _, cpu_values = cpu.apply(cpu.init(), preds.cpu(), target.cpu())
+    acc, f1, confmat = float(values["acc"]), float(values["f1"]), values["confmat"].cpu()
+    if int(confmat.sum()) != batch or not (0.0 <= acc <= 1.0 and 0.0 <= f1 <= 1.0):
+        raise AssertionError(f"classification step: confmat sum {int(confmat.sum())}, acc {acc}, f1 {f1}")
+    if not torch.equal(confmat, cpu_values["confmat"]):
+        raise AssertionError("classification step: confusion matrix differs from the CPU's")
+    if abs(acc - float(cpu_values["acc"])) > 1e-6 or abs(f1 - float(cpu_values["f1"])) > 1e-6:
+        raise AssertionError("classification step: acc or f1 differs from the CPU's")
+    emit({"phase": "classification", "batch": batch, "step_ms": step_ms, "acc": acc, "f1": f1,
+          "confmat_sum": int(confmat.sum())})
+    profile_step(f"classification_step_B{batch}", lambda: pure.apply(pure.init(), preds, target))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from torchmetrics_tpu_torch.kernels.sepconv import KERNEL
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    build_phase(KERNEL)
+    cases = kernel_phase(gen)
+    launches = fid_phase(gen, cases)
+    trunk_reference_phase(gen)
+    classification_phase(gen)
+
+    # per bf16 B=512 trunk forward: the 26 launches with their multiplicities
+    forward = [cases[(torch.bfloat16, 512, c, o, axis)] for c, o, axis in trunk_sepconv_shapes()]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    emit({"kernels": [{
+        "name": "sepconv7",
+        "route": "cuda",
+        "source": "torchmetrics_tpu_torch/csrc/sepconv7.cu",
+        "replaces": "tools/exp_sepconv.py:55",
+        "launches": launches,
+        "max_abs_err": max(case["max_abs_err"] for case in cases.values()),
+        "ms": sum(case["ms"] for case in forward),
+        "plain_ms": sum(case["plain_ms"] for case in forward),
+        "bound_ms": sum(case["bound_ms"] for case in forward),
+        "bound_by": "operations",
+        "library_ms": sum(case["library_ms"] for case in forward),
+        "per": "the 26 launches of one bf16 B=512 trunk forward",
+    }]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,115 @@
+"""Rules of the PyTorch/CUDA port that hold whatever the numbers:
+
+- no module of ``torchmetrics_tpu_torch`` and not ``chip_smoke.py`` imports JAX or the
+  JAX package (top-level module names compared exactly: ``torchmetrics_tpu_torch``
+  starts with ``torchmetrics_tpu`` and must not match it);
+- an entry point whose device is left at its default (CUDA) raises where there is no
+  CUDA, instead of running on the CPU;
+- every ``Example:`` block in the port's docstrings runs.
+"""
+
+from __future__ import annotations
+
+import ast
+import doctest
+import importlib
+import pathlib
+import pkgutil
+
+import pytest
+import torch
+
+import torchmetrics_tpu_torch
+from torchmetrics_tpu_torch import MetricCollection
+from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+from torchmetrics_tpu_torch.image import FrechetInceptionDistance, InceptionV3Features
+from torchmetrics_tpu_torch.utilities.checks import resolve_device
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "torchmetrics_tpu"}
+PORT_FILES = sorted((ROOT / "torchmetrics_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_top_levels(source: str) -> set:
+    """Top-level names of every absolute import in ``source``."""
+    names = set()
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+@pytest.mark.parametrize(
+    "source, flagged",
+    [
+        ("import jax.numpy as jnp", {"jax"}),
+        ("from torchmetrics_tpu.image import FID", {"torchmetrics_tpu"}),
+        ("import torchmetrics_tpu_torch.metric", set()),
+        ("from torchmetrics_tpu_torch import Metric", set()),
+        ("def f():\n    from jax import lax\n", {"jax"}),
+        ("from .metric import Metric", set()),
+    ],
+)
+def test_import_scanner_compares_exact_top_level_names(source, flagged):
+    assert _imported_top_levels(source) & FORBIDDEN == flagged
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    assert path.is_file()
+    assert not _imported_top_levels(path.read_text()) & FORBIDDEN
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _toy_extractor(imgs):
+    return imgs.reshape(imgs.shape[0], -1)[:, :4].float()
+
+
+@pytest.mark.parametrize(
+    "build",
+    [
+        lambda: MulticlassAccuracy(5),
+        lambda: InceptionV3Features(),
+        lambda: InceptionV3Features.from_numpy_params({}),
+        lambda: FrechetInceptionDistance(feature=_toy_extractor),
+        lambda: MetricCollection({"acc": MulticlassAccuracy(5, device="cpu")}),
+        lambda: resolve_device(None),
+        lambda: resolve_device("cuda:0"),
+    ],
+    ids=["metric", "extractor", "extractor_from_params", "fid", "collection", "resolve_none", "resolve_cuda"],
+)
+def test_default_device_raises_without_cuda(no_cuda, build):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+
+
+def test_explicit_cpu_device_runs_without_cuda(no_cuda):
+    assert resolve_device("cpu") == torch.device("cpu")
+    metric = MulticlassAccuracy(5, device="cpu")
+    assert metric.device == torch.device("cpu") and metric.tp.device == torch.device("cpu")
+
+
+PORT_MODULES = sorted(
+    info.name
+    for info in pkgutil.walk_packages(torchmetrics_tpu_torch.__path__, prefix="torchmetrics_tpu_torch.")
+    if not info.ispkg
+)
+
+
+@pytest.mark.parametrize("module_name", PORT_MODULES)
+def test_port_module_doctests(module_name):
+    module = importlib.import_module(module_name)
+    failures = []
+    for test in doctest.DocTestFinder(exclude_empty=True).find(module, module_name):
+        runner = doctest.DocTestRunner(optionflags=doctest.NORMALIZE_WHITESPACE)
+        out: list = []
+        runner.run(test, out=out.append)
+        if runner.failures:
+            failures.append("".join(out))
+    assert not failures, "\n".join(failures)

@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of ``torchmetrics_tpu`` for NVIDIA Hopper.
+
+The JAX package ``torchmetrics_tpu`` is the reference; this package mirrors its module
+paths and imports neither JAX nor anything of the JAX package. Entry points run on CUDA
+unless the caller passes ``device="cpu"``.
+"""
+
+from .collections import MetricCollection
+from .metric import Metric
+
+__all__ = ["Metric", "MetricCollection"]

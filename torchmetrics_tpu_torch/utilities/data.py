@@ -1,0 +1,82 @@
+"""Data/layout helpers (counterpart of ``torchmetrics_tpu/utilities/data.py``)."""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Union
+
+import torch
+
+
+def dim_zero_cat(x: Union[torch.Tensor, List[torch.Tensor]]) -> torch.Tensor:
+    """Concatenate a (possibly nested) list of tensors along dim 0."""
+    if isinstance(x, torch.Tensor):
+        return x
+    x = [torch.atleast_1d(el) for el in _flatten(x)]
+    if not x:
+        raise ValueError("No samples to concatenate")
+    return torch.cat(x, dim=0)
+
+
+def _flatten(x: Sequence) -> list:
+    """Flatten one level of nesting."""
+    out = []
+    for item in x:
+        if isinstance(item, (list, tuple)):
+            out.extend(item)
+        else:
+            out.append(item)
+    return out
+
+
+def _flatten_dict(x: dict) -> tuple:
+    """Flatten one level of nested dicts; returns (flat_dict, duplicates_found)."""
+    new_dict = {}
+    duplicates = False
+    for key, value in x.items():
+        if isinstance(value, dict):
+            for k, v in value.items():
+                if k in new_dict:
+                    duplicates = True
+                new_dict[k] = v
+        else:
+            if key in new_dict:
+                duplicates = True
+            new_dict[key] = value
+    return new_dict, duplicates
+
+
+def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """int32 one-hot over a new last axis; out-of-range labels give an all-zero row
+    (``jax.nn.one_hot`` semantics, where ``F.one_hot`` would raise)."""
+    classes = torch.arange(num_classes, device=labels.device)
+    return (labels[..., None] == classes).to(torch.int32)
+
+
+def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch.Tensor:
+    """int32 mask of the top-k entries along ``dim``. For k=1 the first maximum wins."""
+    mask = torch.zeros_like(prob_tensor, dtype=torch.int32)
+    if topk == 1:  # argmax path: ties resolve to the first maximum, as in the JAX package
+        idx = prob_tensor.argmax(dim=dim, keepdim=True)
+    else:
+        idx = prob_tensor.topk(topk, dim=dim).indices
+    return mask.scatter_(dim, idx, 1)
+
+
+def _bincount_2d(
+    x: torch.Tensor, y: torch.Tensor, nx: int, ny: int, weights: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Joint histogram (confusion-matrix kernel): int32 ``(nx, ny)`` counts.
+
+    One bincount over the fused index ``x * ny + y``, counted in int64 (exact and
+    order-independent on CUDA too) and cast to int32. ``weights`` is a 0/1 validity
+    mask. Out-of-range pairs and pairs with zero weight go to a spare bin that is
+    dropped, so the shapes stay static.
+    """
+    x = x.reshape(-1).long()
+    y = y.reshape(-1).long()
+    keep = (x >= 0) & (x < nx) & (y >= 0) & (y < ny)
+    if weights is not None:
+        keep &= weights.reshape(-1) != 0
+    fused = torch.where(keep, x * ny + y, nx * ny)
+    counts = torch.bincount(fused, minlength=nx * ny + 1)[: nx * ny]
+    return counts.reshape(nx, ny).to(torch.int32)
