@@ -7,10 +7,15 @@ Run from the repository root, with no arguments:
 Phases, one JSON line each, in order:
 
 1. build: compile the port's CUDA kernel (``sepconv7``) from ``torchmetrics_tpu_torch/csrc/``
-   with nvcc for ``sm_90a``, and report the seconds and what ptxas says.
+   with nvcc for ``sm_90a``, and report the seconds, ptxas's registers, shared memory and
+   spills for each instantiation (bf16 on the tensor cores, f32 on the CUDA cores), and
+   the wgmma (``HGMMA``) instructions in the built SASS.
 2. kernel: hold ``sepconv7`` against its plain PyTorch version at the shapes the
    InceptionV3 trunk gives it (B=512 in bf16 and f32, B=64 in f32; 17x17; both axes);
-   time the kernel, the plain version and ``F.conv2d`` (the library yardstick).
+   time the kernel, the plain version and ``F.conv2d`` (the library yardstick). Then
+   edge cases that reach every tail of the kernels, in both dtypes and on both axes:
+   C not a multiple of 8, O not a multiple of the O-tile, B=1 and B=3, non-square
+   planes, and a plane whose lines do not fit one tile.
 3. fid: ``FrechetInceptionDistance(feature=InceptionV3Features(...), normalize=True)`` on
    299x299 images, bf16 trunk at batch 512 and f32 trunk at batch 64: images/s, exactly 26
    kernel launches per trunk forward, a finite ``compute()``, and the card's features
@@ -30,6 +35,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -44,6 +52,12 @@ PEAK_BYTES_PER_S = 3.35e12
 ERR_LIMIT = {torch.bfloat16: 0.016, torch.float32: 1e-4}
 SEPCONV_PER_FORWARD = 26
 SPATIAL = 17
+# (B, C, O, H, W): C=12 is not a multiple of 8 and O=24 not one of the O-tile; 17x13 and
+# 5x30 are not square; a 64x64 plane's lines do not fit one tile along either axis
+EDGE_CASES = ((3, 12, 24, 17, 17), (1, 160, 192, 17, 13), (2, 40, 24, 5, 30), (2, 64, 64, 64, 64))
+# the kernels of csrc/sepconv7.cu by dtype path, for the ptxas report
+INSTANTIATIONS = {"sepconv7_tc_kernel": "bf16 (wgmma)", "pack_weights_kernel": "bf16 (weight pack)",
+                  "sepconv7_simt_kernel": "f32 (CUDA cores)"}
 
 
 def emit(obj) -> None:
@@ -113,10 +127,36 @@ def sepconv_bound_ms(batch: int, c: int, o: int, dtype: torch.dtype):
     return 1e3 * max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S), flops
 
 
+def ptxas_report(log: str) -> dict:
+    """ptxas's registers, shared memory and spills for each kernel of the build, keyed by
+    its dtype path, and any performance warning it gave."""
+    report, current = {"warnings": []}, None
+    for line in log.splitlines():
+        found = re.search(r"Function properties for (\S+)$", line.strip())
+        if found:
+            current = next((label for name, label in INSTANTIATIONS.items() if name in found.group(1)), None)
+        elif "Performance Loss" in line:
+            report["warnings"].append(line.strip())
+        elif current and ("spill" in line or "registers" in line):
+            report.setdefault(current, []).append(line.strip().removeprefix("ptxas info    : "))
+    return report
+
+
+def sass_count(library, opcode: str):
+    """Instructions of ``opcode`` in the library's SASS (cuobjdump), or None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "--dump-sass", str(library)], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
+
+
 def build_phase(kernel) -> None:
-    kernel.build()
-    ptxas = [line.strip() for line in kernel.build_log.splitlines() if "registers" in line or "spill" in line]
-    emit({"phase": "build", "kernel": "sepconv7", "seconds": kernel.build_seconds, "ptxas": ptxas,
+    library = kernel.build()
+    emit({"phase": "build", "kernel": "sepconv7", "seconds": kernel.build_seconds,
+          "ptxas": ptxas_report(kernel.build_log), "hgmma_in_sass": sass_count(library, "HGMMA"),
+          "bf16_dynamic_smem_bytes": kernel.symbol("sepconv7_tc_smem_bytes")(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
 
@@ -153,17 +193,30 @@ def kernel_phase(gen: torch.Generator) -> dict:
             case["tflops"] = flops / case["ms"] / 1e9
             emit({"phase": "kernel", **case})
             results[(dtype, batch, c, o, axis)] = case
+    for dtype in (torch.bfloat16, torch.float32):
+        for batch, c, o, height, width in EDGE_CASES:
+            for axis in ("W", "H"):
+                x = torch.randn((batch, c, height, width), generator=gen, device="cuda").to(dtype)
+                w = (torch.randn((o, c, 7), generator=gen, device="cuda") / math.sqrt(7 * c)).to(dtype)
+                out = sepconv7(x, w, axis)
+                torch.cuda.synchronize()
+                err = float((out.float() - sepconv7_reference(x.float(), w.float(), axis)).abs().max())
+                if not err <= ERR_LIMIT[dtype]:
+                    raise AssertionError(f"sepconv7 {dtype} B={batch} C={c} O={o} {height}x{width} axis={axis}: "
+                                         f"max_abs_err {err}")
+                emit({"phase": "kernel_edge", "dtype": str(dtype).replace("torch.", ""), "B": batch, "C": c,
+                      "O": o, "H": height, "W": width, "axis": axis, "max_abs_err": err, "limit": ERR_LIMIT[dtype]})
     return results
 
 
-def fid_phase(gen: torch.Generator, cases: dict) -> int:
+def fid_phase(gen: torch.Generator, cases: dict) -> dict:
     """FID through the InceptionV3 trunk on the card; returns the kernel launches counted
-    over the measured updates. ``cases`` (the kernel phase's timings) give the share of
-    an update that the trunk's 26 sepconv7 launches take."""
+    over the measured updates, by trunk dtype. ``cases`` (the kernel phase's timings) give
+    the share of an update that the trunk's 26 sepconv7 launches take."""
     from torchmetrics_tpu_torch.image import FrechetInceptionDistance, InceptionV3Features
     from torchmetrics_tpu_torch.kernels.sepconv import sepconv7
 
-    launches = 0
+    launches = {}
     for trunk, batch, iters in (("bfloat16", 512, 4), ("float32", 64, 6)):
         fid = FrechetInceptionDistance(feature=InceptionV3Features(compute_dtype=trunk, seed=0), normalize=True)
         imgs = torch.rand((batch, 3, 299, 299), generator=gen, device="cuda")
@@ -178,7 +231,7 @@ def fid_phase(gen: torch.Generator, cases: dict) -> int:
         counted = sepconv7.launches
         if counted != SEPCONV_PER_FORWARD * iters:
             raise AssertionError(f"{trunk} trunk: {counted} sepconv7 launches over {iters} forwards")
-        launches += counted
+        launches[trunk] = counted
         value = float(fid.compute())
         if not math.isfinite(value):
             raise AssertionError(f"{trunk} FID is not finite: {value}")
@@ -267,27 +320,31 @@ def main() -> int:
     trunk_reference_phase(gen)
     classification_phase(gen)
 
-    # per bf16 B=512 trunk forward: the 26 launches with their multiplicities
-    forward = [cases[(torch.bfloat16, 512, c, o, axis)] for c, o, axis in trunk_sepconv_shapes()]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    emit({"kernels": [{
-        "name": "sepconv7",
-        "route": "cuda",
-        "source": "torchmetrics_tpu_torch/csrc/sepconv7.cu",
-        "replaces": "tools/exp_sepconv.py:55",
-        "launches": launches,
-        "max_abs_err": max(case["max_abs_err"] for case in cases.values()),
-        "ms": sum(case["ms"] for case in forward),
-        "plain_ms": sum(case["plain_ms"] for case in forward),
-        "bound_ms": sum(case["bound_ms"] for case in forward),
-        "bound_by": "operations",
-        "library_ms": sum(case["library_ms"] for case in forward),
-        "per": "the 26 launches of one bf16 B=512 trunk forward",
-    }]})
+    kernels = []
+    for trunk, dtype, batch, path in (("bfloat16", torch.bfloat16, 512, "tensor cores, wgmma"),
+                                      ("float32", torch.float32, 64, "CUDA cores, f32 FMA")):
+        # per trunk forward: the 26 launches with their multiplicities
+        forward = [cases[(dtype, batch, c, o, axis)] for c, o, axis in trunk_sepconv_shapes()]
+        kernels.append({
+            "name": f"sepconv7_{'bf16' if dtype == torch.bfloat16 else 'f32'}",
+            "route": "cuda",
+            "source": "torchmetrics_tpu_torch/csrc/sepconv7.cu",
+            "replaces": "tools/exp_sepconv.py:55",
+            "launches": launches[trunk],
+            "max_abs_err": max(case["max_abs_err"] for key, case in cases.items() if key[0] == dtype),
+            "ms": sum(case["ms"] for case in forward),
+            "plain_ms": sum(case["plain_ms"] for case in forward),
+            "bound_ms": sum(case["bound_ms"] for case in forward),
+            "bound_by": "operations",
+            "library_ms": sum(case["library_ms"] for case in forward),
+            "per": f"the 26 launches of one {trunk} B={batch} trunk forward ({path})",
+        })
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

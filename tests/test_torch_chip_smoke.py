@@ -1,0 +1,68 @@
+"""``chip_smoke.py`` on the CPU: what it can check without a card.
+
+The script drives the port on one GPU; here it must refuse to run (exit 2, no result
+line), its list of the trunk's separable convs must be the port trunk's own, and its
+report helpers must read ptxas's output and the bound as the kernels line states them.
+"""
+
+from __future__ import annotations
+
+import collections
+import importlib.util
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_without_cuda_it_exits_2_and_prints_no_result(chip_smoke, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() == 2
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_trunk_shapes_are_the_port_trunks_separable_convs(chip_smoke):
+    from torchmetrics_tpu_torch.image import InceptionV3Features
+
+    trunk = InceptionV3Features(seed=0, device="cpu")
+    convs = [(m.w.shape[1], m.w.shape[0], m.sep_axis) for m in trunk.modules() if getattr(m, "sep_axis", None)]
+    assert len(convs) == chip_smoke.SEPCONV_PER_FORWARD == 26
+    assert collections.Counter(convs) == collections.Counter(chip_smoke.trunk_sepconv_shapes())
+
+
+PTXAS_LOG = """\
+ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized in '_ZN2tc18sepconv7_tc_kernelE'
+ptxas info    : Compiling entry function '_ZN2tc18sepconv7_tc_kernelE' for 'sm_90a'
+ptxas info    : Function properties for _ZN2tc18sepconv7_tc_kernelE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN4simt20sepconv7_simt_kernelE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4simt20sepconv7_simt_kernelE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 155 registers, used 1 barriers, 45056 bytes smem
+"""
+
+
+def test_ptxas_report_keys_each_instantiation_by_its_dtype_path(chip_smoke):
+    report = chip_smoke.ptxas_report(PTXAS_LOG)
+    assert report["bf16 (wgmma)"] == [
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads", "Used 168 registers, used 16 barriers"]
+    assert report["f32 (CUDA cores)"][1] == "Used 155 registers, used 1 barriers, 45056 bytes smem"
+    assert len(report["warnings"]) == 1 and "C7520" in report["warnings"][0]
+
+
+@pytest.mark.parametrize("dtype, peak", [(torch.bfloat16, 989e12), (torch.float32, 67e12)])
+def test_sepconv_bound_is_the_operations_at_the_dtypes_peak(chip_smoke, dtype, peak):
+    bound_ms, flops = chip_smoke.sepconv_bound_ms(512, 160, 160, dtype)
+    assert flops == 2 * 512 * 17 * 17 * 160 * 160 * 7
+    assert bound_ms == pytest.approx(1e3 * flops / peak)  # ~1,000 operations a byte: never bytes

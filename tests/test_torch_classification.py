@@ -40,10 +40,12 @@ def _entry_collection(device="cpu"):
 
 
 def _assert_counts_equal(got: torch.Tensor, want) -> None:
+    """Counts equal bit for bit, in the reference's dtype (int32, or float32 where the
+    JAX package sums weights)."""
     want = np.asarray(want)
     assert np.array_equal(want, np.round(want)), "reference counts must be integral"
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    assert got.dtype == torch.from_numpy(np.zeros(0, want.dtype)).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_entry_pure_apply_matches_jax():
@@ -59,6 +61,62 @@ def test_entry_pure_apply_matches_jax():
         for leaf in ("tp", "fp", "tn", "fn"):
             _assert_counts_equal(states_t[name][leaf], jax_states[name][leaf])
     _assert_counts_equal(states_t["confmat"]["confmat"], jax_states["confmat"]["confmat"])
+
+
+def test_entry_pure_apply_confmat_is_float32_like_jax():
+    """The pure path folds the int32 default state with the float32 weighted counts, so
+    the ``confmat`` state and value are float32 after one ``apply`` in both packages."""
+    fn, (states, preds, target) = graft.entry()
+    jax_states, jax_values = fn(states, preds, target)
+    pure = _entry_collection().as_pure()
+    init = pure.init()
+    assert init["confmat"]["confmat"].dtype == torch.int32
+    states_t, values = pure.apply(init, torch.from_numpy(np.array(preds)), torch.from_numpy(np.array(target)))
+    assert np.asarray(jax_states["confmat"]["confmat"]).dtype == np.float32
+    assert np.asarray(jax_values["confmat"]).dtype == np.float32
+    assert states_t["confmat"]["confmat"].dtype == values["confmat"].dtype == torch.float32
+    _assert_counts_equal(values["confmat"], jax_values["confmat"])
+
+
+BINCOUNT_CASES = {
+    # name: (x, y, weights or None), nx = 2, ny = 3; -1, 2 (for x) and 3 (for y) are out of range
+    "unweighted": ([0, 1, 1, 0, 1], [0, 2, 2, 1, 0], None),
+    "unweighted-out-of-range": ([0, -1, 1, 2, 1], [0, 1, 3, 0, 2], None),
+    "weight-two": ([0, 1, 1], [0, 1, 1], [1, 2, 2]),
+    "weights-with-out-of-range": ([0, 1, 2, 1, -1, 0], [0, 1, 0, 3, 2, 2], [1, 2, 5, 7, 3, 0]),
+    "fractional-weights": ([0, 0, 1, 1], [2, 2, 0, 1], [0.5, 0.25, 1.5, 3.0]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BINCOUNT_CASES))
+def test_bincount_2d_matches_jax(case):
+    from torchmetrics_tpu.utilities.data import _bincount_2d as jax_bincount_2d
+    from torchmetrics_tpu_torch.utilities.data import _bincount_2d
+
+    x, y, weights = (None if v is None else np.asarray(v) for v in BINCOUNT_CASES[case])
+    want = np.asarray(jax_bincount_2d(jnp.asarray(x), jnp.asarray(y), 2, 3,
+                                      None if weights is None else jnp.asarray(weights)))
+    got = _bincount_2d(torch.from_numpy(x), torch.from_numpy(y), 2, 3,
+                       None if weights is None else torch.from_numpy(weights))
+    assert want.dtype == (np.int32 if weights is None else np.float32)
+    assert got.dtype == torch.from_numpy(np.zeros(0, want.dtype)).dtype and tuple(got.shape) == want.shape == (2, 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_stateful_confusion_matrix_stays_int32_like_jax():
+    """The stateful class casts each float32 batch count back to its int32 state; the
+    batch value that ``forward`` returns is the float32 count, in both packages."""
+    rng = np.random.default_rng(7)
+    jax_metric = jax_cls.MulticlassConfusionMatrix(NUM_CLASSES, ignore_index=2)
+    metric = MulticlassConfusionMatrix(NUM_CLASSES, ignore_index=2, device="cpu")
+    for n in (31, 12):
+        preds = rng.normal(size=(n, NUM_CLASSES)).astype(np.float32)
+        target = rng.integers(0, NUM_CLASSES, n).astype(np.int64)
+        _assert_counts_equal(metric(torch.from_numpy(preds), torch.from_numpy(target)),
+                             jax_metric(jnp.asarray(preds), jnp.asarray(target)))
+    assert metric.confmat.dtype == torch.int32
+    _assert_counts_equal(metric.compute(), jax_metric.compute())
+    assert metric.compute().dtype == torch.int32
 
 
 def test_entry_pure_apply_folds_a_second_batch():

@@ -18,7 +18,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from torchmetrics_tpu_torch.kernels.sepconv import sepconv7, sepconv7_reference
+from torchmetrics_tpu_torch.kernels.sepconv import packed_weight_numel, sepconv7, sepconv7_reference
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -111,3 +111,12 @@ def test_wrapper_never_falls_back_off_the_cpu():
         sepconv7(x, w, "W")
     with pytest.raises(ValueError, match="CUDA"):
         sepconv7(torch.zeros(1, 4, 5, 5), w, "W")
+
+
+@pytest.mark.parametrize("channels, out_channels, slices", [
+    (128, 128, 2 * 4), (160, 160, 3 * 5), (160, 192, 3 * 5), (192, 192, 3 * 6), (12, 24, 1), (33, 65, 2 * 2),
+])
+def test_packed_weights_are_whole_zero_padded_slices(channels, out_channels, slices):
+    """The bf16 kernel's weight scratch: one 64-output x 32-channel x 7-tap slice per
+    (O-tile, channel chunk), C and O rounded up."""
+    assert packed_weight_numel(channels, out_channels) == slices * 64 * 32 * 7

@@ -18,7 +18,9 @@ from ..metric import Metric
 
 
 class MulticlassConfusionMatrix(Metric):
-    """Multiclass confusion matrix (int32 ``(C, C)`` state, rows = target).
+    """Multiclass confusion matrix (int32 ``(C, C)`` state, rows = target). The pure
+    path folds float32 batch counts into it, so there the state becomes float32, as in
+    the JAX package.
 
     Example:
         >>> import torch

@@ -2,8 +2,9 @@
 ``torchmetrics_tpu/functional/classification/confusion_matrix.py``; binary and
 multilabel are not ported yet).
 
-The multiclass kernel is one bincount over the fused (target, pred) index, counted in
-int64 and kept as int32; ``ignore_index`` is a zero weight.
+The multiclass kernel is one bincount over the fused (target, pred) index with the 0/1
+weights (``ignore_index`` is a zero weight), so, as in the JAX package, a batch's counts
+are float32; the stateful class casts them back to its int32 state.
 """
 
 from __future__ import annotations

@@ -47,6 +47,7 @@ class NativeKernel:
         self.argtypes = list(argtypes)
         self.build_seconds: Optional[float] = None
         self.build_log = ""  # nvcc's stderr: ptxas registers, shared memory and spills
+        self._lib: Optional[ctypes.CDLL] = None
         self._fn: Optional[Callable[..., int]] = None
 
     def library_path(self) -> Path:
@@ -70,11 +71,18 @@ class NativeKernel:
         self.build_seconds = time.perf_counter() - start
         return lib
 
+    def symbol(self, name: str) -> Callable[..., int]:
+        """A C function of the library (int result), building and loading it on first call."""
+        if self._lib is None:
+            self._lib = ctypes.CDLL(str(self.build()))
+        fn = getattr(self._lib, name)
+        fn.restype = ctypes.c_int
+        return fn
+
     def function(self) -> Callable[..., int]:
         """The bound C entry point, building and loading the library on first call."""
         if self._fn is None:
-            fn = getattr(ctypes.CDLL(str(self.build())), self.entry)
+            fn = self.symbol(self.entry)
             fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn

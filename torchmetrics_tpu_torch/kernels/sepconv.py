@@ -18,13 +18,22 @@ from ._build import NativeKernel
 TAPS = 7
 _AXIS_DIM = {"W": 3, "H": 2}  # 1x7 convs run along W, 7x1 convs along H
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_LINE = 320  # positions one block holds along the conv axis (csrc/sepconv7.cu MAX_POS)
+_MAX_LINE = 320  # positions along the conv axis (csrc/sepconv7.cu simt::MAX_POS)
+# the bf16 kernel's weight slice: 64 outputs x 32 channels x 7 taps (csrc/sepconv7.cu
+# tc::N_TILE, tc::CC)
+_PACK_O, _PACK_C = 64, 32
 
 KERNEL = NativeKernel(
     "sepconv7.cu",
     "sepconv7_launch",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 )
+
+
+def packed_weight_numel(channels: int, out_channels: int) -> int:
+    """bf16 values of scratch the bf16 kernel packs ``w`` into: zero-padded
+    (O-tile, 32-channel chunk) slices in the tensor cores' layout."""
+    return -(-out_channels // _PACK_O) * -(-channels // _PACK_C) * TAPS * _PACK_C * _PACK_O
 
 
 def _axis_dim(axis: str) -> int:
@@ -57,7 +66,8 @@ def sepconv7(x: torch.Tensor, w: torch.Tensor, axis: str) -> torch.Tensor:
     (``"W"`` for a 1x7 conv, ``"H"`` for a 7x1 conv) -> ``(B, O, H, W)`` in ``x``'s dtype.
 
     CUDA tensors (float32 or bfloat16, contiguous) launch the kernel and count one in
-    ``sepconv7.launches``; CPU tensors take ``sepconv7_reference``.
+    ``sepconv7.launches``: bfloat16 on the tensor cores (``wgmma``), float32 on the CUDA
+    cores. CPU tensors take ``sepconv7_reference``.
     """
     dim = _axis_dim(axis)
     _check_shapes(x, w)
@@ -74,10 +84,13 @@ def sepconv7(x: torch.Tensor, w: torch.Tensor, axis: str) -> torch.Tensor:
     batch, channels, height, width = x.shape
     out_channels = w.shape[0]
     out = torch.empty((batch, out_channels, height, width), dtype=x.dtype, device=x.device)
+    wpack = None
+    if x.dtype == torch.bfloat16:
+        wpack = torch.empty(packed_weight_numel(channels, out_channels), dtype=x.dtype, device=x.device)
     launch = KERNEL.function()
     with torch.cuda.device(x.device):
         rc = launch(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            x.data_ptr(), w.data_ptr(), None if wpack is None else wpack.data_ptr(), out.data_ptr(),
             batch, channels, height, width, out_channels, dim, _DTYPE_CODE[x.dtype],
             torch.cuda.current_stream().cuda_stream,
         )

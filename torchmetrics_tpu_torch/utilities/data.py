@@ -65,18 +65,21 @@ def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch
 def _bincount_2d(
     x: torch.Tensor, y: torch.Tensor, nx: int, ny: int, weights: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """Joint histogram (confusion-matrix kernel): int32 ``(nx, ny)`` counts.
+    """Joint histogram (confusion-matrix kernel): ``(nx, ny)`` counts.
 
-    One bincount over the fused index ``x * ny + y``, counted in int64 (exact and
-    order-independent on CUDA too) and cast to int32. ``weights`` is a 0/1 validity
-    mask. Out-of-range pairs and pairs with zero weight go to a spare bin that is
-    dropped, so the shapes stay static.
+    One bincount over the fused index ``x * ny + y``; out-of-range pairs go to a spare
+    bin that is dropped, so the shapes stay static. Without ``weights`` the counts are
+    taken in int64 (exact and order-independent on CUDA too) and returned as int32.
+    With ``weights`` they are float32 sums of the weights per bin, as in the JAX
+    package. On CUDA those sums use float atomics: exact for integer weights while each
+    bin stays below 2**24, the limit of the JAX package's float32 ``segment_sum``.
     """
     x = x.reshape(-1).long()
     y = y.reshape(-1).long()
     keep = (x >= 0) & (x < nx) & (y >= 0) & (y < ny)
-    if weights is not None:
-        keep &= weights.reshape(-1) != 0
     fused = torch.where(keep, x * ny + y, nx * ny)
-    counts = torch.bincount(fused, minlength=nx * ny + 1)[: nx * ny]
-    return counts.reshape(nx, ny).to(torch.int32)
+    if weights is None:
+        counts = torch.bincount(fused, minlength=nx * ny + 1)[: nx * ny]
+        return counts.reshape(nx, ny).to(torch.int32)
+    counts = torch.bincount(fused, weights=weights.reshape(-1).float(), minlength=nx * ny + 1)[: nx * ny]
+    return counts.reshape(nx, ny)
