@@ -8,8 +8,10 @@ Phases, one JSON line each, in order:
 
 1. build: compile the port's CUDA kernel (``sepconv7``) from ``torchmetrics_tpu_torch/csrc/``
    with nvcc for ``sm_90a``, and report the seconds, ptxas's registers, shared memory and
-   spills for each instantiation (bf16 on the tensor cores, f32 on the CUDA cores), and
-   the wgmma (``HGMMA``) instructions in the built SASS.
+   spills for each instantiation (bf16 and f32, both on the tensor cores), the dynamic
+   shared memory of each, and the wgmma (``HGMMA``) instructions in the built SASS by
+   opcode form; the SASS must hold both the BF16 and the TF32 forms and no kernel that
+   the report does not name.
 2. kernel: hold ``sepconv7`` against its plain PyTorch version at the shapes the
    InceptionV3 trunk gives it (B=512 in bf16 and f32, B=64 in f32; 17x17; both axes);
    time the kernel, the plain version and ``F.conv2d`` (the library yardstick). Then
@@ -44,8 +46,10 @@ import time
 
 import torch
 
-# H100 SXM published peaks (dense); float32 runs on the CUDA cores.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM published peaks (dense), by the type the tensor cores run: bf16, and TF32 for
+# float32, which takes three TF32 products (hi and lo split operands) per product.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12}
+PRODUCTS = {torch.bfloat16: 1, torch.float32: 3}
 PEAK_BYTES_PER_S = 3.35e12
 # bf16 outputs are rounded once from f32 sums: half a bf16 ulp is 0.0156 for |y| < 8,
 # the bound docs/pallas_conv_experiment.md:15 states for the TPU kernel.
@@ -53,11 +57,13 @@ ERR_LIMIT = {torch.bfloat16: 0.016, torch.float32: 1e-4}
 SEPCONV_PER_FORWARD = 26
 SPATIAL = 17
 # (B, C, O, H, W): C=12 is not a multiple of 8 and O=24 not one of the O-tile; 17x13 and
-# 5x30 are not square; a 64x64 plane's lines do not fit one tile along either axis
-EDGE_CASES = ((3, 12, 24, 17, 17), (1, 160, 192, 17, 13), (2, 40, 24, 5, 30), (2, 64, 64, 64, 64))
+# 5x30 are not square; a 64x64 plane's lines do not fit one tile along either axis, and 12
+# such images make 156 tiles, so on 132 SMs the last wave runs as half tiles
+EDGE_CASES = ((3, 12, 24, 17, 17), (1, 160, 192, 17, 13), (2, 40, 24, 5, 30), (12, 64, 64, 64, 64))
 # the kernels of csrc/sepconv7.cu by dtype path, for the ptxas report
-INSTANTIATIONS = {"sepconv7_tc_kernel": "bf16 (wgmma)", "pack_weights_kernel": "bf16 (weight pack)",
-                  "sepconv7_simt_kernel": "f32 (CUDA cores)"}
+INSTANTIATIONS = {"sepconv7_bf16_kernel": "bf16 (wgmma)", "pack_weights_bf16_kernel": "bf16 (weight pack)",
+                  "sepconv7_tf32_kernel": "f32 (wgmma, 3xTF32)",
+                  "pack_weights_tf32_kernel": "f32 (weight pack, TF32 hi and lo)"}
 
 
 def emit(obj) -> None:
@@ -119,12 +125,13 @@ def profile_step(label: str, step) -> None:
 
 
 def sepconv_bound_ms(batch: int, c: int, o: int, dtype: torch.dtype):
-    """Least time for one launch: the larger of its operations over the peak rate for
-    its dtype and its bytes (x and w read once, out written once) over memory bandwidth."""
+    """Least time for one launch: the larger of its operations (times the tensor-core
+    products each takes in its dtype) over the peak rate for that type and its bytes (x and
+    w read once, out written once) over memory bandwidth. Returns it with the operations."""
     plane = SPATIAL * SPATIAL
     flops = 2 * batch * plane * o * c * 7
-    nbytes = (batch * c * plane + o * c * 7 + batch * o * plane) * torch.empty((), dtype=dtype).element_size()
-    return 1e3 * max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S), flops
+    nbytes = (batch * c * plane + o * c * 7 + batch * o * plane) * dtype.itemsize
+    return 1e3 * max(PRODUCTS[dtype] * flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S), flops
 
 
 def ptxas_report(log: str) -> dict:
@@ -142,21 +149,35 @@ def ptxas_report(log: str) -> dict:
     return report
 
 
-def sass_count(library, opcode: str):
-    """Instructions of ``opcode`` in the library's SASS (cuobjdump), or None without cuobjdump."""
+def sass_report(library):
+    """The library's SASS (cuobjdump): ``HGMMA`` instructions by opcode form (such as
+    ``HGMMA.64x64x8.F32.TF32``) and the kernels by dtype path; None without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.isfile(tool):
         return None
     sass = subprocess.run([tool, "--dump-sass", str(library)], capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    return len(re.findall(rf"\b{opcode}\b", sass))
+    forms = {}
+    for form in re.findall(r"\b(HGMMA\.[\w.]+)", sass):
+        forms[form] = forms.get(form, 0) + 1
+    kernels = [next((label for name, label in INSTANTIATIONS.items() if name in fn), fn)
+               for fn in re.findall(r"Function : (\S+)", sass)]
+    return {"hgmma": forms, "kernels": kernels}
 
 
 def build_phase(kernel) -> None:
     library = kernel.build()
+    sass = sass_report(library)
+    if sass is not None:
+        for dtype in ("BF16", "TF32"):
+            if not any(f".{dtype}" in form for form in sass["hgmma"]):
+                raise AssertionError(f"no {dtype} HGMMA in the SASS: {sass['hgmma']}")
+        if sorted(sass["kernels"]) != sorted(INSTANTIATIONS.values()):
+            raise AssertionError(f"the SASS's kernels are not the instantiations: {sass['kernels']}")
     emit({"phase": "build", "kernel": "sepconv7", "seconds": kernel.build_seconds,
-          "ptxas": ptxas_report(kernel.build_log), "hgmma_in_sass": sass_count(library, "HGMMA"),
-          "bf16_dynamic_smem_bytes": kernel.symbol("sepconv7_tc_smem_bytes")(),
+          "ptxas": ptxas_report(kernel.build_log), "sass": sass,
+          "dynamic_smem_bytes": {"bf16": kernel.symbol("sepconv7_smem_bytes")(1),
+                                 "f32": kernel.symbol("sepconv7_smem_bytes")(0)},
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
 
@@ -167,6 +188,15 @@ def kernel_phase(gen: torch.Generator) -> dict:
 
     from torchmetrics_tpu_torch.kernels.sepconv import sepconv7, sepconv7_reference
 
+    def plain(x, w, axis):
+        """The plain version with TF32 matmuls off: its einsum is a matmul, which TF32 would round."""
+        allow = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return sepconv7_reference(x, w, axis)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow
+
     results = {}
     for dtype, batch in ((torch.bfloat16, 512), (torch.float32, 512), (torch.float32, 64)):
         for c, o, axis in sorted(set(trunk_sepconv_shapes())):
@@ -176,7 +206,7 @@ def kernel_phase(gen: torch.Generator) -> dict:
             torch.cuda.synchronize()
             # the plain version on the same values in f32: the kernel's only extra step is
             # the final rounding to x's dtype
-            err = float((out.float() - sepconv7_reference(x.float(), w.float(), axis)).abs().max())
+            err = float((out.float() - plain(x.float(), w.float(), axis)).abs().max())
             if not err <= ERR_LIMIT[dtype]:
                 raise AssertionError(f"sepconv7 {dtype} B={batch} C={c} O={o} axis={axis}: max_abs_err {err}")
             w4 = w[:, :, None, :] if axis == "W" else w[:, :, :, None]
@@ -187,7 +217,7 @@ def kernel_phase(gen: torch.Generator) -> dict:
                 "dtype": str(dtype).replace("torch.", ""), "B": batch, "C": c, "O": o, "axis": axis,
                 "max_abs_err": err, "limit": ERR_LIMIT[dtype],
                 "ms": cuda_ms(lambda: sepconv7(x, w, axis), iters=20),
-                "plain_ms": cuda_ms(lambda: sepconv7_reference(x, w, axis), iters=5),
+                "plain_ms": cuda_ms(lambda: plain(x, w, axis), iters=5),
                 "library_ms": library_ms, "bound_ms": bound_ms,
             }
             case["tflops"] = flops / case["ms"] / 1e9
@@ -200,7 +230,7 @@ def kernel_phase(gen: torch.Generator) -> dict:
                 w = (torch.randn((o, c, 7), generator=gen, device="cuda") / math.sqrt(7 * c)).to(dtype)
                 out = sepconv7(x, w, axis)
                 torch.cuda.synchronize()
-                err = float((out.float() - sepconv7_reference(x.float(), w.float(), axis)).abs().max())
+                err = float((out.float() - plain(x.float(), w.float(), axis)).abs().max())
                 if not err <= ERR_LIMIT[dtype]:
                     raise AssertionError(f"sepconv7 {dtype} B={batch} C={c} O={o} {height}x{width} axis={axis}: "
                                          f"max_abs_err {err}")
@@ -326,8 +356,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     kernels = []
-    for trunk, dtype, batch, path in (("bfloat16", torch.bfloat16, 512, "tensor cores, wgmma"),
-                                      ("float32", torch.float32, 64, "CUDA cores, f32 FMA")):
+    for trunk, dtype, batch, path in (("bfloat16", torch.bfloat16, 512, "wgmma, bf16"),
+                                      ("float32", torch.float32, 64, "wgmma, 3xTF32")):
         # per trunk forward: the 26 launches with their multiplicities
         forward = [cases[(dtype, batch, c, o, axis)] for c, o, axis in trunk_sepconv_shapes()]
         kernels.append({

@@ -41,15 +41,15 @@ def test_trunk_shapes_are_the_port_trunks_separable_convs(chip_smoke):
 
 
 PTXAS_LOG = """\
-ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized in '_ZN2tc18sepconv7_tc_kernelE'
-ptxas info    : Compiling entry function '_ZN2tc18sepconv7_tc_kernelE' for 'sm_90a'
-ptxas info    : Function properties for _ZN2tc18sepconv7_tc_kernelE
+ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized in '_ZN2tc20sepconv7_bf16_kernelE'
+ptxas info    : Compiling entry function '_ZN2tc20sepconv7_bf16_kernelE' for 'sm_90a'
+ptxas info    : Function properties for _ZN2tc20sepconv7_bf16_kernelE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 16 barriers
-ptxas info    : Compiling entry function '_ZN4simt20sepconv7_simt_kernelE' for 'sm_90a'
-ptxas info    : Function properties for _ZN4simt20sepconv7_simt_kernelE
+ptxas info    : Compiling entry function '_ZN2tc20sepconv7_tf32_kernelE' for 'sm_90a'
+ptxas info    : Function properties for _ZN2tc20sepconv7_tf32_kernelE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 155 registers, used 1 barriers, 45056 bytes smem
+ptxas info    : Used 152 registers, used 16 barriers
 """
 
 
@@ -57,12 +57,13 @@ def test_ptxas_report_keys_each_instantiation_by_its_dtype_path(chip_smoke):
     report = chip_smoke.ptxas_report(PTXAS_LOG)
     assert report["bf16 (wgmma)"] == [
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads", "Used 168 registers, used 16 barriers"]
-    assert report["f32 (CUDA cores)"][1] == "Used 155 registers, used 1 barriers, 45056 bytes smem"
+    assert report["f32 (wgmma, 3xTF32)"][1] == "Used 152 registers, used 16 barriers"
     assert len(report["warnings"]) == 1 and "C7520" in report["warnings"][0]
 
 
-@pytest.mark.parametrize("dtype, peak", [(torch.bfloat16, 989e12), (torch.float32, 67e12)])
+@pytest.mark.parametrize("dtype, peak", [(torch.bfloat16, 989e12), (torch.float32, 495e12 / 3)])
 def test_sepconv_bound_is_the_operations_at_the_dtypes_peak(chip_smoke, dtype, peak):
+    """bf16 at the tensor cores' bf16 peak; f32 as three TF32 products at the TF32 peak."""
     bound_ms, flops = chip_smoke.sepconv_bound_ms(512, 160, 160, dtype)
     assert flops == 2 * 512 * 17 * 17 * 160 * 160 * 7
     assert bound_ms == pytest.approx(1e3 * flops / peak)  # ~1,000 operations a byte: never bytes

@@ -113,10 +113,49 @@ def test_wrapper_never_falls_back_off_the_cpu():
         sepconv7(torch.zeros(1, 4, 5, 5), w, "W")
 
 
-@pytest.mark.parametrize("channels, out_channels, slices", [
-    (128, 128, 2 * 4), (160, 160, 3 * 5), (160, 192, 3 * 5), (192, 192, 3 * 6), (12, 24, 1), (33, 65, 2 * 2),
+_PACK_CASES = [(128, 128, 2 * 4), (160, 160, 3 * 5), (160, 192, 3 * 5), (192, 192, 3 * 6), (12, 24, 1), (33, 65, 2 * 2)]
+# float32 chunks are 16 channels: twice the bf16 slices along C
+_PACK_CASES_F32 = [(128, 128, 2 * 8), (160, 160, 3 * 10), (160, 192, 3 * 10), (192, 192, 3 * 12), (12, 24, 1),
+                   (33, 65, 2 * 3)]
+
+
+@pytest.mark.parametrize("channels, out_channels, slices, dtype", [
+    *(pytest.param(c, o, n, torch.bfloat16, id=f"{c}-{o}-{n}") for c, o, n in _PACK_CASES),
+    *(pytest.param(c, o, n, torch.float32, id=f"f32-{c}-{o}-{n}") for c, o, n in _PACK_CASES_F32),
 ])
-def test_packed_weights_are_whole_zero_padded_slices(channels, out_channels, slices):
-    """The bf16 kernel's weight scratch: one 64-output x 32-channel x 7-tap slice per
-    (O-tile, channel chunk), C and O rounded up."""
-    assert packed_weight_numel(channels, out_channels) == slices * 64 * 32 * 7
+def test_packed_weights_are_whole_zero_padded_slices(channels, out_channels, slices, dtype):
+    """The kernel's weight scratch: one slice per (O-tile, channel chunk), C and O rounded
+    up. bf16: 64 outputs x 32 channels x 7 taps. f32: 64 outputs x 16 channels x 7 taps,
+    twice, the TF32 hi and lo parts."""
+    per_slice = 64 * 32 * 7 if dtype == torch.bfloat16 else 2 * 64 * 16 * 7
+    assert packed_weight_numel(channels, out_channels, dtype) == slices * per_slice
+
+
+# The trunk's distinct (C, O, axis): Mixed_6b-6e (c7 = 128, 160, 192) and Mixed_7a.
+TRUNK_CASES = [(c, o, axis) for c, o in ((128, 128), (128, 192), (160, 160), (160, 192), (192, 192))
+               for axis in ("W", "H")]
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` does: add half of the dropped 13 bits, then clear them."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("channels, out_channels, axis", TRUNK_CASES)
+def test_three_tf32_products_keep_f32_accuracy_where_one_does_not(channels, out_channels, axis):
+    """Why the f32 kernel splits: at the trunk's shapes (B=2, inputs scaled as
+    ``chip_smoke.py`` scales them) one TF32 product per product misses the f32 limit of
+    1e-4, while x_lo*w_hi + x_hi*w_lo + x_hi*w_hi, each operand rounded to TF32 and every
+    sum in f32, stays within 1e-5 of the exact f32 plain version."""
+    rng = np.random.default_rng(channels + out_channels + (axis == "H"))
+    x = torch.from_numpy(rng.normal(size=(2, channels, 17, 17)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(out_channels, channels, 7)) / np.sqrt(7 * channels)).astype(np.float32))
+    x_hi, w_hi = _tf32(x), _tf32(w)
+    x_lo, w_lo = _tf32(x - x_hi), _tf32(w - w_hi)
+    assert torch.equal(_tf32(x_hi), x_hi) and torch.equal(_tf32(x_lo), x_lo)
+    want = sepconv7_reference(x, w, axis)
+    one = sepconv7_reference(x_hi, w_hi, axis)
+    three = sepconv7_reference(x_lo, w_hi, axis) + sepconv7_reference(x_hi, w_lo, axis) + one
+    assert float((one - want).abs().max()) > 1e-4
+    assert float((three - want).abs().max()) <= 1e-5

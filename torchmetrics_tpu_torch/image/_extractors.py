@@ -183,8 +183,9 @@ _STEM = ("stem1", "stem2", "stem3", "stem4", "stem5")
 class InceptionV3Features(nn.Module):
     """InceptionV3 pool3 features ``(N, 2048)`` in float32.
 
-    ``compute_dtype``: ``"float32"`` (the parity trunk: its convs run with TF32 off, the
-    counterpart of ``Precision.HIGHEST``) or ``"bfloat16"``; the global average pool
+    ``compute_dtype``: ``"float32"`` (the parity trunk, the counterpart of
+    ``Precision.HIGHEST``: cuDNN's convs run with TF32 off, and ``sepconv7`` splits each
+    operand into two TF32 parts to keep f32 accuracy) or ``"bfloat16"``; the global average pool
     accumulates in float32 either way. ``resize_antialias`` picks the resize fork for
     inputs that are not 299x299. ``device=None`` means ``"cuda"``.
 

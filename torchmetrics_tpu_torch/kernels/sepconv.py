@@ -18,10 +18,14 @@ from ._build import NativeKernel
 TAPS = 7
 _AXIS_DIM = {"W": 3, "H": 2}  # 1x7 convs run along W, 7x1 convs along H
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_LINE = 320  # positions along the conv axis (csrc/sepconv7.cu simt::MAX_POS)
-# the bf16 kernel's weight slice: 64 outputs x 32 channels x 7 taps (csrc/sepconv7.cu
-# tc::N_TILE, tc::CC)
-_PACK_O, _PACK_C = 64, 32
+# positions along the conv axis: one line must fit one tile (csrc/sepconv7.cu tc::MAX_ROWS)
+# and one strip with its halo (tc::STRIP_ROWS = 400 rows)
+_MAX_LINE = 384
+# a packed weight slice: 64 outputs x 64 bytes of channels x 7 taps, per (O-tile, channel
+# chunk); float32 packs two parts, TF32 hi and lo (csrc/sepconv7.cu tc::N_TILE,
+# tc::CHUNK_BYTES, Tf32::W_PARTS)
+_PACK_O, _PACK_BYTES = 64, 64
+_PACK_PARTS = {torch.float32: 2, torch.bfloat16: 1}
 
 KERNEL = NativeKernel(
     "sepconv7.cu",
@@ -30,10 +34,12 @@ KERNEL = NativeKernel(
 )
 
 
-def packed_weight_numel(channels: int, out_channels: int) -> int:
-    """bf16 values of scratch the bf16 kernel packs ``w`` into: zero-padded
-    (O-tile, 32-channel chunk) slices in the tensor cores' layout."""
-    return -(-out_channels // _PACK_O) * -(-channels // _PACK_C) * TAPS * _PACK_C * _PACK_O
+def packed_weight_numel(channels: int, out_channels: int, dtype: torch.dtype) -> int:
+    """Values of ``dtype`` of scratch the kernel packs ``w`` into: zero-padded
+    (O-tile, channel chunk) slices in the tensor cores' layout. A chunk is 32 bfloat16
+    or 16 float32 channels; a float32 slice holds the TF32 hi and lo parts."""
+    chunk = _PACK_BYTES // dtype.itemsize
+    return -(-out_channels // _PACK_O) * -(-channels // chunk) * _PACK_PARTS[dtype] * TAPS * chunk * _PACK_O
 
 
 def _axis_dim(axis: str) -> int:
@@ -65,9 +71,10 @@ def sepconv7(x: torch.Tensor, w: torch.Tensor, axis: str) -> torch.Tensor:
     """7-tap "SAME" conv of ``x (B, C, H, W)`` with ``w (O, C, 7)`` along ``axis``
     (``"W"`` for a 1x7 conv, ``"H"`` for a 7x1 conv) -> ``(B, O, H, W)`` in ``x``'s dtype.
 
-    CUDA tensors (float32 or bfloat16, contiguous) launch the kernel and count one in
-    ``sepconv7.launches``: bfloat16 on the tensor cores (``wgmma``), float32 on the CUDA
-    cores. CPU tensors take ``sepconv7_reference``.
+    CUDA tensors (float32 or bfloat16, contiguous) launch the kernel on the tensor cores
+    (``wgmma``) and count one in ``sepconv7.launches``: bfloat16 directly, float32 as three
+    TF32 products of split operands (hi and lo), to f32 accuracy. CPU tensors take
+    ``sepconv7_reference``.
     """
     dim = _axis_dim(axis)
     _check_shapes(x, w)
@@ -84,13 +91,11 @@ def sepconv7(x: torch.Tensor, w: torch.Tensor, axis: str) -> torch.Tensor:
     batch, channels, height, width = x.shape
     out_channels = w.shape[0]
     out = torch.empty((batch, out_channels, height, width), dtype=x.dtype, device=x.device)
-    wpack = None
-    if x.dtype == torch.bfloat16:
-        wpack = torch.empty(packed_weight_numel(channels, out_channels), dtype=x.dtype, device=x.device)
+    wpack = torch.empty(packed_weight_numel(channels, out_channels, x.dtype), dtype=x.dtype, device=x.device)
     launch = KERNEL.function()
     with torch.cuda.device(x.device):
         rc = launch(
-            x.data_ptr(), w.data_ptr(), None if wpack is None else wpack.data_ptr(), out.data_ptr(),
+            x.data_ptr(), w.data_ptr(), wpack.data_ptr(), out.data_ptr(),
             batch, channels, height, width, out_channels, dim, _DTYPE_CODE[x.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
