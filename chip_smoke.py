@@ -24,9 +24,24 @@ Phases, one JSON line each, in order:
    held against the CPU's on a small input.
 4. classification: the fused step ``MetricCollection({acc, f1, confmat}).as_pure().apply``
    with 5 classes at batch 65536, held against the same step on the CPU.
+5. binary_segmentation: binary-mask evaluation on float32 logits of 32x512x512 with
+   ``ignore_index=255`` on about 5% of the pixels: ``BinaryStatScores(multidim_average=
+   "samplewise")`` and the fused ``{BinaryAccuracy, BinaryF1Score, BinaryConfusionMatrix}``
+   step.
+6. multilabel: the fused ``{MultilabelAccuracy, MultilabelF1Score(average="macro"),
+   MultilabelConfusionMatrix}`` step at batch 65536 over 80 labels (COCO's label count),
+   on probabilities and on logits, so both branches of the batch-wide sigmoid run.
+7. topk_ties: ``MulticlassStatScores(num_classes=5, top_k=2, average="none")`` at batch
+   65536 on scores in quarters, where ties are common: top-k ties must go to the lower
+   index, as in the JAX package.
 
-After each FID trunk and after the classification step, a profile line: one more step
-under ``torch.profiler``, with device time by kernel and the device's idle share.
+Phases 5-7 hold every result against the same port on the CPU on the same tensors:
+counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
+lines carry ``step_ms`` (host clock around synchronised steps) and the card.
+
+After each FID trunk and after the classification, binary and multilabel steps, a
+profile line: one more step under ``torch.profiler``, with device time by kernel and
+the device's idle share.
 
 Then the card's name and power limit (nvidia-smi), the kernels line and the result line.
 Any failed check raises, so the script exits non-zero and prints no result line. Without
@@ -93,21 +108,31 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_step(label: str, step) -> None:
+def profile_step(label: str, step, tries: int = 3) -> None:
     """Run ``step`` once under ``torch.profiler``: device time by kernel name, the
     sepconv7 launches' share of it, and the device's idle share of the step's wall time
-    (the wall time less the union of the spans in which a kernel, copy or set ran)."""
+    (the wall time less the union of the spans in which a kernel, copy or set ran).
+
+    A trace can lose device events: one run traced 4 of the binary step's 8 int64
+    reductions. A trace with fewer kernels than the host's kernel-launch calls is taken
+    again, up to ``tries`` times; the line reports both counts and the attempts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        step()
+    for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - start) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - start) * 1e6
+        events = prof.events()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                       if e.device_type == DeviceType.CUDA)
+        launch_calls = sum(1 for e in events if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name)
+        kernel_events = sum(1 for _, _, name in spans if not name.startswith(("Memcpy", "Memset")))
+        if kernel_events >= launch_calls:
+            break
     if not spans:
         raise AssertionError(f"profile {label}: the profiler recorded no device activity")
     busy_us, reach, by_name = 0.0, -math.inf, {}
@@ -118,7 +143,8 @@ def profile_step(label: str, step) -> None:
         by_name[name] = (total + end - begin, count + 1)
     top = sorted(by_name.items(), key=lambda item: -item[1][0])[:12]
     emit({"phase": "profile", "step": label, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-          "idle_share": 1.0 - busy_us / wall_us,
+          "idle_share": 1.0 - busy_us / wall_us, "kernel_events": kernel_events, "launch_calls": launch_calls,
+          "attempts": attempt,
           "device_ms": sum(total for total, _ in by_name.values()) / 1e3,
           "sepconv7_ms": sum(total for name, (total, _) in by_name.items() if "sepconv7" in name) / 1e3,
           "top": [[name[:100], total / 1e3, count] for name, (total, count) in top]})
@@ -296,6 +322,50 @@ def trunk_reference_phase(gen: torch.Generator) -> None:
         emit({"phase": "trunk_vs_cpu", "trunk": trunk, "max_rel_err": max_rel, "l2_rel_err": l2_rel})
 
 
+def step_ms(step, iters: int = 20) -> float:
+    """Host-clock mean of ``iters`` steps after one warm-up step, synchronised at both ends."""
+    step()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) / iters * 1e3
+
+
+RATIO_ATOL = 1e-6
+
+
+def hold_against_cpu(label: str, got: dict, want: dict) -> float:
+    """Card values ``got`` against the CPU's ``want``, key by key: integer tensors and
+    confusion matrices equal bit for bit and in dtype, float ratios within
+    ``RATIO_ATOL``. Returns the largest ratio difference."""
+    worst = 0.0
+    for key, want_value in want.items():
+        value = got[key].cpu()
+        if value.dtype != want_value.dtype or value.shape != want_value.shape:
+            raise AssertionError(f"{label} {key}: {value.dtype}{tuple(value.shape)} on the card, "
+                                 f"{want_value.dtype}{tuple(want_value.shape)} on the CPU")
+        if not value.is_floating_point() or "confmat" in key:
+            if not torch.equal(value, want_value):
+                raise AssertionError(f"{label} {key}: counts differ from the CPU's")
+        else:
+            diff = float((value - want_value).abs().max()) if value.numel() else 0.0
+            if not diff <= RATIO_ATOL:
+                raise AssertionError(f"{label} {key}: differs from the CPU's by {diff}")
+            worst = max(worst, diff)
+    return worst
+
+
+def lower_index_topk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """int32 mask of the top ``k`` of each row of ``scores`` (N, C), ties to the lower
+    index, by ranks: the entries above a value plus the equal ones before it."""
+    index = torch.arange(scores.shape[1], device=scores.device)
+    above = scores[:, None, :] > scores[:, :, None]
+    tied_before = (scores[:, None, :] == scores[:, :, None]) & (index[None, :] < index[:, None])
+    return ((above | tied_before).sum(-1) < k).to(torch.int32)
+
+
 def classification_phase(gen: torch.Generator) -> None:
     from torchmetrics_tpu_torch import MetricCollection
     from torchmetrics_tpu_torch.classification import (
@@ -314,27 +384,108 @@ def classification_phase(gen: torch.Generator) -> None:
     batch = 65536
     preds = torch.randn((batch, 5), generator=gen, device="cuda")
     target = torch.randint(0, 5, (batch,), generator=gen, device="cuda")
-    pure = pure_step(None)
+    pure, cpu = pure_step(None), pure_step("cpu")
     _, values = pure.apply(pure.init(), preds, target)
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    iters = 20
-    for _ in range(iters):
-        pure.apply(pure.init(), preds, target)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - start) / iters * 1e3
-    cpu = pure_step("cpu")
     _, cpu_values = cpu.apply(cpu.init(), preds.cpu(), target.cpu())
+    hold_against_cpu("classification step", values, cpu_values)
     acc, f1, confmat = float(values["acc"]), float(values["f1"]), values["confmat"].cpu()
     if int(confmat.sum()) != batch or not (0.0 <= acc <= 1.0 and 0.0 <= f1 <= 1.0):
         raise AssertionError(f"classification step: confmat sum {int(confmat.sum())}, acc {acc}, f1 {f1}")
-    if not torch.equal(confmat, cpu_values["confmat"]):
-        raise AssertionError("classification step: confusion matrix differs from the CPU's")
-    if abs(acc - float(cpu_values["acc"])) > 1e-6 or abs(f1 - float(cpu_values["f1"])) > 1e-6:
-        raise AssertionError("classification step: acc or f1 differs from the CPU's")
-    emit({"phase": "classification", "batch": batch, "step_ms": step_ms, "acc": acc, "f1": f1,
+    emit({"phase": "classification", "batch": batch,
+          "step_ms": step_ms(lambda: pure.apply(pure.init(), preds, target)), "acc": acc, "f1": f1,
           "confmat_sum": int(confmat.sum())})
     profile_step(f"classification_step_B{batch}", lambda: pure.apply(pure.init(), preds, target))
+
+
+def binary_segmentation_phase(gen: torch.Generator, card: str) -> None:
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import (
+        BinaryAccuracy,
+        BinaryConfusionMatrix,
+        BinaryF1Score,
+        BinaryStatScores,
+    )
+
+    def pure_step(device):
+        kwargs = {"ignore_index": 255, "validate_args": False, "device": device}
+        return MetricCollection({"acc": BinaryAccuracy(**kwargs), "f1": BinaryF1Score(**kwargs),
+                                 "confmat": BinaryConfusionMatrix(**kwargs)}, device=device).as_pure()
+
+    shape = (32, 512, 512)
+    logits = torch.randn(shape, generator=gen, device="cuda")
+    target = torch.randint(0, 2, shape, generator=gen, device="cuda")
+    target = torch.where(torch.rand(shape, generator=gen, device="cuda") < 0.05, 255, target)
+    per_image = {}
+    for device, (p, t) in (("cuda", (logits, target)), ("cpu", (logits.cpu(), target.cpu()))):
+        metric = BinaryStatScores(multidim_average="samplewise", ignore_index=255, device=device)
+        metric.update(p, t)
+        per_image[device] = {"stat_scores": metric.compute()}
+    hold_against_cpu("binary_segmentation samplewise", per_image["cuda"], per_image["cpu"])
+    pure, cpu = pure_step(None), pure_step("cpu")
+    _, values = pure.apply(pure.init(), logits, target)
+    _, cpu_values = cpu.apply(cpu.init(), logits.cpu(), target.cpu())
+    err = hold_against_cpu("binary_segmentation step", values, cpu_values)
+    counted = int(per_image["cpu"]["stat_scores"][:, :4].sum())
+    if per_image["cpu"]["stat_scores"].shape != (32, 5) or counted != int((target != 255).sum()):
+        raise AssertionError(f"binary_segmentation: {counted} pixels counted")
+    emit({"phase": "binary_segmentation", "shape": list(shape), "ignored_share": 1 - counted / target.numel(),
+          "step_ms": step_ms(lambda: pure.apply(pure.init(), logits, target)), "acc": float(values["acc"]),
+          "f1": float(values["f1"]), "max_ratio_diff": err, "card": card})
+    profile_step("binary_segmentation_step_32x512x512", lambda: pure.apply(pure.init(), logits, target))
+
+
+def multilabel_phase(gen: torch.Generator, card: str) -> None:
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import (
+        MultilabelAccuracy,
+        MultilabelConfusionMatrix,
+        MultilabelF1Score,
+    )
+
+    def pure_step(device):
+        kwargs = {"num_labels": labels, "validate_args": False, "device": device}
+        return MetricCollection({"acc": MultilabelAccuracy(**kwargs), "f1": MultilabelF1Score(average="macro", **kwargs),
+                                 "confmat": MultilabelConfusionMatrix(**kwargs)}, device=device).as_pure()
+
+    batch, labels = 65536, 80
+    target = torch.randint(0, 2, (batch, labels), generator=gen, device="cuda")
+    inputs = {"probs": torch.rand((batch, labels), generator=gen, device="cuda"),
+              "logits": 2 * torch.randn((batch, labels), generator=gen, device="cuda")}
+    pure, cpu = pure_step(None), pure_step("cpu")
+    line = {"phase": "multilabel", "batch": batch, "labels": labels}
+    for kind, preds in inputs.items():
+        _, values = pure.apply(pure.init(), preds, target)
+        _, cpu_values = cpu.apply(cpu.init(), preds.cpu(), target.cpu())
+        err = hold_against_cpu(f"multilabel {kind}", values, cpu_values)
+        if int(values["confmat"].sum()) != batch * labels:
+            raise AssertionError(f"multilabel {kind}: confmat sum {int(values['confmat'].sum())}")
+        line[kind] = {"step_ms": step_ms(lambda: pure.apply(pure.init(), preds, target)), "acc": float(values["acc"]),
+                      "f1": float(values["f1"]), "max_ratio_diff": err}
+    line["step_ms"] = line["logits"]["step_ms"]
+    emit({**line, "card": card})
+    profile_step(f"multilabel_step_B{batch}_L{labels}", lambda: pure.apply(pure.init(), inputs["logits"], target))
+
+
+def topk_ties_phase(gen: torch.Generator, card: str) -> None:
+    from torchmetrics_tpu_torch.classification import MulticlassStatScores
+    from torchmetrics_tpu_torch.utilities.data import select_topk
+
+    batch, classes, k = 65536, 5, 2
+    scores = torch.randint(0, 5, (batch, classes), generator=gen, device="cuda") / 4
+    target = torch.randint(0, classes, (batch,), generator=gen, device="cuda")
+    if not torch.equal(select_topk(scores, k), lower_index_topk_mask(scores, k)):
+        raise AssertionError("topk_ties: select_topk does not keep the lower index among ties on the card")
+    ordered = scores.sort(dim=1, descending=True).values
+    results = {}
+    for device in ("cuda", "cpu"):
+        metric = MulticlassStatScores(num_classes=classes, top_k=k, average="none", device=device)
+        metric.update(scores.to(device), target.to(device))
+        results[device] = {"stat_scores": metric.compute()}
+    hold_against_cpu("topk_ties", results["cuda"], results["cpu"])
+    metric = MulticlassStatScores(num_classes=classes, top_k=k, average="none", validate_args=False)
+    emit({"phase": "topk_ties", "batch": batch, "classes": classes, "top_k": k,
+          "rows_tied_at_k": float((ordered[:, k - 1] == ordered[:, k]).float().mean()),
+          "step_ms": step_ms(lambda: metric.update(scores, target)), "card": card})
 
 
 def main() -> int:
@@ -343,17 +494,20 @@ def main() -> int:
         return 2
     from torchmetrics_tpu_torch.kernels.sepconv import KERNEL
 
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
     build_phase(KERNEL)
     cases = kernel_phase(gen)
     launches = fid_phase(gen, cases)
     trunk_reference_phase(gen)
     classification_phase(gen)
+    binary_segmentation_phase(gen, card)
+    multilabel_phase(gen, card)
+    topk_ties_phase(gen, card)
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     kernels = []
     for trunk, dtype, batch, path in (("bfloat16", torch.bfloat16, 512, "wgmma, bf16"),

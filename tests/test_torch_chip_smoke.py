@@ -67,3 +67,30 @@ def test_sepconv_bound_is_the_operations_at_the_dtypes_peak(chip_smoke, dtype, p
     bound_ms, flops = chip_smoke.sepconv_bound_ms(512, 160, 160, dtype)
     assert flops == 2 * 512 * 17 * 17 * 160 * 160 * 7
     assert bound_ms == pytest.approx(1e3 * flops / peak)  # ~1,000 operations a byte: never bytes
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_lower_index_topk_mask_is_the_jax_top_k(chip_smoke, k):
+    """The topk_ties phase's independent rule (rank = values above + equal values before)
+    gives the JAX package's ``select_topk`` and the port's on scores full of ties."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from torchmetrics_tpu.utilities.data import select_topk as jax_select_topk
+    from torchmetrics_tpu_torch.utilities.data import select_topk
+
+    scores = (np.random.default_rng(k).integers(0, 5, (200, 5)) / 4).astype(np.float32)
+    mask = chip_smoke.lower_index_topk_mask(torch.from_numpy(scores), k)
+    assert mask.dtype == torch.int32 and int(mask.sum()) == 200 * k
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jax_select_topk(jnp.asarray(scores), k)))
+    assert torch.equal(mask, select_topk(torch.from_numpy(scores), k))
+
+
+def test_hold_against_cpu_takes_counts_exactly_and_ratios_within_1e6(chip_smoke):
+    want = {"confmat": torch.tensor([[3.0, 1.0], [0.0, 4.0]]), "acc": torch.tensor(0.875), "tp": torch.tensor([2, 5], dtype=torch.int32)}
+    assert chip_smoke.hold_against_cpu("same", dict(want), want) == 0.0
+    assert chip_smoke.hold_against_cpu("ratio", {**want, "acc": torch.tensor(0.8750005)}, want) > 0.0
+    for key, value in (("confmat", torch.tensor([[3.0, 1.0], [0.0, 4.0000005]])), ("acc", torch.tensor(0.876)),
+                       ("tp", torch.tensor([2, 6], dtype=torch.int32)), ("tp", torch.tensor([2, 5], dtype=torch.int64))):
+        with pytest.raises(AssertionError):
+            chip_smoke.hold_against_cpu(key, {**want, key: value}, want)

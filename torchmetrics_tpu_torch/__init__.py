@@ -5,7 +5,9 @@ paths and imports neither JAX nor anything of the JAX package. Entry points run 
 unless the caller passes ``device="cpu"``.
 """
 
+from . import classification
+from .classification import *  # noqa: F401,F403
 from .collections import MetricCollection
 from .metric import Metric
 
-__all__ = ["Metric", "MetricCollection"]
+__all__ = ["Metric", "MetricCollection", *classification.__all__]

@@ -1,14 +1,41 @@
-"""Classification metric classes (multiclass so far)."""
+"""Classification metric classes: the stat-scores family for the binary, multiclass
+and multilabel tasks, with their task facades."""
 
-from .accuracy import MulticlassAccuracy
-from .confusion_matrix import MulticlassConfusionMatrix
-from .f_beta import MulticlassF1Score, MulticlassFBetaScore
-from .stat_scores import MulticlassStatScores
+from .accuracy import Accuracy, BinaryAccuracy, MulticlassAccuracy, MultilabelAccuracy
+from .confusion_matrix import (
+    BinaryConfusionMatrix,
+    ConfusionMatrix,
+    MulticlassConfusionMatrix,
+    MultilabelConfusionMatrix,
+)
+from .f_beta import (
+    BinaryF1Score,
+    BinaryFBetaScore,
+    F1Score,
+    FBetaScore,
+    MulticlassF1Score,
+    MulticlassFBetaScore,
+    MultilabelF1Score,
+    MultilabelFBetaScore,
+)
+from .hamming import BinaryHammingDistance, HammingDistance, MulticlassHammingDistance, MultilabelHammingDistance
+from .negative_predictive_value import (
+    BinaryNegativePredictiveValue,
+    MulticlassNegativePredictiveValue,
+    MultilabelNegativePredictiveValue,
+    NegativePredictiveValue,
+)
+from .precision_recall import (
+    BinaryPrecision,
+    BinaryRecall,
+    MulticlassPrecision,
+    MulticlassRecall,
+    MultilabelPrecision,
+    MultilabelRecall,
+    Precision,
+    Recall,
+)
+from .specificity import BinarySpecificity, MulticlassSpecificity, MultilabelSpecificity, Specificity
+from .stat_scores import BinaryStatScores, MulticlassStatScores, MultilabelStatScores, StatScores
 
-__all__ = [
-    "MulticlassAccuracy",
-    "MulticlassConfusionMatrix",
-    "MulticlassF1Score",
-    "MulticlassFBetaScore",
-    "MulticlassStatScores",
-]
+__all__ = sorted(n for n, v in list(globals().items()) if isinstance(v, type))

@@ -1,1 +1,7 @@
-"""Functional kernels of the port."""
+"""Functional metrics of the port: stateless functions on tensors, computed on the
+device of the tensors they are given."""
+
+from . import classification
+from .classification import *  # noqa: F401,F403
+
+__all__ = [*classification.__all__]

@@ -1,8 +1,9 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and input checks (counterpart of
+``torchmetrics_tpu/utilities/checks.py``)."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
@@ -21,3 +22,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         )
     return dev
 
+
+def _as_tensor(x: Any) -> torch.Tensor:
+    """A tensor stays where it is; anything else becomes a tensor on the default device
+    (``resolve_device(None)``), so nothing runs on the CPU unless asked."""
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x, device=resolve_device(None))
+
+
+def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
+    """Raise if the shapes differ (metadata only: no sync with the device)."""
+    if tuple(preds.shape) != tuple(target.shape):
+        raise RuntimeError(
+            "Predictions and targets are expected to have the same shape, "
+            f"but got {tuple(preds.shape)} and {tuple(target.shape)}."
+        )

@@ -45,3 +45,28 @@ def _adjust_weights_safe_divide(
             weights = weights * (~absent)
     norm = weights.sum(-1, keepdim=True)
     return (_safe_divide(weights, norm) * score).sum(-1)
+
+
+def normalize_logits_if_needed(preds: torch.Tensor, normalization: str = "sigmoid") -> torch.Tensor:
+    """Apply sigmoid (or softmax over dim 1) to the whole batch when any value lies
+    outside [0, 1]; otherwise return the batch as it is.
+
+    The test is one 0-d condition over the batch, applied by ``torch.where``, so CUDA
+    never waits for the host. Integer input is taken as float32 first.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.utilities.compute import normalize_logits_if_needed
+        >>> normalize_logits_if_needed(torch.tensor([0.25, 0.75]))
+        tensor([0.2500, 0.7500])
+        >>> normalize_logits_if_needed(torch.tensor([0.25, 1.5]))  # one value outside: all of it
+        tensor([0.5622, 0.8176])
+    """
+    if not preds.is_floating_point():
+        preds = preds.to(torch.float32)
+    outside = (preds.min() < 0) | (preds.max() > 1)
+    if normalization == "sigmoid":
+        return torch.where(outside, preds.sigmoid(), preds)
+    if normalization == "softmax":
+        return torch.where(outside, preds.softmax(dim=1), preds)
+    return preds

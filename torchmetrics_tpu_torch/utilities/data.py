@@ -53,12 +53,21 @@ def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 
 def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch.Tensor:
-    """int32 mask of the top-k entries along ``dim``. For k=1 the first maximum wins."""
+    """int32 mask of the top-k entries along ``dim``. Among equal values the lower index
+    wins, as in ``jax.lax.top_k``: ``Tensor.topk`` leaves that order unspecified, so
+    k > 1 takes the first k of a stable descending sort.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.utilities.data import select_topk
+        >>> select_topk(torch.tensor([[0.25, 0.5, 0.25, 0.5, 0.0]]), topk=3)
+        tensor([[1, 1, 0, 1, 0]], dtype=torch.int32)
+    """
     mask = torch.zeros_like(prob_tensor, dtype=torch.int32)
-    if topk == 1:  # argmax path: ties resolve to the first maximum, as in the JAX package
+    if topk == 1:  # argmax path: ties resolve to the first maximum
         idx = prob_tensor.argmax(dim=dim, keepdim=True)
     else:
-        idx = prob_tensor.topk(topk, dim=dim).indices
+        idx = torch.sort(prob_tensor, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
     return mask.scatter_(dim, idx, 1)
 
 
