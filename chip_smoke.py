@@ -34,14 +34,32 @@ Phases, one JSON line each, in order:
 7. topk_ties: ``MulticlassStatScores(num_classes=5, top_k=2, average="none")`` at batch
    65536 on scores in quarters, where ties are common: top-k ties must go to the lower
    index, as in the JAX package.
+8. sync_nccl: an NCCL process group of one process on the card. The main path's states
+   at full width (the ``{acc, f1, confmat}`` collection after an update at batch 65536,
+   the FID metric of phase 3's f32 trunk with its two 2048x2048 covariance sums, a
+   ``CatMetric``, a ``MeanMetric`` and a ``MaxMetric``) go through
+   ``MetricCollection.sync`` (coalesced), ``unsync`` and ``PureCollection.reduce``. At a
+   world of one every synced and reduced value must equal the local one bit for bit,
+   and ``unsync`` must restore the states. It prints ``sync_ms`` and ``reduce_ms``
+   (median of 20, host clock around synchronised calls), the metadata round trip, the
+   bytes shipped and the collectives ``collective_counts`` predicts; one more sync under
+   ``torch.profiler`` must show exactly the predicted coalesced collectives.
+9. sync_two_ranks: two processes on the one card over gloo (NCCL puts no two ranks on
+   one device), with the metrics on the card. Each rank updates its half of the data:
+   the classification collection at batch 65536, FID states at 2048 features from a
+   fixed random projection (no trunk), a ``CatMetric`` whose rank 1 takes 7 rows fewer,
+   a ``MeanMetric`` and a ``MaxMetric``. Each rank's ``compute()`` must equal the same
+   metrics over the whole batch in this process: counts, max and cat values bit for bit,
+   ratios within 1e-6, FID within ``FID_RTOL`` relative. It prints ``sync_ms`` per rank.
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
 lines carry ``step_ms`` (host clock around synchronised steps) and the card.
 
-After each FID trunk and after the classification, binary and multilabel steps, a
-profile line: one more step under ``torch.profiler``, with device time by kernel and
-the device's idle share.
+After each FID trunk, after the classification, binary and multilabel steps and after
+the NCCL sync, a profile line: one more step under ``torch.profiler``, with device time
+by kernel and the device's idle share (for the sync also the collectives the trace
+names, and the device time of NCCL's spans and of the copies).
 
 Then the card's name and power limit (nvidia-smi), the kernels line and the result line.
 Any failed check raises, so the script exits non-zero and prints no result line. Without
@@ -108,14 +126,15 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_step(label: str, step, tries: int = 3) -> None:
+def profile_step(label: str, step, tries: int = 3, extra=None) -> list:
     """Run ``step`` once under ``torch.profiler``: device time by kernel name, the
     sepconv7 launches' share of it, and the device's idle share of the step's wall time
     (the wall time less the union of the spans in which a kernel, copy or set ran).
 
     A trace can lose device events: one run traced 4 of the binary step's 8 int64
     reductions. A trace with fewer kernels than the host's kernel-launch calls is taken
-    again, up to ``tries`` times; the line reports both counts and the attempts."""
+    again, up to ``tries`` times; the line reports both counts and the attempts. Returns
+    the last trace's events; ``extra(events)`` adds keys to the line."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -147,7 +166,9 @@ def profile_step(label: str, step, tries: int = 3) -> None:
           "attempts": attempt,
           "device_ms": sum(total for total, _ in by_name.values()) / 1e3,
           "sepconv7_ms": sum(total for name, (total, _) in by_name.items() if "sepconv7" in name) / 1e3,
-          "top": [[name[:100], total / 1e3, count] for name, (total, count) in top]})
+          "top": [[name[:100], total / 1e3, count] for name, (total, count) in top],
+          **(extra(events) if extra else {})})
+    return events
 
 
 def sepconv_bound_ms(batch: int, c: int, o: int, dtype: torch.dtype):
@@ -265,14 +286,15 @@ def kernel_phase(gen: torch.Generator) -> dict:
     return results
 
 
-def fid_phase(gen: torch.Generator, cases: dict) -> dict:
+def fid_phase(gen: torch.Generator, cases: dict):
     """FID through the InceptionV3 trunk on the card; returns the kernel launches counted
-    over the measured updates, by trunk dtype. ``cases`` (the kernel phase's timings) give
-    the share of an update that the trunk's 26 sepconv7 launches take."""
+    over the measured updates, by trunk dtype, and the metrics by trunk dtype. ``cases``
+    (the kernel phase's timings) give the share of an update that the trunk's 26 sepconv7
+    launches take."""
     from torchmetrics_tpu_torch.image import FrechetInceptionDistance, InceptionV3Features
     from torchmetrics_tpu_torch.kernels.sepconv import sepconv7
 
-    launches = {}
+    launches, metrics = {}, {}
     for trunk, batch, iters in (("bfloat16", 512, 4), ("float32", 64, 6)):
         fid = FrechetInceptionDistance(feature=InceptionV3Features(compute_dtype=trunk, seed=0), normalize=True)
         imgs = torch.rand((batch, 3, 299, 299), generator=gen, device="cuda")
@@ -299,7 +321,8 @@ def fid_phase(gen: torch.Generator, cases: dict) -> dict:
               "launches_per_forward": counted / iters, "fid": value,
               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
         profile_step(f"fid_update_{trunk}_B{batch}", lambda: fid.update(imgs, real=False))
-    return launches
+        metrics[trunk] = fid
+    return launches, metrics
 
 
 def trunk_reference_phase(gen: torch.Generator) -> None:
@@ -488,7 +511,315 @@ def topk_ties_phase(gen: torch.Generator, card: str) -> None:
           "step_ms": step_ms(lambda: metric.update(scores, target)), "card": card})
 
 
+COLLECTIVE_PREFIXES = ("nccl:", "gloo:")
+
+
+def count_collective_ops(names) -> dict:
+    """The collectives a trace holds, by the names c10d's process groups give their work
+    (``nccl:all_gather``, ``gloo:all_reduce``...): a count per name and the total. Host
+    events, not device kernels: at a world of one NCCL may run a copy instead of a kernel."""
+    by_name = {}
+    for name in names:
+        if name.startswith(COLLECTIVE_PREFIXES):
+            by_name[name] = by_name.get(name, 0) + 1
+    return {"total": sum(by_name.values()), "by_name": by_name}
+
+
+def expected_collectives(states, reductions) -> dict:
+    """What ``collective_counts`` predicts for a sync of ``states``: the coalesced plane
+    ships one metadata all-gather and one all-gather per dtype bucket, the per-leaf plane
+    two per leaf; ``reduce_many`` one collective per (reduction class x dtype) bucket and
+    the per-leaf reduction one per leaf that has a reduction."""
+    from torchmetrics_tpu_torch.parallel import collective_counts
+
+    counts = collective_counts(states, reductions)
+    return {"sync_coalesced": counts["process_coalesced"], "sync_per_leaf": counts["process_per_leaf"],
+            "reduce_coalesced": counts["in_graph_coalesced"], "reduce_per_leaf": counts["in_graph_per_leaf"],
+            "leaves": counts["leaves"]}
+
+
+def shipped_bytes(states, reductions) -> int:
+    """Bytes one rank ships in a coalesced sync at a world of one: the int32 metadata row
+    and every leaf's payload (no padding when there are no peers)."""
+    from torchmetrics_tpu_torch.parallel import coalesce
+
+    meta = coalesce.build_local_metadata(states, reductions)
+    leaves = coalesce._prepare_leaves(states, reductions)
+    return meta.nbytes + sum(leaf.array.numel() * leaf.array.element_size() for leaf in leaves if leaf.array is not None)
+
+
+def states_equal(got: dict, want: dict) -> bool:
+    """Two state dicts, bit for bit: the same keys, dtypes, shapes and values; a list state
+    by its concatenation."""
+    if set(got) != set(want):
+        return False
+    for key, value in want.items():
+        a = torch.cat([t.reshape(-1) for t in got[key]]) if isinstance(got[key], list) else got[key]
+        b = torch.cat([t.reshape(-1) for t in value]) if isinstance(value, list) else value
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            return False
+    return True
+
+
+def median_ms(call, iters: int = 20, after=None) -> float:
+    """Median over ``iters`` runs of ``call`` (which ends synchronised), host clock, after
+    one untimed run; ``after`` runs untimed after each."""
+    times = []
+    for i in range(iters + 1):
+        start = time.perf_counter()
+        call()
+        if i:
+            times.append((time.perf_counter() - start) * 1e3)
+        if after is not None:
+            after()
+    return sorted(times)[len(times) // 2]
+
+
+def sync_nccl_phase(gen: torch.Generator, card: str, fid) -> None:
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+
+    from torchmetrics_tpu_torch import CatMetric, MaxMetric, MeanMetric, MetricCollection
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassConfusionMatrix, MulticlassF1Score
+    from torchmetrics_tpu_torch.parallel import coalesce
+
+    batch = 65536
+    preds = torch.randn((batch, 5), generator=gen, device="cuda")
+    target = torch.randint(0, 5, (batch,), generator=gen, device="cuda")
+    values = torch.randn((batch,), generator=gen, device="cuda")
+    members = {"acc": MulticlassAccuracy(5, average="micro", validate_args=False),
+               "f1": MulticlassF1Score(5, average="macro", validate_args=False),
+               "confmat": MulticlassConfusionMatrix(5, validate_args=False), "fid": fid,
+               "cat": CatMetric(), "mean": MeanMetric(), "max": MaxMetric()}
+    for name in ("acc", "f1", "confmat"):
+        members[name].update(preds, target)
+    for name in ("cat", "mean", "max"):
+        members[name].update(values)
+    coll = MetricCollection(members)
+    local = {name: dict(m._state) for name, m in coll.items(keep_base=True)}
+    states, reductions = list(local.values()), [m._reductions for m in coll.values()]
+    expected = expected_collectives(states, reductions)
+    tensor_names = [name for name, m in coll.items(keep_base=True) if not m._list_state_names]
+    pure = MetricCollection({name: members[name] for name in tensor_names}).as_pure()
+    pure_states = {name: local[name] for name in tensor_names}
+    expected_reduce = expected_collectives(list(pure_states.values()), [members[n]._reductions for n in tensor_names])
+    expected.update(reduce_coalesced=expected_reduce["reduce_coalesced"], reduce_per_leaf=expected_reduce["reduce_per_leaf"])
+
+    def sync_once():
+        coll.sync(distributed_available=lambda: True)
+        torch.cuda.synchronize()
+
+    def reduce_once():
+        out = pure.reduce(pure_states)
+        torch.cuda.synchronize()
+        return out
+
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # a world of one on one host: no network
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}/store", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        sync_once()
+        for name, m in coll.items(keep_base=True):
+            if not states_equal(m._state, local[name]):
+                raise AssertionError(f"sync_nccl: {name}'s synced states differ from its local ones at a world of one")
+        coll.unsync()
+        for name, m in coll.items(keep_base=True):
+            if not states_equal(m._state, local[name]) or m._is_synced:
+                raise AssertionError(f"sync_nccl: unsync did not restore {name}'s states")
+        reduced = reduce_once()
+        for name in tensor_names:
+            if not states_equal(reduced[name], local[name]):
+                raise AssertionError(f"sync_nccl: PureCollection.reduce changed {name}'s states at a world of one")
+
+        def sync_unsync():
+            sync_once()
+            coll.unsync()
+
+        sync_ms = median_ms(sync_once, after=coll.unsync)
+        reduce_ms = median_ms(reduce_once)
+        meta = coalesce.build_local_metadata(states, reductions)
+        metadata_ms = median_ms(lambda: coalesce._gather_metadata(
+            lambda v: coalesce.process_rows(v, None), meta, None, real=True))
+
+        def trace_keys(events):
+            ops = count_collective_ops(e.name for e in events if e.device_type == DeviceType.CPU)
+            device = [e for e in events if e.device_type == DeviceType.CUDA]
+            return {"collective_ops": ops, "expected_collectives": expected["sync_coalesced"],
+                    "nccl_device_ms": sum(e.time_range.elapsed_us() for e in device if "nccl" in e.name.lower()) / 1e3,
+                    "copy_device_ms": {kind: sum(e.time_range.elapsed_us() for e in device if kind in e.name) / 1e3
+                                       for kind in ("DtoD", "DtoH", "HtoD")}}
+
+        events = profile_step("sync_nccl_collection", sync_unsync, extra=trace_keys)
+        ops = trace_keys(events)["collective_ops"]
+        if ops["total"] != expected["sync_coalesced"]:
+            names = sorted({e.name for e in events if "nccl" in e.name.lower() or "c10d" in e.name.lower()})
+            raise AssertionError(f"sync_nccl: the trace holds {ops} collectives, {expected['sync_coalesced']} "
+                                 f"predicted; names seen: {names[:40]}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    emit({"phase": "sync_nccl", "world": 1, "backend": "nccl", "members": list(local), "sync_ms": sync_ms,
+          "reduce_ms": reduce_ms, "metadata_round_trip_ms": metadata_ms, "bytes_shipped": shipped_bytes(states, reductions),
+          "metadata_bytes": int(meta.nbytes), "collectives": expected, "card": card})
+
+
+SYNC_CHILD_FLAG = "--sync-child"
+TWO_RANK_BATCH = 65536
+TWO_RANK_IMAGES = 8192  # per side: four times the features, so both covariances are well conditioned
+TWO_RANK_CAT = 4096
+CAT_SHORTFALL = 7  # rank 1 takes 7 rows fewer: cat lengths differ by rank
+FID_RTOL = 1e-3
+
+
+class ProjectionFeatures:
+    """A fixed random projection of 3x32x32 images to 2048 features: FID's full feature
+    width without a trunk."""
+
+    num_features = 2048
+
+    def __init__(self, weight: torch.Tensor) -> None:
+        self.weight = weight
+
+    def __call__(self, imgs: torch.Tensor) -> torch.Tensor:
+        return imgs.reshape(imgs.shape[0], -1) @ self.weight
+
+
+def two_rank_inputs() -> dict:
+    """The whole batch of the two-rank phase, from a seed on the card: the same values in
+    every process."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    return {"preds": torch.randn((TWO_RANK_BATCH, 5), generator=gen, device="cuda"),
+            "target": torch.randint(0, 5, (TWO_RANK_BATCH,), generator=gen, device="cuda"),
+            "real": torch.rand((TWO_RANK_IMAGES, 3, 32, 32), generator=gen, device="cuda"),
+            "fake": torch.rand((TWO_RANK_IMAGES, 3, 32, 32), generator=gen, device="cuda") ** 2,
+            "weight": torch.randn((3 * 32 * 32, 2048), generator=gen, device="cuda") / math.sqrt(3 * 32 * 32),
+            "values": torch.randn((TWO_RANK_CAT,), generator=gen, device="cuda")}
+
+
+def rank_slices(n: int, rank: int, world: int, shortfall: int = 0) -> slice:
+    """Rank ``rank``'s contiguous share of ``n`` rows; ranks after the first take
+    ``shortfall`` rows fewer."""
+    share = n // world
+    return slice(rank * share, (rank + 1) * share - (shortfall if rank > 0 else 0))
+
+
+def two_rank_collection(inputs: dict):
+    from torchmetrics_tpu_torch import CatMetric, MaxMetric, MeanMetric, MetricCollection
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassConfusionMatrix, MulticlassF1Score
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+
+    return MetricCollection({
+        "acc": MulticlassAccuracy(5, average="micro", validate_args=False),
+        "f1": MulticlassF1Score(5, average="macro", validate_args=False),
+        "confmat": MulticlassConfusionMatrix(5, validate_args=False),
+        "fid": FrechetInceptionDistance(feature=ProjectionFeatures(inputs["weight"])),
+        "cat": CatMetric(), "mean": MeanMetric(), "max": MaxMetric()})
+
+
+def update_two_rank(coll, inputs: dict, rank: int, world: int) -> None:
+    """Rank ``rank``'s share of every input (all of it at ``world=1``)."""
+    rows = rank_slices(TWO_RANK_BATCH, rank, world)
+    for name in ("acc", "f1", "confmat"):
+        coll[name].update(inputs["preds"][rows], inputs["target"][rows])
+    images = rank_slices(TWO_RANK_IMAGES, rank, world)
+    coll["fid"].update(inputs["real"][images], real=True)
+    coll["fid"].update(inputs["fake"][images], real=False)
+    if world == 1:
+        coll["cat"].update(torch.cat([inputs["values"][rank_slices(TWO_RANK_CAT, r, 2, CAT_SHORTFALL)] for r in (0, 1)]))
+    else:
+        coll["cat"].update(inputs["values"][rank_slices(TWO_RANK_CAT, rank, world, CAT_SHORTFALL)])
+    for name in ("mean", "max"):
+        coll[name].update(inputs["values"][rank_slices(TWO_RANK_CAT, rank, world)])
+
+
+def sync_child(rank: int, world: int, init_method: str) -> int:
+    """One rank of the two-rank phase: a gloo group on the one card, its half of the data,
+    then ``compute()`` through the real sync. Prints its values as a RESULT line."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        inputs = two_rank_inputs()
+        coll = two_rank_collection(inputs)
+        update_two_rank(coll, inputs, rank, world)
+        torch.cuda.synchronize()
+
+        def sync_once():
+            coll.sync()
+            torch.cuda.synchronize()
+
+        sync_ms = median_ms(sync_once, iters=10, after=coll.unsync)
+        values = coll.compute()  # one coalesced pre-sync over gloo
+    finally:
+        dist.destroy_process_group()
+    print("RESULT" + json.dumps({"rank": rank, "sync_ms": sync_ms,
+                                 "values": {k: [str(v.dtype), v.cpu().tolist()] for k, v in values.items()}}), flush=True)
+    return 0
+
+
+def sync_two_ranks_phase(card: str, world: int = 2, wall_s: int = 300) -> None:
+    import tempfile
+
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), SYNC_CHILD_FLAG, str(rank), str(world),
+                               f"file://{rendezvous}/store"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=env) for rank in range(world)]
+    results = []
+    try:
+        for proc in procs:
+            text, _ = proc.communicate(timeout=wall_s)
+            lines = [line for line in text.splitlines() if line.startswith("RESULT")]
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"sync_two_ranks: a child failed (exit {proc.returncode}): {text[-3000:]}")
+            results.append(json.loads(lines[-1][len("RESULT"):]))
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+    inputs = two_rank_inputs()
+    whole = two_rank_collection(inputs)
+    update_two_rank(whole, inputs, 0, 1)
+    want = {k: v.cpu() for k, v in whole.compute().items()}
+    worst = {}
+    for result in results:
+        for key, want_value in want.items():
+            dtype, got = result["values"][key]
+            got = torch.tensor(got, dtype=want_value.dtype)
+            label = f"sync_two_ranks rank {result['rank']} {key}"
+            if dtype != str(want_value.dtype) or got.shape != want_value.shape:
+                raise AssertionError(f"{label}: {dtype}{tuple(got.shape)}, want {want_value.dtype}{tuple(want_value.shape)}")
+            if key in ("confmat", "cat", "max"):
+                if not torch.equal(got, want_value):
+                    raise AssertionError(f"{label}: differs from the whole batch's value")
+                continue
+            diff = float((got - want_value).abs().max())  # ratios and the mean: absolute
+            if key == "fid":
+                diff /= abs(float(want_value))
+            limit = FID_RTOL if key == "fid" else RATIO_ATOL
+            if not diff <= limit:
+                raise AssertionError(f"{label}: differs from the whole batch's value by {diff} (limit {limit})")
+            worst[key] = max(worst.get(key, 0.0), diff)
+    emit({"phase": "sync_two_ranks", "world": world, "backend": "gloo", "tensors": "cuda",
+          "sync_ms": {f"rank{r['rank']}": r["sync_ms"] for r in results}, "fid": float(want["fid"]),
+          "fid_rtol": FID_RTOL, "worst_diff": worst, "cat_rows": [TWO_RANK_CAT // world, TWO_RANK_CAT // world - CAT_SHORTFALL],
+          "card": card})
+
+
 def main() -> int:
+    if sys.argv[1:2] == [SYNC_CHILD_FLAG]:
+        return sync_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -501,12 +832,14 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     build_phase(KERNEL)
     cases = kernel_phase(gen)
-    launches = fid_phase(gen, cases)
+    launches, fids = fid_phase(gen, cases)
     trunk_reference_phase(gen)
     classification_phase(gen)
     binary_segmentation_phase(gen, card)
     multilabel_phase(gen, card)
     topk_ties_phase(gen, card)
+    sync_nccl_phase(gen, card, fids["float32"])
+    sync_two_ranks_phase(card)
 
     print(card, flush=True)
     kernels = []

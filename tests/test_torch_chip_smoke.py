@@ -94,3 +94,71 @@ def test_hold_against_cpu_takes_counts_exactly_and_ratios_within_1e6(chip_smoke)
                        ("tp", torch.tensor([2, 6], dtype=torch.int32)), ("tp", torch.tensor([2, 5], dtype=torch.int64))):
         with pytest.raises(AssertionError):
             chip_smoke.hold_against_cpu(key, {**want, key: value}, want)
+
+
+def test_collective_counter_takes_the_process_groups_work_names_only(chip_smoke):
+    """The sync_nccl profile counts c10d's work records (``nccl:``/``gloo:``), not the
+    dispatcher ops, launches or device kernels of the same collectives."""
+    names = ["nccl:all_gather", "cudaLaunchKernel", "c10d::allgather_", "nccl:all_gather", "record_param_comms",
+             "ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage<4096ul>)", "gloo:all_reduce",
+             "Memcpy DtoD (Device -> Device)", "nccl:all_gather"]
+    ops = chip_smoke.count_collective_ops(names)
+    assert ops == {"total": 4, "by_name": {"nccl:all_gather": 3, "gloo:all_reduce": 1}}
+    assert chip_smoke.count_collective_ops(iter(["aten::add", "aten::cat"])) == {"total": 0, "by_name": {}}
+
+
+def _sync_states():
+    """The sync_nccl phase's members in small: int32 counts, float32 FID-like sums and an
+    int32 count, a list state, the weighted mean's two sums and a max."""
+    from torchmetrics_tpu_torch import CatMetric, MaxMetric, MeanMetric
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassConfusionMatrix
+
+    members = [MulticlassAccuracy(5, average="micro", device="cpu"), MulticlassConfusionMatrix(5, device="cpu"),
+               CatMetric(device="cpu"), MeanMetric(device="cpu"), MaxMetric(device="cpu")]
+    members[0].update(torch.randn(16, 5), torch.randint(0, 5, (16,)))
+    members[1].update(torch.randn(16, 5), torch.randint(0, 5, (16,)))
+    for m in members[2:]:
+        m.update(torch.randn(9))
+    return [m._state for m in members], [m._reductions for m in members]
+
+
+def test_expected_collectives_are_collective_counts_arithmetic(chip_smoke):
+    from torchmetrics_tpu_torch.parallel import collective_counts
+
+    states, reductions = _sync_states()
+    expected = chip_smoke.expected_collectives(states, reductions)
+    counts = collective_counts(states, reductions)
+    dtypes = {v[0].dtype if isinstance(v, list) else v.dtype for s in states for v in s.values()}
+    assert dtypes == {torch.int32, torch.float32}
+    assert expected["sync_coalesced"] == counts["process_coalesced"] == 1 + len(dtypes)
+    assert expected["sync_per_leaf"] == 2 * counts["leaves"] == 2 * expected["leaves"] == 2 * (4 + 1 + 1 + 2 + 1)
+    # reduce_many: int32 sums, float32 sums, float32 max and float32 gathers for the cat leaf
+    assert expected["reduce_coalesced"] == counts["in_graph_coalesced"] == 4
+    assert expected["reduce_per_leaf"] == counts["in_graph_per_leaf"] == 9
+
+
+def test_shipped_bytes_are_the_metadata_row_and_every_payload(chip_smoke):
+    from torchmetrics_tpu_torch.parallel import coalesce
+
+    states, reductions = _sync_states()
+    meta = coalesce.build_local_metadata(states, reductions)
+    assert meta.nbytes == 4 * (6 + 9 * 11)
+    payload = 4 * (4 * 5 + 25 + 9 + 2 + 1)  # tp/fp/tn/fn per class, the 5x5 counts, 9 cat values, 2 sums, a max
+    assert chip_smoke.shipped_bytes(states, reductions) == meta.nbytes + payload
+
+
+def test_states_equal_is_bit_for_bit_and_reads_lists_by_their_concatenation(chip_smoke):
+    a = {"x": torch.tensor([1.0, 2.0]), "c": [torch.tensor([1.0]), torch.tensor([2.0, 3.0])]}
+    assert chip_smoke.states_equal({"x": torch.tensor([1.0, 2.0]), "c": [torch.tensor([1.0, 2.0, 3.0])]}, a)
+    assert not chip_smoke.states_equal({**a, "x": torch.tensor([1.0, 2.0000002])}, a)
+    assert not chip_smoke.states_equal({**a, "x": torch.tensor([1.0, 2.0], dtype=torch.float64)}, a)
+    assert not chip_smoke.states_equal({"x": a["x"]}, a)
+
+
+def test_two_rank_shares_cover_the_whole_batch_and_the_cat_shortfall(chip_smoke):
+    world, n = 2, chip_smoke.TWO_RANK_CAT
+    shares = [chip_smoke.rank_slices(n, r, world) for r in range(world)]
+    assert [(s.start, s.stop) for s in shares] == [(0, n // 2), (n // 2, n)]
+    cat = [chip_smoke.rank_slices(n, r, world, chip_smoke.CAT_SHORTFALL) for r in range(world)]
+    assert [s.stop - s.start for s in cat] == [n // 2, n // 2 - 7]
+    assert chip_smoke.rank_slices(n, 0, 1) == slice(0, n)

@@ -5,9 +5,13 @@ paths and imports neither JAX nor anything of the JAX package. Entry points run 
 unless the caller passes ``device="cpu"``.
 """
 
-from . import classification
+from . import aggregation, classification, parallel
+from .aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, RunningMean, RunningSum, SumMetric
 from .classification import *  # noqa: F401,F403
 from .collections import MetricCollection
 from .metric import Metric
 
-__all__ = ["Metric", "MetricCollection", *classification.__all__]
+__all__ = [
+    "CatMetric", "MaxMetric", "MeanMetric", "Metric", "MetricCollection", "MinMetric", "RunningMean", "RunningSum",
+    "SumMetric", *classification.__all__,
+]

@@ -12,8 +12,12 @@ As in the JAX package, a metric is a set of pure functions over a dict of states
 buffer donation. States are tensors on the metric's ``device``; concat ("cat") states
 are Python lists of tensors, concatenated at compute.
 
-Not here yet: sync over ``torch.distributed``, the reliability, telemetry and AOT
-hooks, and the serving/streaming plane builders.
+Sync runs over ``torch.distributed`` (``parallel/``): ``compute`` syncs the states
+across processes when ``sync_on_compute`` holds and more than one process is attached,
+``sync``/``unsync`` swap the synced states in and out, ``merge_state`` folds another
+metric's states without communication, and ``reduce_state`` reduces a state dict over a
+process group. Not here yet: the reliability, telemetry and AOT hooks, and the
+serving/streaming plane builders.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .parallel import sync as _sync
 from .utilities.checks import resolve_device
 from .utilities.data import dim_zero_cat
 from .utilities.exceptions import TorchMetricsUserError
@@ -43,39 +48,6 @@ def _to_device(value: Any, device: torch.device) -> Any:
     return value
 
 
-def pairwise_merge(fx: Any, a: torch.Tensor, b: torch.Tensor, weights: Optional[Tuple[float, float]] = None):
-    """Merge two values of one state by its reduction tag. ``weights=(w_a, w_b)``
-    are the update counts behind each side, which make a ``"mean"`` fold exact."""
-    if fx is None:
-        return a  # keep the local value
-    if callable(fx):
-        return fx(torch.stack([a, b], dim=0))
-    if fx == "sum":
-        return a + b
-    if fx == "mean":
-        if weights is None:
-            return (a + b) / 2.0
-        w_a, w_b = weights
-        return a if w_a + w_b == 0 else (w_a * a + w_b * b) / (w_a + w_b)
-    if fx == "max":
-        return torch.maximum(a, b)
-    if fx == "min":
-        return torch.minimum(a, b)
-    return torch.cat([torch.atleast_1d(a), torch.atleast_1d(b)], dim=0)  # "cat"
-
-
-def merge_states(a: StateDict, b: StateDict, reductions: Dict[str, Any]) -> StateDict:
-    """Fold state dict ``b`` into ``a`` by per-state reductions (pure)."""
-    out: StateDict = {}
-    for name, va in a.items():
-        vb = b[name]
-        if isinstance(va, list) or isinstance(vb, list):
-            out[name] = (va if isinstance(va, list) else [va]) + (vb if isinstance(vb, list) else [vb])
-        else:
-            out[name] = pairwise_merge(reductions.get(name), va, vb)
-    return out
-
-
 class Metric:
     """Base class for all metrics (stateful shell over a pure core).
 
@@ -93,7 +65,17 @@ class Metric:
                 return state["total"]
 
     Keyword arguments: ``device`` (default ``None``, which means ``"cuda"``; without
-    CUDA pass ``device="cpu"`` explicitly) and ``compute_with_cache``.
+    CUDA pass ``device="cpu"`` explicitly), ``compute_with_cache``, and the sync
+    keywords of the JAX package: ``dist_sync_on_step`` (``forward`` returns the value
+    synced across processes), ``process_group`` (a ``torch.distributed`` group; the
+    default group if None), ``dist_sync_fn`` (``fn(value, group) -> list of values``,
+    in place of the real all-gather), ``distributed_available_fn`` (whether to sync;
+    default: more than one process in the default group) and ``sync_on_compute``
+    (default True).
+
+    Where the synced states live follows the group's backend: NCCL keeps them on the
+    card; gloo stages each payload through the CPU and the synced states come back to
+    the metric's device.
     """
 
     is_differentiable: Optional[bool] = None
@@ -103,6 +85,17 @@ class Metric:
     def __init__(self, **kwargs: Any) -> None:
         self._device = resolve_device(kwargs.pop("device", None))
         self.compute_with_cache = kwargs.pop("compute_with_cache", True)
+        self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
+        if not isinstance(self.dist_sync_on_step, bool):
+            raise ValueError(f"Expected keyword argument `dist_sync_on_step` to be a `bool` but got {self.dist_sync_on_step}")
+        self.process_group = kwargs.pop("process_group", None)
+        self.dist_sync_fn = kwargs.pop("dist_sync_fn", None)
+        if self.dist_sync_fn is not None and not callable(self.dist_sync_fn):
+            raise ValueError(f"Expected keyword argument `dist_sync_fn` to be an callable function but got {self.dist_sync_fn}")
+        self.distributed_available_fn = kwargs.pop("distributed_available_fn", None) or _sync.distributed_available
+        self.sync_on_compute = kwargs.pop("sync_on_compute", True)
+        if not isinstance(self.sync_on_compute, bool):
+            raise ValueError(f"Expected keyword argument `sync_on_compute` to be a `bool` but got {self.sync_on_compute}")
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
@@ -112,6 +105,8 @@ class Metric:
         self._state: StateDict = {}
         self._update_count = 0
         self._computed: Any = None
+        self._is_synced = False
+        self._cache: Optional[StateDict] = None
         self._update_called_warned = False
 
     # ------------------------------------------------------------------ states
@@ -185,7 +180,7 @@ class Metric:
 
     def _merge(self, a: StateDict, b: StateDict) -> StateDict:
         """Fold ``b`` into ``a``; the default uses per-state reduce tags (pure)."""
-        return merge_states(a, b, self._reductions)
+        return _sync.merge_states(a, b, self._reductions)
 
     def _compute(self, state: StateDict) -> Any:
         """Final value from a state whose concat states are single tensors. REQUIRED."""
@@ -223,6 +218,11 @@ class Metric:
         """Pure compute."""
         return self._compute(state)
 
+    def reduce_state(self, state: StateDict, group: Any = None) -> StateDict:
+        """Reduce ``state`` across the processes of ``group`` (the default group if None),
+        coalesced: one collective per (reduction class × dtype) bucket, not one per leaf."""
+        return _sync.reduce_states(state, self._reductions, group)
+
     # ------------------------------------------------------------- lifecycle
 
     def _fold(self, batch: StateDict) -> None:
@@ -230,12 +230,12 @@ class Metric:
         lists = set(self._list_state_names)
         tensors = {k: v for k, v in batch.items() if k not in lists}
         if self._has_custom_merge():
-            merged = self._merge({k: self._state[k] for k in tensors}, tensors)
+            merged = self._merge({k: v for k, v in self._state.items() if k not in lists}, tensors)
         else:
             weights = (float(self._update_count), 1.0)
-            merged = {k: pairwise_merge(self._reductions[k], self._state[k], v, weights) for k, v in tensors.items()}
+            merged = {k: _sync.pairwise_merge(self._reductions[k], self._state[k], v, weights) for k, v in tensors.items()}
         for k, v in merged.items():
-            self._state[k] = v.to(self._state[k].dtype)
+            self._state[k] = v.to(self._state[k].dtype) if k in self._state else v
         for k in lists & batch.keys():
             self._state[k].append(batch[k])
         self._update_count += 1
@@ -243,17 +243,34 @@ class Metric:
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Accumulate this batch into the global state."""
+        if self._is_synced:
+            raise TorchMetricsUserError(
+                "The Metric shouldn't be synced when performing ``update``. "
+                "HINT: Did you forget to call ``unsync`` ?"
+            )
         args, kwargs = self._on_device(args, kwargs)
         args, kwargs = self._prepare_inputs(*args, **kwargs)
         self._fold(self._batch_state(*args, **kwargs))
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Batch value AND global accumulation in one pass: the batch state is computed
-        once, its value returned, and the same tensors merged into the global state."""
+        once, its value returned, and the same tensors merged into the global state. Under
+        ``dist_sync_on_step`` the value is the global state's, synced across processes."""
+        if self._is_synced:
+            raise TorchMetricsUserError("The Metric shouldn't be synced when performing ``forward``.")
+        if self.dist_sync_on_step:
+            self.update(*args, **kwargs)
+            self._computed = None
+            value = self.compute()
+            self._computed = None
+            return value
         args, kwargs = self._on_device(args, kwargs)
         args, kwargs = self._prepare_inputs(*args, **kwargs)
         batch = self._batch_state(*args, **kwargs)
         self._fold(batch)
+        for k, default in self._defaults.items():  # tensor states the batch does not touch
+            if k not in batch and not isinstance(default, list):
+                batch[k] = default
         return self._compute(batch)
 
     __call__ = forward
@@ -279,7 +296,17 @@ class Metric:
             self._update_called_warned = True
         if self.compute_with_cache and self._computed is not None:
             return self._computed
-        value = self._compute(self._concat_state())
+        # an already-synced metric (sync_context, or a collection's coalesced pre-sync)
+        # computes on the synced state as it is; whoever synced it owns the unsync
+        did_sync = False
+        if self.sync_on_compute and not self._is_synced and self.distributed_available_fn():
+            self.sync()
+            did_sync = True
+        try:
+            value = self._compute(self._concat_state())
+        finally:
+            if did_sync:
+                self.unsync()
         if self.compute_with_cache:
             self._computed = value
         return value
@@ -289,6 +316,101 @@ class Metric:
         self._update_count = 0
         self._computed = None
         self._state = self.init_state()
+        self._is_synced = False
+        self._cache = None
+
+    # ------------------------------------------------------------------ sync
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> None:
+        """Replace the local states with the states synced across processes
+        (``parallel.process_sync``); ``unsync`` restores the local ones. The synced
+        states come back on the metric's device."""
+        if self._is_synced and should_sync:
+            raise TorchMetricsUserError("The Metric has already been synced.")
+        if not should_sync or not (distributed_available or self.distributed_available_fn)():
+            return
+        synced = _sync.process_sync(
+            self._state,
+            self._reductions,
+            process_group=process_group or self.process_group,
+            dist_sync_fn=dist_sync_fn or self.dist_sync_fn,
+        )
+        self._commit_synced(synced)
+
+    def _commit_synced(self, synced: StateDict) -> None:
+        self._cache = {k: (list(v) if isinstance(v, list) else v) for k, v in self._state.items()}
+        self._state = {
+            k: [_to_device(t, self._device) for t in v] if isinstance(v, list) else _to_device(v, self._device)
+            for k, v in synced.items()
+        }
+        self._is_synced = True
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore the local states that ``sync`` replaced."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise TorchMetricsUserError("The Metric has already been un-synced.")
+        self._state = self._cache
+        self._cache = None
+        self._is_synced = False
+
+    class _SyncContext:
+        def __init__(self, metric: "Metric", **kwargs: Any) -> None:
+            self.metric = metric
+            self.kwargs = kwargs
+
+        def __enter__(self) -> None:
+            self.metric.sync(**self.kwargs)
+
+        def __exit__(self, *exc: Any) -> None:
+            if self.metric._is_synced:
+                self.metric.unsync()
+
+    def sync_context(self, **kwargs: Any) -> "Metric._SyncContext":
+        """``with metric.sync_context(...):`` syncs on entry and unsyncs on exit."""
+        return Metric._SyncContext(self, **kwargs)
+
+    def merge_state(self, incoming_state: Union[StateDict, "Metric"]) -> None:
+        """Fold another metric's states (or a state dict) into this one, without
+        communication. ``"mean"`` states are weighted by each side's update count, so
+        chained merges stay exact: a bare dict weighs 1, a ``state_dict()`` its saved
+        ``_update_count``."""
+        if isinstance(incoming_state, Metric):
+            if type(incoming_state) is not type(self):
+                raise ValueError(f"Expected incoming state to be of type {type(self).__name__}")
+            incoming = incoming_state._state
+            incoming_count = incoming_state._update_count
+        elif isinstance(incoming_state, dict):
+            metas = [v for k, v in incoming_state.items() if k.endswith("_update_count")]
+            incoming = {
+                k: v for k, v in incoming_state.items() if not k.endswith(("_update_count", "_saved_states"))
+            }
+            unknown = set(incoming) - set(self._state)
+            if unknown:
+                raise RuntimeError(f"Got unknown state keys {sorted(unknown)}")
+            incoming_count = int(metas[0]) if metas else 1
+        else:
+            raise ValueError("Expected incoming state to be a dict or an instance of Metric")
+        if self._is_synced:
+            raise TorchMetricsUserError("The Metric shouldn't be synced when performing ``merge_state``.")
+        incoming = {k: _to_device(v, self._device) if not isinstance(v, list) else v for k, v in incoming.items()}
+        if self._has_custom_merge():
+            merged = self._merge(dict(self._state), incoming)
+        else:
+            merged = _sync.merge_states(
+                dict(self._state), incoming, self._reductions,
+                weights=(float(self._update_count), float(incoming_count)),
+            )
+        self._state.update(merged)
+        self._update_count += incoming_count
+        self._computed = None
 
     # ------------------------------------------------------------ persistence
 
