@@ -52,6 +52,28 @@ Phases, one JSON line each, in order:
    metrics over the whole batch in this process: counts, max and cat values bit for bit,
    ratios within 1e-6, FID within ``FID_RTOL`` relative. It prints ``sync_ms`` per rank.
 
+10. detection_accumulate: COCO val2017 at scale, made from a seed (5000 images, 80 classes,
+   100 detections and 1-14 ground truths per image): ``PaddedDetectionAccumulator(5000,
+   100, 100)`` on the card (26.0 MB) fed 32 images per update, 157 updates, with
+   ``torch.cuda.set_sync_debug_mode("error")`` around every update (no host sync); the
+   unpacked rows must give back the inputs, and a clamped overflow must equal the CPU's
+   state bit for bit.
+11. map_host: ``MeanAveragePrecision()`` on the 5000 images, matcher on the card,
+   ``compute()`` once, its seconds split into numpy (rows, IoU, accumulation) and the
+   matcher; the matcher's outputs on the first 500 images must equal the CPU's bit for bit.
+12. map_device: ``DeviceMeanAveragePrecision(capacity=524288, num_classes=80,
+   gt_group_cap=32)`` (31.5 MB of state) on the same images: update ms, ``compute()`` ms
+   and its device time; every summary value within 1e-4 of map_host's.
+13. flagship: the flagship step (``Flagship``, the port's ``_flagship_step_fn``) at full
+   width in an NCCL group of one process: per step 65,536 classification rows over 5
+   classes, 32 detection images and 32 real and 32 fake 299x299 images through the bf16
+   trunk, 157 steps to fill the COCO-size accumulator; step ms, the sync's ms and
+   collectives (traced against ``collective_counts``), the finalize seconds. ``map`` must
+   equal map_host's, acc and f1 the CPU port's, FID finite.
+14. flagship_two_ranks: the flagship over two gloo processes on the card, each with half
+   of 500 images, 65,536 rows and the FID images of phase 9 (a projection extractor);
+   each rank's finalized acc, f1 and map must equal a world of one's, FID within 1e-3.
+
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
 lines carry ``step_ms`` (host clock around synchronised steps) and the card.
@@ -68,6 +90,7 @@ CUDA it exits with code 2.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -77,6 +100,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM published peaks (dense), by the type the tensor cores run: bf16, and TF32 for
@@ -87,6 +111,9 @@ PEAK_BYTES_PER_S = 3.35e12
 # bf16 outputs are rounded once from f32 sums: half a bf16 ulp is 0.0156 for |y| < 8,
 # the bound docs/pallas_conv_experiment.md:15 states for the TPU kernel.
 ERR_LIMIT = {torch.bfloat16: 0.016, torch.float32: 1e-4}
+# the bf16 trunk's features against the f32 trunk's on the CPU, relative L2
+# (tests/test_torch_inception.py's bound)
+TRUNK_BF16_L2 = 2e-2
 SEPCONV_PER_FORWARD = 26
 SPATIAL = 17
 # (B, C, O, H, W): C=12 is not a multiple of 8 and O=24 not one of the O-tile; 17x13 and
@@ -99,7 +126,19 @@ INSTANTIATIONS = {"sepconv7_bf16_kernel": "bf16 (wgmma)", "pack_weights_bf16_ker
                   "pack_weights_tf32_kernel": "f32 (weight pack, TF32 hi and lo)"}
 
 
+@functools.lru_cache(maxsize=1)
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the card's name and power limit."""
+    if "phase" in obj and "card" not in obj:
+        obj = {**obj, "card": card_line()}
     print(json.dumps(obj), flush=True)
 
 
@@ -230,7 +269,9 @@ def build_phase(kernel) -> None:
 
 def kernel_phase(gen: torch.Generator) -> dict:
     """Every distinct (C, O, axis) of the trunk, in each (dtype, batch) the main path or
-    the kernel's contract uses; returns the per-case results keyed by (dtype, B, C, O, axis)."""
+    the kernel's contract uses: bf16 at B=512 (the FID phase) and at B=32 (the flagship's
+    trunk, whose grids run as one partial wave), f32 at B=512 and B=64; returns the
+    per-case results keyed by (dtype, B, C, O, axis)."""
     import torch.nn.functional as F
 
     from torchmetrics_tpu_torch.kernels.sepconv import sepconv7, sepconv7_reference
@@ -245,7 +286,8 @@ def kernel_phase(gen: torch.Generator) -> dict:
             torch.backends.cuda.matmul.allow_tf32 = allow
 
     results = {}
-    for dtype, batch in ((torch.bfloat16, 512), (torch.float32, 512), (torch.float32, 64)):
+    for dtype, batch in ((torch.bfloat16, 512), (torch.bfloat16, FLAGSHIP_FID_IMAGES), (torch.float32, 512),
+                         (torch.float32, 64)):
         for c, o, axis in sorted(set(trunk_sepconv_shapes())):
             x = torch.randn((batch, c, SPATIAL, SPATIAL), generator=gen, device="cuda").to(dtype)
             w = (torch.randn((o, c, 7), generator=gen, device="cuda") / math.sqrt(7 * c)).to(dtype)
@@ -328,7 +370,7 @@ def fid_phase(gen: torch.Generator, cases: dict):
 def trunk_reference_phase(gen: torch.Generator) -> None:
     """The card's trunk features against the same trunk on the CPU (plain versions of
     every kernel) on a small input: f32 within 1e-4 of the largest feature, bf16 within
-    2% relative L2 (the bounds of tests/test_torch_inception.py)."""
+    ``TRUNK_BF16_L2`` relative L2 (the bounds of tests/test_torch_inception.py)."""
     from torchmetrics_tpu_torch.image import InceptionV3Features
 
     imgs = torch.rand((2, 3, 299, 299), generator=gen, device="cuda")
@@ -339,7 +381,7 @@ def trunk_reference_phase(gen: torch.Generator) -> None:
             raise AssertionError(f"{trunk} trunk features: shape {tuple(got.shape)} or non-finite values")
         max_rel = float((got - want).abs().max() / want.abs().max())
         l2_rel = float((got - want).norm() / want.norm())
-        limit_ok = max_rel <= 1e-4 if trunk == "float32" else l2_rel <= 2e-2
+        limit_ok = max_rel <= 1e-4 if trunk == "float32" else l2_rel <= TRUNK_BF16_L2
         if not limit_ok:
             raise AssertionError(f"{trunk} trunk on the card vs the CPU: max_rel {max_rel}, l2_rel {l2_rel}")
         emit({"phase": "trunk_vs_cpu", "trunk": trunk, "max_rel_err": max_rel, "l2_rel_err": l2_rel})
@@ -378,6 +420,12 @@ def hold_against_cpu(label: str, got: dict, want: dict) -> float:
                 raise AssertionError(f"{label} {key}: differs from the CPU's by {diff}")
             worst = max(worst, diff)
     return worst
+
+
+# float32 bit patterns in IEEE total order: -NaN, -inf, -1, -0, +0, 0.5, 1, +inf, +NaN
+# (bfloat16's are their upper 16 bits)
+TOTAL_ORDER_F32 = (0xFFC00000 - 2**32, 0xFF800000 - 2**32, 0xBF800000 - 2**32, 0x80000000 - 2**32, 0x00000000,
+                   0x3F000000, 0x3F800000, 0x7F800000, 0x7FC00000)
 
 
 def lower_index_topk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
@@ -506,8 +554,22 @@ def topk_ties_phase(gen: torch.Generator, card: str) -> None:
         results[device] = {"stat_scores": metric.compute()}
     hold_against_cpu("topk_ties", results["cuda"], results["cpu"])
     metric = MulticlassStatScores(num_classes=classes, top_k=k, average="none", validate_args=False)
+    # signed zeros, infinities and NaNs of both signs from their bit patterns (the
+    # card's arithmetic makes only +NaN), in float32 and bfloat16: select_topk must rank
+    # them in IEEE total order, as jax.lax.top_k does. The rule here is independent of
+    # the float's bits: each value's place in TOTAL_ORDER_F32, ties to the lower index.
+    place = torch.randint(0, len(TOTAL_ORDER_F32), (batch, classes), generator=gen, device="cuda")
+    table = torch.tensor(TOTAL_ORDER_F32, dtype=torch.int64, device="cuda")
+    bits = table[place].to(torch.int32)
+    values = {"float32": bits.view(torch.float32), "bfloat16": (bits >> 16).to(torch.int16).view(torch.bfloat16)}
+    for name, value in values.items():
+        for kk in (2, 3):
+            want = lower_index_topk_mask(place.float(), kk)
+            if not torch.equal(select_topk(value, kk), want) or not torch.equal(select_topk(value.cpu(), kk), want.cpu()):
+                raise AssertionError(f"topk_ties: select_topk leaves IEEE total order on {name} bit patterns, k={kk}")
     emit({"phase": "topk_ties", "batch": batch, "classes": classes, "top_k": k,
           "rows_tied_at_k": float((ordered[:, k - 1] == ordered[:, k]).float().mean()),
+          "total_order_batches": {name: [batch, classes] for name in values},
           "step_ms": step_ms(lambda: metric.update(scores, target)), "card": card})
 
 
@@ -737,9 +799,11 @@ def update_two_rank(coll, inputs: dict, rank: int, world: int) -> None:
         coll[name].update(inputs["values"][rank_slices(TWO_RANK_CAT, rank, world)])
 
 
-def sync_child(rank: int, world: int, init_method: str) -> int:
-    """One rank of the two-rank phase: a gloo group on the one card, its half of the data,
-    then ``compute()`` through the real sync. Prints its values as a RESULT line."""
+def sync_child(rank: int, world: int, init_method: str, mode: str) -> int:
+    """One rank of a two-rank phase: a gloo group on the one card, its half of the data,
+    then the values through the real sync (``mode`` "sync": the collection's
+    ``compute()``; "flagship": the flagship's sync and finalize). Prints its values as a
+    RESULT line."""
     import datetime
 
     import torch.distributed as dist
@@ -748,17 +812,20 @@ def sync_child(rank: int, world: int, init_method: str) -> int:
     dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=120))
     try:
-        inputs = two_rank_inputs()
-        coll = two_rank_collection(inputs)
-        update_two_rank(coll, inputs, rank, world)
-        torch.cuda.synchronize()
-
-        def sync_once():
-            coll.sync()
+        if mode == "flagship":
+            values, sync_ms = flagship_values(rank, world)
+        else:
+            inputs = two_rank_inputs()
+            coll = two_rank_collection(inputs)
+            update_two_rank(coll, inputs, rank, world)
             torch.cuda.synchronize()
 
-        sync_ms = median_ms(sync_once, iters=10, after=coll.unsync)
-        values = coll.compute()  # one coalesced pre-sync over gloo
+            def sync_once():
+                coll.sync()
+                torch.cuda.synchronize()
+
+            sync_ms = median_ms(sync_once, iters=10, after=coll.unsync)
+            values = coll.compute()  # one coalesced pre-sync over gloo
     finally:
         dist.destroy_process_group()
     print("RESULT" + json.dumps({"rank": rank, "sync_ms": sync_ms,
@@ -766,13 +833,16 @@ def sync_child(rank: int, world: int, init_method: str) -> int:
     return 0
 
 
-def sync_two_ranks_phase(card: str, world: int = 2, wall_s: int = 300) -> None:
+def run_children(mode: str, world: int = 2, wall_s: int = 300) -> list:
+    """Start this script ``world`` times with ``--sync-child`` in ``mode`` (a gloo group
+    on the one card, ``GLOO_SOCKET_IFNAME=lo``, a file rendezvous) and return each
+    rank's RESULT; a child that fails or outlives ``wall_s`` fails the phase."""
     import tempfile
 
     rendezvous = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), SYNC_CHILD_FLAG, str(rank), str(world),
-                               f"file://{rendezvous}/store"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                               f"file://{rendezvous}/store", mode], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True, env=env) for rank in range(world)]
     results = []
     try:
@@ -780,14 +850,18 @@ def sync_two_ranks_phase(card: str, world: int = 2, wall_s: int = 300) -> None:
             text, _ = proc.communicate(timeout=wall_s)
             lines = [line for line in text.splitlines() if line.startswith("RESULT")]
             if proc.returncode != 0 or not lines:
-                raise AssertionError(f"sync_two_ranks: a child failed (exit {proc.returncode}): {text[-3000:]}")
+                raise AssertionError(f"{mode} children: a child failed (exit {proc.returncode}): {text[-3000:]}")
             results.append(json.loads(lines[-1][len("RESULT"):]))
     finally:
         for proc in procs:
             proc.kill()
             proc.wait()
         shutil.rmtree(rendezvous, ignore_errors=True)
+    return results
 
+
+def sync_two_ranks_phase(card: str, world: int = 2) -> None:
+    results = run_children("sync", world)
     inputs = two_rank_inputs()
     whole = two_rank_collection(inputs)
     update_two_rank(whole, inputs, 0, 1)
@@ -817,18 +891,459 @@ def sync_two_ranks_phase(card: str, world: int = 2, wall_s: int = 300) -> None:
           "card": card})
 
 
+# ---------------------------------------------------------------------------
+# detection (slice 6): COCO val2017 scale, made from a seed
+# ---------------------------------------------------------------------------
+
+COCO_IMAGES = 5000  # COCO val2017
+COCO_CLASSES = 80
+COCO_DETS = 100  # detections per image, COCO's maxDets
+COCO_MAX_GT = 100  # the accumulator's ground-truth rows per image
+IMAGES_PER_STEP = 32
+MATCHER_CHECK_IMAGES = 500
+MAP_ATOL = 1e-4  # the device evaluator resolves thresholds in float32 (tests/test_map_device.py's bound)
+DEVICE_MAP_CAPACITY = 524288
+GT_GROUP_CAP = 32
+FLAGSHIP_ROWS = 65536
+FLAGSHIP_FID_IMAGES = 32
+TWO_RANK_DET_IMAGES = 500
+
+
+def coco_scale_dataset(rng, n_imgs: int, n_cls: int = COCO_CLASSES, n_det: int = COCO_DETS):
+    """Label-correlated detections at COCO val2017's scale, as numpy list-of-dicts:
+    1-14 ground truths per image (mean 7.5; val2017 has 36,781 over 5000 images), each
+    detection a jittered copy of a ground truth (80%, its label kept 90% of the time) or
+    a random false positive; scores in hundredths, so ties are common; about 1% crowds
+    and 30% user areas."""
+    preds, target = [], []
+    for _ in range(n_imgs):
+        ng = int(rng.integers(1, 15))
+        gt = np.concatenate([rng.uniform(0, 400, (ng, 2)), np.zeros((ng, 2))], -1).astype(np.float32)
+        gt[:, 2:] = gt[:, :2] + rng.uniform(4, 250, (ng, 2))
+        gt_labels = rng.integers(0, n_cls, ng).astype(np.int32)
+        copy = rng.random(n_det) < 0.8
+        src = rng.integers(0, ng, n_det)
+        boxes = gt[src] + rng.uniform(-15, 15, (n_det, 4)).astype(np.float32)
+        fp = np.concatenate([rng.uniform(0, 400, (n_det, 2)), np.zeros((n_det, 2))], -1).astype(np.float32)
+        fp[:, 2:] = fp[:, :2] + rng.uniform(4, 250, (n_det, 2))
+        boxes = np.where(copy[:, None], boxes, fp).round(2).astype(np.float32)
+        keep_label = copy & (rng.random(n_det) < 0.9)
+        labels = np.where(keep_label, gt_labels[src], rng.integers(0, n_cls, n_det)).astype(np.int32)
+        preds.append({"boxes": boxes, "scores": (rng.integers(1, 100, n_det) / 100).astype(np.float32),
+                      "labels": labels})
+        target.append({"boxes": gt.round(2), "labels": gt_labels,
+                       "iscrowd": (rng.random(ng) < 0.01).astype(np.int32),
+                       "area": np.where(rng.random(ng) < 0.3, rng.uniform(10, 20000, ng), 0).astype(np.float32)})
+    return preds, target
+
+
+def batches_of(items, size: int):
+    return [items[i : i + size] for i in range(0, len(items), size)]
+
+
+def state_bytes(state: dict) -> int:
+    return sum(v.numel() * v.element_size() for v in state.values())
+
+
+def lists_equal(got, want) -> bool:
+    """Two list-of-dicts inputs, key by key and bit for bit (as float32 / int32)."""
+    if len(got) != len(want):
+        return False
+    for a, b in zip(got, want):
+        for key in b:
+            x, y = np.asarray(a[key]), np.asarray(b[key]).astype(np.asarray(a[key]).dtype)
+            if x.shape != y.shape or not np.array_equal(x, y):
+                return False
+    return True
+
+
+def detection_accumulate_phase(card: str, preds, target) -> None:
+    from torchmetrics_tpu_torch.detection import PaddedDetectionAccumulator, pack_detection_batch
+
+    acc = PaddedDetectionAccumulator(COCO_IMAGES, COCO_DETS, COCO_MAX_GT)
+    pack_ms, packed = [], []
+    for p, t in zip(batches_of(preds, IMAGES_PER_STEP), batches_of(target, IMAGES_PER_STEP)):
+        start = time.perf_counter()
+        packed.append(pack_detection_batch(p, t, COCO_DETS, COCO_MAX_GT))
+        torch.cuda.synchronize()
+        pack_ms.append((time.perf_counter() - start) * 1e3)
+    state = acc.init()
+    update_ms = []
+    torch.cuda.set_sync_debug_mode("error")  # any host sync inside update raises
+    try:
+        for batch in packed:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state = acc.update(state, *batch)
+            torch.cuda.synchronize()
+            update_ms.append((time.perf_counter() - start) * 1e3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if int(state["n_images"]) != COCO_IMAGES or int(state["det_counts"].sum()) != COCO_IMAGES * COCO_DETS:
+        raise AssertionError(f"detection_accumulate: {int(state['n_images'])} images, "
+                             f"{int(state['det_counts'].sum())} detections")
+    got_preds, got_target = acc.to_lists(state)
+    if not (lists_equal(got_preds, preds) and lists_equal(got_target, target)):
+        raise AssertionError("detection_accumulate: to_lists does not give back the inputs")
+    # past the capacity the start clamps and the last rows are overwritten, as XLA's
+    # dynamic_update_slice does: the card's state equals the CPU's bit for bit
+    small = {dev: PaddedDetectionAccumulator(40, COCO_DETS, COCO_MAX_GT, device=dev) for dev in ("cuda", "cpu")}
+    overflow = {}
+    for dev, a in small.items():
+        s = a.init()
+        for i in range(3):
+            lo = i * IMAGES_PER_STEP
+            s = a.update(s, *pack_detection_batch(preds[lo : lo + IMAGES_PER_STEP], target[lo : lo + IMAGES_PER_STEP],
+                                                  COCO_DETS, COCO_MAX_GT, device=dev))
+        overflow[dev] = s
+    if not states_equal({k: v.cpu() for k, v in overflow["cuda"].items()}, overflow["cpu"]):
+        raise AssertionError("detection_accumulate: the clamped overflow differs from the CPU's")
+    profile_step("detection_accumulate_update_32", lambda: acc.update(state, *packed[0]))
+    emit({"phase": "detection_accumulate", "images": COCO_IMAGES, "per_update": IMAGES_PER_STEP,
+          "updates": len(packed), "state_mb": state_bytes(state) / 1e6, "update_ms": median(update_ms),
+          "pack_ms": median(pack_ms), "sync_debug_mode_in_update": "error", "overflow_images": int(overflow["cpu"]["n_images"]),
+          "card": card})
+
+
+def median(values) -> float:
+    return sorted(values)[len(values) // 2]
+
+
+def map_host_phase(card: str, preds, target) -> dict:
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+    from torchmetrics_tpu_torch.functional.detection._map_eval import match_rows
+
+    metric = MeanAveragePrecision()
+    start = time.perf_counter()
+    for p, t in zip(batches_of(preds, IMAGES_PER_STEP), batches_of(target, IMAGES_PER_STEP)):
+        metric.update(p, t)
+    update_s = time.perf_counter() - start
+    start = time.perf_counter()
+    result = metric.compute()
+    compute_s = time.perf_counter() - start
+    parts = dict(metric.last_compute_seconds)
+    values = {k: float(v) for k, v in result.items() if v.ndim == 0}
+    if not 0.0 < values["map"] < 1.0:
+        raise AssertionError(f"map_host: map {values['map']}")
+    # the matcher on the card against the matcher on the CPU, on the first 500 images
+    subset = MeanAveragePrecision(device="cpu")
+    subset.update(preds[:MATCHER_CHECK_IMAGES], target[:MATCHER_CHECK_IMAGES])
+    inputs = subset._inputs_from_state(subset._concat_state())
+    outs = {dev: match_rows(inputs, "bbox", metric.iou_thresholds, metric.max_detection_thresholds[-1],
+                            torch.device(dev)) for dev in ("cuda", "cpu")}
+    for i, name in ((1, "det_match"), (2, "det_ignore"), (3, "gt_ignore")):
+        if not np.array_equal(outs["cuda"][i], outs["cpu"][i]):
+            raise AssertionError(f"map_host: the card's {name} differs from the CPU's on {MATCHER_CHECK_IMAGES} images")
+    rows = outs["cpu"][0]
+    emit({"phase": "map_host", "images": len(preds), "detections": len(preds) * COCO_DETS,
+          "groundtruths": int(sum(t["labels"].size for t in target)), "update_s": update_s, "compute_s": compute_s,
+          "compute_parts_s": parts, "numpy_s": parts["rows"] + parts["iou"] + parts["accumulate"],
+          "matcher_s": parts["matcher"], "matcher_device": "cuda",
+          "matcher_check": {"images": MATCHER_CHECK_IMAGES, "rows": rows.num_rows, "dmax": rows.dmax,
+                            "gmax": rows.gmax, "equal": True},
+          **{k: values[k] for k in ("map", "map_50", "map_75", "mar_100")}, "card": card})
+    return values
+
+
+def map_device_phase(card: str, preds, target, host_values: dict) -> None:
+    from torchmetrics_tpu_torch.detection import DeviceMeanAveragePrecision
+
+    metric = DeviceMeanAveragePrecision(capacity=DEVICE_MAP_CAPACITY, num_classes=COCO_CLASSES,
+                                        gt_group_cap=GT_GROUP_CAP)
+    update_ms = []
+    for p, t in zip(batches_of(preds, IMAGES_PER_STEP), batches_of(target, IMAGES_PER_STEP)):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metric.update(p, t)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - start) * 1e3)
+
+    def compute_once():
+        metric._computed = None
+        out = metric.compute()
+        torch.cuda.synchronize()
+        return out
+
+    result = compute_once()
+    compute_ms = median_ms(compute_once, iters=3)
+    worst = 0.0
+    for key, want in host_values.items():
+        got = float(result[key])
+        if not abs(got - want) <= MAP_ATOL:
+            raise AssertionError(f"map_device: {key} {got}, the host evaluator's {want} (limit {MAP_ATOL})")
+        worst = max(worst, abs(got - want))
+    from torch.autograd import DeviceType
+
+    events = profile_step("map_device_compute", compute_once)
+    device_ms = sum(e.time_range.elapsed_us() for e in events if e.device_type == DeviceType.CUDA) / 1e3
+    emit({"phase": "map_device", "images": len(preds), "capacity": DEVICE_MAP_CAPACITY,
+          "state_mb": state_bytes(metric._state) / 1e6, "update_ms": median(update_ms), "compute_ms": compute_ms,
+          "compute_device_ms": device_ms, "worst_diff_vs_host": worst, "limit": MAP_ATOL,
+          "map": float(result["map"]), "card": card})
+
+
+def flagship_classification(num_classes: int = 5, device=None):
+    """The flagship's ``{acc, f1}`` pure collection."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassF1Score
+
+    return MetricCollection({
+        "acc": MulticlassAccuracy(num_classes, average="micro", validate_args=False, device=device),
+        "f1": MulticlassF1Score(num_classes, average="macro", validate_args=False, device=device),
+    }, device=device).as_pure()
+
+
+class Flagship:
+    """The port's flagship eval step, mirroring ``__graft_entry__._flagship_step_fn``:
+    the ``{acc, f1}`` pure collection, the padded detection accumulator and FID behind
+    the ``extractor`` the caller passes in. ``update`` folds one batch into the states;
+    ``sync`` reduces them over the process group (``PureCollection.reduce``, then
+    ``PaddedDetectionAccumulator.gather``, then FID's reduction; without a group, a
+    world of one, only the gather's process axis is added); ``finalize`` computes the
+    values, mAP by ``MeanAveragePrecision`` on the gathered rows."""
+
+    def __init__(self, extractor, capacity_images: int, max_det: int, max_gt: int, num_classes: int = 5,
+                 device=None) -> None:
+        from torchmetrics_tpu_torch.detection import PaddedDetectionAccumulator
+        from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+
+        self.device = device
+        self.cls_pure = flagship_classification(num_classes, device)
+        self.det_acc = PaddedDetectionAccumulator(capacity_images, max_det, max_gt, device=device)
+        self.fid = FrechetInceptionDistance(feature=extractor, normalize=True, device=device)
+
+    def init(self) -> dict:
+        return {"cls": self.cls_pure.init(), "det": self.det_acc.init(), "fid": self.fid.init_state()}
+
+    def update(self, states: dict, preds, target, det_batch, imgs_real, imgs_fake) -> dict:
+        fid = self.fid.update_state(states["fid"], imgs_real, True)
+        return {"cls": self.cls_pure.update(states["cls"], preds, target),
+                "det": self.det_acc.update(states["det"], *det_batch),
+                "fid": self.fid.update_state(fid, imgs_fake, False)}
+
+    def sync(self, states: dict, group=None) -> dict:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            return {"cls": states["cls"], "det": self.det_acc.gather(states["det"]), "fid": states["fid"]}
+        return {"cls": self.cls_pure.reduce(states["cls"], group), "det": self.det_acc.gather(states["det"], group),
+                "fid": self.fid.reduce_state(states["fid"], group)}
+
+    def expected_collectives(self, states: dict) -> int:
+        """The collectives ``sync`` runs, by ``collective_counts``: one per (reduction
+        class x dtype) bucket of each of its three reductions."""
+        from torchmetrics_tpu_torch.detection.sharded import _stacked
+        from torchmetrics_tpu_torch.parallel import collective_counts
+
+        cls_states = list(states["cls"].values())
+        cls_reds = [m._reductions for m in self.cls_pure._metrics.values()]
+        det = {k: _stacked for k in states["det"]}
+        return sum(collective_counts(s, r)["in_graph_coalesced"] for s, r in (
+            (cls_states, cls_reds), ([states["det"]], [det]), ([states["fid"]], [self.fid._reductions])))
+
+    def finalize(self, synced: dict) -> dict:
+        from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+
+        values = dict(self.cls_pure.compute(synced["cls"]))
+        # the rows are already gathered: the metric must not sync them again
+        map_metric = MeanAveragePrecision(class_metrics=False, device=self.device, sync_on_compute=False)
+        map_metric.update(*self.det_acc.to_lists(synced["det"]))
+        values["map"] = map_metric.compute()["map"]
+        values["fid"] = self.fid.compute_state(synced["fid"])
+        return values
+
+
+def fid_state_diff(label: str, got: dict, want: dict) -> dict:
+    """A FID state against a reference one: the sample counts equal, the feature sums and
+    cross-product sums within ``TRUNK_BF16_L2`` relative L2. Returns the sums' differences."""
+    diffs = {}
+    for key, value in want.items():
+        have = got[key].cpu()
+        if key.endswith("num_samples"):
+            if not torch.equal(have, value):
+                raise AssertionError(f"{label}: FID's {key} is {have.tolist()}, the reference's {value.tolist()}")
+            continue
+        diffs[key] = float((have.double() - value.double()).norm() / value.double().norm())
+        if not diffs[key] <= TRUNK_BF16_L2:
+            raise AssertionError(f"{label}: FID's {key} is {diffs[key]} off the reference's, relative L2")
+    return diffs
+
+
+def flagship_phase(card: str, preds, target, host_map: float) -> int:
+    """The flagship at full width in an NCCL group of one process; returns its sepconv7
+    launches."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision, pack_detection_batch
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance, InceptionV3Features
+    from torchmetrics_tpu_torch.kernels.sepconv import sepconv7
+
+    flagship = Flagship(InceptionV3Features(compute_dtype="bfloat16", seed=0), COCO_IMAGES, COCO_DETS, COCO_MAX_GT)
+    cpu = flagship_classification(device="cpu")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    det = [pack_detection_batch(p, t, COCO_DETS, COCO_MAX_GT)
+           for p, t in zip(batches_of(preds, IMAGES_PER_STEP), batches_of(target, IMAGES_PER_STEP))]
+    states, cpu_cls = flagship.init(), cpu.init()
+    step_times, first = [], None
+    sepconv7.launches = 0
+    for batch in det:
+        rows = torch.randn((FLAGSHIP_ROWS, 5), generator=gen, device="cuda")
+        labels = torch.randint(0, 5, (FLAGSHIP_ROWS,), generator=gen, device="cuda")
+        real = torch.rand((FLAGSHIP_FID_IMAGES, 3, 299, 299), generator=gen, device="cuda")
+        fake = torch.rand((FLAGSHIP_FID_IMAGES, 3, 299, 299), generator=gen, device="cuda") ** 2
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        states = flagship.update(states, rows, labels, batch, real, fake)
+        torch.cuda.synchronize()
+        step_times.append((time.perf_counter() - start) * 1e3)
+        cpu_cls = cpu.update(cpu_cls, rows.cpu(), labels.cpu())
+        if first is None:
+            first = ({k: v.clone() for k, v in states["fid"].items()}, real, fake)
+    launches = sepconv7.launches
+    if launches != 2 * SEPCONV_PER_FORWARD * len(det):
+        raise AssertionError(f"flagship: {launches} sepconv7 launches over {len(det)} steps")
+    # the first step's FID state against the f32 trunk and FID's update on the CPU
+    cpu_fid = FrechetInceptionDistance(feature=InceptionV3Features(seed=0, device="cpu"), normalize=True,
+                                       device="cpu")
+    state, real, fake = first
+    fid_diff = fid_state_diff("flagship", state, cpu_fid.update_state(
+        cpu_fid.update_state(cpu_fid.init_state(), real.cpu(), True), fake.cpu(), False))
+
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_flagship_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}/store", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        def sync_once():
+            out = flagship.sync(states)
+            torch.cuda.synchronize()
+            return out
+
+        synced = sync_once()
+        if not states_equal(synced["fid"], states["fid"]):
+            raise AssertionError("flagship: FID's reduction changed its states at a world of one")
+        sync_ms = median_ms(sync_once, iters=10)
+        expected = flagship.expected_collectives(states)
+        events = profile_step("flagship_sync", sync_once, extra=lambda ev: {
+            "collective_ops": count_collective_ops(e.name for e in ev if e.device_type == DeviceType.CPU),
+            "expected_collectives": expected})
+        traced = count_collective_ops(e.name for e in events if e.device_type == DeviceType.CPU)
+        if traced["total"] != expected:
+            raise AssertionError(f"flagship: the sync traced {traced}, {expected} collectives predicted")
+        # the host evaluator's own sync: its list states go to the card for NCCL and
+        # come back to the host unchanged
+        own = MeanAveragePrecision()
+        own.update(preds[:IMAGES_PER_STEP], target[:IMAGES_PER_STEP])
+        local = {k: list(v) for k, v in own._state.items()}
+        own.sync(distributed_available=lambda: True)  # a world of one syncs only when told
+        if not own._is_synced or not states_equal(own._state, local) or any(t.device.type != "cpu" for v in own._state.values() for t in v):
+            raise AssertionError("flagship: MeanAveragePrecision's NCCL sync changed its host list states")
+        own.unsync()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    start = time.perf_counter()
+    values = flagship.finalize(synced)
+    finalize_s = time.perf_counter() - start
+    cpu_values = cpu.compute(cpu_cls)
+    for name in ("acc", "f1"):
+        for leaf, want in cpu_cls[name].items():
+            if not torch.equal(synced["cls"][name][leaf].cpu(), want):
+                raise AssertionError(f"flagship: {name}'s {leaf} differs from the CPU's")
+    cls_diff = hold_against_cpu("flagship", {k: values[k] for k in ("acc", "f1")}, cpu_values)
+    if float(values["map"]) != host_map:
+        raise AssertionError(f"flagship: map {float(values['map'])}, phase map_host's {host_map}")
+    if not math.isfinite(float(values["fid"])):
+        raise AssertionError(f"flagship: fid {float(values['fid'])}")
+    emit({"phase": "flagship", "steps": len(det), "per_step": {"classification_rows": FLAGSHIP_ROWS,
+          "detection_images": IMAGES_PER_STEP, "fid_images": [FLAGSHIP_FID_IMAGES, FLAGSHIP_FID_IMAGES]},
+          "step_ms": median(step_times), "sync_ms": sync_ms, "collectives": {"traced": traced, "predicted": expected},
+          "finalize_s": finalize_s, "sepconv7_launches": launches, "first_step_fid_state_vs_cpu": fid_diff,
+          **{k: float(values[k]) for k in ("acc", "f1", "map", "fid")}, "cls_max_ratio_diff": cls_diff,
+          "card": card})
+    return launches
+
+
+def flagship_two_rank_inputs() -> dict:
+    """The flagship's whole input for the two-rank phase, the same in every process: the
+    two-rank sync phase's classification rows and FID images, and 500 COCO-scale images."""
+    inputs = two_rank_inputs()
+    inputs["preds_det"], inputs["target_det"] = coco_scale_dataset(np.random.default_rng(7), TWO_RANK_DET_IMAGES)
+    return inputs
+
+
+def flagship_values(rank: int, world: int):
+    """Rank ``rank``'s flagship over its share of ``flagship_two_rank_inputs()`` (all of
+    it at ``world=1``), synced over the current group and finalized: the values and the
+    sync's median ms."""
+    from torchmetrics_tpu_torch.detection import pack_detection_batch
+
+    inputs = flagship_two_rank_inputs()
+    images = TWO_RANK_DET_IMAGES // world
+    flagship = Flagship(ProjectionFeatures(inputs["weight"]), images, COCO_DETS, COCO_MAX_GT)
+    lo, hi = rank * images, (rank + 1) * images
+    rows, side = rank_slices(TWO_RANK_BATCH, rank, world), rank_slices(TWO_RANK_IMAGES, rank, world)
+    det = pack_detection_batch(inputs["preds_det"][lo:hi], inputs["target_det"][lo:hi], COCO_DETS, COCO_MAX_GT)
+    states = flagship.update(flagship.init(), inputs["preds"][rows], inputs["target"][rows], det,
+                             inputs["real"][side], inputs["fake"][side])
+    import torch.distributed as dist
+
+    def sync_once():
+        out = flagship.sync(states)
+        torch.cuda.synchronize()
+        return out
+
+    torch.cuda.synchronize()
+    if dist.is_initialized():
+        dist.barrier()  # time the sync, not the ranks' skew in reaching it
+    synced = sync_once()
+    return flagship.finalize(synced), median_ms(sync_once, iters=5)
+
+
+def flagship_two_ranks_phase(card: str, world: int = 2) -> None:
+    results = run_children("flagship", world)
+    want = {k: v.cpu() for k, v in flagship_values(0, 1)[0].items()}  # no group here: a world of one
+    worst_fid = 0.0
+    for result in results:
+        for key, want_value in want.items():
+            dtype, got = result["values"][key]
+            got = torch.tensor(got, dtype=want_value.dtype)
+            label = f"flagship_two_ranks rank {result['rank']} {key}"
+            if key == "fid":
+                diff = abs(float(got) - float(want_value)) / abs(float(want_value))
+                if not diff <= FID_RTOL:
+                    raise AssertionError(f"{label}: {float(got)}, a world of one's {float(want_value)}")
+                worst_fid = max(worst_fid, diff)
+            elif dtype != str(want_value.dtype) or not torch.equal(got, want_value):
+                raise AssertionError(f"{label}: {got.tolist()}, a world of one's {want_value.tolist()}")
+    emit({"phase": "flagship_two_ranks", "world": world, "backend": "gloo", "tensors": "cuda",
+          "detection_images": TWO_RANK_DET_IMAGES, "classification_rows": TWO_RANK_BATCH,
+          "fid_images_per_side": TWO_RANK_IMAGES, "sync_ms": {f"rank{r['rank']}": r["sync_ms"] for r in results},
+          **{k: float(want[k]) for k in ("acc", "f1", "map", "fid")}, "fid_rel_diff": worst_fid, "fid_rtol": FID_RTOL,
+          "card": card})
+
+
+def flagship_forward(cases: dict) -> dict:
+    """The 26 sepconv7 launches of one bf16 trunk forward at the flagship's batch: their
+    summed times and bound, and their worst error against the plain version."""
+    forward = [cases[(torch.bfloat16, FLAGSHIP_FID_IMAGES, c, o, axis)] for c, o, axis in trunk_sepconv_shapes()]
+    return {"B": FLAGSHIP_FID_IMAGES, "max_abs_err": max(case["max_abs_err"] for case in forward),
+            **{key: sum(case[key] for case in forward) for key in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+
+
 def main() -> int:
     if sys.argv[1:2] == [SYNC_CHILD_FLAG]:
-        return sync_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return sync_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from torchmetrics_tpu_torch.kernels.sepconv import KERNEL
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     gen = torch.Generator(device="cuda").manual_seed(0)
     build_phase(KERNEL)
     cases = kernel_phase(gen)
@@ -840,6 +1355,13 @@ def main() -> int:
     topk_ties_phase(gen, card)
     sync_nccl_phase(gen, card, fids["float32"])
     sync_two_ranks_phase(card)
+    preds, target = coco_scale_dataset(np.random.default_rng(6), COCO_IMAGES)
+    detection_accumulate_phase(card, preds, target)
+    host_values = map_host_phase(card, preds, target)
+    map_device_phase(card, preds, target, host_values)
+    launches_by_path = {"fid": launches["bfloat16"], "flagship": flagship_phase(card, preds, target, host_values["map"])}
+    launches["bfloat16"] = sum(launches_by_path.values())
+    flagship_two_ranks_phase(card)
 
     print(card, flush=True)
     kernels = []
@@ -860,6 +1382,8 @@ def main() -> int:
             "bound_by": "operations",
             "library_ms": sum(case["library_ms"] for case in forward),
             "per": f"the 26 launches of one {trunk} B={batch} trunk forward ({path})",
+            **({"launches_by_path": launches_by_path, "flagship_forward": flagship_forward(cases)}
+               if trunk == "bfloat16" else {}),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -162,3 +162,110 @@ def test_two_rank_shares_cover_the_whole_batch_and_the_cat_shortfall(chip_smoke)
     cat = [chip_smoke.rank_slices(n, r, world, chip_smoke.CAT_SHORTFALL) for r in range(world)]
     assert [s.stop - s.start for s in cat] == [n // 2, n // 2 - 7]
     assert chip_smoke.rank_slices(n, 0, 1) == slice(0, n)
+
+
+def test_total_order_table_is_ieee_total_order(chip_smoke):
+    """The topk_ties phase's table of bit patterns runs from -NaN to +NaN in IEEE total
+    order, and the port's select_topk ranks it so on the CPU, in float32 and bfloat16."""
+    import numpy as np
+
+    from torchmetrics_tpu_torch.utilities.data import select_topk
+
+    bits = np.asarray(chip_smoke.TOTAL_ORDER_F32, np.int64).astype(np.int32)
+    values = bits.view(np.float32)
+    assert np.isnan(values[0]) and np.signbit(values[0]) and np.isnan(values[-1]) and not np.signbit(values[-1])
+    assert np.signbit(values[3]) and values[3] == 0 and not np.signbit(values[4])
+    assert list(values[1:3]) == [-np.inf, -1.0] and list(values[5:8]) == [0.5, 1.0, np.inf]
+    place = torch.from_numpy(np.random.default_rng(0).integers(0, len(bits), (300, 5)))
+    table = torch.from_numpy(bits.astype(np.int64))[place].to(torch.int32)
+    for value in (table.view(torch.float32), (table >> 16).to(torch.int16).view(torch.bfloat16)):
+        for k in (2, 3):
+            assert torch.equal(select_topk(value, k), chip_smoke.lower_index_topk_mask(place.float(), k))
+
+
+def test_coco_scale_dataset_has_the_stated_shape(chip_smoke):
+    """100 detections and 1-14 ground truths per image, mean about 7.5 (val2017: 36,781
+    over 5000 images), 80% ground-truth copies, about 1% crowds, hundredths for scores."""
+    import numpy as np
+
+    preds, target = chip_smoke.coco_scale_dataset(np.random.default_rng(6), 400)
+    gts = np.asarray([t["labels"].size for t in target])
+    assert all(p["labels"].size == chip_smoke.COCO_DETS for p in preds) and gts.min() >= 1 and gts.max() <= 14
+    assert 7.0 <= gts.mean() <= 8.0
+    crowd = np.concatenate([t["iscrowd"] for t in target]).mean()
+    assert 0.002 <= crowd <= 0.03
+    scores = np.concatenate([p["scores"] for p in preds])
+    np.testing.assert_allclose(scores * 100, np.round(scores * 100), atol=1e-4)  # hundredths: ties are common
+    labels = np.concatenate([p["labels"] for p in preds])
+    assert labels.min() >= 0 and labels.max() < chip_smoke.COCO_CLASSES
+    assert len(chip_smoke.batches_of(preds * 13, chip_smoke.IMAGES_PER_STEP)) == 163
+
+
+def test_detection_state_sizes_are_the_stated_ones(chip_smoke):
+    """The accumulator's state at COCO size is 26.0 MB, the device evaluator's 31.5 MB."""
+    from torchmetrics_tpu_torch.detection import DeviceMeanAveragePrecision, PaddedDetectionAccumulator
+
+    acc = PaddedDetectionAccumulator(chip_smoke.COCO_IMAGES, chip_smoke.COCO_DETS, chip_smoke.COCO_MAX_GT, device="cpu")
+    assert round(chip_smoke.state_bytes(acc.init()) / 1e6, 1) == 26.0
+    dev = DeviceMeanAveragePrecision(capacity=chip_smoke.DEVICE_MAP_CAPACITY, num_classes=chip_smoke.COCO_CLASSES,
+                                     gt_group_cap=chip_smoke.GT_GROUP_CAP, device="cpu")
+    assert round(chip_smoke.state_bytes(dev._state) / 1e6, 1) == 31.5
+    assert chip_smoke.COCO_IMAGES * chip_smoke.COCO_DETS <= chip_smoke.DEVICE_MAP_CAPACITY
+
+
+def test_lists_equal_is_bit_for_bit_by_key(chip_smoke):
+    import numpy as np
+
+    a = [{"boxes": np.zeros((1, 4), np.float32), "labels": np.asarray([1], np.int32)}]
+    assert chip_smoke.lists_equal(a, [{"boxes": np.zeros((1, 4)), "labels": np.asarray([1])}])
+    assert not chip_smoke.lists_equal(a, [{"boxes": np.ones((1, 4)), "labels": np.asarray([1])}])
+    assert not chip_smoke.lists_equal(a, a + a)
+
+
+def test_flagship_rehearsal_and_its_collective_prediction(chip_smoke):
+    """The flagship phase on the CPU at a small size, without a group: every value
+    finite, and the sync's predicted collectives: one int32 sum bucket for the
+    classification counts, the accumulator's float32 and int32 gathers, FID's float32
+    and int32 sums."""
+    import numpy as np
+
+    from torchmetrics_tpu_torch.detection import pack_detection_batch
+
+    preds, target = chip_smoke.coco_scale_dataset(np.random.default_rng(1), 40, n_det=20)
+
+    def extractor(imgs):
+        return imgs.reshape(imgs.shape[0], -1)[:, :16].float()
+
+    extractor.num_features = 16
+    flagship = chip_smoke.Flagship(extractor, 40, 20, 16, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    states = flagship.init()
+    for p, t in zip(chip_smoke.batches_of(preds, 8), chip_smoke.batches_of(target, 8)):
+        states = flagship.update(states, torch.randn((64, 5), generator=gen), torch.randint(0, 5, (64,), generator=gen),
+                                 pack_detection_batch(p, t, 20, 16, device="cpu"),
+                                 torch.rand((8, 3, 4, 4), generator=gen), torch.rand((8, 3, 4, 4), generator=gen) ** 2)
+    assert flagship.expected_collectives(states) == 5
+    values = flagship.finalize(flagship.sync(states))
+    assert set(values) == {"acc", "f1", "map", "fid"} and all(np.isfinite(float(v)) for v in values.values())
+    assert 0.0 < float(values["map"]) < 1.0
+
+
+def test_fid_state_diff_takes_counts_exactly_and_sums_within_the_trunk_bound(chip_smoke):
+    def extractor(imgs):
+        return imgs.reshape(imgs.shape[0], -1)[:, :16].float()
+
+    extractor.num_features = 16
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+
+    fid = FrechetInceptionDistance(feature=extractor, normalize=True, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    real, fake = torch.rand((8, 3, 4, 4), generator=gen), torch.rand((8, 3, 4, 4), generator=gen)
+    want = fid.update_state(fid.update_state(fid.init_state(), real, True), fake, False)
+    diffs = chip_smoke.fid_state_diff("same", dict(want), want)
+    assert set(diffs) == {k for k in want if not k.endswith("num_samples")} and max(diffs.values()) == 0.0
+    off = {**want, "fake_features_sum": want["fake_features_sum"] * (1 + 2 * chip_smoke.TRUNK_BF16_L2)}
+    with pytest.raises(AssertionError, match="fake_features_sum"):
+        chip_smoke.fid_state_diff("off", off, want)
+    with pytest.raises(AssertionError, match="real_features_num_samples"):
+        chip_smoke.fid_state_diff("count", {**want, "real_features_num_samples": torch.tensor(9, dtype=torch.int32)},
+                                  want)

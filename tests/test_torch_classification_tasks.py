@@ -375,6 +375,48 @@ def test_topk_ties_resolve_to_the_lower_index_like_jax(top_k):
         _assert_matches(metric.compute(), jax_metric.compute())
 
 
+def _neg_nan_f32() -> float:
+    """A NaN with the sign bit set, made from its bits (arithmetic on CUDA makes only +NaN)."""
+    return float(np.array([0xFFC00000], np.uint32).view(np.float32)[0])
+
+
+def _same_bits(scores: np.ndarray, dtype: str):
+    """``scores`` (float32) as a torch tensor and a JAX array of ``dtype`` holding the same
+    bits: the frameworks' own float32-to-bfloat16 casts give a NaN different signs."""
+    values = scores.astype(getattr(jnp, dtype))  # numpy's (ml_dtypes) cast, once
+    if dtype == "float32":
+        return torch.from_numpy(values.copy()), jnp.asarray(values)
+    bits = values.view(np.int16)
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16), jnp.asarray(values)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_topk_ranks_signed_zeros_nans_and_infs_in_total_order_like_jax(dtype):
+    """``jax.lax.top_k`` ranks by IEEE total order: +0.0 above -0.0, +NaN above +inf and
+    -NaN below -inf. Fixed rows, then a seeded fuzz over {±0, ±1, ±inf, ±NaN, 0.5}."""
+    nneg = _neg_nan_f32()
+    fixed = [
+        ([[-0.0, 0.5, 0.0, -1.0]], 2, [[0, 1, 1, 0]]),
+        ([[nneg, -np.inf, -1.0, 0.0]], 2, [[0, 0, 1, 1]]),
+        ([[nneg, -np.inf, -1.0, 0.0]], 3, [[0, 1, 1, 1]]),
+        ([[np.nan, np.inf, 1.0, -0.0]], 2, [[1, 1, 0, 0]]),
+        ([[1.0, 2.0, nneg, 0.0]], 2, [[1, 1, 0, 0]]),
+    ]
+    for row, k, want in fixed:
+        scores, jax_scores = _same_bits(np.asarray(row, np.float32), dtype)
+        got = select_topk(scores, k)
+        assert got.tolist() == want, (row, k)
+        _assert_matches(got, jax_select_topk(jax_scores, k))
+    pool = np.asarray([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, np.nan, nneg, 0.5], np.float32)
+    rng = np.random.default_rng(11)
+    for k in (2, 3):
+        draws = pool[rng.integers(0, pool.size, (500, 6))]
+        scores, jax_scores = _same_bits(draws, dtype)
+        _assert_matches(select_topk(scores, k), jax_select_topk(jax_scores, k))
+        scores, jax_scores = _same_bits(np.ascontiguousarray(draws.T), dtype)
+        _assert_matches(select_topk(scores, k, dim=0), jax_select_topk(jax_scores, k, dim=0))
+
+
 def test_tensor_validation_rejects_bad_values_and_shapes():
     with pytest.raises(RuntimeError, match="values in `target`"):
         port_fn.binary_accuracy(torch.tensor([0.2, 0.7]), torch.tensor([0, 2]))

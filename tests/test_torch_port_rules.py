@@ -22,6 +22,7 @@ import torch
 import torchmetrics_tpu_torch
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+from torchmetrics_tpu_torch import detection
 from torchmetrics_tpu_torch.image import FrechetInceptionDistance, InceptionV3Features
 from torchmetrics_tpu_torch.utilities.checks import resolve_device
 
@@ -81,8 +82,18 @@ def _toy_extractor(imgs):
         lambda: MetricCollection({"acc": MulticlassAccuracy(5, device="cpu")}),
         lambda: resolve_device(None),
         lambda: resolve_device("cuda:0"),
+        lambda: detection.PaddedDetectionAccumulator(4),
+        lambda: detection.pack_detection_batch([], [], 2, 2),
+        lambda: detection.MeanAveragePrecision(),
+        lambda: detection.MeanAveragePrecision(backend="device"),
+        lambda: detection.DeviceMeanAveragePrecision(),
+        lambda: detection.IntersectionOverUnion(),
+        lambda: detection.GeneralizedIntersectionOverUnion(),
+        lambda: detection.DistanceIntersectionOverUnion(),
+        lambda: detection.CompleteIntersectionOverUnion(),
     ],
-    ids=["metric", "extractor", "extractor_from_params", "fid", "collection", "resolve_none", "resolve_cuda"],
+    ids=["metric", "extractor", "extractor_from_params", "fid", "collection", "resolve_none", "resolve_cuda",
+         "accumulator", "pack", "map", "map_device_backend", "device_map", "iou", "giou", "diou", "ciou"],
 )
 def test_default_device_raises_without_cuda(no_cuda, build):
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -5,13 +5,14 @@ paths and imports neither JAX nor anything of the JAX package. Entry points run 
 unless the caller passes ``device="cpu"``.
 """
 
-from . import aggregation, classification, parallel
+from . import aggregation, classification, detection, parallel
 from .aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, RunningMean, RunningSum, SumMetric
 from .classification import *  # noqa: F401,F403
 from .collections import MetricCollection
-from .metric import Metric
+from .detection import *  # noqa: F401,F403
+from .metric import HostMetric, Metric
 
 __all__ = [
-    "CatMetric", "MaxMetric", "MeanMetric", "Metric", "MetricCollection", "MinMetric", "RunningMean", "RunningSum",
-    "SumMetric", *classification.__all__,
+    "CatMetric", "HostMetric", "MaxMetric", "MeanMetric", "Metric", "MetricCollection", "MinMetric", "RunningMean",
+    "RunningSum", "SumMetric", *classification.__all__, *detection.__all__,
 ]

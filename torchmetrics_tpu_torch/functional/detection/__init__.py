@@ -1,0 +1,16 @@
+"""Detection functions (counterpart of ``torchmetrics_tpu/functional/detection``;
+panoptic quality is not ported yet)."""
+
+from .ciou import complete_intersection_over_union
+from .diou import distance_intersection_over_union
+from .giou import generalized_intersection_over_union
+from .iou import intersection_over_union
+from .map import mean_average_precision
+
+__all__ = [
+    "complete_intersection_over_union",
+    "distance_intersection_over_union",
+    "generalized_intersection_over_union",
+    "intersection_over_union",
+    "mean_average_precision",
+]

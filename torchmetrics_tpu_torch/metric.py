@@ -17,7 +17,8 @@ across processes when ``sync_on_compute`` holds and more than one process is att
 ``sync``/``unsync`` swap the synced states in and out, ``merge_state`` folds another
 metric's states without communication, and ``reduce_state`` reduces a state dict over a
 process group. Not here yet: the reliability, telemetry and AOT hooks, and the
-serving/streaming plane builders.
+serving and streaming planes. ``HostMetric`` is the base of the metrics whose batch
+contribution is built on the host (detection's ragged per-image inputs).
 """
 
 from __future__ import annotations
@@ -275,10 +276,11 @@ class Metric:
 
     __call__ = forward
 
-    def _concat_state(self) -> StateDict:
-        """State with list states concatenated to single tensors."""
+    def _concat_state(self, state: Optional[StateDict] = None) -> StateDict:
+        """``state`` (the live state if None) with list states concatenated to single
+        tensors."""
         out: StateDict = {}
-        for k, v in self._state.items():
+        for k, v in (self._state if state is None else state).items():
             if isinstance(v, list):
                 out[k] = dim_zero_cat(v) if v else torch.zeros((0,), device=self._device)
             else:
@@ -468,3 +470,27 @@ class Metric:
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}()"
+
+
+class HostMetric(Metric):
+    """Base for metrics whose batch contribution is built on the host: ragged per-image
+    inputs (detection), where ``_host_batch_state(*inputs) -> dict`` returns, per state,
+    one tensor to append (list states, already concatenated over the batch's items) or
+    a tensor contribution to fold.
+
+    ``update``, ``forward`` and the fold are ``Metric``'s: ``update`` appends the list
+    states and merges the tensor ones, and ``forward`` builds the contribution once and
+    computes the value of the batch alone from it. List states live on the host: a sync
+    brings them back there, not to the metric's device.
+    """
+
+    def _host_batch_state(self, *args: Any, **kwargs: Any) -> StateDict:
+        raise NotImplementedError
+
+    def _batch_state(self, *args: Any, **kwargs: Any) -> StateDict:
+        return self._host_batch_state(*args, **kwargs)
+
+    def _commit_synced(self, synced: StateDict) -> None:
+        super()._commit_synced(synced)
+        for k in set(self._list_state_names) & synced.keys():
+            self._state[k] = [t.cpu() if isinstance(t, torch.Tensor) else t for t in synced[k]]

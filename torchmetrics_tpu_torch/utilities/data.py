@@ -52,10 +52,25 @@ def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     return (labels[..., None] == classes).to(torch.int32)
 
 
+_TOTAL_ORDER_INT = {torch.float64: torch.int64, torch.float32: torch.int32,
+                    torch.bfloat16: torch.int16, torch.float16: torch.int16}
+
+
+def _total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """An integer key that sorts floats in IEEE total order, the order of
+    ``jax.lax.top_k``: -NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN. The float's
+    bits as a signed integer, with the magnitude bits of the negatives flipped."""
+    info = torch.iinfo(_TOTAL_ORDER_INT[x.dtype])
+    bits = x.contiguous().view(_TOTAL_ORDER_INT[x.dtype])
+    return bits ^ ((bits >> (info.bits - 1)) & info.max)
+
+
 def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch.Tensor:
-    """int32 mask of the top-k entries along ``dim``. Among equal values the lower index
-    wins, as in ``jax.lax.top_k``: ``Tensor.topk`` leaves that order unspecified, so
-    k > 1 takes the first k of a stable descending sort.
+    """int32 mask of the top-k entries along ``dim``, ranked as ``jax.lax.top_k`` ranks
+    them. Among equal values the lower index wins: ``Tensor.topk`` leaves that order
+    unspecified, so k > 1 takes the first k of a stable descending sort. Floats sort by
+    IEEE total order (``+0.0`` above ``-0.0``, a NaN by its sign bit above ``+inf`` or
+    below ``-inf``), where a float sort ties the zeros and puts every NaN first.
 
     Example:
         >>> import torch
@@ -67,7 +82,8 @@ def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch
     if topk == 1:  # argmax path: ties resolve to the first maximum
         idx = prob_tensor.argmax(dim=dim, keepdim=True)
     else:
-        idx = torch.sort(prob_tensor, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
+        key = _total_order_key(prob_tensor) if prob_tensor.is_floating_point() else prob_tensor
+        idx = torch.sort(key, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
     return mask.scatter_(dim, idx, 1)
 
 
