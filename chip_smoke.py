@@ -73,13 +73,34 @@ Phases, one JSON line each, in order:
 14. flagship_two_ranks: the flagship over two gloo processes on the card, each with half
    of 500 images, 65,536 rows and the FID images of phase 9 (a projection extractor);
    each rank's finalized acc, f1 and map must equal a world of one's, FID within 1e-3.
+15. generative: ``KernelInceptionDistance(subsets=100, subset_size=1000, seed=0)``,
+   ``MemorizationInformedFrechetInceptionDistance()`` and ``InceptionScore(splits=10,
+   seed=0)`` (the trunk followed by a seeded 2048 -> 1008 linear head) behind one bf16
+   trunk (seeded weights at He's scale, so the features are not degenerate), on 2048 real and 2048 fake uint8 299x299 images (fake = real plus seeded
+   noise) in batches of 512 (users evaluate 10k-50k images; cut to keep the CPU
+   reference short): update images/s and ``compute()`` seconds for each, every value
+   finite and within 1e-6 relative of the port on the CPU on the same states (the
+   float64 difference reported too), 26 sepconv7 launches per trunk forward, KID's
+   ``compute()`` under ``torch.profiler`` beside its FP64 bound, and KID's update with a
+   projection extractor under ``torch.cuda.set_sync_debug_mode("error")``.
+16. collection_groups: the stateful ``MetricCollection({acc, precision, recall, f1,
+   confmat})`` at batch 65536 over 5 classes, 20 updates, with compute groups and
+   without: update ms (median, host clock around synchronised calls) and, under
+   ``torch.profiler``, launches and device ms per update. The groups must be
+   ``{acc, f1, precision, recall}`` and ``{confmat}``; both builds' counts equal bit for
+   bit and the CPU port's; ``forward`` gives the batch's values; a ``state_dict`` round
+   trip computes the same values and a truncated one raises ``StateCorruptionError``;
+   ``(acc + f1) / 2`` is the mean of the two; a clone stays independent; in an NCCL
+   group of one, the grouped sync ships each distinct state dict once (its traced
+   collectives equal the prediction from the distinct dicts) and the members alias
+   through ``sync`` and ``unsync``.
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
 lines carry ``step_ms`` (host clock around synchronised steps) and the card.
 
-After each FID trunk, after the classification, binary and multilabel steps and after
-the NCCL sync, a profile line: one more step under ``torch.profiler``, with device time
+After each FID trunk, after the classification, binary and multilabel steps, after
+the NCCL sync, after KID's compute and after the collection's update and sync, a profile line: one more step under ``torch.profiler``, with device time
 by kernel and the device's idle share (for the sync also the collectives the trace
 names, and the device time of NCCL's spans and of the copies).
 
@@ -662,7 +683,7 @@ def sync_nccl_phase(gen: torch.Generator, card: str, fid) -> None:
         members[name].update(values)
     coll = MetricCollection(members)
     local = {name: dict(m._state) for name, m in coll.items(keep_base=True)}
-    states, reductions = list(local.values()), [m._reductions for m in coll.values()]
+    states, reductions = distinct_states(coll)  # the members' own dicts: the collection never updated, so no groups
     expected = expected_collectives(states, reductions)
     tensor_names = [name for name, m in coll.items(keep_base=True) if not m._list_state_names]
     pure = MetricCollection({name: members[name] for name in tensor_names}).as_pure()
@@ -1327,6 +1348,346 @@ def flagship_two_ranks_phase(card: str, world: int = 2) -> None:
           "card": card})
 
 
+# ---------------------------------------------------------------------------
+# generative (slice 7): KID, MiFID and InceptionScore over the bf16 trunk
+# ---------------------------------------------------------------------------
+
+GEN_IMAGES = 2048  # per side; users evaluate 10k-50k, cut to keep the CPU reference short
+GEN_BATCH = 512
+GEN_NOISE = 16  # fake = real plus seeded integer noise in [-16, 16], clamped to uint8
+KID_SUBSETS, KID_SUBSET_SIZE = 100, 1000  # KID's published defaults
+IS_CLASSES = 1008  # InceptionV3's logits head
+IS_SPLITS = 10
+GEN_RTOL = 1e-6
+# H100 SXM FP64 peak on the tensor cores (dense); the products of KID's subsets run there
+PEAK_FP64_FLOPS = 67e12
+
+
+def kid_bound_ms(subsets: int, subset_size: int, features: int, n_real: int, n_fake: int) -> dict:
+    """Least time for KID's float64 algebra: the three (m x F) @ (F x m) products of each
+    subset at the FP64 peak, against reading both float32 feature states once and
+    writing the two results; the larger bounds it."""
+    flops = subsets * 3 * 2 * subset_size * features * subset_size
+    nbytes = (n_real + n_fake) * features * 4 + 2 * 4
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_FP64_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops}
+
+
+def he_scaled(params: dict) -> dict:
+    """The trunk's seeded parameters with every conv weight scaled by sqrt(2), to He's
+    variance for ReLU layers: the features keep unit scale (mean 0.25) through the
+    trunk. The default init shrinks them to about 1.6e-4, where every kernel entry of
+    KID is 1 to within 1e-8 and KID (3.2e-12) sits at float64's cancellation floor."""
+    if "w" in params:
+        return {**params, "w": params["w"] * np.float32(math.sqrt(2.0))}
+    return {k: he_scaled(v) for k, v in params.items()}
+
+
+class LogitsHead:
+    """The trunk followed by a seeded 2048 -> 1008 linear head: class logits for
+    InceptionScore without pretrained weights."""
+
+    def __init__(self, trunk, weight: torch.Tensor) -> None:
+        self.trunk, self.weight, self.num_features = trunk, weight, weight.shape[1]
+
+    def __call__(self, imgs: torch.Tensor) -> torch.Tensor:
+        return self.trunk(imgs).float() @ self.weight
+
+
+class Width:
+    """A stand-in extractor for a metric that only computes (the CPU reference): its
+    width, never called."""
+
+    def __init__(self, num_features: int) -> None:
+        self.num_features = num_features
+
+    def __call__(self, imgs):
+        raise AssertionError("the CPU reference computes on the card's states and extracts nothing")
+
+
+def float64_values(metric, state) -> list:
+    """A generative metric's values in float64, before ``_compute`` rounds them: KID's
+    and InceptionScore's mean and population std over their scores, MiFID's value."""
+    if hasattr(metric, "_value"):
+        return [metric._value(state)]
+    scores = metric._scores(state)
+    return [float(scores.mean()), float(scores.std(correction=0))]
+
+
+def cpu_twin(metric, build):
+    """``build()`` (a metric on the CPU) holding ``metric``'s states moved to the CPU."""
+    twin = build()
+    twin._state = {k: [t.cpu() for t in v] if isinstance(v, list) else v.cpu() for k, v in metric._state.items()}
+    twin._update_count = metric._update_count
+    return twin
+
+
+def relative_diff(got: float, want: float) -> float:
+    return abs(got - want) / abs(want) if want else abs(got)
+
+
+def generative_phase(card: str) -> int:
+    """KID, MiFID and InceptionScore behind one bf16 trunk at full width; returns the
+    sepconv7 launches of their updates."""
+    from torchmetrics_tpu_torch.image import (
+        InceptionScore,
+        InceptionV3Features,
+        KernelInceptionDistance,
+        MemorizationInformedFrechetInceptionDistance,
+    )
+    from torchmetrics_tpu_torch.kernels.sepconv import sepconv7
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    trunk = InceptionV3Features.from_numpy_params(he_scaled(InceptionV3Features._random_params(0)),
+                                                  compute_dtype="bfloat16")
+    real = torch.randint(0, 256, (GEN_IMAGES, 3, 299, 299), generator=gen, device="cuda", dtype=torch.uint8)
+    noise = torch.randint(-GEN_NOISE, GEN_NOISE + 1, real.shape, generator=gen, device="cuda", dtype=torch.int16)
+    fake = (real.to(torch.int16) + noise).clamp(0, 255).to(torch.uint8)
+    del noise
+    head = LogitsHead(trunk, torch.randn((2048, IS_CLASSES), generator=gen, device="cuda") / math.sqrt(2048))
+    kid_args = {"subsets": KID_SUBSETS, "subset_size": KID_SUBSET_SIZE, "seed": 0, "compute_with_cache": False}
+    is_args = {"splits": IS_SPLITS, "seed": 0, "compute_with_cache": False}
+    metrics = {"kid": KernelInceptionDistance(feature=trunk, **kid_args),
+               "mifid": MemorizationInformedFrechetInceptionDistance(feature=trunk, compute_with_cache=False),
+               "is": InceptionScore(feature=head, **is_args)}
+    batches = list(zip(real.split(GEN_BATCH), fake.split(GEN_BATCH)))
+    head(real[:GEN_BATCH])  # warm-up: cuDNN plans, the head's GEMM, the allocator
+    torch.cuda.synchronize()
+    sepconv7.launches = 0
+    images_per_s, forwards = {}, 0
+    for name, metric in metrics.items():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for r, f in batches:
+            if name == "is":
+                metric.update(f)
+                forwards += 1
+            else:
+                metric.update(r, real=True)
+                metric.update(f, real=False)
+                forwards += 2
+        torch.cuda.synchronize()
+        images_per_s[name] = (GEN_IMAGES if name == "is" else 2 * GEN_IMAGES) / (time.perf_counter() - start)
+    launches = sepconv7.launches
+    if launches != SEPCONV_PER_FORWARD * forwards:
+        raise AssertionError(f"generative: {launches} sepconv7 launches over {forwards} trunk forwards")
+
+    compute_s, values, diffs = {}, {}, {}
+    cpu_builds = {
+        "kid": lambda: KernelInceptionDistance(feature=Width(2048), device="cpu", **kid_args),
+        "mifid": lambda: MemorizationInformedFrechetInceptionDistance(feature=Width(2048), device="cpu"),
+        "is": lambda: InceptionScore(feature=Width(IS_CLASSES), device="cpu", **is_args),
+    }
+    for name, metric in metrics.items():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        value = metric.compute()
+        torch.cuda.synchronize()
+        compute_s[name] = time.perf_counter() - start
+        value = [float(v) for v in value] if isinstance(value, tuple) else [float(value)]
+        if not all(math.isfinite(v) for v in value):
+            raise AssertionError(f"generative {name}: values {value}")
+        # the float64 values before their float32 rounding, on the card and on the CPU
+        # (the CPU's float32 values are those, rounded as _compute rounds them)
+        twin = cpu_twin(metric, cpu_builds[name])
+        got64, want64 = (float64_values(m, m._concat_state()) for m in (metric, twin))
+        want = [float(torch.tensor(v, dtype=torch.float32)) for v in want64]
+        worst = max(relative_diff(g, w) for g, w in zip(value, want))
+        if not worst <= GEN_RTOL:
+            raise AssertionError(f"generative {name}: {value} on the card, {want} on the CPU (relative {worst})")
+        values[name] = value
+        diffs[name] = {"float32_rel": worst, "float64_rel": max(relative_diff(g, w) for g, w in zip(got64, want64))}
+
+    # the features of KID's update stay on the card: a projection extractor, no host sync
+    projection = ProjectionFeatures(torch.randn((3 * 32 * 32, 2048), generator=gen, device="cuda") / 55.4)
+    small = KernelInceptionDistance(feature=projection, subset_size=16)
+    imgs = torch.rand((64, 3, 32, 32), generator=gen, device="cuda")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for real_side in (True, False):
+            small.update(imgs, real=real_side)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if any(t.device.type != "cuda" for v in small._state.values() for t in v):
+        raise AssertionError("generative: KID's feature states left the card in update")
+
+    bound = kid_bound_ms(KID_SUBSETS, KID_SUBSET_SIZE, 2048, GEN_IMAGES, GEN_IMAGES)
+
+    def kid_compute():
+        metrics["kid"].compute()
+        torch.cuda.synchronize()
+
+    compute_s["kid_steady"] = median_ms(kid_compute, iters=5) / 1e3  # the first call also sets up cuBLAS's FP64 path
+    # the subsets' float64 algebra alone by CUDA events, the subsets drawn beforehand: its
+    # launches queue far ahead of the card, so the stream's span is its device time,
+    # which holds where a trace loses events
+    kid = metrics["kid"]
+    rows = [kid._concat_state()[k].to(torch.float64) for k in ("real_features", "fake_features")]
+    subsets = kid.subset_indices(GEN_IMAGES, GEN_IMAGES)
+    scores_ms = cuda_ms(lambda: kid.subset_mmd(*rows, *subsets), iters=5)
+    profile_step("kid_compute", kid_compute, extra=lambda ev: {"fp64_bound": bound, "scores_ms_by_events": scores_ms})
+    emit({"phase": "generative", "images_per_side": GEN_IMAGES, "batch": GEN_BATCH, "trunk": "bfloat16",
+          "reduced": f"{GEN_IMAGES} images per side (users evaluate 10k-50k)",
+          "update_images_per_s": images_per_s, "compute_s": compute_s, "values": values, "vs_cpu": diffs,
+          "rtol": GEN_RTOL, "sepconv7_launches": launches, "kid_fp64_bound": bound, "kid_scores_ms": scores_ms,
+          "kid_update_sync_debug_mode": "error", "card": card})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# collection_groups (slice 7): compute groups on the stateful classification step
+# ---------------------------------------------------------------------------
+
+GROUPS_BATCH = 65536
+GROUPS_UPDATES = 20
+EXPECTED_GROUPS = [["acc", "f1", "precision", "recall"], ["confmat"]]
+
+
+def groups_collection(compute_groups, device=None):
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch import classification as tc
+
+    return MetricCollection({
+        "acc": tc.MulticlassAccuracy(5, average="micro", validate_args=False, device=device),
+        "precision": tc.MulticlassPrecision(5, validate_args=False, device=device),
+        "recall": tc.MulticlassRecall(5, validate_args=False, device=device),
+        "f1": tc.MulticlassF1Score(5, validate_args=False, device=device),
+        "confmat": tc.MulticlassConfusionMatrix(5, validate_args=False, device=device),
+    }, compute_groups=compute_groups, device=device)
+
+
+def group_sets(coll) -> list:
+    """The collection's compute groups as sorted lists of names, sorted."""
+    return sorted(sorted(members) for members in coll.compute_groups.values())
+
+
+def distinct_states(coll):
+    """Each state dict the collection holds once, with its reductions: the members of a
+    compute group share one dict, and a sync ships it once."""
+    seen, states, reductions = set(), [], []
+    for metric in coll.values():
+        if id(metric._state) not in seen:
+            seen.add(id(metric._state))
+            states.append(metric._state)
+            reductions.append(metric._reductions)
+    return states, reductions
+
+
+def members_alias(coll) -> bool:
+    """Every member of every compute group holds its leader's state dict and cache."""
+    return all(coll[name]._state is coll[members[0]]._state and coll[name]._cache is coll[members[0]]._cache
+               for members in coll.compute_groups.values() for name in members)
+
+
+def launch_calls(events) -> int:
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in events if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name)
+
+
+def collection_groups_phase(card: str) -> None:
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+
+    from torchmetrics_tpu_torch.utilities.exceptions import StateCorruptionError
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    batches = [(torch.randn((GROUPS_BATCH, 5), generator=gen, device="cuda"),
+                torch.randint(0, 5, (GROUPS_BATCH,), generator=gen, device="cuda")) for _ in range(GROUPS_UPDATES)]
+    builds = {True: groups_collection(True), False: groups_collection(False)}
+    cpu = groups_collection(True, "cpu")
+    update_ms, launches, device_ms = {}, {}, {}
+    for flag, coll in builds.items():
+        times = []
+        for preds, target in batches:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            coll.update(preds, target)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+        update_ms[flag] = median(times[1:])  # the first update derives the groups
+        probe = coll.clone()
+        events = profile_step(f"collection_update_groups_{flag}", lambda: probe.update(*batches[0]))
+        launches[flag] = launch_calls(events)
+        device_ms[flag] = sum(e.time_range.elapsed_us() for e in events if e.device_type == DeviceType.CUDA) / 1e3
+    for preds, target in batches:
+        cpu.update(preds.cpu(), target.cpu())
+    grouped, plain = builds[True], builds[False]
+    if group_sets(grouped) != EXPECTED_GROUPS or group_sets(cpu) != EXPECTED_GROUPS or plain.compute_groups:
+        raise AssertionError(f"collection_groups: groups {group_sets(grouped)}, want {EXPECTED_GROUPS}")
+    for name in plain.keys(keep_base=True):
+        if not states_equal(grouped[name]._state, plain[name]._state):
+            raise AssertionError(f"collection_groups: {name}'s counts differ with and without groups")
+    values, plain_values = grouped.compute(), plain.compute()
+    if not all(torch.equal(v, plain_values[k]) for k, v in values.items()):
+        raise AssertionError("collection_groups: values differ with and without groups")
+    ratio_diff = hold_against_cpu("collection_groups", values, cpu.compute())
+
+    fwd, alone = grouped.clone(), groups_collection(True)
+    out = fwd(*batches[0])
+    alone.update(*batches[0])
+    if not all(torch.equal(v, alone.compute()[k]) for k, v in out.items()):
+        raise AssertionError("collection_groups: forward's values are not the batch's")
+    grouped.persistent(True)
+    saved = grouped.state_dict()
+    restored = groups_collection(True)
+    restored.load_state_dict(saved)
+    if not all(torch.equal(v, values[k]) for k, v in restored.compute().items()):
+        raise AssertionError("collection_groups: a restored checkpoint computes other values")
+    try:
+        groups_collection(True).load_state_dict({k: v for k, v in saved.items() if k != "f1.tp"})
+        raise AssertionError("collection_groups: a truncated checkpoint loaded")
+    except StateCorruptionError:
+        pass
+    mean = (grouped["acc"] + grouped["f1"]) / 2
+    if not torch.equal(mean.compute(), (grouped["acc"].compute() + grouped["f1"].compute()) / 2):
+        raise AssertionError("collection_groups: (acc + f1) / 2 is not the mean of the members")
+    local = {name: dict(m._state) for name, m in grouped.items(keep_base=True)}
+    clone = grouped.clone()
+    clone.update(*batches[0])
+    if not all(states_equal(m._state, local[n]) for n, m in grouped.items(keep_base=True)) or not members_alias(clone):
+        raise AssertionError("collection_groups: a clone's update reached the original, or the clone lost its groups")
+
+    states, reductions = distinct_states(grouped)
+    expected = expected_collectives(states, reductions)
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_groups_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}/store", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        def sync_once():
+            grouped.sync(distributed_available=lambda: True)
+            torch.cuda.synchronize()
+
+        sync_once()
+        if not members_alias(grouped) or not all(states_equal(m._state, local[n]) for n, m in grouped.items(keep_base=True)):
+            raise AssertionError("collection_groups: the synced members do not alias, or changed at a world of one")
+        grouped.unsync()
+        if not members_alias(grouped):
+            raise AssertionError("collection_groups: the members do not alias after unsync")
+        sync_ms = median_ms(sync_once, after=grouped.unsync)
+        events = profile_step("collection_groups_sync", lambda: (sync_once(), grouped.unsync()), extra=lambda ev: {
+            "collective_ops": count_collective_ops(e.name for e in ev if e.device_type == DeviceType.CPU),
+            "expected_collectives": expected["sync_coalesced"]})
+        traced = count_collective_ops(e.name for e in events if e.device_type == DeviceType.CPU)
+        if traced["total"] != expected["sync_coalesced"]:
+            raise AssertionError(f"collection_groups: the sync traced {traced}, {expected['sync_coalesced']} predicted")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    emit({"phase": "collection_groups", "batch": GROUPS_BATCH, "updates": GROUPS_UPDATES, "classes": 5,
+          "groups": group_sets(grouped), "update_ms": {"groups": update_ms[True], "no_groups": update_ms[False]},
+          "launch_calls_per_update": {"groups": launches[True], "no_groups": launches[False]},
+          "device_ms_per_update": {"groups": device_ms[True], "no_groups": device_ms[False]},
+          "cls_max_ratio_diff": ratio_diff, "sync": {"ms": sync_ms, "traced": traced, "predicted": expected,
+                                                     "bytes_shipped": shipped_bytes(states, reductions)},
+          "card": card})
+
+
 def flagship_forward(cases: dict) -> dict:
     """The 26 sepconv7 launches of one bf16 trunk forward at the flagship's batch: their
     summed times and bound, and their worst error against the plain version."""
@@ -1360,8 +1721,10 @@ def main() -> int:
     host_values = map_host_phase(card, preds, target)
     map_device_phase(card, preds, target, host_values)
     launches_by_path = {"fid": launches["bfloat16"], "flagship": flagship_phase(card, preds, target, host_values["map"])}
-    launches["bfloat16"] = sum(launches_by_path.values())
     flagship_two_ranks_phase(card)
+    launches_by_path["generative"] = generative_phase(card)
+    launches["bfloat16"] = sum(launches_by_path.values())
+    collection_groups_phase(card)
 
     print(card, flush=True)
     kernels = []

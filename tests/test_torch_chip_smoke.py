@@ -269,3 +269,103 @@ def test_fid_state_diff_takes_counts_exactly_and_sums_within_the_trunk_bound(chi
     with pytest.raises(AssertionError, match="real_features_num_samples"):
         chip_smoke.fid_state_diff("count", {**want, "real_features_num_samples": torch.tensor(9, dtype=torch.int32)},
                                   want)
+
+
+def test_kid_bound_is_the_fp64_products_at_published_settings(chip_smoke):
+    """100 subsets x three 1000x2048x1000 products: 1.23 TFLOP, about 18 ms at 67 TFLOP/s."""
+    bound = chip_smoke.kid_bound_ms(100, 1000, 2048, 2048, 2048)
+    assert bound["flops"] == 100 * 3 * 2 * 1000 * 2048 * 1000 and bound["bound_by"] == "operations"
+    assert bound["bound_ms"] == pytest.approx(1e3 * 1.2288e12 / 67e12)
+    tiny = chip_smoke.kid_bound_ms(1, 2, 2048, 10**6, 10**6)  # few products over a large state: bytes
+    assert tiny["bound_by"] == "bytes" and tiny["bound_ms"] == pytest.approx(1e3 * (2 * 10**6 * 2048 * 4 + 8) / 3.35e12)
+
+
+def _groups_rehearsal(chip_smoke):
+    gen = torch.Generator().manual_seed(0)
+    coll = chip_smoke.groups_collection(True, "cpu")
+    for _ in range(2):
+        coll.update(torch.randn((64, 5), generator=gen), torch.randint(0, 5, (64,), generator=gen))
+    return coll
+
+
+def test_collection_groups_rehearsal_forms_the_stated_groups(chip_smoke):
+    coll = _groups_rehearsal(chip_smoke)
+    assert chip_smoke.group_sets(coll) == chip_smoke.EXPECTED_GROUPS
+    assert chip_smoke.members_alias(coll)
+    plain = chip_smoke.groups_collection(False, "cpu")
+    plain.update(torch.zeros((4, 5)), torch.zeros(4, dtype=torch.long))
+    assert chip_smoke.group_sets(plain) == []
+    clone = coll.clone()
+    clone["f1"]._state = dict(clone["f1"]._state)
+    assert not chip_smoke.members_alias(clone)
+
+
+def test_sync_prediction_comes_from_the_distinct_state_dicts(chip_smoke):
+    """The grouped collection holds two dicts (tp/fp/tn/fn and the confusion matrix), the
+    ungrouped one five; both ship one metadata gather and one int32 bucket, and the
+    grouped one 3 x 4 x 5 int32 counts fewer."""
+    grouped = _groups_rehearsal(chip_smoke)
+    plain = chip_smoke.groups_collection(False, "cpu")
+    plain.update(torch.zeros((4, 5)), torch.zeros(4, dtype=torch.long))
+    g_states, g_reds = chip_smoke.distinct_states(grouped)
+    p_states, p_reds = chip_smoke.distinct_states(plain)
+    assert len(g_states) == 2 and len(p_states) == 5
+    assert chip_smoke.expected_collectives(g_states, g_reds)["sync_coalesced"] == 2
+    assert chip_smoke.expected_collectives(p_states, p_reds)["sync_coalesced"] == 2
+    assert chip_smoke.expected_collectives(g_states, g_reds)["leaves"] == 5
+    payload = chip_smoke.shipped_bytes(p_states, p_reds) - chip_smoke.shipped_bytes(g_states, g_reds)
+    assert payload >= 3 * 4 * 5 * 4
+
+
+def test_generative_cpu_twin_and_float64_values(chip_smoke):
+    """The CPU reference holds the card metric's states on a metric whose extractor is
+    never called, and its float64 values round to ``compute()``'s float32 ones."""
+    from torchmetrics_tpu_torch.image import InceptionScore, KernelInceptionDistance, \
+        MemorizationInformedFrechetInceptionDistance
+
+    def extractor(imgs):
+        return imgs.reshape(imgs.shape[0], -1)[:, :8].float()
+
+    gen = torch.Generator().manual_seed(1)
+    imgs = torch.rand((24, 3, 4, 4), generator=gen)
+    built = {
+        "kid": lambda f: KernelInceptionDistance(feature=f, subsets=3, subset_size=10, seed=0, device="cpu"),
+        "mifid": lambda f: MemorizationInformedFrechetInceptionDistance(feature=f, device="cpu"),
+        "is": lambda f: InceptionScore(feature=f, splits=3, seed=0, device="cpu"),
+    }
+    for name, build in built.items():
+        metric = build(extractor)
+        if name == "is":
+            metric.update(imgs)
+        else:
+            metric.update(imgs, real=True)
+            metric.update(imgs ** 2, real=False)
+        twin = chip_smoke.cpu_twin(metric, lambda: build(chip_smoke.Width(8)))
+        value = metric.compute()
+        value = list(value) if isinstance(value, tuple) else [value]
+        f64 = chip_smoke.float64_values(twin, twin._concat_state())
+        assert [float(torch.tensor(v, dtype=torch.float32)) for v in f64] == [float(v) for v in value]
+    with pytest.raises(AssertionError, match="extracts nothing"):
+        chip_smoke.Width(8)(imgs)
+    assert chip_smoke.relative_diff(1.0, 1.0) == 0.0 and chip_smoke.relative_diff(0.5, 0.0) == 0.5
+
+
+def test_logits_head_gives_the_class_count(chip_smoke):
+    head = chip_smoke.LogitsHead(lambda imgs: imgs.reshape(imgs.shape[0], -1)[:, :6],
+                                 torch.ones((6, chip_smoke.IS_CLASSES)))
+    assert head.num_features == 1008 and head(torch.ones((2, 3, 2, 2))).shape == (2, 1008)
+
+
+def test_he_scaled_params_scale_every_conv_weight_by_sqrt2(chip_smoke):
+    import math
+
+    import numpy as np
+
+    from torchmetrics_tpu_torch.image import InceptionV3Features
+
+    params = InceptionV3Features._random_params(0)
+    scaled = chip_smoke.he_scaled(params)
+    stem = scaled["stem1"]
+    np.testing.assert_allclose(stem["w"], params["stem1"]["w"] * math.sqrt(2.0), rtol=1e-6)
+    assert stem["w"].dtype == np.float32 and np.array_equal(stem["var"], params["stem1"]["var"])
+    assert np.array_equal(scaled["mixed_e2"]["pool"]["w"], params["mixed_e2"]["pool"]["w"] * np.float32(math.sqrt(2.0)))

@@ -23,7 +23,13 @@ import torchmetrics_tpu_torch
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.classification import MulticlassAccuracy
 from torchmetrics_tpu_torch import detection
-from torchmetrics_tpu_torch.image import FrechetInceptionDistance, InceptionV3Features
+from torchmetrics_tpu_torch.image import (
+    FrechetInceptionDistance,
+    InceptionScore,
+    InceptionV3Features,
+    KernelInceptionDistance,
+    MemorizationInformedFrechetInceptionDistance,
+)
 from torchmetrics_tpu_torch.utilities.checks import resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -91,9 +97,13 @@ def _toy_extractor(imgs):
         lambda: detection.GeneralizedIntersectionOverUnion(),
         lambda: detection.DistanceIntersectionOverUnion(),
         lambda: detection.CompleteIntersectionOverUnion(),
+        lambda: KernelInceptionDistance(feature=_toy_extractor),
+        lambda: MemorizationInformedFrechetInceptionDistance(feature=_toy_extractor),
+        lambda: InceptionScore(feature=_toy_extractor),
     ],
     ids=["metric", "extractor", "extractor_from_params", "fid", "collection", "resolve_none", "resolve_cuda",
-         "accumulator", "pack", "map", "map_device_backend", "device_map", "iou", "giou", "diou", "ciou"],
+         "accumulator", "pack", "map", "map_device_backend", "device_map", "iou", "giou", "diou", "ciou",
+         "kid", "mifid", "inception_score"],
 )
 def test_default_device_raises_without_cuda(no_cuda, build):
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -5,14 +5,16 @@ paths and imports neither JAX nor anything of the JAX package. Entry points run 
 unless the caller passes ``device="cpu"``.
 """
 
-from . import aggregation, classification, detection, parallel
+from . import aggregation, classification, detection, image, parallel
 from .aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, RunningMean, RunningSum, SumMetric
 from .classification import *  # noqa: F401,F403
-from .collections import MetricCollection
+from .collections import MetricCollection, QuarantinedMetric
 from .detection import *  # noqa: F401,F403
-from .metric import HostMetric, Metric
+from .image import *  # noqa: F401,F403
+from .metric import CompositionalMetric, HostMetric, Metric
 
 __all__ = [
-    "CatMetric", "HostMetric", "MaxMetric", "MeanMetric", "Metric", "MetricCollection", "MinMetric", "RunningMean",
-    "RunningSum", "SumMetric", *classification.__all__, *detection.__all__,
+    "CatMetric", "CompositionalMetric", "HostMetric", "MaxMetric", "MeanMetric", "Metric", "MetricCollection",
+    "MinMetric", "QuarantinedMetric", "RunningMean", "RunningSum", "SumMetric", *classification.__all__,
+    *detection.__all__, *image.__all__,
 ]

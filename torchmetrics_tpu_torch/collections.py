@@ -1,12 +1,22 @@
 """``MetricCollection`` and its pure functional view (counterpart of
-``torchmetrics_tpu/collections.py``: dict construction, ``update``, ``compute``,
-``reset``, the coalesced ``sync``/``unsync`` and ``as_pure`` with
-``PureCollection.reduce``; compute groups and ``on_error`` are not ported yet).
+``torchmetrics_tpu/collections.py``): dict construction, ``update``, ``forward`` and
+``__call__``, ``compute``, ``reset``, compute groups, the ``on_error`` policies, the
+coalesced ``sync``/``unsync``, ``merge_state``, checkpoints (``persistent``,
+``state_dict``, ``load_state_dict``), ``clone``, ``set_dtype``, ``to`` and ``as_pure``
+with ``PureCollection.reduce``.
+
+Compute groups: after the first update, metrics whose states are equal (the same names,
+reductions and values) share one state dict, and only each group's leader runs
+``update``; the other members read the shared dict. ``Metric.reset``, ``Metric.to`` and
+a member's own ``unsync`` assign a new dict, so the collection links the members to
+their leader's dict again after each of them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections import OrderedDict
+from copy import deepcopy
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -14,8 +24,30 @@ import torch
 from .metric import Metric
 from .parallel import coalesce as _coalesce
 from .utilities.checks import resolve_device
-from .utilities.data import _flatten_dict
+from .utilities.data import _flatten_dict, allclose
 from .utilities.exceptions import TorchMetricsUserError
+from .utilities.prints import rank_zero_warn
+
+_ON_ERROR_MODES = ("raise", "skip", "quarantine")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuarantinedMetric:
+    """The marker ``compute()`` (and ``forward``) gives for a metric that failed under
+    ``on_error="quarantine"``, or that failed its compute under ``on_error="skip"``:
+    which metric, at which stage, the last error, and how many updates it had taken."""
+
+    name: str
+    status: str  # "quarantined" (until reset) or "skipped" (this call only)
+    stage: str  # "update", "forward" or "compute"
+    error: str  # repr of the exception
+    update_count: int
+
+    def __repr__(self) -> str:
+        return (
+            f"QuarantinedMetric({self.name!r}, status={self.status!r}, stage={self.stage!r}, "
+            f"after {self.update_count} updates: {self.error})"
+        )
 
 
 def _flatten_with_naming(res: Dict[str, Any], set_name) -> Dict[str, Any]:
@@ -32,8 +64,18 @@ def _flatten_with_naming(res: Dict[str, Any], set_name) -> Dict[str, Any]:
 
 
 class MetricCollection:
-    """Dict of metrics with one update/compute/reset. Members are moved to the
+    """Dict of metrics with one update/forward/compute/reset. Members are moved to the
     collection's ``device`` (``None`` means ``"cuda"``).
+
+    ``compute_groups``: ``True`` (default) derives groups of metrics with equal states
+    after the first update, a list of lists of names fixes them, ``False`` turns them off.
+
+    ``on_error``: ``"raise"`` (default) lets a member's error propagate. ``"skip"``: the
+    failing member misses that batch (with a warning), and a compute failure gives a
+    :class:`QuarantinedMetric` for that key only. ``"quarantine"``: the failing member is
+    frozen at its last good state, split out of its compute group, left out of further
+    updates and reported as a :class:`QuarantinedMetric` by ``compute()``; ``reset()``
+    lifts it.
 
     Example:
         >>> import torch
@@ -46,6 +88,8 @@ class MetricCollection:
         >>> collection.update(preds, target)
         >>> {k: round(float(v), 4) for k, v in collection.compute().items()}
         {'acc': 1.0, 'f1': 1.0}
+        >>> collection.compute_groups
+        {0: ['acc', 'f1']}
     """
 
     def __init__(
@@ -54,12 +98,22 @@ class MetricCollection:
         *additional_metrics: Metric,
         prefix: Optional[str] = None,
         postfix: Optional[str] = None,
+        compute_groups: Union[bool, List[List[str]]] = True,
+        on_error: str = "raise",
         device: Optional[Union[str, torch.device]] = None,
     ) -> None:
         self.device = resolve_device(device)
         self._modules: "OrderedDict[str, Metric]" = OrderedDict()
         self.prefix = self._check_arg(prefix, "prefix")
         self.postfix = self._check_arg(postfix, "postfix")
+        self._enable_compute_groups = compute_groups
+        self._groups_checked = False
+        self._groups: Dict[int, List[str]] = {}
+        if on_error not in _ON_ERROR_MODES:
+            raise ValueError(f"Expected `on_error` to be one of {_ON_ERROR_MODES}, got {on_error!r}")
+        self.on_error = on_error
+        self._quarantined: Dict[str, Tuple[str, BaseException]] = {}  # name -> (stage, exception)
+        self._degraded = False  # a failure split a group since the last reset
         self.add_metrics(metrics, *additional_metrics)
 
     @staticmethod
@@ -91,6 +145,7 @@ class MetricCollection:
             if name in self._modules:
                 raise ValueError(f"Encountered two metrics both named {name}")
             self._modules[name] = metric.to(self.device)
+        self._groups_checked = False
 
     def keys(self, keep_base: bool = False) -> Iterable[str]:
         if keep_base:
@@ -121,9 +176,222 @@ class MetricCollection:
         name = base if self.prefix is None else self.prefix + base
         return name if self.postfix is None else name + self.postfix
 
+    # ------------------------------------------------------------ compute groups
+
+    @property
+    def compute_groups(self) -> Dict[int, List[str]]:
+        return self._groups
+
+    def _init_compute_groups(self) -> None:
+        """One group per metric, or the explicit lists; quarantined metrics join none."""
+        if isinstance(self._enable_compute_groups, list):
+            for members in self._enable_compute_groups:
+                for name in members:
+                    if name not in self._modules:
+                        raise ValueError(
+                            f"Input {name} in `compute_groups` argument does not match a metric in the collection."
+                        )
+            kept = ([n for n in members if n not in self._quarantined] for members in self._enable_compute_groups)
+            self._groups = dict(enumerate(members for members in kept if members))
+        elif self._enable_compute_groups:
+            self._groups = dict(enumerate([name] for name in self._modules if name not in self._quarantined))
+        else:
+            self._groups = {}
+
+    @staticmethod
+    def _equal_metric_states(metric1: Metric, metric2: Metric) -> bool:
+        """The same state names, reductions, shapes and values (``allclose``)."""
+        if not metric1._defaults or not metric2._defaults:
+            return False
+        if metric1._defaults.keys() != metric2._defaults.keys():
+            return False
+        if {k: str(v) for k, v in metric1._reductions.items()} != {k: str(v) for k, v in metric2._reductions.items()}:
+            return False
+        for key in metric1._defaults:
+            s1, s2 = metric1._state[key], metric2._state[key]
+            if isinstance(s1, list) != isinstance(s2, list):
+                return False
+            pairs = list(zip(s1, s2)) if isinstance(s1, list) else [(s1, s2)]
+            if isinstance(s1, list) and len(s1) != len(s2):
+                return False
+            if not all(a.shape == b.shape and allclose(a, b) for a, b in pairs):
+                return False
+        return True
+
+    def _merge_compute_groups(self) -> None:
+        """Merge groups pairwise while two leaders have equal states."""
+        merged = True
+        while merged:
+            merged = False
+            ids = list(self._groups)
+            for i, first in enumerate(ids):
+                for second in ids[i + 1:]:
+                    leader1 = self._modules[self._groups[first][0]]
+                    leader2 = self._modules[self._groups[second][0]]
+                    if self._equal_metric_states(leader1, leader2):
+                        self._groups[first].extend(self._groups.pop(second))
+                        merged = True
+                        break
+                if merged:
+                    break
+        self._groups = dict(enumerate(self._groups.values()))
+
+    def _compute_groups_create_state_ref(self) -> None:
+        """Members alias their leader's state dict."""
+        for members in self._groups.values():
+            leader = self._modules[members[0]]
+            for name in members[1:]:
+                self._modules[name]._state = leader._state
+
+    def _relink_groups(self) -> None:
+        if self._groups_checked and self._groups:
+            self._compute_groups_create_state_ref()
+
+    def _derive_groups(self) -> None:
+        """After the first clean batch: form the groups and alias their states."""
+        if self._enable_compute_groups and not self._groups_checked:
+            self._init_compute_groups()
+            if not isinstance(self._enable_compute_groups, list):
+                self._merge_compute_groups()
+            self._compute_groups_create_state_ref()
+        self._groups_checked = True
+
+    # ----------------------------------------------------------- on_error
+
+    @property
+    def quarantined(self) -> Dict[str, BaseException]:
+        """The quarantined metrics: name -> last exception (empty when healthy)."""
+        return {name: exc for name, (_, exc) in self._quarantined.items()}
+
+    def _status_marker(self, name: str) -> QuarantinedMetric:
+        stage, exc = self._quarantined[name]
+        return QuarantinedMetric(name, "quarantined", stage, repr(exc), self._modules[name]._update_count)
+
+    def _failure_marker(self, name: str, stage: str, exc: BaseException) -> QuarantinedMetric:
+        status = "quarantined" if name in self._quarantined else "skipped"
+        return QuarantinedMetric(name, status, stage, repr(exc), self._modules[name]._update_count)
+
+    @staticmethod
+    def _state_backup(metric: Metric) -> Dict[str, Any]:
+        """Value copies of a metric's tensor states and copies of its lists' containers
+        (so a failed batch's appends can be rolled back)."""
+        return {k: list(v) if isinstance(v, list) else v.clone() for k, v in metric._state.items()}
+
+    @staticmethod
+    def _state_restore(metric: Metric, backup: Dict[str, Any]) -> None:
+        """Roll a metric back to a backup in place: group members alias the dict."""
+        metric._state.clear()
+        metric._state.update(backup)
+        metric._computed = None
+
+    def _detach_from_group(self, name: str) -> None:
+        """Split ``name`` out of its compute group with a state dict of its own."""
+        metric = self._modules[name]
+        metric._state = self._state_backup(metric)
+        metric._computed = None
+        for gid, members in list(self._groups.items()):
+            if name in members:
+                members.remove(name)
+                if not members:
+                    del self._groups[gid]
+                break
+
+    def _handle_metric_error(self, name: str, exc: BaseException, stage: str) -> None:
+        """Degrade by the policy (never called under ``on_error="raise"``)."""
+        self._detach_from_group(name)
+        self._degraded = True
+        if self.on_error == "quarantine":
+            self._quarantined[name] = (stage, exc)
+            rank_zero_warn(
+                f"Metric {name!r} failed during {stage} and was quarantined "
+                f"(on_error='quarantine'); the rest of the collection continues: {exc!r}",
+                UserWarning,
+            )
+        else:  # skip: misses this batch only and goes on as a group of its own
+            if self._groups_checked and self._enable_compute_groups:
+                self._groups[max(self._groups, default=-1) + 1] = [name]
+            rank_zero_warn(
+                f"Metric {name!r} failed during {stage} and was skipped for this batch (on_error='skip'): {exc!r}",
+                UserWarning,
+            )
+
+    def _attempt(self, name: str, stage: str, call):
+        """``call()`` under the policy: the metric's error propagates under "raise";
+        otherwise its state rolls back, the policy degrades it, and this returns
+        ``(False, marker)``. Returns ``(True, value)`` on success."""
+        if self.on_error == "raise":
+            return True, call()
+        metric = self._modules[name]
+        backup = self._state_backup(metric)
+        try:
+            return True, call()
+        except Exception as exc:  # noqa: BLE001 -- the policy decides
+            self._state_restore(metric, backup)
+            self._handle_metric_error(name, exc, stage)
+            return False, self._failure_marker(name, stage, exc)
+
+    # --------------------------------------------------------------- lifecycle
+
+    def _run_group(self, members: List[str], res: Optional[Dict[str, Any]], args: tuple, kwargs: dict) -> None:
+        """One compute group: the leader updates (``res is None``) or forwards; members
+        take its count and, in ``forward``, their value from its batch state. When the
+        leader fails under a degrading policy, the next member leads this batch."""
+        stage = "update" if res is None else "forward"
+        while members:
+            name = members[0]
+            leader = self._modules[name]
+            run = leader.update if res is None else leader.forward
+            ok, value = self._attempt(name, stage, lambda: run(*args, **leader._filter_kwargs(**kwargs)))
+            if res is not None:
+                res[name] = value
+            if not ok:
+                continue
+            for mname in list(members[1:]):
+                member = self._modules[mname]
+                # the shared state already holds this batch: take the count first, or
+                # count-weighted ("mean") states would skew after a detach
+                member._update_count = leader._update_count
+                member._computed = None
+                if res is not None:
+                    res[mname] = self._attempt(mname, stage, lambda: member._compute(leader._last_batch_state))[1]
+            return
+
+    def _run(self, res: Optional[Dict[str, Any]], args: tuple, kwargs: dict) -> None:
+        """``update`` (``res is None``) or ``forward`` over the collection."""
+        if self._groups_checked and self._groups:
+            for members in list(self._groups.values()):
+                self._run_group(members, res, args, kwargs)
+            return
+        failed = False
+        stage = "update" if res is None else "forward"
+        for name, metric in list(self._modules.items()):
+            if name in self._quarantined:
+                if res is not None:
+                    res[name] = self._status_marker(name)
+                continue
+            run = metric.update if res is None else metric.forward
+            ok, value = self._attempt(name, stage, lambda: run(*args, **metric._filter_kwargs(**kwargs)))
+            failed = failed or not ok
+            if res is not None:
+                res[name] = value
+        # a batch with a rolled-back metric must not seed the groups: its default
+        # states would look equal to any other metric's
+        if not (failed and not self._groups_checked):
+            self._derive_groups()
+
     def update(self, *args: Any, **kwargs: Any) -> None:
-        for metric in self._modules.values():
-            metric.update(*args, **metric._filter_kwargs(**kwargs))
+        """Fold one batch into every metric (only group leaders run)."""
+        self._run(None, args, kwargs)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Every metric's value on this batch, with the batch folded into the states."""
+        res: Dict[str, Any] = {}
+        self._run(res, args, kwargs)
+        for name in self._quarantined:
+            res.setdefault(name, self._status_marker(name))
+        return _flatten_with_naming({name: res[name] for name in self._modules if name in res}, self._set_name)
+
+    __call__ = forward
 
     def compute(self) -> Dict[str, Any]:
         # coalesced pre-sync: every member that would sync inside its own compute()
@@ -131,17 +399,27 @@ class MetricCollection:
         # member (members see _is_synced and skip theirs); unsync restores them after
         presynced = self._presync_for_compute()
         try:
-            res = {name: m.compute() for name, m in self._modules.items()}
+            res: Dict[str, Any] = {}
+            for name, metric in self._modules.items():
+                if name in self._quarantined:
+                    res[name] = self._status_marker(name)
+                else:
+                    res[name] = self._attempt(name, "compute", metric.compute)[1]
         finally:
             for metric in presynced:
                 if metric._is_synced:
                     metric.unsync()
+            self._relink_groups()  # a member's own sync and unsync replace its dict
         return _flatten_with_naming(res, self._set_name)
 
     def _presync_for_compute(self) -> List[Metric]:
         """Coalesce the ``sync_on_compute`` syncs of all members into one bucketed
-        sync; where the fast path cannot serve them, members sync themselves inside
-        ``compute()`` as before. Returns the members this call synced."""
+        sync, under ``on_error="raise"`` only (the degrading policies attribute a failure
+        to one member, which a shared collective cannot); where the fast path cannot
+        serve them, members sync themselves inside ``compute()``. Returns the members
+        this call synced."""
+        if self.on_error != "raise":
+            return []
         members = [
             m
             for m in self._modules.values()
@@ -158,14 +436,25 @@ class MetricCollection:
     def reset(self) -> None:
         for metric in self._modules.values():
             metric.reset()
+        if self._quarantined or self._degraded:
+            # lift the quarantine and forget the failure-driven splits: the groups
+            # derive again on the next update, each metric on a dict of its own
+            self._quarantined.clear()
+            self._degraded = False
+            self._groups = {}
+            self._groups_checked = False
+        else:
+            self._relink_groups()
+
+    # -------------------------------------------------------------------- sync
 
     def sync(self, async_: bool = False, **kwargs: Any) -> None:
-        """Sync every member across processes. Fast path: all members' states coalesce
-        into one bucketed collective set (one metadata all-gather and one padded
-        all-gather per dtype, in place of two collectives per leaf). Members that
-        disagree on the gather seam (``dist_sync_fn``, ``process_group``, availability)
-        or override ``sync`` are synced one by one with ``Metric.sync``. ``kwargs`` are
-        ``Metric.sync``'s."""
+        """Sync every member across processes. Fast path: the states coalesce into one
+        bucketed collective set (one metadata all-gather and one padded all-gather per
+        dtype, in place of two collectives per leaf), and the members of a compute group,
+        who share one state dict, ship it once. Members that disagree on the gather seam
+        (``dist_sync_fn``, ``process_group``, availability) or override ``sync`` are
+        synced one by one with ``Metric.sync``. ``kwargs`` are ``Metric.sync``'s."""
         if async_:
             raise NotImplementedError(
                 "sync(async_=True) belongs to the streaming plane (parallel/async_sync.py), which is not ported yet"
@@ -203,22 +492,119 @@ class MetricCollection:
             return False
         if not avails.pop():
             return True  # nowhere to sync: the same no-op as the per-member path
+        # compute-group members alias one state dict: gather each distinct dict once
+        # (plain lists keyed by id: Metric.__eq__ builds a CompositionalMetric)
+        holders: "OrderedDict[int, List[Metric]]" = OrderedDict()
+        for m in metrics:
+            holders.setdefault(id(m._state), []).append(m)
         try:
             synced = _coalesce.coalesced_process_sync(
-                [m._state for m in metrics], [m._reductions for m in metrics],
+                [ms[0]._state for ms in holders.values()], [ms[0]._reductions for ms in holders.values()],
                 process_group=process_group or metrics[0].process_group,
                 dist_sync_fn=dist_sync_fn or metrics[0].dist_sync_fn,
             )
         except _coalesce.CoalesceFallback:
             return False  # nothing committed; the per-member path syncs from scratch
-        for metric, state in zip(metrics, synced):
-            metric._commit_synced(state)
+        # one synced dict and one shared cache per distinct dict: members keep
+        # aliasing through sync and unsync
+        for (holder, *aliased), state in zip(holders.values(), synced):
+            holder._commit_synced(state)
+            for m in aliased:
+                m._cache, m._state, m._is_synced = holder._cache, holder._state, True
         return True
 
     def unsync(self, **kwargs: Any) -> None:
         """Restore every member's local states (``Metric.unsync``'s ``kwargs``)."""
         for metric in self._modules.values():
             metric.unsync(**kwargs)
+        self._relink_groups()
+
+    def merge_state(self, incoming: "MetricCollection") -> None:
+        """Fold another collection's states into this one, member by member, without
+        communication. Each compute group folds once, through its first member healthy
+        on both sides, and its members alias the result; quarantined metrics do not fold."""
+        if not isinstance(incoming, MetricCollection):
+            raise ValueError(f"Expected a MetricCollection, got {type(incoming).__name__}")
+        mine, theirs = dict(self._modules), dict(incoming._modules)
+        if set(mine) != set(theirs):
+            raise ValueError(f"Cannot merge collections with different metrics: {sorted(set(mine) ^ set(theirs))}")
+        frozen = set(self._quarantined) | set(incoming._quarantined)
+        if frozen:
+            rank_zero_warn(
+                f"merge_state skipping quarantined metrics {sorted(frozen)}: their states are "
+                "frozen at the last good value and must not fold.",
+                UserWarning,
+            )
+        grouped = set()
+        if self._groups_checked and self._groups:
+            for members in self._groups.values():
+                grouped.update(members)
+                live = [n for n in members if n not in frozen]
+                if not live:
+                    rank_zero_warn(
+                        f"merge_state: compute group {members} has no member healthy on "
+                        "both sides; the incoming contribution of this group is dropped.",
+                        UserWarning,
+                    )
+                    continue
+                leader = mine[live[0]]
+                leader.merge_state(theirs[live[0]])
+                for name in members:
+                    if name != live[0]:
+                        mine[name]._state, mine[name]._update_count = leader._state, leader._update_count
+                        mine[name]._computed = None
+        for name, metric in mine.items():
+            if name not in grouped and name not in frozen:
+                metric.merge_state(theirs[name])
+
+    # ------------------------------------------------------ copies and checkpoints
+
+    def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
+        """An independent copy, optionally with a new prefix or postfix."""
+        mc = deepcopy(self)
+        if prefix:
+            mc.prefix = self._check_arg(prefix, "prefix")
+        if postfix:
+            mc.postfix = self._check_arg(postfix, "postfix")
+        return mc
+
+    def __deepcopy__(self, memo: dict) -> "MetricCollection":
+        new = type(self).__new__(type(self))
+        memo[id(self)] = new
+        for k, v in self.__dict__.items():
+            setattr(new, k, deepcopy(v, memo))
+        new._relink_groups()  # members copy their states apart: alias them again in the copy
+        return new
+
+    def persistent(self, mode: bool = True) -> None:
+        for metric in self._modules.values():
+            metric.persistent(mode)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Every member's ``state_dict`` under the prefix ``"<name>."``."""
+        out: Dict[str, Any] = {}
+        for name, metric in self._modules.items():
+            metric.state_dict(out, prefix=f"{name}.")
+        return out
+
+    def load_state_dict(self, state_dict: Dict[str, Any], validate: bool = True) -> None:
+        """Every member's ``load_state_dict`` from its ``"<name>."`` slice, each slice
+        held to the checkpoint guard first under ``validate``."""
+        for name, metric in self._modules.items():
+            metric.load_state_dict(state_dict, prefix=f"{name}.", validate=validate)
+
+    def set_dtype(self, dst_type: torch.dtype) -> "MetricCollection":
+        for metric in self._modules.values():
+            metric.set_dtype(dst_type)
+        return self
+
+    def to(self, device: Union[str, torch.device]) -> "MetricCollection":
+        """Move every member to ``device`` (in place); returns ``self``."""
+        self.device = resolve_device(device)
+        for metric in self._modules.values():
+            metric.to(self.device)
+        self._relink_groups()
+        return self
 
     def as_pure(self) -> "PureCollection":
         """The collection as pure functions over a dict of states:

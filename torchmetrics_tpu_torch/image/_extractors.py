@@ -8,10 +8,11 @@ dtype once. Every 1x7 and 7x1 conv (26 per forward, Mixed_6b-6e and Mixed_7a) ru
 hand-written ``sepconv7`` kernel; every other conv is ``F.conv2d``, as the JAX package
 leaves those to XLA's ``lax.conv``.
 
-Parameters load from the pickle that ``torchmetrics_tpu``'s
-``convert_torchvision_inception_weights`` writes (raw ``{w, scale, bias, mean, var}``
-or folded ``{w, b}`` leaves, numpy arrays), from such a pytree directly
-(``from_numpy_params``), or from a random init seeded with ``seed``.
+Parameters load from the pickle that ``convert_torchvision_inception_weights`` (below;
+the JAX package's converter writes the same file) makes from a torchvision
+``inception_v3`` state dict (raw ``{w, scale, bias, mean, var}`` or folded ``{w, b}``
+leaves, numpy arrays), from such a pytree directly (``from_numpy_params``), or from a
+random init seeded with ``seed``.
 """
 
 from __future__ import annotations
@@ -207,7 +208,7 @@ class InceptionV3Features(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         if weights_path is not None:
-            with open(weights_path, "rb") as f:  # a pickle this project's converter wrote
+            with open(weights_path, "rb") as f:  # a pickle convert_torchvision_inception_weights wrote
                 params = pickle.load(f)
         else:
             params = self._random_params(seed)
@@ -332,6 +333,80 @@ class InceptionV3Features(nn.Module):
         }
 
 
+def convert_torchvision_inception_weights(state_dict: Dict[str, Any], out_path: str) -> None:
+    """Convert a torchvision ``inception_v3`` state dict (tensors or numpy arrays) into
+    the pickle of numpy arrays that ``InceptionV3Features(weights_path=...)`` loads. It
+    needs numpy and pickle only; run it where the torchvision weights are."""
+
+    def conv(prefix):
+        return {
+            "w": np.asarray(state_dict[f"{prefix}.conv.weight"]),
+            "scale": np.asarray(state_dict[f"{prefix}.bn.weight"]),
+            "bias": np.asarray(state_dict[f"{prefix}.bn.bias"]),
+            "mean": np.asarray(state_dict[f"{prefix}.bn.running_mean"]),
+            "var": np.asarray(state_dict[f"{prefix}.bn.running_var"]),
+        }
+
+    params = {
+        "stem1": conv("Conv2d_1a_3x3"),
+        "stem2": conv("Conv2d_2a_3x3"),
+        "stem3": conv("Conv2d_2b_3x3"),
+        "stem4": conv("Conv2d_3b_1x1"),
+        "stem5": conv("Conv2d_4a_3x3"),
+    }
+    for i, name in enumerate(("Mixed_5b", "Mixed_5c", "Mixed_5d"), start=1):
+        params[f"mixed_a{i}"] = {
+            "b1": conv(f"{name}.branch1x1"),
+            "b5_1": conv(f"{name}.branch5x5_1"),
+            "b5_2": conv(f"{name}.branch5x5_2"),
+            "b3_1": conv(f"{name}.branch3x3dbl_1"),
+            "b3_2": conv(f"{name}.branch3x3dbl_2"),
+            "b3_3": conv(f"{name}.branch3x3dbl_3"),
+            "pool": conv(f"{name}.branch_pool"),
+        }
+    params["mixed_b"] = {
+        "b3": conv("Mixed_6a.branch3x3"),
+        "b3d_1": conv("Mixed_6a.branch3x3dbl_1"),
+        "b3d_2": conv("Mixed_6a.branch3x3dbl_2"),
+        "b3d_3": conv("Mixed_6a.branch3x3dbl_3"),
+    }
+    for i, name in enumerate(("Mixed_6b", "Mixed_6c", "Mixed_6d", "Mixed_6e"), start=1):
+        params[f"mixed_c{i}"] = {
+            "b1": conv(f"{name}.branch1x1"),
+            "b7_1": conv(f"{name}.branch7x7_1"),
+            "b7_2": conv(f"{name}.branch7x7_2"),
+            "b7_3": conv(f"{name}.branch7x7_3"),
+            "b7d_1": conv(f"{name}.branch7x7dbl_1"),
+            "b7d_2": conv(f"{name}.branch7x7dbl_2"),
+            "b7d_3": conv(f"{name}.branch7x7dbl_3"),
+            "b7d_4": conv(f"{name}.branch7x7dbl_4"),
+            "b7d_5": conv(f"{name}.branch7x7dbl_5"),
+            "pool": conv(f"{name}.branch_pool"),
+        }
+    params["mixed_d"] = {
+        "b3_1": conv("Mixed_7a.branch3x3_1"),
+        "b3_2": conv("Mixed_7a.branch3x3_2"),
+        "b7_1": conv("Mixed_7a.branch7x7x3_1"),
+        "b7_2": conv("Mixed_7a.branch7x7x3_2"),
+        "b7_3": conv("Mixed_7a.branch7x7x3_3"),
+        "b7_4": conv("Mixed_7a.branch7x7x3_4"),
+    }
+    for i, name in enumerate(("Mixed_7b", "Mixed_7c"), start=1):
+        params[f"mixed_e{i}"] = {
+            "b1": conv(f"{name}.branch1x1"),
+            "b3_1": conv(f"{name}.branch3x3_1"),
+            "b3_2a": conv(f"{name}.branch3x3_2a"),
+            "b3_2b": conv(f"{name}.branch3x3_2b"),
+            "b3d_1": conv(f"{name}.branch3x3dbl_1"),
+            "b3d_2": conv(f"{name}.branch3x3dbl_2"),
+            "b3d_3a": conv(f"{name}.branch3x3dbl_3a"),
+            "b3d_3b": conv(f"{name}.branch3x3dbl_3b"),
+            "pool": conv(f"{name}.branch_pool"),
+        }
+    with open(out_path, "wb") as f:
+        pickle.dump(params, f)
+
+
 def resolve_feature_extractor(
     feature: Any,
     normalize: bool,
@@ -352,7 +427,8 @@ def resolve_feature_extractor(
         if weights_path is None:
             raise ModuleNotFoundError(
                 "The integer `feature` selector needs converted InceptionV3 weights. Convert them offline "
-                "with `convert_torchvision_inception_weights` and pass `feature_extractor_weights_path`, "
+                "with `torchmetrics_tpu_torch.image.convert_torchvision_inception_weights` and pass "
+                "`feature_extractor_weights_path`, "
                 "or pass an extractor callable (e.g. `InceptionV3Features()` for random-weight throughput tests)."
             )
         return InceptionV3Features(weights_path, resize_antialias=antialias, device=device), 2048, False

@@ -16,20 +16,31 @@ Sync runs over ``torch.distributed`` (``parallel/``): ``compute`` syncs the stat
 across processes when ``sync_on_compute`` holds and more than one process is attached,
 ``sync``/``unsync`` swap the synced states in and out, ``merge_state`` folds another
 metric's states without communication, and ``reduce_state`` reduces a state dict over a
-process group. Not here yet: the reliability, telemetry and AOT hooks, and the
-serving and streaming planes. ``HostMetric`` is the base of the metrics whose batch
-contribution is built on the host (detection's ragged per-image inputs).
+process group. ``load_state_dict`` runs the structural checkpoint guard
+(``reliability/guards.py``) before it adopts anything. Metrics compose with the
+arithmetic operators into a ``CompositionalMetric``; ``clone``, ``copy.deepcopy`` and
+pickling copy the states by value. Not here yet: the reliability plane's retry and sync
+guards, the telemetry and AOT hooks, and the serving and streaming planes.
+``HostMetric`` is the base of the metrics whose batch contribution is built on the host
+(detection's ragged per-image inputs).
+
+Trap: ``==`` between metrics builds a ``CompositionalMetric`` (a truthy object), as in
+the JAX package, so ``metric in a_list``, ``a_list.remove(metric)``, ``a_list.index``
+and dicts or sets keyed by metrics go wrong without an error. Compare metrics by
+identity (``is``, ``id()``).
 """
 
 from __future__ import annotations
 
 import inspect
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+from copy import deepcopy
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .parallel import sync as _sync
+from .reliability.guards import validate_restored
 from .utilities.checks import resolve_device
 from .utilities.data import dim_zero_cat
 from .utilities.exceptions import TorchMetricsUserError
@@ -66,7 +77,8 @@ class Metric:
                 return state["total"]
 
     Keyword arguments: ``device`` (default ``None``, which means ``"cuda"``; without
-    CUDA pass ``device="cpu"`` explicitly), ``compute_with_cache``, and the sync
+    CUDA pass ``device="cpu"`` explicitly), ``compute_with_cache``, ``compute_on_cpu``
+    (list-state appends go to the host, where they do not hold the card's memory), and the sync
     keywords of the JAX package: ``dist_sync_on_step`` (``forward`` returns the value
     synced across processes), ``process_group`` (a ``torch.distributed`` group; the
     default group if None), ``dist_sync_fn`` (``fn(value, group) -> list of values``,
@@ -85,6 +97,8 @@ class Metric:
 
     def __init__(self, **kwargs: Any) -> None:
         self._device = resolve_device(kwargs.pop("device", None))
+        self._dtype = None
+        self.compute_on_cpu = kwargs.pop("compute_on_cpu", False)
         self.compute_with_cache = kwargs.pop("compute_with_cache", True)
         self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
         if not isinstance(self.dist_sync_on_step, bool):
@@ -238,9 +252,13 @@ class Metric:
         for k, v in merged.items():
             self._state[k] = v.to(self._state[k].dtype) if k in self._state else v
         for k in lists & batch.keys():
-            self._state[k].append(batch[k])
+            self._append_list_state(k, batch[k])
         self._update_count += 1
         self._computed = None
+
+    def _append_list_state(self, name: str, value: Any) -> None:
+        """Append one batch to a concat state; under ``compute_on_cpu`` on the host."""
+        self._state[name].append(value.cpu() if self.compute_on_cpu and isinstance(value, torch.Tensor) else value)
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Accumulate this batch into the global state."""
@@ -269,9 +287,12 @@ class Metric:
         args, kwargs = self._prepare_inputs(*args, **kwargs)
         batch = self._batch_state(*args, **kwargs)
         self._fold(batch)
-        for k, default in self._defaults.items():  # tensor states the batch does not touch
-            if k not in batch and not isinstance(default, list):
-                batch[k] = default
+        for k, default in self._defaults.items():  # states the batch does not touch
+            if k not in batch:
+                batch[k] = torch.zeros((0,), device=self._device) if isinstance(default, list) else default
+        # the batch's whole state: compute-group members of a collection take their
+        # batch value from it
+        self._last_batch_state = batch
         return self._compute(batch)
 
     __call__ = forward
@@ -434,7 +455,16 @@ class Metric:
             destination[prefix + "_saved_states"] = len(saved)
         return destination
 
-    def load_state_dict(self, state_dict: dict, prefix: str = "") -> None:
+    def load_state_dict(
+        self, state_dict: dict, prefix: str = "", validate: bool = True, check_finite: bool = False
+    ) -> None:
+        """Adopt the states of ``state_dict`` under ``prefix``. With ``validate`` (the
+        default) the structural guard runs first: a checkpoint that lost keys or holds a
+        partially written state raises ``StateCorruptionError`` and nothing is adopted;
+        ``validate=False`` forces a partial load. ``check_finite`` also scans floating
+        states for NaN and Inf (off by default: a cat state may carry NaN by design)."""
+        if validate:
+            validate_restored(self, state_dict, prefix, check_finite=check_finite)
         loaded = False
         for name in self._defaults:
             key = prefix + name
@@ -458,6 +488,77 @@ class Metric:
                 ))
             self._computed = None
 
+    # ------------------------------------------------------------- copies
+
+    def clone(self) -> "Metric":
+        """An independent copy: states are copied by value."""
+        return deepcopy(self)
+
+    def __deepcopy__(self, memo: dict) -> "Metric":
+        # attributes go in through object.__setattr__: __setattr__ and __getattr__
+        # look into _state, which the new object does not have yet
+        new = type(self).__new__(type(self))
+        memo[id(self)] = new
+        for k, v in self.__dict__.items():
+            if k in ("_state", "_cache"):
+                value = None if v is None else {
+                    n: [t.clone() for t in s] if isinstance(s, list) else s.clone() for n, s in v.items()
+                }
+            elif k in ("_defaults", "_reductions", "_persistent"):
+                value = dict(v)
+            else:
+                try:
+                    value = deepcopy(v, memo)
+                except TypeError:  # a member that cannot be copied (a process group) is shared
+                    value = v
+            object.__setattr__(new, k, value)
+        return new
+
+    def __getstate__(self) -> dict:
+        state = dict(self.__dict__)
+        state.update(_cache=None, _computed=None, dist_sync_fn=None)  # callables and caches stay behind
+        state.pop("_last_batch_state", None)
+        state.pop("distributed_available_fn", None)
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self.__dict__["distributed_available_fn"] = _sync.distributed_available
+
+    # --------------------------------------------------------------- dtype
+
+    def set_dtype(self, dst_type: torch.dtype) -> "Metric":
+        """Cast the floating states and defaults to ``dst_type``; integer states keep
+        their dtype."""
+
+        def cast(x):
+            return x.to(dst_type) if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+
+        def cast_leaf(v):
+            return [cast(t) for t in v] if isinstance(v, list) else cast(v)
+
+        self._state.update({k: cast_leaf(v) for k, v in self._state.items()})
+        self._defaults = {k: cast_leaf(v) for k, v in self._defaults.items()}
+        self._dtype = dst_type
+        self._computed = None
+        return self
+
+    @property
+    def dtype(self) -> Optional[torch.dtype]:
+        return self._dtype
+
+    @property
+    def update_called(self) -> bool:
+        return self._update_count > 0
+
+    @property
+    def update_count(self) -> int:
+        return self._update_count
+
+    @property
+    def metric_state(self) -> StateDict:
+        return {k: list(v) if isinstance(v, list) else v for k, v in self._state.items()}
+
     # ---------------------------------------------------------------- helpers
 
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
@@ -468,8 +569,55 @@ class Metric:
         names = {n for n, p in params.items() if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)}
         return {k: v for k, v in kwargs.items() if k in names}
 
+    def __hash__(self) -> int:
+        """From the ids of the state objects: it changes when an update replaces them."""
+        hash_vals = [type(self).__name__]
+        for key in self._defaults:
+            val = self._state[key]
+            if isinstance(val, list):
+                hash_vals.extend(id(v) for v in val)
+            else:
+                hash_vals.append(id(val))
+        return hash(tuple(hash_vals))
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}()"
+
+    def __abs__(self): return CompositionalMetric(torch.abs, self, None)
+    def __add__(self, other): return CompositionalMetric(torch.add, self, other)
+    def __and__(self, other): return CompositionalMetric(torch.bitwise_and, self, other)
+    def __eq__(self, other): return CompositionalMetric(torch.eq, self, other)  # type: ignore[override]
+    def __floordiv__(self, other): return CompositionalMetric(torch.floor_divide, self, other)
+    def __ge__(self, other): return CompositionalMetric(torch.greater_equal, self, other)
+    def __gt__(self, other): return CompositionalMetric(torch.greater, self, other)
+    def __le__(self, other): return CompositionalMetric(torch.less_equal, self, other)
+    def __lt__(self, other): return CompositionalMetric(torch.less, self, other)
+    def __matmul__(self, other): return CompositionalMetric(torch.matmul, self, other)
+    def __mod__(self, other): return CompositionalMetric(torch.remainder, self, other)
+    def __mul__(self, other): return CompositionalMetric(torch.multiply, self, other)
+    def __ne__(self, other): return CompositionalMetric(torch.not_equal, self, other)  # type: ignore[override]
+    def __neg__(self): return CompositionalMetric(torch.negative, self, None)
+    def __or__(self, other): return CompositionalMetric(torch.bitwise_or, self, other)
+    def __pos__(self): return CompositionalMetric(torch.abs, self, None)  # abs, as in the JAX package
+    def __pow__(self, other): return CompositionalMetric(torch.pow, self, other)
+    def __radd__(self, other): return CompositionalMetric(torch.add, other, self)
+    def __rand__(self, other): return CompositionalMetric(torch.bitwise_and, other, self)
+    def __rfloordiv__(self, other): return CompositionalMetric(torch.floor_divide, other, self)
+    def __rmatmul__(self, other): return CompositionalMetric(torch.matmul, other, self)
+    def __rmod__(self, other): return CompositionalMetric(torch.remainder, other, self)
+    def __rmul__(self, other): return CompositionalMetric(torch.multiply, other, self)
+    def __ror__(self, other): return CompositionalMetric(torch.bitwise_or, other, self)
+    def __rpow__(self, other): return CompositionalMetric(torch.pow, other, self)
+    def __rsub__(self, other): return CompositionalMetric(torch.subtract, other, self)
+    def __rtruediv__(self, other): return CompositionalMetric(torch.true_divide, other, self)
+    def __rxor__(self, other): return CompositionalMetric(torch.bitwise_xor, other, self)
+    def __sub__(self, other): return CompositionalMetric(torch.subtract, self, other)
+    def __truediv__(self, other): return CompositionalMetric(torch.true_divide, self, other)
+    def __xor__(self, other): return CompositionalMetric(torch.bitwise_xor, self, other)
+    def __invert__(self): return CompositionalMetric(torch.bitwise_not, self, None)
+
+    def __getitem__(self, idx) -> "CompositionalMetric":
+        return CompositionalMetric(lambda x: x[idx], self, None)
 
 
 class HostMetric(Metric):
@@ -494,3 +642,83 @@ class HostMetric(Metric):
         super()._commit_synced(synced)
         for k in set(self._list_state_names) & synced.keys():
             self._state[k] = [t.cpu() if isinstance(t, torch.Tensor) else t for t in synced[k]]
+
+
+class CompositionalMetric(Metric):
+    """A lazy operator tree over metrics and constants (the arithmetic operators of
+    ``Metric`` build it). ``update`` and ``reset`` reach every metric operand;
+    ``compute`` and ``forward`` apply the operator to the operands' values. Constants
+    become tensors on the device of the first metric operand.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+        >>> acc = MulticlassAccuracy(3, average="micro", device="cpu")
+        >>> half = (acc + acc) / 4
+        >>> half.update(torch.tensor([0, 1, 2, 1]), torch.tensor([0, 1, 2, 2]))
+        >>> round(float(half.compute()), 4)
+        0.375
+    """
+
+    def __init__(self, operator: Callable, metric_a: Any, metric_b: Any) -> None:
+        device = next(m.device for m in (metric_a, metric_b) if isinstance(m, Metric))
+        super().__init__(device=device)
+        self.op = operator
+        self.metric_a = self._operand(metric_a)
+        self.metric_b = self._operand(metric_b)
+        self._op_b_raw = metric_b
+
+    def _operand(self, value: Any) -> Any:
+        if value is None or isinstance(value, Metric):
+            return value
+        return torch.as_tensor(value, device=self.device)
+
+    def _metrics(self) -> List[Metric]:
+        return [m for m in (self.metric_a, self.metric_b) if isinstance(m, Metric)]
+
+    def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
+        return kwargs
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        for metric in self._metrics():
+            metric.update(*args, **metric._filter_kwargs(**kwargs))
+        self._update_count += 1
+        self._computed = None
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        return self.op(val_a) if val_b is None else self.op(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        def value(operand):
+            if isinstance(operand, Metric):
+                return operand.forward(*args, **operand._filter_kwargs(**kwargs))
+            return operand
+
+        val_a, val_b = value(self.metric_a), value(self.metric_b)
+        self._update_count += 1
+        if val_a is None:
+            return None
+        if val_b is None:
+            return self.op(val_a) if self._op_b_raw is None else None
+        return self.op(val_a, val_b)
+
+    __call__ = forward
+
+    def reset(self) -> None:
+        for metric in self._metrics():
+            metric.reset()
+        self._update_count = 0
+        self._computed = None
+
+    def persistent(self, mode: bool = False) -> None:
+        for metric in self._metrics():
+            metric.persistent(mode=mode)
+
+    def __repr__(self) -> str:
+        name = getattr(self.op, "__name__", "op")
+        return f"{type(self).__name__}(\n  {name}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"
+
+    def __hash__(self) -> int:
+        return object.__hash__(self)

@@ -108,3 +108,10 @@ def _bincount_2d(
         return counts.reshape(nx, ny).to(torch.int32)
     counts = torch.bincount(fused, weights=weights.reshape(-1).float(), minlength=nx * ny + 1)[: nx * ny]
     return counts.reshape(nx, ny)
+
+
+def allclose(a: torch.Tensor, b: torch.Tensor, rtol: float = 1e-5, atol: float = 1e-8) -> bool:
+    """``numpy.allclose`` on two tensors of any dtypes (compared in their promoted dtype).
+    On the card the answer is one bool read back to the host."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    return bool(torch.allclose(a.to(dtype), b.to(dtype), rtol=rtol, atol=atol))

@@ -3,3 +3,12 @@
 
 class TorchMetricsUserError(Exception):
     """Error raised on wrong usage of the metric API."""
+
+
+class StateCorruptionError(RuntimeError):
+    """A metric state violated its ``init_state()`` spec (a missing leaf, a wrong
+    shape or dtype, non-finite values) at a checkpoint-restore, sync or merge boundary.
+
+    Never retryable: the state itself is damaged, so running the same operation again
+    can only carry the damage further.
+    """
