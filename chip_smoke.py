@@ -94,15 +94,37 @@ Phases, one JSON line each, in order:
    group of one, the grouped sync ships each distinct state dict once (its traced
    collectives equal the prediction from the distinct dicts) and the members alias
    through ``sync`` and ``unsync``.
+17. classification_tower: ``MulticlassJaccardIndex`` (macro, ``ignore_index=0``),
+   ``MulticlassMatthewsCorrCoef`` and ``MulticlassCohenKappa(weights="quadratic")`` at batch
+   65536 over 5 classes, ``MulticlassExactMatch`` on (4096, 16) multidim labels, and
+   ``MultilabelJaccardIndex``, ``MultilabelMatthewsCorrCoef`` and ``MultilabelExactMatch``
+   at 65536 x 80: update and compute ms (median of 10, host clock around synchronised
+   calls); states equal to the CPU port's bit for bit, values within 1e-6; a second run
+   with ``torch.backends.cuda.matmul.allow_tf32 = True`` (restored after) equal bit for
+   bit.
+18. curves: CTR-style binary scores (4,194,304 in 16 updates, about 3% positive, rounded
+   to thousandths) through ``BinaryAUROC``, ``BinaryAveragePrecision``, ``BinaryROC`` and
+   ``BinaryPrecisionRecallCurve``, exact and at 200 thresholds, and ``BinaryAUROC(max_fpr=
+   0.1)``; ImageNet validation-size softmax rows (50,000 x 1,000 in 50 updates) through
+   ``MulticlassAUROC`` and ``MulticlassAveragePrecision``, exact and at 100 thresholds, and
+   the binned ``MulticlassROC(average="macro")``. Per metric: update ms (median and mean),
+   compute ms (first and second call), state bytes. Every state equals the CPU port's bit
+   for bit, exact thresholds too, values within 1e-6; one binned ImageNet update must take
+   less than 100 MB beyond its inputs, and the exact ImageNet AUROC ``compute()`` (profiled)
+   fewer than 200 launch calls. Edge cases on the card against the CPU: scores with NaN and
+   zeros of both signs, an unsorted list of thresholds with a repeat, a class and a label
+   without positives, NaN in the same places.
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
 lines carry ``step_ms`` (host clock around synchronised steps) and the card.
 
 After each FID trunk, after the classification, binary and multilabel steps, after
-the NCCL sync, after KID's compute and after the collection's update and sync, a profile line: one more step under ``torch.profiler``, with device time
-by kernel and the device's idle share (for the sync also the collectives the trace
-names, and the device time of NCCL's spans and of the copies).
+the NCCL sync, after KID's compute, after the collection's update and sync and after an
+exact AUROC compute of each curves workload, a profile line: one more step under
+``torch.profiler``, with device time by kernel and the device's idle share (for the sync
+also the collectives the trace names, and the device time of NCCL's spans and of the
+copies).
 
 Then the card's name and power limit (nvidia-smi), the kernels line and the result line.
 Any failed check raises, so the script exits non-zero and prints no result line. Without
@@ -1688,6 +1710,344 @@ def collection_groups_phase(card: str) -> None:
           "card": card})
 
 
+# ---------------------------------------------------------------------------
+# exact match, Jaccard, MCC, Cohen's kappa; the curve family
+
+TOWER_BATCH = 65536
+TOWER_CLASSES = 5
+TOWER_LABELS = 80
+TOWER_MULTIDIM = (4096, 16)
+TOWER_IGNORE = 0  # inside [0, 5): class 0's targets are ignored and class 0 leaves the macro mean
+TOWER_ITERS = 10
+
+
+def tower_inputs(gen: torch.Generator, batch: int = TOWER_BATCH, classes: int = TOWER_CLASSES,
+                 labels: int = TOWER_LABELS, multidim: tuple = TOWER_MULTIDIM, device: str = "cuda") -> dict:
+    """The tower's inputs from ``gen``: multiclass logits that lean to the target,
+    multidim labels right at about 90% of positions, multilabel probabilities that lean
+    to the target."""
+    target = torch.randint(0, classes, (batch,), generator=gen, device=device)
+    logits = torch.randn((batch, classes), generator=gen, device=device)
+    logits.scatter_add_(1, target[:, None], torch.full((batch, 1), 1.5, device=device))
+    md_target = torch.randint(0, classes, multidim, generator=gen, device=device)
+    md_noise = torch.randint(0, classes, multidim, generator=gen, device=device)
+    md_preds = torch.where(torch.rand(multidim, generator=gen, device=device) < 0.9, md_target, md_noise)
+    ml_target = torch.randint(0, 2, (batch, labels), generator=gen, device=device)
+    ml_preds = 0.35 * ml_target + 0.65 * torch.rand((batch, labels), generator=gen, device=device)
+    return {"multiclass": (logits, target), "multidim": (md_preds, md_target), "multilabel": (ml_preds, ml_target)}
+
+
+def tower_metrics(device=None, classes: int = TOWER_CLASSES, labels: int = TOWER_LABELS) -> dict:
+    """name -> (input kind, metric), at their default arguments but the stated ones."""
+    from torchmetrics_tpu_torch import classification as tc
+
+    return {
+        "jaccard_macro": ("multiclass", tc.MulticlassJaccardIndex(classes, ignore_index=TOWER_IGNORE, device=device)),
+        "mcc": ("multiclass", tc.MulticlassMatthewsCorrCoef(classes, device=device)),
+        "kappa_quadratic": ("multiclass", tc.MulticlassCohenKappa(classes, weights="quadratic", device=device)),
+        "exact_match_multidim": ("multidim", tc.MulticlassExactMatch(classes, device=device)),
+        "jaccard_multilabel": ("multilabel", tc.MultilabelJaccardIndex(labels, device=device)),
+        "mcc_multilabel": ("multilabel", tc.MultilabelMatthewsCorrCoef(labels, device=device)),
+        "exact_match_multilabel": ("multilabel", tc.MultilabelExactMatch(labels, device=device)),
+    }
+
+
+def run_tower(metrics: dict, inputs: dict) -> dict:
+    """One update of each metric on its input, then ``compute()``: name -> (states, value)."""
+    out = {}
+    for name, (kind, metric) in metrics.items():
+        metric.update(*inputs[kind])
+        out[name] = (dict(metric._state), metric.compute())
+    return out
+
+
+def hold_tower(got: dict, want: dict, bitwise: bool = False) -> float:
+    """Metric by metric: states equal bit for bit; values within ``RATIO_ATOL`` (bit for
+    bit when ``bitwise``). Returns the largest value difference."""
+    worst = 0.0
+    for name, (states, value) in want.items():
+        got_states, got_value = got[name]
+        if not states_equal({k: v.cpu() for k, v in got_states.items()}, {k: v.cpu() for k, v in states.items()}):
+            raise AssertionError(f"classification_tower {name}: states differ")
+        got_value, value = got_value.cpu(), value.cpu()
+        if got_value.dtype != value.dtype or got_value.shape != value.shape:
+            raise AssertionError(f"classification_tower {name}: {got_value.dtype}{tuple(got_value.shape)} against "
+                                 f"{value.dtype}{tuple(value.shape)}")
+        diff = float((got_value - value).abs().max())
+        if not (diff == 0.0 if bitwise else diff <= RATIO_ATOL):
+            raise AssertionError(f"classification_tower {name}: values differ by {diff}")
+        worst = max(worst, diff)
+    return worst
+
+
+def synced_ms(call) -> float:
+    """Host clock around one call, synchronised at both ends."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3
+
+
+def fresh_compute(metric):
+    """``compute()`` without the cached value."""
+    metric._computed = None
+    return metric.compute()
+
+
+def classification_tower_phase(card: str) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    inputs = tower_inputs(gen)
+    cpu_inputs = {kind: tuple(t.cpu() for t in pair) for kind, pair in inputs.items()}
+    card_run = run_tower(tower_metrics(), inputs)
+    worst = hold_tower(card_run, run_tower(tower_metrics("cpu"), cpu_inputs))
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        hold_tower(run_tower(tower_metrics(), inputs), card_run, bitwise=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+    timings = {}
+    for name, (kind, metric) in tower_metrics().items():
+        update_ms = median([synced_ms(lambda: metric.update(*inputs[kind])) for _ in range(TOWER_ITERS + 1)][1:])
+        compute_ms = median([synced_ms(lambda: fresh_compute(metric)) for _ in range(TOWER_ITERS + 1)][1:])
+        timings[name] = {"update_ms": update_ms, "compute_ms": compute_ms, "value": float(card_run[name][1])}
+    emit({"phase": "classification_tower", "batch": TOWER_BATCH, "classes": TOWER_CLASSES, "labels": TOWER_LABELS,
+          "multidim": list(TOWER_MULTIDIM), "metrics": timings, "max_value_diff": worst, "tf32_bitwise": True,
+          "card": card})
+
+
+CTR_SCORES = 1 << 22
+CTR_UPDATES = 16
+CTR_THRESHOLDS = 200
+CTR_POSITIVE_SHARE = 0.03
+MAX_FPR = 0.1
+IMAGENET_ROWS = 50000
+IMAGENET_CLASSES = 1000
+IMAGENET_UPDATES = 50
+IMAGENET_THRESHOLDS = 100
+BINNED_PEAK_LIMIT = 100 * 2**20
+EXACT_LAUNCH_LIMIT = 200
+UNSORTED_THRESHOLDS = [0.75, 0.25, 0.5, 0.25, 1.0, 0.0]
+
+
+def ctr_scores(gen: torch.Generator, n: int = CTR_SCORES, device: str = "cuda"):
+    """Logged click-through predictions: about 3% positives, probabilities that lean to
+    the clicks, rounded to thousandths as logged scores are (so ties abound)."""
+    target = (torch.rand(n, generator=gen, device=device) < CTR_POSITIVE_SHARE).to(torch.int64)
+    logits = torch.randn(n, generator=gen, device=device) + 1.5 * target - 3.5
+    return torch.round(torch.sigmoid(logits) * 1000) / 1000, target
+
+
+def imagenet_scores(gen: torch.Generator, rows: int = IMAGENET_ROWS, classes: int = IMAGENET_CLASSES,
+                    device: str = "cuda"):
+    """A validation set's softmax rows: logits that lean to the target class."""
+    target = torch.randint(0, classes, (rows,), generator=gen, device=device)
+    logits = torch.randn((rows, classes), generator=gen, device=device)
+    logits.scatter_add_(1, target[:, None], torch.full((rows, 1), 2.5, device=device))
+    return logits.softmax(dim=1), target
+
+
+def ctr_metrics(device=None, thresholds: int = CTR_THRESHOLDS) -> dict:
+    from torchmetrics_tpu_torch import classification as tc
+
+    out = {}
+    for tag, thr in (("exact", None), ("binned", thresholds)):
+        out[f"auroc_{tag}"] = tc.BinaryAUROC(thresholds=thr, device=device)
+        out[f"ap_{tag}"] = tc.BinaryAveragePrecision(thresholds=thr, device=device)
+        out[f"roc_{tag}"] = tc.BinaryROC(thresholds=thr, device=device)
+        out[f"pr_curve_{tag}"] = tc.BinaryPrecisionRecallCurve(thresholds=thr, device=device)
+    out["auroc_max_fpr"] = tc.BinaryAUROC(max_fpr=MAX_FPR, device=device)
+    return out
+
+
+def imagenet_metrics(device=None, classes: int = IMAGENET_CLASSES, thresholds: int = IMAGENET_THRESHOLDS) -> dict:
+    from torchmetrics_tpu_torch import classification as tc
+
+    return {
+        "auroc_exact": tc.MulticlassAUROC(classes, device=device),
+        "ap_exact": tc.MulticlassAveragePrecision(classes, device=device),
+        "auroc_binned": tc.MulticlassAUROC(classes, thresholds=thresholds, device=device),
+        "ap_binned": tc.MulticlassAveragePrecision(classes, thresholds=thresholds, device=device),
+        "roc_macro_binned": tc.MulticlassROC(classes, thresholds=thresholds, average="macro", device=device),
+    }
+
+
+def metric_state_bytes(metric) -> int:
+    """The bytes of a metric's states, list states by their parts."""
+    return sum(t.numel() * t.element_size() for v in metric._state.values() for t in (v if isinstance(v, list) else [v]))
+
+
+def compare_curves(label: str, got, want, thresholds: bool = False) -> float:
+    """A curve-family result on the card against the CPU's, recursively: thresholds
+    (the third part of an ``(x, y, thresholds)`` curve) bit for bit, other values within
+    ``RATIO_ATOL`` with NaN in the same places. Returns the largest difference."""
+    if isinstance(want, (tuple, list)):
+        if not isinstance(got, (tuple, list)) or len(got) != len(want):
+            raise AssertionError(f"{label}: structure differs from the CPU's")
+        curve = isinstance(want, tuple) and len(want) == 3
+        return max([compare_curves(label, g, w, thresholds or (curve and i == 2))
+                    for i, (g, w) in enumerate(zip(got, want))], default=0.0)
+    got = got.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{label}: {got.dtype}{tuple(got.shape)} on the card, {want.dtype}{tuple(want.shape)} "
+                             "on the CPU")
+    if thresholds or not want.is_floating_point():
+        if not torch.equal(got.view(torch.int32) if got.dtype == torch.float32 else got,
+                           want.view(torch.int32) if want.dtype == torch.float32 else want):
+            raise AssertionError(f"{label}: differs from the CPU's bit for bit")
+        return 0.0
+    if not torch.equal(got.isnan(), want.isnan()):
+        raise AssertionError(f"{label}: NaN in other places than on the CPU")
+    finite = ~want.isnan()
+    diff = float((got[finite] - want[finite]).abs().max()) if bool(finite.any()) else 0.0
+    if not diff <= RATIO_ATOL:
+        raise AssertionError(f"{label}: differs from the CPU's by {diff}")
+    return diff
+
+
+def curve_edge_inputs(n: int = 300, classes: int = 4) -> dict:
+    """A few hundred scores with NaN, +0.0 and -0.0 among them (tied zeros of both signs,
+    whose curve point takes the sign of the last zero in the scores' order); multiclass
+    class 3 and multilabel label 0 without positives."""
+    rng = np.random.default_rng(8)
+    preds = rng.uniform(size=n).astype(np.float32)
+    preds[::13], preds[1::17], preds[2::17] = np.nan, -0.0, 0.0  # the last zero is +0.0
+    mc_preds = rng.uniform(size=(n, classes)).astype(np.float32)
+    mc_preds[::11, 1], mc_preds[3::19, 2], mc_preds[4::19, 2], mc_preds[5::23, 0] = np.nan, 0.0, -0.0, 0.0
+    ml_preds = rng.uniform(size=(n, classes)).astype(np.float32)
+    ml_preds[::7, 2], ml_preds[1::9, 3] = np.nan, -0.0
+    ml_target = rng.integers(0, 2, (n, classes))
+    ml_target[:, 0] = 0
+    return {"binary": (preds, rng.integers(0, 2, n)), "multiclass": (mc_preds, rng.integers(0, classes - 1, n)),
+            "multilabel": (ml_preds, ml_target)}
+
+
+def curve_edge_results(inputs: dict, device) -> dict:
+    """The functional curve family on the edge inputs, exact and with an unsorted list of
+    thresholds that repeats one."""
+    import warnings
+
+    from torchmetrics_tpu_torch import functional as tf
+
+    (bp, bt), (mp, mt), (lp, lt) = [tuple(torch.from_numpy(x).to(device) for x in inputs[k])
+                                    for k in ("binary", "multiclass", "multilabel")]
+    c = mp.shape[1]
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for tag, thr in (("exact", None), ("list", UNSORTED_THRESHOLDS)):
+            out[f"binary_pr_curve_{tag}"] = tf.binary_precision_recall_curve(bp, bt, thr)
+            out[f"binary_roc_{tag}"] = tf.binary_roc(bp, bt, thr)
+            out[f"binary_auroc_{tag}"] = tf.binary_auroc(bp, bt, thresholds=thr)
+            out[f"binary_ap_{tag}"] = tf.binary_average_precision(bp, bt, thr)
+            out[f"multiclass_pr_curve_{tag}"] = tf.multiclass_precision_recall_curve(mp, mt, c, thr)
+            out[f"multiclass_roc_macro_{tag}"] = tf.multiclass_roc(mp, mt, c, thr, average="macro")
+            out[f"multiclass_auroc_none_{tag}"] = tf.multiclass_auroc(mp, mt, c, "none", thr)
+            out[f"multiclass_ap_none_{tag}"] = tf.multiclass_average_precision(mp, mt, c, "none", thr)
+            out[f"multilabel_pr_curve_{tag}"] = tf.multilabel_precision_recall_curve(lp, lt, c, thr)
+            out[f"multilabel_auroc_none_{tag}"] = tf.multilabel_auroc(lp, lt, c, "none", thr)
+            out[f"multilabel_ap_macro_{tag}"] = tf.multilabel_average_precision(lp, lt, c, "macro", thr)
+    return out
+
+
+def run_curves(metrics: dict, batches: list) -> dict:
+    """Every batch into every metric, then each ``compute()``, all timed on the host's
+    clock around synchronised calls: name -> {update_ms (median and mean), compute_ms
+    (first and second call), state_bytes, value}."""
+    import warnings
+
+    out = {}
+    for name, metric in metrics.items():
+        times = [synced_ms(lambda: metric.update(*batch)) for batch in batches]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            first = synced_ms(lambda: fresh_compute(metric))
+            value = []
+            second = synced_ms(lambda: value.append(fresh_compute(metric)))
+        out[name] = {"update_ms": median(times), "update_ms_mean": sum(times) / len(times),
+                     "compute_ms": [first, second], "state_bytes": metric_state_bytes(metric), "value": value[0]}
+    return out
+
+
+def cpu_reference(metrics: dict, cpu_metrics: dict, batches: list, sources: dict) -> dict:
+    """The CPU port's values for each metric: ``sources`` maps a metric to the CPU metric
+    whose states it shares (same state family), which alone takes the batches; the others
+    merge its states."""
+    import warnings
+
+    for name, source in sources.items():
+        if source == name:
+            for batch in batches:
+                cpu_metrics[name].update(*(t.cpu() for t in batch))
+    values = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for name, source in sources.items():
+            if source != name:
+                cpu_metrics[name].merge_state({k: (list(v) if isinstance(v, list) else v)
+                                               for k, v in cpu_metrics[source]._state.items()})
+            values[name] = cpu_metrics[name].compute()
+    for name, metric in metrics.items():
+        if not states_equal({k: ([t.cpu() for t in v] if isinstance(v, list) else v.cpu())
+                             for k, v in metric._state.items()}, cpu_metrics[name]._state):
+            raise AssertionError(f"curves {name}: the card's states differ from the CPU's")
+    return values
+
+
+def curve_sources(names) -> dict:
+    """Each metric's state twin: the first metric of its state family (binned or exact)."""
+    family = {name: "binned" if "binned" in name else "exact" for name in names}
+    leaders = {}
+    for name in names:
+        leaders.setdefault(family[name], name)
+    return {name: leaders[family[name]] for name in names}
+
+
+def binned_update_peak_bytes(batches: list) -> int:
+    """The bytes one binned ImageNet update allocates beyond what the card held before it
+    (the state and thresholds exist already: one update ran first)."""
+    probe = imagenet_metrics()["auroc_binned"]
+    probe.update(*batches[0])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    probe.update(*batches[1])
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def curves_phase(card: str) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    lines = {}
+    for workload, make, build, updates in (("ctr", ctr_scores, ctr_metrics, CTR_UPDATES),
+                                           ("imagenet", imagenet_scores, imagenet_metrics, IMAGENET_UPDATES)):
+        preds, target = make(gen)
+        batches = list(zip(preds.chunk(updates), target.chunk(updates)))
+        metrics = build()
+        results = run_curves(metrics, batches)
+        values = cpu_reference(metrics, build("cpu"), batches, curve_sources(metrics))
+        worst = max(compare_curves(f"curves {workload} {name}", results[name].pop("value"), values[name])
+                    for name in metrics)
+        events = profile_step(f"curves_{workload}_auroc_exact_compute", lambda: fresh_compute(metrics["auroc_exact"]))
+        launches = launch_calls(events)
+        if not launches < EXACT_LAUNCH_LIMIT:
+            raise AssertionError(f"curves {workload}: the exact AUROC compute made {launches} launch calls")
+        lines[workload] = {"scores": list(preds.shape), "updates": updates, "metrics": results,
+                           "max_value_diff": worst, "exact_compute_launch_calls": launches}
+        if workload == "ctr":
+            lines[workload].update(positive_share=float(target.float().mean()),
+                                   distinct_scores=int(torch.unique(preds).numel()))
+    peak = binned_update_peak_bytes(batches)
+    if not peak < BINNED_PEAK_LIMIT:
+        raise AssertionError(f"curves: a binned ImageNet update took {peak} bytes beyond its inputs")
+    inputs = curve_edge_inputs()
+    edge_diff = max(compare_curves(f"curves edge {name}", value, want) for (name, value), want in
+                    zip(curve_edge_results(inputs, "cuda").items(), curve_edge_results(inputs, "cpu").values()))
+    emit({"phase": "curves", **lines, "binned_update_peak_bytes": peak, "edge_cases_max_diff": edge_diff,
+          "card": card})
+
+
 def flagship_forward(cases: dict) -> dict:
     """The 26 sepconv7 launches of one bf16 trunk forward at the flagship's batch: their
     summed times and bound, and their worst error against the plain version."""
@@ -1725,6 +2085,8 @@ def main() -> int:
     launches_by_path["generative"] = generative_phase(card)
     launches["bfloat16"] = sum(launches_by_path.values())
     collection_groups_phase(card)
+    classification_tower_phase(card)
+    curves_phase(card)
 
     print(card, flush=True)
     kernels = []

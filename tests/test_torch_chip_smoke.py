@@ -11,6 +11,7 @@ import collections
 import importlib.util
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -369,3 +370,86 @@ def test_he_scaled_params_scale_every_conv_weight_by_sqrt2(chip_smoke):
     np.testing.assert_allclose(stem["w"], params["stem1"]["w"] * math.sqrt(2.0), rtol=1e-6)
     assert stem["w"].dtype == np.float32 and np.array_equal(stem["var"], params["stem1"]["var"])
     assert np.array_equal(scaled["mixed_e2"]["pool"]["w"], params["mixed_e2"]["pool"]["w"] * np.float32(math.sqrt(2.0)))
+
+
+def test_classification_tower_rehearsal_holds_the_cpu_port(chip_smoke):
+    """The tower's data makers and checker at a small size: two runs on the same inputs
+    agree bit for bit, and a changed count or value is caught."""
+    gen = torch.Generator().manual_seed(0)
+    inputs = chip_smoke.tower_inputs(gen, batch=256, labels=6, multidim=(32, 4), device="cpu")
+    assert inputs["multiclass"][0].shape == (256, 5) and inputs["multilabel"][0].shape == (256, 6)
+    assert float((inputs["multidim"][0] == inputs["multidim"][1]).float().mean()) > 0.8
+    first = chip_smoke.run_tower(chip_smoke.tower_metrics("cpu", labels=6), inputs)
+    second = chip_smoke.run_tower(chip_smoke.tower_metrics("cpu", labels=6), inputs)
+    assert chip_smoke.hold_tower(second, first, bitwise=True) == 0.0
+    assert set(first) == {"jaccard_macro", "mcc", "kappa_quadratic", "exact_match_multidim", "jaccard_multilabel",
+                          "mcc_multilabel", "exact_match_multilabel"}
+    states, value = second["mcc"]
+    second["mcc"] = ({"confmat": states["confmat"] + torch.eye(5, dtype=torch.int32)}, value)
+    with pytest.raises(AssertionError, match="states differ"):
+        chip_smoke.hold_tower(second, first)
+    second["mcc"] = (states, value + 1e-5)
+    with pytest.raises(AssertionError, match="values differ"):
+        chip_smoke.hold_tower(second, first)
+
+
+def test_curve_data_makers_have_the_stated_shape(chip_smoke):
+    gen = torch.Generator().manual_seed(1)
+    preds, target = chip_smoke.ctr_scores(gen, n=20000, device="cpu")
+    assert 0.02 < float(target.float().mean()) < 0.04
+    assert torch.equal(preds, torch.round(preds * 1000) / 1000) and torch.unique(preds).numel() <= 1001
+    probs, labels = chip_smoke.imagenet_scores(gen, rows=64, classes=10, device="cpu")
+    assert probs.shape == (64, 10) and torch.allclose(probs.sum(1), torch.ones(64))
+    assert float((probs.argmax(1) == labels).float().mean()) > 0.5
+    assert chip_smoke.curve_sources(["auroc_exact", "ap_exact", "auroc_binned", "roc_macro_binned", "auroc_max_fpr"]) \
+        == {"auroc_exact": "auroc_exact", "ap_exact": "auroc_exact", "auroc_binned": "auroc_binned",
+            "roc_macro_binned": "auroc_binned", "auroc_max_fpr": "auroc_exact"}
+
+
+@pytest.mark.parametrize("workload", ["ctr", "imagenet"])
+def test_curve_reference_rehearsal(chip_smoke, workload):
+    """Both workloads at a small size on the CPU: the metrics of one state family share
+    the leader's states, and the reference's values are the metrics' own."""
+    gen = torch.Generator().manual_seed(2)
+    if workload == "ctr":
+        preds, target = chip_smoke.ctr_scores(gen, n=4096, device="cpu")
+        build = lambda device: chip_smoke.ctr_metrics(device, thresholds=11)  # noqa: E731
+    else:
+        preds, target = chip_smoke.imagenet_scores(gen, rows=200, classes=7, device="cpu")
+        build = lambda device: chip_smoke.imagenet_metrics(device, classes=7, thresholds=9)  # noqa: E731
+    batches = list(zip(preds.chunk(4), target.chunk(4)))
+    metrics = build("cpu")
+    for metric in metrics.values():
+        for batch in batches:
+            metric.update(*batch)
+    values = chip_smoke.cpu_reference(metrics, build("cpu"), batches, chip_smoke.curve_sources(metrics))
+    for name, metric in metrics.items():
+        assert chip_smoke.compare_curves(name, metric.compute(), values[name]) == 0.0
+        assert chip_smoke.metric_state_bytes(metric) > 0
+    metrics[next(iter(metrics))].update(*batches[0])
+    with pytest.raises(AssertionError, match="states differ"):
+        chip_smoke.cpu_reference(metrics, build("cpu"), batches, chip_smoke.curve_sources(metrics))
+
+
+def test_compare_curves_takes_thresholds_bitwise_and_nan_by_place(chip_smoke):
+    curve = (torch.tensor([0.5, float("nan")]), torch.tensor([1.0, 0.0]), torch.tensor([0.0, 1.0]))
+    assert chip_smoke.compare_curves("c", curve, curve) == 0.0
+    signed = (curve[0], curve[1], torch.tensor([-0.0, 1.0]))
+    with pytest.raises(AssertionError, match="bit for bit"):
+        chip_smoke.compare_curves("c", signed, curve)
+    moved = (torch.tensor([float("nan"), 0.5]), curve[1], curve[2])
+    with pytest.raises(AssertionError, match="NaN"):
+        chip_smoke.compare_curves("c", moved, curve)
+    assert chip_smoke.compare_curves("c", (curve[0], curve[1] + 1e-7, curve[2]), curve) <= 1e-6
+    assert chip_smoke.compare_curves("c", [torch.tensor(0.25)], [torch.tensor(0.25)]) == 0.0
+
+
+def test_curve_edge_cases_hold_nan_zeros_and_unsorted_thresholds(chip_smoke):
+    inputs = chip_smoke.curve_edge_inputs()
+    preds = inputs["binary"][0]
+    assert np.isnan(preds).any() and (np.signbit(preds) & (preds == 0)).any()
+    results = chip_smoke.curve_edge_results(inputs, "cpu")
+    again = chip_smoke.curve_edge_results(inputs, "cpu")
+    assert all(chip_smoke.compare_curves(name, value, again[name]) == 0.0 for name, value in results.items())
+    assert results["binary_roc_list"][2].tolist() == chip_smoke.UNSORTED_THRESHOLDS[::-1]
+    assert torch.isnan(results["multiclass_ap_none_exact"][3]) and torch.isnan(results["binary_pr_curve_exact"][2]).any()

@@ -22,7 +22,7 @@ import torch
 import torchmetrics_tpu_torch
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.classification import MulticlassAccuracy
-from torchmetrics_tpu_torch import detection
+from torchmetrics_tpu_torch import classification, detection, functional
 from torchmetrics_tpu_torch.image import (
     FrechetInceptionDistance,
     InceptionScore,
@@ -100,10 +100,16 @@ def _toy_extractor(imgs):
         lambda: KernelInceptionDistance(feature=_toy_extractor),
         lambda: MemorizationInformedFrechetInceptionDistance(feature=_toy_extractor),
         lambda: InceptionScore(feature=_toy_extractor),
+        lambda: classification.MulticlassJaccardIndex(3),
+        lambda: classification.ExactMatch(task="multiclass", num_classes=3),
+        lambda: classification.BinaryAUROC(thresholds=10),
+        lambda: classification.MulticlassAveragePrecision(3),
+        lambda: functional.binary_auroc([0.25, 0.75], [0, 1]),
     ],
     ids=["metric", "extractor", "extractor_from_params", "fid", "collection", "resolve_none", "resolve_cuda",
          "accumulator", "pack", "map", "map_device_backend", "device_map", "iou", "giou", "diou", "ciou",
-         "kid", "mifid", "inception_score"],
+         "kid", "mifid", "inception_score", "jaccard", "exact_match", "auroc_binned", "average_precision",
+         "functional_auroc"],
 )
 def test_default_device_raises_without_cuda(no_cuda, build):
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -8,7 +8,8 @@ import torch
 
 
 def _safe_divide(num: torch.Tensor, denom: torch.Tensor, zero_division: float = 0.0) -> torch.Tensor:
-    """``num / denom`` with 0-denominator positions replaced by ``zero_division``.
+    """``num / denom`` with 0-denominator positions replaced by ``zero_division``
+    (``float("nan")`` marks them undefined).
 
     Both operands are promoted to at least float32.
     """
@@ -45,6 +46,70 @@ def _adjust_weights_safe_divide(
             weights = weights * (~absent)
     norm = weights.sum(-1, keepdim=True)
     return (_safe_divide(weights, norm) * score).sum(-1)
+
+
+def _auc_compute(x: torch.Tensor, y: torch.Tensor, direction: Optional[float] = None) -> torch.Tensor:
+    """Trapezoidal area under the curve ``(x, y)`` along the last axis, in float32.
+
+    ``direction`` multiplies the area; when None it is -1 if ``x`` never increases and
+    +1 otherwise, decided on the device. Leading axes are independent curves.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.utilities.compute import _auc_compute
+        >>> _auc_compute(torch.tensor([0.0, 0.5, 1.0]), torch.tensor([0.0, 1.0, 1.0]))
+        tensor(0.7500)
+        >>> _auc_compute(torch.tensor([1.0, 0.0]), torch.tensor([1.0, 1.0]))  # x decreases
+        tensor(1.)
+    """
+    x, y = torch.as_tensor(x).to(torch.float32), torch.as_tensor(y).to(torch.float32)
+    dx = x.diff(dim=-1)
+    trapz = ((y[..., 1:] + y[..., :-1]) / 2 * dx).sum(-1)
+    if direction is None:
+        sign = torch.where((dx <= 0).all(-1), -1.0, 1.0)
+        return trapz * torch.where((dx >= 0).all(-1), 1.0, sign)
+    return trapz * direction
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """1-D linear interpolation by the formula of ``jnp.interp``: ``xp`` nondecreasing,
+    repeated values allowed. The interval is ``searchsorted(xp, x, side="right")``
+    clipped to ``[1, len - 1]``; where ``xp`` does not move across it (within the float
+    spacing of the dtype's epsilon) the left value is taken; outside ``xp`` the end values.
+    The step ``fl + slope * df`` is rounded once, as XLA's fused multiply-add rounds it.
+
+    ``xp`` and ``fp`` may carry leading axes, one curve per row, each row's first
+    ``lengths[i]`` points valid (all of them when None) and the rest any padding that
+    keeps the row nondecreasing; ``x`` is then broadcast against each row.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.utilities.compute import interp
+        >>> interp(torch.tensor([0.25, 0.5, 2.0]), torch.tensor([0.0, 0.5, 0.5, 1.0]), torch.tensor([0.0, 1.0, 2.0, 3.0]))
+        tensor([0.5000, 2.0000, 3.0000])
+    """
+    x, xp, fp = torch.as_tensor(x), torch.as_tensor(xp), torch.as_tensor(fp)
+    dtype = torch.promote_types(torch.promote_types(x.dtype, xp.dtype), torch.float32)
+    x, xp = x.to(dtype), xp.to(dtype)
+    fp = fp.to(torch.promote_types(fp.dtype, torch.float32))
+    rows = xp.shape[:-1]
+    if lengths is None:
+        lengths = torch.full(rows, xp.shape[-1], dtype=torch.long, device=xp.device)
+    last = (lengths - 1).unsqueeze(-1)
+    xb = x.expand(*rows, *x.shape).contiguous()
+    i = torch.searchsorted(xp.contiguous(), xb, right=True)
+    i = torch.minimum(i.clamp(min=1), last)
+    xl, xr, fl, fr = xp.gather(-1, i - 1), xp.gather(-1, i), fp.gather(-1, i - 1), fp.gather(-1, i)
+    dx = xr - xl
+    epsilon = torch.finfo(dtype).eps ** 2  # the spacing of eps: one ulp at eps
+    dx0 = dx.abs() <= epsilon
+    slope = (xb - xl) / torch.where(dx0, torch.ones_like(dx), dx)
+    # XLA fuses ``fl + slope * df`` into one FMA; a float32 product is exact in float64,
+    # so one rounding of the float64 sum gives the FMA's bits
+    wide = torch.promote_types(fp.dtype, torch.float64)
+    f = torch.where(dx0, fl, (fl.to(wide) + slope.to(wide) * (fr - fl).to(wide)).to(fp.dtype))
+    f = torch.where(xb < xp[..., :1], fp[..., :1], f)
+    return torch.where(xb > xp.gather(-1, last), fp.gather(-1, last), f)
 
 
 def normalize_logits_if_needed(preds: torch.Tensor, normalization: str = "sigmoid") -> torch.Tensor:

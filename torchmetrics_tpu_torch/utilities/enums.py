@@ -52,3 +52,17 @@ class ClassificationTask(EnumStr):
     BINARY = "binary"
     MULTICLASS = "multiclass"
     MULTILABEL = "multilabel"
+
+
+class ClassificationTaskNoBinary(EnumStr):
+    """multiclass / multilabel task switch (exact match)."""
+
+    MULTICLASS = "multiclass"
+    MULTILABEL = "multilabel"
+
+
+class ClassificationTaskNoMultilabel(EnumStr):
+    """binary / multiclass task switch (Cohen's kappa)."""
+
+    BINARY = "binary"
+    MULTICLASS = "multiclass"
