@@ -114,6 +114,31 @@ Phases, one JSON line each, in order:
    fewer than 200 launch calls. Edge cases on the card against the CPU: scores with NaN and
    zeros of both signs, an unsorted list of thresholds with a repeat, a class and a label
    without positives, NaN in the same places.
+19. tower_tail: on the curves phase's data, ``BinaryCalibrationError(n_bins=15)`` (norms
+   l1, l2 and max) on the CTR probabilities in 16 updates, ``MulticlassCalibrationError``
+   on the ImageNet softmax rows in 50, ``BinaryHingeLoss`` on the CTR logits and
+   ``MulticlassHingeLoss`` (crammer-singer and one-vs-all) on the ImageNet logits;
+   ``MultilabelCoverageError``, ``MultilabelRankingAveragePrecision`` and
+   ``MultilabelRankingLoss`` on the classification_tower phase's 65,536 x 80 multilabel
+   scores in one update; ``BinaryFairness`` and ``BinaryGroupStatRates`` (threshold 0.05)
+   on the CTR probabilities with 8 seeded groups of weights 1, 1/2, ..., 1/8. Per metric:
+   update ms (median) and compute ms (first and second call). States equal to the CPU
+   port's bit for bit, but the float sums (calibration's confidence and accuracy sums,
+   hinge and ranking measures) within 1e-6 relative; values within 1e-6 relative; each
+   ranking update under 1 GB beyond its inputs (``torch.cuda.max_memory_allocated``); a
+   rerun of the ranking and multiclass hinge metrics with TF32 matmuls allowed equal bit
+   for bit. A profile line for five of the updates.
+20. curve_points: ``BinaryEER``, ``BinaryLogAUC`` (default range and (0.01, 0.5)) and the
+   four binary operating points on the CTR states of phase 18, exact and at 200
+   thresholds; their multiclass counterparts on the ImageNet states, exact and at 100
+   thresholds, EER and LogAUC per class and macro (the exact macro EER left out: see
+   ``MACRO_EER_NOTE``). The states are taken from phase 18's metrics, on the card and
+   on the CPU, so no update runs again. Every chosen threshold equals the CPU port's bit
+   for bit and every value is within 1e-6; the exact ImageNet EER, LogAUC and
+   ``recall_at_fixed_precision`` computes are profiled, each under 200 launch calls.
+   Edge rows from ``curve_edge_inputs`` (scores and scores in quarters, exact and with an
+   unsorted list of thresholds holding 1.0): ties on the objective, NaN precision, a
+   class without positives, whose operating points fall back to (0, NaN) and (0, 1e6).
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -159,6 +184,11 @@ ERR_LIMIT = {torch.bfloat16: 0.016, torch.float32: 1e-4}
 TRUNK_BF16_L2 = 2e-2
 SEPCONV_PER_FORWARD = 26
 SPATIAL = 17
+# profile_step: the launches that open each trace, the host pause after them, and the
+# name of the step's range
+PROFILE_LEAD_LAUNCHES = 64
+PROFILE_MARGIN_S = 0.05
+PROFILE_RANGE = "chip_smoke.profile_step"
 # (B, C, O, H, W): C=12 is not a multiple of 8 and O=24 not one of the O-tile; 17x13 and
 # 5x30 are not square; a 64x64 plane's lines do not fit one tile along either axis, and 12
 # such images make 156 tiles, so on 132 SMs the last wave runs as half tiles
@@ -208,34 +238,60 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_step(label: str, step, tries: int = 3, extra=None) -> list:
+def profile_step(label: str, step, tries: int = 4, extra=None) -> list:
     """Run ``step`` once under ``torch.profiler``: device time by kernel name, the
     sepconv7 launches' share of it, and the device's idle share of the step's wall time
     (the wall time less the union of the spans in which a kernel, copy or set ran).
 
-    A trace can lose device events: one run traced 4 of the binary step's 8 int64
-    reductions. A trace with fewer kernels than the host's kernel-launch calls is taken
-    again, up to ``tries`` times; the line reports both counts and the attempts. Returns
-    the last trace's events; ``extra(events)`` adds keys to the line."""
+    A trace can lose the device events of its first launches: late in a long run, the
+    first 1 to 12 launches of each trace, within about a millisecond, and once all 35 of
+    a 3 ms step in three traces. So each trace opens with ``PROFILE_LEAD_LAUNCHES`` tiny
+    launches and a host pause of ``PROFILE_MARGIN_S``, and only the step's own events
+    count: the host events inside its ``record_function`` range and the device events
+    that start after the pause began. A trace with fewer kernels than the step's
+    kernel-launch calls is taken again, up to ``tries`` times; the line reports the
+    fullest trace, both its counts, the attempts and the launches it lost (the op that
+    made each, and when, in ms after the step's first launch). Where no trace holds a
+    device event of the step, the device time comes from CUDA events around one more
+    call, and the busy time and idle share are null. Returns the step's events of the
+    reported trace; ``extra(events)`` adds keys to the line."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    lead = torch.zeros(1, device="cuda")
+    best = None
     for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            start = time.perf_counter()
-            step()
+            for _ in range(PROFILE_LEAD_LAUNCHES):
+                lead.add_(1)
             torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+            start = time.perf_counter()
+            with record_function(PROFILE_RANGE):
+                step()
+                torch.cuda.synchronize()
             wall_us = (time.perf_counter() - start) * 1e6
-        events = prof.events()
+        events = step_events(prof.events())
         spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                        if e.device_type == DeviceType.CUDA)
-        launch_calls = sum(1 for e in events if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name)
+        launches = [e for e in events if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name]
         kernel_events = sum(1 for _, _, name in spans if not name.startswith(("Memcpy", "Memset")))
-        if kernel_events >= launch_calls:
+        if best is None or kernel_events > best[0]:
+            best = (kernel_events, launches, wall_us, spans, events)
+        if kernel_events >= len(launches):
             break
+    kernel_events, launches, wall_us, spans, events = best
+    if not launches and not spans:
+        raise AssertionError(f"profile {label}: the profiler recorded no event of the step in {tries} traces")
+    line = {"phase": "profile", "step": label, "wall_ms": wall_us / 1e3, "kernel_events": kernel_events,
+            "launch_calls": len(launches), "attempts": attempt, "lost": lost_launches(events, launches)}
     if not spans:
-        raise AssertionError(f"profile {label}: the profiler recorded no device activity")
+        line.update(device_busy_ms=None, idle_share=None, device_ms=None, sepconv7_ms=None, top=[],
+                    device_ms_by_events=cuda_ms(step, iters=1, warmup=0),
+                    trace=f"no device event of the step in {tries} traces")
+        emit({**line, **(extra(events) if extra else {})})
+        return events
     busy_us, reach, by_name = 0.0, -math.inf, {}
     for begin, end, name in spans:
         busy_us += max(0.0, end - max(begin, reach))
@@ -243,14 +299,44 @@ def profile_step(label: str, step, tries: int = 3, extra=None) -> list:
         total, count = by_name.get(name, (0.0, 0))
         by_name[name] = (total + end - begin, count + 1)
     top = sorted(by_name.items(), key=lambda item: -item[1][0])[:12]
-    emit({"phase": "profile", "step": label, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-          "idle_share": 1.0 - busy_us / wall_us, "kernel_events": kernel_events, "launch_calls": launch_calls,
-          "attempts": attempt,
+    emit({**line, "device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / wall_us,
           "device_ms": sum(total for total, _ in by_name.values()) / 1e3,
           "sepconv7_ms": sum(total for name, (total, _) in by_name.items() if "sepconv7" in name) / 1e3,
           "top": [[name[:100], total / 1e3, count] for name, (total, count) in top],
           **(extra(events) if extra else {})})
     return events
+
+
+def step_events(events) -> list:
+    """The events of a ``profile_step`` trace that belong to the step: the host events
+    inside the ``PROFILE_RANGE`` range, and the device events that start after the
+    middle of the pause before it (the lead launches finished before the pause), less
+    the device copies of host ranges (``record_function``'s, c10d's), which are spans
+    of no device work."""
+    from torch.autograd import DeviceType
+
+    marks = [e for e in events if e.name == PROFILE_RANGE and e.device_type == DeviceType.CPU]
+    if len(marks) != 1:
+        raise AssertionError(f"profile: {len(marks)} host ranges named {PROFILE_RANGE} in one trace")
+    begin, end = marks[0].time_range.start, marks[0].time_range.end
+    after = begin - PROFILE_MARGIN_S * 1e6 / 2
+    return [e for e in events if e is not marks[0] and (
+        (e.device_type == DeviceType.CPU and begin <= e.time_range.start and e.time_range.end <= end)
+        or (e.device_type == DeviceType.CUDA and e.time_range.start >= after
+            and not getattr(e, "is_user_annotation", False) and e.name != PROFILE_RANGE))]
+
+
+def lost_launches(events, launches, shown: int = 8) -> dict:
+    """The kernel launches of a trace that have no device event (matched by correlation
+    id): how many, and for the first ``shown`` the op that made the launch and its time in
+    ms after the trace's first launch."""
+    from torch.autograd import DeviceType
+
+    traced = {e.id for e in events if e.device_type == DeviceType.CUDA}
+    lost = [e for e in launches if e.id not in traced]
+    first = min((e.time_range.start for e in launches), default=0.0)
+    return {"count": len(lost), "first": [[e.cpu_parent.name if e.cpu_parent else e.name,
+                                           (e.time_range.start - first) / 1e3] for e in lost[:shown]]}
 
 
 def sepconv_bound_ms(batch: int, c: int, o: int, dtype: torch.dtype):
@@ -1831,20 +1917,37 @@ EXACT_LAUNCH_LIMIT = 200
 UNSORTED_THRESHOLDS = [0.75, 0.25, 0.5, 0.25, 1.0, 0.0]
 
 
-def ctr_scores(gen: torch.Generator, n: int = CTR_SCORES, device: str = "cuda"):
-    """Logged click-through predictions: about 3% positives, probabilities that lean to
-    the clicks, rounded to thousandths as logged scores are (so ties abound)."""
+def ctr_logits(gen: torch.Generator, n: int = CTR_SCORES, device: str = "cuda"):
+    """Logged click-through predictions' logits: about 3% positives, logits that lean to
+    the clicks."""
     target = (torch.rand(n, generator=gen, device=device) < CTR_POSITIVE_SHARE).to(torch.int64)
-    logits = torch.randn(n, generator=gen, device=device) + 1.5 * target - 3.5
-    return torch.round(torch.sigmoid(logits) * 1000) / 1000, target
+    return torch.randn(n, generator=gen, device=device) + 1.5 * target - 3.5, target
+
+
+def ctr_probabilities(logits: torch.Tensor) -> torch.Tensor:
+    """The logged scores: probabilities rounded to thousandths (so ties abound)."""
+    return torch.round(torch.sigmoid(logits) * 1000) / 1000
+
+
+def ctr_scores(gen: torch.Generator, n: int = CTR_SCORES, device: str = "cuda"):
+    """Logged click-through predictions: ``ctr_logits`` as logged probabilities."""
+    logits, target = ctr_logits(gen, n, device)
+    return ctr_probabilities(logits), target
+
+
+def imagenet_logits(gen: torch.Generator, rows: int = IMAGENET_ROWS, classes: int = IMAGENET_CLASSES,
+                    device: str = "cuda"):
+    """A validation set's logits, which lean to the target class."""
+    target = torch.randint(0, classes, (rows,), generator=gen, device=device)
+    logits = torch.randn((rows, classes), generator=gen, device=device)
+    logits.scatter_add_(1, target[:, None], torch.full((rows, 1), 2.5, device=device))
+    return logits, target
 
 
 def imagenet_scores(gen: torch.Generator, rows: int = IMAGENET_ROWS, classes: int = IMAGENET_CLASSES,
                     device: str = "cuda"):
-    """A validation set's softmax rows: logits that lean to the target class."""
-    target = torch.randint(0, classes, (rows,), generator=gen, device=device)
-    logits = torch.randn((rows, classes), generator=gen, device=device)
-    logits.scatter_add_(1, target[:, None], torch.full((rows, 1), 2.5, device=device))
+    """A validation set's softmax rows: ``imagenet_logits`` through a softmax."""
+    logits, target = imagenet_logits(gen, rows, classes, device)
     return logits.softmax(dim=1), target
 
 
@@ -2017,16 +2120,22 @@ def binned_update_peak_bytes(batches: list) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
-def curves_phase(card: str) -> None:
+def curves_phase(card: str) -> dict:
+    """Returns each workload's logits, scores, targets and batches, and its metrics on
+    the card and on the CPU, for the phases that read the same data and states."""
     gen = torch.Generator(device="cuda").manual_seed(10)
-    lines = {}
-    for workload, make, build, updates in (("ctr", ctr_scores, ctr_metrics, CTR_UPDATES),
-                                           ("imagenet", imagenet_scores, imagenet_metrics, IMAGENET_UPDATES)):
-        preds, target = make(gen)
+    lines, data = {}, {}
+    for workload, make, scores, build, updates in (
+            ("ctr", ctr_logits, ctr_probabilities, ctr_metrics, CTR_UPDATES),
+            ("imagenet", imagenet_logits, lambda x: x.softmax(dim=1), imagenet_metrics, IMAGENET_UPDATES)):
+        logits, target = make(gen)
+        preds = scores(logits)
         batches = list(zip(preds.chunk(updates), target.chunk(updates)))
-        metrics = build()
+        metrics, cpu_metrics = build(), build("cpu")
         results = run_curves(metrics, batches)
-        values = cpu_reference(metrics, build("cpu"), batches, curve_sources(metrics))
+        values = cpu_reference(metrics, cpu_metrics, batches, curve_sources(metrics))
+        data[workload] = {"logits": logits, "scores": preds, "target": target, "batches": batches,
+                          "metrics": metrics, "cpu_metrics": cpu_metrics}
         worst = max(compare_curves(f"curves {workload} {name}", results[name].pop("value"), values[name])
                     for name in metrics)
         events = profile_step(f"curves_{workload}_auroc_exact_compute", lambda: fresh_compute(metrics["auroc_exact"]))
@@ -2046,6 +2155,334 @@ def curves_phase(card: str) -> None:
                     zip(curve_edge_results(inputs, "cuda").items(), curve_edge_results(inputs, "cpu").values()))
     emit({"phase": "curves", **lines, "binned_update_peak_bytes": peak, "edge_cases_max_diff": edge_diff,
           "card": card})
+    return data
+
+
+CALIBRATION_BINS = 15
+FAIRNESS_GROUPS = 8
+FAIRNESS_THRESHOLD = 0.05  # a click-through score's operating threshold (about 3% of samples click)
+RANKING_PEAK_LIMIT = 2**30
+SUM_RTOL = 1e-6  # float sums, which the card and the CPU add in other orders (in float64, rounded once)
+VALUE_RTOL = 1e-6
+FLOAT_SUMS = {"conf_bin", "acc_bin", "measures", "measure"}  # held within SUM_RTOL, the rest bit for bit
+
+
+def fairness_groups(gen: torch.Generator, n: int, groups: int = FAIRNESS_GROUPS, device: str = "cuda"):
+    """Each sample's group, drawn with weights 1, 1/2, ..., 1/groups (skewed, as the
+    subgroups of a user population are)."""
+    weights = 1.0 / torch.arange(1, groups + 1, dtype=torch.float32, device=device)
+    return torch.multinomial(weights, n, replacement=True, generator=gen)
+
+
+def tail_inputs(data: dict, multilabel: tuple, groups: torch.Tensor) -> dict:
+    """kind -> batches: the curves phase's CTR and ImageNet batches (probabilities and
+    logits), the 65,536 x 80 multilabel scores in one batch, and the CTR batches with
+    their groups."""
+    ctr, imagenet = data["ctr"], data["imagenet"]
+    ctr_n, imagenet_n = len(ctr["batches"]), len(imagenet["batches"])
+    return {
+        "ctr_scores": ctr["batches"],
+        "ctr_logits": list(zip(ctr["logits"].chunk(ctr_n), ctr["target"].chunk(ctr_n))),
+        "ctr_groups": list(zip(ctr["scores"].chunk(ctr_n), ctr["target"].chunk(ctr_n), groups.chunk(ctr_n))),
+        "imagenet_scores": imagenet["batches"],
+        "imagenet_logits": list(zip(imagenet["logits"].chunk(imagenet_n), imagenet["target"].chunk(imagenet_n))),
+        "multilabel": [multilabel],
+    }
+
+
+def tail_metrics(device=None, classes: int = IMAGENET_CLASSES, labels: int = TOWER_LABELS,
+                 groups: int = FAIRNESS_GROUPS) -> dict:
+    """name -> (input kind, metric), at their defaults but the stated arguments."""
+    from torchmetrics_tpu_torch import classification as tc
+
+    out = {f"calibration_{norm}": ("ctr_scores", tc.BinaryCalibrationError(CALIBRATION_BINS, norm, device=device))
+           for norm in ("l1", "l2", "max")}
+    out["calibration_multiclass"] = ("imagenet_scores",
+                                     tc.MulticlassCalibrationError(classes, CALIBRATION_BINS, device=device))
+    out["hinge_binary"] = ("ctr_logits", tc.BinaryHingeLoss(device=device))
+    for mode in ("crammer-singer", "one-vs-all"):
+        out[f"hinge_{mode}"] = ("imagenet_logits", tc.MulticlassHingeLoss(classes, multiclass_mode=mode, device=device))
+    out["coverage_error"] = ("multilabel", tc.MultilabelCoverageError(labels, device=device))
+    out["ranking_average_precision"] = ("multilabel", tc.MultilabelRankingAveragePrecision(labels, device=device))
+    out["ranking_loss"] = ("multilabel", tc.MultilabelRankingLoss(labels, device=device))
+    out["fairness"] = ("ctr_groups", tc.BinaryFairness(groups, threshold=FAIRNESS_THRESHOLD, device=device))
+    out["group_rates"] = ("ctr_groups", tc.BinaryGroupStatRates(groups, threshold=FAIRNESS_THRESHOLD, device=device))
+    return out
+
+
+def run_tail(metrics: dict, inputs: dict, timed: bool = True) -> dict:
+    """Every batch of its kind into each metric, then ``compute()``: name -> {states,
+    value} and, when ``timed``, update_ms (median) and compute_ms (first and second
+    call), on the host's clock around synchronised calls."""
+    out = {}
+    for name, (kind, metric) in metrics.items():
+        if timed:
+            times = [synced_ms(lambda: metric.update(*batch)) for batch in inputs[kind]]
+            first = synced_ms(lambda: fresh_compute(metric))
+            value = []
+            second = synced_ms(lambda: value.append(fresh_compute(metric)))
+            out[name] = {"update_ms": median(times), "compute_ms": [first, second], "value": value[0]}
+        else:
+            for batch in inputs[kind]:
+                metric.update(*batch)
+            out[name] = {"value": metric.compute()}
+        out[name]["states"] = {k: v.clone() for k, v in metric._state.items()}
+    return out
+
+
+def summary(value: torch.Tensor):
+    """A value for a report line: its entries, or of a long vector its mean, min and max."""
+    return value.tolist() if value.numel() <= 8 else [float(value.nanmean()), float(value.min()), float(value.max())]
+
+
+def largest_rel_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want| / |want|`` (``|got - want|`` where ``want`` is 0),
+    NaN in the same places; inf if they are not."""
+    got, want = got.cpu().double(), want.cpu().double()
+    if not torch.equal(got.isnan(), want.isnan()):
+        return math.inf
+    finite = ~want.isnan()
+    if not bool(finite.any()):
+        return 0.0
+    diff = (got - want).abs()[finite]
+    scale = want.abs()[finite]
+    return float(torch.where(scale > 0, diff / scale, diff).max())
+
+
+def hold_tail(got: dict, want: dict, bitwise: bool = False) -> dict:
+    """Metric by metric: states bit for bit, but the float sums in ``FLOAT_SUMS`` within
+    ``SUM_RTOL`` relative; values (dicts by their keys) within ``VALUE_RTOL`` relative,
+    or everything bit for bit when ``bitwise``. Returns the largest relative differences."""
+    worst = {"sums": 0.0, "values": 0.0}
+    for name, entry in want.items():
+        for key, value in entry["states"].items():
+            mine = got[name]["states"][key].cpu()
+            if mine.dtype != value.dtype or mine.shape != value.shape:
+                raise AssertionError(f"tower_tail {name} {key}: {mine.dtype}{tuple(mine.shape)} against "
+                                     f"{value.dtype}{tuple(value.shape)}")
+            if key in FLOAT_SUMS and not bitwise:
+                diff = largest_rel_diff(mine, value)
+                if not diff <= SUM_RTOL:
+                    raise AssertionError(f"tower_tail {name} {key}: states differ by {diff} relative")
+                worst["sums"] = max(worst["sums"], diff)
+            elif not torch.equal(mine, value.cpu()):
+                raise AssertionError(f"tower_tail {name} {key}: states differ")
+        value, mine = entry["value"], got[name]["value"]
+        if isinstance(value, dict) and list(value) != list(mine):
+            raise AssertionError(f"tower_tail {name}: keys {list(mine)} against {list(value)}")
+        for a, b in zip(*((list(v.values()) if isinstance(v, dict) else [v]) for v in (mine, value))):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"tower_tail {name}: value {a.dtype}{tuple(a.shape)} against {b.dtype}"
+                                     f"{tuple(b.shape)}")
+            diff = largest_rel_diff(a, b)
+            if not (diff == 0.0 if bitwise else diff <= VALUE_RTOL):
+                raise AssertionError(f"tower_tail {name}: values differ by {diff} relative")
+            worst["values"] = max(worst["values"], diff)
+    return worst
+
+
+def update_peak_bytes(metric, batch) -> int:
+    """The bytes one update allocates beyond what the card held before it (an update
+    ran first, so the states exist)."""
+    metric.update(*batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    metric.update(*batch)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def tower_tail_phase(card: str, data: dict) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    groups = fairness_groups(gen, data["ctr"]["target"].numel())
+    multilabel = tower_inputs(torch.Generator(device="cuda").manual_seed(9))["multilabel"]
+    inputs = tail_inputs(data, multilabel, groups)
+    cpu_inputs = {kind: [tuple(t.cpu() for t in batch) for batch in batches] for kind, batches in inputs.items()}
+    metrics = tail_metrics()
+    card_run = run_tail(metrics, inputs)
+    worst = hold_tail(card_run, run_tail(tail_metrics("cpu"), cpu_inputs, timed=False))
+    ranking = ("coverage_error", "ranking_average_precision", "ranking_loss")
+    peaks = {name: update_peak_bytes(tail_metrics()[name][1], multilabel) for name in ranking}
+    if not max(peaks.values()) < RANKING_PEAK_LIMIT:
+        raise AssertionError(f"tower_tail: a ranking update took {peaks} bytes beyond its inputs")
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        rerun = ranking + ("hinge_crammer-singer", "hinge_one-vs-all")
+        fresh = tail_metrics()
+        again = run_tail({name: fresh[name] for name in rerun}, inputs, timed=False)
+        hold_tail(again, {name: card_run[name] for name in rerun}, bitwise=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+    lines = {name: {"update_ms": entry["update_ms"], "compute_ms": entry["compute_ms"],
+                    "value": {k: summary(v) for k, v in entry["value"].items()} if isinstance(entry["value"], dict)
+                    else summary(entry["value"])} for name, entry in card_run.items()}
+    emit({"phase": "tower_tail", "metrics": lines, "max_value_rel_diff": worst["values"],
+          "max_sum_rel_diff": worst["sums"], "ranking_update_peak_bytes": peaks, "tf32_bitwise": True,
+          "ctr_scores": data["ctr"]["target"].numel(), "imagenet_rows": list(data["imagenet"]["logits"].shape),
+          "multilabel": list(multilabel[0].shape), "groups": torch.bincount(groups).tolist(), "card": card})
+    for name in ("calibration_l1", "calibration_multiclass", "hinge_one-vs-all", "ranking_loss", "fairness"):
+        kind, metric = metrics[name]
+        profile_step(f"tower_tail_{name}_update", lambda: metric.update(*inputs[kind][0]))
+
+
+# The exact macro EER of ImageNet interpolates all 1,000 curves onto the union of their
+# false positive rates, about 50M points: 5e10 interpolations, which no implementation of
+# the JAX package's semantics finishes inside this script's time. It runs binned here, and
+# exact at a small size in tests/test_torch_operating_points.py.
+MACRO_EER_NOTE = "exact macro EER at ImageNet size left out: 5e10 interpolations onto a 50M-point union"
+POINT_FLOORS = {"min_recall": 0.5, "min_precision": 0.2, "min_specificity": 0.99, "min_sensitivity": 0.5}
+POINT_LAUNCH_PROFILES = ("eer_none_exact", "logauc_none_exact", "recall_at_precision_exact")
+
+
+def point_metrics(workload: str, device=None, classes: int = IMAGENET_CLASSES, thresholds=None) -> dict:
+    """name -> metric: EER, LogAUC (default range and (0.01, 0.5)) and the four operating
+    points, exact and binned (at the curves phase's thresholds unless given);
+    ImageNet's per class (``average=None``) and macro."""
+    from torchmetrics_tpu_torch import classification as tc
+
+    out = {}
+    if workload == "ctr":
+        for tag, thr in (("exact", None), ("binned", thresholds or CTR_THRESHOLDS)):
+            kwargs = {"thresholds": thr, "device": device}
+            out[f"eer_{tag}"] = tc.BinaryEER(**kwargs)
+            out[f"logauc_{tag}"] = tc.BinaryLogAUC(**kwargs)
+            out[f"logauc_wide_{tag}"] = tc.BinaryLogAUC(fpr_range=(0.01, 0.5), **kwargs)
+            out[f"precision_at_recall_{tag}"] = tc.BinaryPrecisionAtFixedRecall(POINT_FLOORS["min_recall"], **kwargs)
+            out[f"recall_at_precision_{tag}"] = tc.BinaryRecallAtFixedPrecision(POINT_FLOORS["min_precision"],
+                                                                                **kwargs)
+            out[f"sensitivity_at_specificity_{tag}"] = tc.BinarySensitivityAtSpecificity(
+                POINT_FLOORS["min_specificity"], **kwargs)
+            out[f"specificity_at_sensitivity_{tag}"] = tc.BinarySpecificityAtSensitivity(
+                POINT_FLOORS["min_sensitivity"], **kwargs)
+        return out
+    for tag, thr in (("exact", None), ("binned", thresholds or IMAGENET_THRESHOLDS)):
+        kwargs = {"thresholds": thr, "device": device}
+        for average in ("none", "macro"):
+            if average == "none" or thr is not None:  # the exact macro curve: see MACRO_EER_NOTE
+                out[f"eer_{average}_{tag}"] = tc.MulticlassEER(classes, average=None if average == "none"
+                                                               else average, **kwargs)
+            out[f"logauc_{average}_{tag}"] = tc.MulticlassLogAUC(classes, average=None if average == "none"
+                                                                 else average, **kwargs)
+        out[f"precision_at_recall_{tag}"] = tc.MulticlassPrecisionAtFixedRecall(classes, POINT_FLOORS["min_recall"],
+                                                                              **kwargs)
+        out[f"recall_at_precision_{tag}"] = tc.MulticlassRecallAtFixedPrecision(classes, POINT_FLOORS["min_precision"],
+                                                                              **kwargs)
+        out[f"sensitivity_at_specificity_{tag}"] = tc.MulticlassSensitivityAtSpecificity(
+            classes, POINT_FLOORS["min_specificity"], **kwargs)
+        out[f"specificity_at_sensitivity_{tag}"] = tc.MulticlassSpecificityAtSensitivity(
+            classes, POINT_FLOORS["min_sensitivity"], **kwargs)
+    return out
+
+
+def adopt_states(metrics: dict, sources: dict) -> None:
+    """Each metric takes the states of the source of its family (``"exact"`` or
+    ``"binned"`` in its name), by reference: no update runs."""
+    for name, metric in metrics.items():
+        source = sources["binned" if "binned" in name else "exact"]
+        metric.merge_state({k: (list(v) if isinstance(v, list) else v) for k, v in source._state.items()})
+
+
+def compare_points(label: str, got, want) -> float:
+    """An EER or LogAUC value, or an operating point (value, threshold), on the card
+    against the CPU's: thresholds bit for bit (NaN by place), values within
+    ``RATIO_ATOL`` with NaN in the same places. Returns the largest value difference."""
+    if isinstance(want, tuple):
+        if not isinstance(got, tuple) or len(got) != 2:
+            raise AssertionError(f"{label}: structure differs from the CPU's")
+        threshold, want_threshold = got[1].cpu(), want[1]
+        same = (threshold.dtype == want_threshold.dtype and threshold.shape == want_threshold.shape
+                and torch.equal(threshold.isnan(), want_threshold.isnan())
+                and torch.equal(torch.where(threshold.isnan(), 0.0, threshold).view(torch.int32),
+                                torch.where(want_threshold.isnan(), 0.0, want_threshold).view(torch.int32)))
+        if not same:
+            raise AssertionError(f"{label}: the thresholds differ from the CPU's bit for bit")
+        return compare_curves(label, got[0], want[0])
+    return compare_curves(label, got, want)
+
+
+def curve_point_edge_results(inputs: dict, device) -> dict:
+    """The functional EER, LogAUC and operating points on ``curve_edge_inputs`` (NaN and
+    signed zeros, a class and a label without positives), on its scores in quarters (ties
+    on the objective) too, exact and with an unsorted list of thresholds that repeats one
+    and holds 1.0 (NaN precision); floors that leave the class without positives no
+    feasible point."""
+    import warnings
+
+    from torchmetrics_tpu_torch import functional as tf
+
+    out = {}
+    (bp, bt), (mp, mt), (lp, lt) = [tuple(torch.from_numpy(x).to(device) for x in inputs[k])
+                                    for k in ("binary", "multiclass", "multilabel")]
+    c = mp.shape[1]
+    ties = {"scores": (bp, mp, lp), "quarters": tuple(torch.round(x * 4) / 4 for x in (bp, mp, lp))}
+    points = (("precision_at_fixed_recall", "min_recall"), ("recall_at_fixed_precision", "min_precision"),
+              ("sensitivity_at_specificity", "min_specificity"), ("specificity_at_sensitivity", "min_sensitivity"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for kind, (b, m, ml) in ties.items():
+            for tag, thr in (("exact", None), ("list", UNSORTED_THRESHOLDS)):
+                key = f"{kind}_{tag}"
+                out[f"binary_eer_{key}"] = tf.binary_eer(b, bt, thr)
+                out[f"multiclass_eer_{key}"] = tf.multiclass_eer(m, mt, c, thr)
+                out[f"multilabel_logauc_{key}"] = tf.multilabel_logauc(ml, lt, c, thresholds=thr, average=None)
+                out[f"binary_logauc_{key}"] = tf.binary_logauc(b, bt, (0.01, 0.5), thr)
+                for stem, floor in points:
+                    for value in (0.5, 1.0):
+                        out[f"binary_{stem}_{value}_{key}"] = getattr(tf, f"binary_{stem}")(b, bt, value, thr)
+                        out[f"multiclass_{stem}_{value}_{key}"] = getattr(tf, f"multiclass_{stem}")(m, mt, c, value, thr)
+                        out[f"multilabel_{stem}_{value}_{key}"] = getattr(tf, f"multilabel_{stem}")(ml, lt, c, value,
+                                                                                                 thr)
+    return out
+
+
+def curve_points_phase(card: str, data: dict) -> None:
+    import warnings
+
+    lines = {}
+    worst = 0.0
+    for workload in ("ctr", "imagenet"):
+        sources = {"exact": data[workload]["metrics"]["auroc_exact"], "binned": data[workload]["metrics"]["auroc_binned"]}
+        cpu_sources = {k: data[workload]["cpu_metrics"][f"auroc_{k}"] for k in ("exact", "binned")}
+        metrics, cpu_metrics = point_metrics(workload), point_metrics(workload, "cpu")
+        adopt_states(metrics, sources)
+        adopt_states(cpu_metrics, cpu_sources)
+        results = {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for name, metric in metrics.items():
+                first = synced_ms(lambda: fresh_compute(metric))
+                value = []
+                second = synced_ms(lambda: value.append(fresh_compute(metric)))
+                worst = max(worst, compare_points(f"curve_points {workload} {name}", value[0],
+                                                  cpu_metrics[name].compute()))
+                shown = value[0] if isinstance(value[0], tuple) else (value[0],)
+                results[name] = {"compute_ms": [first, second], "value": [summary(v) for v in shown]}
+        lines[workload] = results
+        if workload == "imagenet":
+            launches = {}
+            for name in POINT_LAUNCH_PROFILES:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    events = profile_step(f"curve_points_imagenet_{name}_compute",
+                                          lambda: fresh_compute(metrics[name]))
+                launches[name] = launch_calls(events)
+            if not max(launches.values()) < EXACT_LAUNCH_LIMIT:
+                raise AssertionError(f"curve_points: the exact ImageNet computes made {launches} launch calls")
+            lines["exact_compute_launch_calls"] = launches
+    inputs = curve_edge_inputs()
+    edge = {name: (value, want) for (name, value), want in
+            zip(curve_point_edge_results(inputs, "cuda").items(), curve_point_edge_results(inputs, "cpu").values())}
+    edge_diff = max(compare_points(f"curve_points edge {name}", value, want) for name, (value, want) in edge.items())
+    fallbacks = {"no_feasible_1e6": bool((edge["multiclass_specificity_at_sensitivity_0.5_scores_exact"][0][1][3]
+                                          == 1e6).item()),
+                 "no_feasible_nan": bool(edge["multiclass_recall_at_fixed_precision_0.5_scores_exact"][0][1][3]
+                                         .isnan().item())}
+    if not all(fallbacks.values()):
+        raise AssertionError(f"curve_points edge: the class without positives gave {fallbacks}")
+    emit({"phase": "curve_points", **lines, "max_value_diff": worst, "edge_cases": len(edge), "note": MACRO_EER_NOTE,
+          "edge_cases_max_diff": edge_diff, "fallbacks": fallbacks, "floors": POINT_FLOORS, "card": card})
 
 
 def flagship_forward(cases: dict) -> dict:
@@ -2086,7 +2523,10 @@ def main() -> int:
     launches["bfloat16"] = sum(launches_by_path.values())
     collection_groups_phase(card)
     classification_tower_phase(card)
-    curves_phase(card)
+    curve_data = curves_phase(card)
+    tower_tail_phase(card, curve_data)
+    curve_points_phase(card, curve_data)
+    del curve_data
 
     print(card, flush=True)
     kernels = []

@@ -453,3 +453,175 @@ def test_curve_edge_cases_hold_nan_zeros_and_unsorted_thresholds(chip_smoke):
     assert all(chip_smoke.compare_curves(name, value, again[name]) == 0.0 for name, value in results.items())
     assert results["binary_roc_list"][2].tolist() == chip_smoke.UNSORTED_THRESHOLDS[::-1]
     assert torch.isnan(results["multiclass_ap_none_exact"][3]) and torch.isnan(results["binary_pr_curve_exact"][2]).any()
+
+
+def _tail_data(chip_smoke, ctr_n: int = 8192, rows: int = 400, classes: int = 12):
+    """The curves phase's data at a small size, as ``curves_phase`` returns it (without
+    the metrics)."""
+    gen = torch.Generator().manual_seed(10)
+    logits, target = chip_smoke.ctr_logits(gen, n=ctr_n, device="cpu")
+    image_logits, labels = chip_smoke.imagenet_logits(gen, rows=rows, classes=classes, device="cpu")
+    data = {"ctr": {"logits": logits, "scores": chip_smoke.ctr_probabilities(logits), "target": target},
+            "imagenet": {"logits": image_logits, "scores": image_logits.softmax(1), "target": labels}}
+    for workload, parts in (("ctr", 4), ("imagenet", 5)):
+        entry = data[workload]
+        entry["batches"] = list(zip(entry["scores"].chunk(parts), entry["target"].chunk(parts)))
+    return data
+
+
+def test_tail_data_makers_give_the_curves_data_and_skewed_groups(chip_smoke):
+    """The logits makers draw what the score makers draw; the groups are 8 and skewed."""
+    a, b = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
+    scores, target = chip_smoke.ctr_scores(a, n=5000, device="cpu")
+    logits, target2 = chip_smoke.ctr_logits(b, n=5000, device="cpu")
+    assert torch.equal(scores, chip_smoke.ctr_probabilities(logits)) and torch.equal(target, target2)
+    probs, labels = chip_smoke.imagenet_scores(a, rows=50, classes=6, device="cpu")
+    image_logits, labels2 = chip_smoke.imagenet_logits(b, rows=50, classes=6, device="cpu")
+    assert torch.equal(probs, image_logits.softmax(dim=1)) and torch.equal(labels, labels2)
+    groups = chip_smoke.fairness_groups(torch.Generator().manual_seed(11), 40000, device="cpu")
+    counts = torch.bincount(groups, minlength=chip_smoke.FAIRNESS_GROUPS)
+    assert counts.numel() == 8 and bool((counts[:-1] > counts[1:]).all())
+    data = _tail_data(chip_smoke)
+    ml = chip_smoke.tower_inputs(torch.Generator().manual_seed(9), batch=64, labels=10, device="cpu")["multilabel"]
+    inputs = chip_smoke.tail_inputs(data, ml, torch.zeros(8192, dtype=torch.int64))
+    assert {kind: len(batches) for kind, batches in inputs.items()} == {
+        "ctr_scores": 4, "ctr_logits": 4, "ctr_groups": 4, "imagenet_scores": 5, "imagenet_logits": 5, "multilabel": 1}
+    assert torch.equal(torch.cat([b[0] for b in inputs["ctr_groups"]]), data["ctr"]["scores"])
+
+
+def test_tower_tail_rehearsal_holds_the_cpu_port(chip_smoke):
+    """Every tail metric at a small size, twice on the same inputs: equal bit for bit; a
+    changed count, float sum or value is caught."""
+    data = _tail_data(chip_smoke)
+    ml = chip_smoke.tower_inputs(torch.Generator().manual_seed(9), batch=256, labels=10, device="cpu")["multilabel"]
+    groups = chip_smoke.fairness_groups(torch.Generator().manual_seed(11), 8192, device="cpu")
+    inputs = chip_smoke.tail_inputs(data, ml, groups)
+
+    def run():
+        return chip_smoke.run_tail(chip_smoke.tail_metrics("cpu", classes=12, labels=10), inputs, timed=False)
+
+    first, second = run(), run()
+    assert chip_smoke.hold_tail(second, first, bitwise=True) == {"sums": 0.0, "values": 0.0}
+    assert list(first["fairness"]["value"]) == [k for k in first["fairness"]["value"] if k[:3] in ("DP_", "EO_")]
+    states = second["group_rates"]["states"]
+    second["group_rates"]["states"] = {**states, "tp": states["tp"] + 1}
+    with pytest.raises(AssertionError, match="states differ"):
+        chip_smoke.hold_tail(second, first)
+    second["group_rates"]["states"] = states
+    conf = second["calibration_l1"]["states"]["conf_bin"]
+    second["calibration_l1"]["states"]["conf_bin"] = conf * (1 + 1e-5)
+    with pytest.raises(AssertionError, match="states differ by"):
+        chip_smoke.hold_tail(second, first)
+    second["calibration_l1"]["states"]["conf_bin"] = conf
+    second["ranking_loss"]["value"] = second["ranking_loss"]["value"] * (1 + 1e-5)
+    with pytest.raises(AssertionError, match="values differ"):
+        chip_smoke.hold_tail(second, first)
+
+
+def test_lost_launches_are_the_launches_without_a_device_event(chip_smoke):
+    """A trace's launches are matched to its device events by correlation id; each lost
+    one is named by the op that made it, timed from the trace's first launch."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def event(kind, corr, start_us, name, parent=None):
+        return SimpleNamespace(device_type=kind, id=corr, name=name, time_range=SimpleNamespace(start=start_us),
+                               cpu_parent=SimpleNamespace(name=parent) if parent else None)
+
+    launches = [event(DeviceType.CPU, 7, 100.0, "cudaLaunchKernel", "aten::index_add_"),
+                event(DeviceType.CPU, 8, 350.0, "cudaLaunchKernel", "aten::sum"),
+                event(DeviceType.CPU, 9, 1100.0, "cuLaunchKernel")]
+    events = launches + [event(DeviceType.CUDA, 7, 120.0, "indexFuncLargeIndex")]
+    assert chip_smoke.lost_launches(events, launches) == {
+        "count": 2, "first": [["aten::sum", 0.25], ["cuLaunchKernel", 1.0]]}
+    assert chip_smoke.lost_launches(events, launches, shown=1)["first"] == [["aten::sum", 0.25]]
+    assert chip_smoke.lost_launches(events, []) == {"count": 0, "first": []}
+
+
+def test_step_events_keep_the_steps_range_and_the_device_work_after_the_pause(chip_smoke):
+    """Host events count inside the step's range; device events from the middle of the
+    pause on, less the device copies of host ranges; the lead launches drop out."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def event(kind, name, start_us, end_us, annotation=False):
+        return SimpleNamespace(device_type=kind, name=name, is_user_annotation=annotation,
+                               time_range=SimpleNamespace(start=start_us, end=end_us))
+
+    pause_us = chip_smoke.PROFILE_MARGIN_S * 1e6
+    begin = 1000.0 + pause_us
+    mark = event(DeviceType.CPU, chip_smoke.PROFILE_RANGE, begin, begin + 500.0)
+    lead = [event(DeviceType.CPU, "cudaLaunchKernel", 10.0, 12.0), event(DeviceType.CUDA, "add", 20.0, 22.0)]
+    inside = [event(DeviceType.CPU, "aten::sum", begin + 5.0, begin + 40.0),
+              event(DeviceType.CPU, "cudaLaunchKernel", begin + 10.0, begin + 12.0),
+              event(DeviceType.CUDA, "reduce_kernel", begin + 20.0, begin + 30.0),
+              event(DeviceType.CUDA, "Memcpy DtoH", begin - 10.0, begin + 2.0)]
+    ranges = [event(DeviceType.CUDA, "nccl:all_gather", begin + 20.0, begin + 60.0, annotation=True),
+              event(DeviceType.CUDA, chip_smoke.PROFILE_RANGE, begin + 1.0, begin + 499.0)]
+    after = [event(DeviceType.CPU, "aten::zeros", begin + 490.0, begin + 510.0)]
+    kept = chip_smoke.step_events([*lead, mark, *inside, *ranges, *after])
+    assert kept == inside
+    with pytest.raises(AssertionError, match="2 host ranges"):
+        chip_smoke.step_events([mark, mark])
+
+
+def test_largest_rel_diff_reads_nan_by_place_and_zero_as_absolute(chip_smoke):
+    a = torch.tensor([1.0, 0.0, float("nan")])
+    assert chip_smoke.largest_rel_diff(a, a) == 0.0
+    assert chip_smoke.largest_rel_diff(torch.tensor([1.5, 1e-7, float("nan")]), a) == pytest.approx(0.5)
+    assert chip_smoke.largest_rel_diff(torch.tensor([1.0, 0.0, 0.0]), a) == float("inf")
+
+
+@pytest.mark.parametrize("workload", ["ctr", "imagenet"])
+def test_point_metrics_adopt_the_curve_states_without_an_update(chip_smoke, workload):
+    """The operating-point metrics take the curves phase's states by reference and give
+    what the functional entry points give on the whole data."""
+    import warnings
+
+    from torchmetrics_tpu_torch import functional as tf
+
+    data = _tail_data(chip_smoke)[workload]
+    thresholds = 11 if workload == "ctr" else 9
+    kwargs = {} if workload == "ctr" else {"classes": 12}
+    build = chip_smoke.ctr_metrics if workload == "ctr" else chip_smoke.imagenet_metrics
+    sources = build("cpu", thresholds=thresholds, **kwargs)
+    for name in ("auroc_exact", "auroc_binned"):
+        for batch in data["batches"]:
+            sources[name].update(*batch)
+    metrics = chip_smoke.point_metrics(workload, "cpu", thresholds=thresholds, **kwargs)
+    chip_smoke.adopt_states(metrics, {"exact": sources["auroc_exact"], "binned": sources["auroc_binned"]})
+    assert metrics["eer" + ("_none" if workload == "imagenet" else "") + "_exact"]._state["preds"][0] is \
+        sources["auroc_exact"]._state["preds"][0]
+    assert ("eer_macro_exact" in metrics) is False and ("eer_macro_binned" in metrics) is (workload == "imagenet")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for tag, thr in (("exact", None), ("binned", thresholds)):
+            if workload == "ctr":
+                want = tf.binary_recall_at_fixed_precision(data["scores"], data["target"], 0.2, thr)
+            else:
+                want = tf.multiclass_recall_at_fixed_precision(data["scores"], data["target"], 12, 0.2, thr)
+            assert chip_smoke.compare_points(tag, metrics[f"recall_at_precision_{tag}"].compute(), want) == 0.0
+
+
+def test_compare_points_takes_thresholds_bitwise_and_nan_by_place(chip_smoke):
+    point = (torch.tensor([0.5, 0.0]), torch.tensor([0.25, float("nan")]))
+    assert chip_smoke.compare_points("p", point, point) == 0.0
+    with pytest.raises(AssertionError, match="bit for bit"):
+        chip_smoke.compare_points("p", (point[0], torch.tensor([0.25 + 2**-25, float("nan")])), point)
+    with pytest.raises(AssertionError, match="bit for bit"):
+        chip_smoke.compare_points("p", (point[0], torch.tensor([float("nan"), 0.25])), point)
+    assert chip_smoke.compare_points("p", (point[0] + 1e-7, point[1]), point) <= 1e-6
+    assert chip_smoke.compare_points("p", torch.tensor(0.125), torch.tensor(0.125)) == 0.0
+
+
+def test_curve_point_edge_cases_reach_both_fallbacks(chip_smoke):
+    inputs = chip_smoke.curve_edge_inputs()
+    results = chip_smoke.curve_point_edge_results(inputs, "cpu")
+    again = chip_smoke.curve_point_edge_results(inputs, "cpu")
+    assert len(results) == 112
+    assert all(chip_smoke.compare_points(name, value, again[name]) == 0.0 for name, value in results.items())
+    assert results["multiclass_specificity_at_sensitivity_0.5_scores_exact"][1][3].item() == 1e6
+    assert torch.isnan(results["multiclass_recall_at_fixed_precision_0.5_scores_exact"][1][3])
+    assert torch.isnan(results["binary_precision_at_fixed_recall_0.5_scores_list"][1]).item() is False

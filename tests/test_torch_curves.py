@@ -442,3 +442,27 @@ def test_float16_scores_keep_the_jax_dtypes(task, stem):
         want = getattr(jax_fn, f"{task}_{stem}")(jnp.asarray(preds), jnp.asarray(target), **kwargs)
         got = getattr(port_fn, f"{task}_{stem}")(torch.from_numpy(preds), torch.from_numpy(target), **kwargs)
     _check_result(stem, got, want, "ties")
+
+
+@pytest.mark.parametrize("family, average", [("pr_curve", None), ("roc", None), ("auroc", "none"), ("auroc", "macro"),
+                                             ("ap", "none"), ("ap", "weighted")])
+@pytest.mark.parametrize("api", ["functional", "class"])
+def test_exact_multilabel_label_with_every_target_ignored_raises_as_in_jax(family, average, api):
+    """Label 1's every target is ``ignore_index``: the JAX package's numpy raises an
+    ``IndexError`` on its empty curve, and so does the port."""
+    preds, target = _data("multilabel", "probs", None, False, seed=9, n=20)
+    target[:, 1] = -1
+    stem, cls_stem, _ = FAMILIES[family]
+    kwargs = _kwargs("multilabel", None, -1, average, family)
+    kwargs.pop("num_labels")
+    for pkg, as_array, device in ((jax_fn if api == "functional" else jax_cls, jnp.asarray, {}),
+                                  (port_fn if api == "functional" else port_cls, torch.from_numpy, {"device": "cpu"})):
+        with warnings.catch_warnings(), pytest.raises(IndexError, match="out of bounds"):
+            warnings.simplefilter("ignore")
+            if api == "functional":
+                getattr(pkg, f"multilabel_{stem}")(as_array(preds), as_array(target), C, **kwargs)
+            else:
+                metric = getattr(pkg, "MultilabelAUROC" if family == "auroc" else f"Multilabel{cls_stem}")(
+                    C, **kwargs, **device)
+                metric.update(as_array(preds), as_array(target))
+                metric.compute()

@@ -105,11 +105,20 @@ def _toy_extractor(imgs):
         lambda: classification.BinaryAUROC(thresholds=10),
         lambda: classification.MulticlassAveragePrecision(3),
         lambda: functional.binary_auroc([0.25, 0.75], [0, 1]),
+        lambda: classification.BinaryCalibrationError(),
+        lambda: classification.HingeLoss(task="multiclass", num_classes=3),
+        lambda: classification.MultilabelRankingLoss(3),
+        lambda: classification.BinaryFairness(2),
+        lambda: classification.MulticlassEER(3),
+        lambda: classification.LogAUC(task="binary"),
+        lambda: classification.MultilabelRecallAtFixedPrecision(3, min_precision=0.5),
+        lambda: functional.binary_sensitivity_at_specificity([0.25, 0.75], [0, 1], 0.5),
     ],
     ids=["metric", "extractor", "extractor_from_params", "fid", "collection", "resolve_none", "resolve_cuda",
          "accumulator", "pack", "map", "map_device_backend", "device_map", "iou", "giou", "diou", "ciou",
          "kid", "mifid", "inception_score", "jaccard", "exact_match", "auroc_binned", "average_precision",
-         "functional_auroc"],
+         "functional_auroc", "calibration", "hinge", "ranking_loss", "fairness", "eer", "logauc", "recall_at_precision",
+         "functional_sensitivity_at_specificity"],
 )
 def test_default_device_raises_without_cuda(no_cuda, build):
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -23,7 +23,6 @@ from .precision_recall_curve import (
     _binary_precision_recall_curve_tensor_validation,
     _binary_precision_recall_curve_update,
     _filter_ignored,
-    _host_ints,
     _multiclass_exact_rows,
     _multiclass_precision_recall_curve_arg_validation,
     _multiclass_precision_recall_curve_format,
@@ -36,7 +35,7 @@ from .precision_recall_curve import (
     _multilabel_precision_recall_curve_update,
     _reduce_class_scores,
 )
-from .roc import _binary_roc_compute, _binned_roc, _exact_roc_rows, _warn_roc
+from .roc import _binary_roc_compute, _binned_roc, _exact_roc_curve_rows
 from .stat_scores import _check_task_args
 
 
@@ -45,14 +44,6 @@ def _reduce_auroc(
 ) -> torch.Tensor:
     """The areas under the curves in the rows of ``(fpr, tpr)`` -> ``average``."""
     return _reduce_class_scores(_auc_compute(fpr, tpr, 1.0), average, weights)
-
-
-def _exact_class_areas(preds: torch.Tensor, positive: torch.Tensor, keep: Optional[torch.Tensor] = None):
-    """Every row's exact ROC area, from the padded rows (one host read for the warnings)."""
-    fpr, tpr, _, _, no_negatives, no_positives = _exact_roc_rows(preds, positive, keep)
-    (no_negatives, no_positives), = _host_ints(torch.stack([no_negatives.any(), no_positives.any()]))
-    _warn_roc([no_negatives], [no_positives])
-    return fpr, tpr
 
 
 def _binary_auroc_arg_validation(max_fpr: Optional[float] = None, thresholds=None, ignore_index=None) -> None:
@@ -127,7 +118,7 @@ def _multiclass_auroc_compute(
         return _reduce_auroc(fpr.T, tpr.T, average, _binned_support(state))
     preds, positive, _ = _multiclass_exact_rows(state[0], state[1], num_classes)
     weights = torch.bincount(state[1].long(), minlength=num_classes).to(torch.float32)
-    return _reduce_auroc(*_exact_class_areas(preds, positive), average, weights)
+    return _reduce_auroc(*_exact_roc_curve_rows(preds, positive)[:2], average, weights)
 
 
 def multiclass_auroc(
@@ -202,7 +193,7 @@ def _multilabel_auroc_compute(
         fpr, tpr = _binned_roc(state)
         return _reduce_auroc(fpr.T, tpr.T, average, _binned_support(state))
     preds, positive, _, keep = _multilabel_exact_rows(state[0], state[1], ignore_index)
-    return _reduce_auroc(*_exact_class_areas(preds, positive, keep), average,
+    return _reduce_auroc(*_exact_roc_curve_rows(preds, positive, keep)[:2], average,
                          _multilabel_support(state[1], ignore_index))
 
 

@@ -28,9 +28,8 @@ from .precision_recall_curve import (
     _binary_precision_recall_curve_tensor_validation,
     _binary_precision_recall_curve_update,
     _binned_pr,
-    _exact_pr_rows,
+    _exact_pr_curve_rows,
     _filter_ignored,
-    _host_ints,
     _multiclass_exact_rows,
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_tensor_validation,
@@ -40,8 +39,6 @@ from .precision_recall_curve import (
     _multilabel_precision_recall_curve_tensor_validation,
     _multilabel_precision_recall_curve_update,
     _reduce_class_scores,
-    _sorted_counts,
-    _warn_no_positives,
 )
 from .stat_scores import _check_task_args
 
@@ -71,8 +68,7 @@ def _exact_class_aps(preds: torch.Tensor, positive: torch.Tensor, all_negative: 
                      keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Every row's exact AP, from the padded rows of its PR curve (a padded point
     repeats (1, 0), which adds nothing); NaN propagates."""
-    precision, recall, _, _ = _exact_pr_rows(_sorted_counts(preds, positive, keep), all_negative)
-    _warn_no_positives(_host_ints(all_negative.any())[0])
+    precision, recall, _, _ = _exact_pr_curve_rows(preds, positive, all_negative, keep)
     return _step_area(precision, recall)
 
 

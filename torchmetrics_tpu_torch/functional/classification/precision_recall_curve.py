@@ -204,6 +204,14 @@ def _host_ints(*values: torch.Tensor) -> List[List[int]]:
     return torch.stack([v.reshape(-1).to(torch.int64) for v in values]).tolist()
 
 
+def _check_rows(empty: int) -> None:
+    """A row without a single kept entry (a multilabel label whose every target is
+    ``ignore_index``) has no curve: raise the JAX package's error, which its numpy gives
+    on the empty row."""
+    if empty:
+        raise IndexError("index -1 is out of bounds for axis 0 with size 0")
+
+
 def _warn_no_positives(all_negative: List[int]) -> None:
     if any(all_negative):
         rank_zero_warn(
@@ -212,11 +220,23 @@ def _warn_no_positives(all_negative: List[int]) -> None:
         )
 
 
+def _exact_pr_curve_rows(preds: torch.Tensor, positive: torch.Tensor, all_negative: torch.Tensor,
+                         keep: Optional[torch.Tensor] = None):
+    """``_exact_pr_rows`` of the ``(K, N)`` scores after one host read, which raises on
+    an empty row and warns where a row has no positives."""
+    precision, recall, thresholds, lengths = _exact_pr_rows(_sorted_counts(preds, positive, keep), all_negative)
+    (empty, no_positives), = _host_ints(torch.stack([(lengths == 0).any(), all_negative.any()]))
+    _check_rows(empty)
+    _warn_no_positives([no_positives])
+    return precision, recall, thresholds, lengths
+
+
 def _exact_pr_compute(preds: torch.Tensor, positive: torch.Tensor, all_negative: torch.Tensor,
                       keep: Optional[torch.Tensor] = None) -> CurveLists:
     """Per-row exact PR curves of the ``(K, N)`` scores, as lists."""
     precision, recall, thresholds, lengths = _exact_pr_rows(_sorted_counts(preds, positive, keep), all_negative)
     lengths, all_negative = _host_ints(lengths, all_negative.expand(lengths.shape))
+    _check_rows(0 in lengths)
     _warn_no_positives(all_negative)
     points = [n + 1 for n in lengths]
     return _rows_to_list(precision, points), _rows_to_list(recall, points), _rows_to_list(thresholds, lengths)

@@ -23,6 +23,7 @@ from .precision_recall_curve import (
     _binary_precision_recall_curve_format,
     _binary_precision_recall_curve_tensor_validation,
     _binary_precision_recall_curve_update,
+    _check_rows,
     _filter_ignored,
     _host_ints,
     _last,
@@ -71,10 +72,22 @@ def _warn_roc(no_negatives: List[int], no_positives: List[int]) -> None:
         rank_zero_warn("No positive samples in targets, true positive value should be meaningless.", UserWarning)
 
 
+def _exact_roc_curve_rows(preds: torch.Tensor, positive: torch.Tensor, keep: Optional[torch.Tensor] = None):
+    """-> (fpr, tpr, thresholds, points): ``_exact_roc_rows`` after one host read, which
+    raises on an empty row and warns where a row has no negatives or no positives."""
+    fpr, tpr, thresholds, points, no_negatives, no_positives = _exact_roc_rows(preds, positive, keep)
+    (empty, no_negatives, no_positives), = _host_ints(
+        torch.stack([(points == 1).any(), no_negatives.any(), no_positives.any()]))
+    _check_rows(empty)
+    _warn_roc([no_negatives], [no_positives])
+    return fpr, tpr, thresholds, points
+
+
 def _exact_roc_compute(preds: torch.Tensor, positive: torch.Tensor, keep: Optional[torch.Tensor] = None):
     """Per-row exact ROC curves as lists, and the rows themselves."""
     fpr, tpr, thresholds, lengths, no_negatives, no_positives = rows = _exact_roc_rows(preds, positive, keep)
     points, no_negatives, no_positives = _host_ints(lengths, no_negatives, no_positives)
+    _check_rows(1 in points)
     _warn_roc(no_negatives, no_positives)
     fprs, tprs = _rows_to_list(fpr, points), _rows_to_list(tpr, points)
     if thresholds.dtype != fpr.dtype:  # a degenerate row is zeros in the thresholds' dtype, as in the JAX package

@@ -23,6 +23,12 @@ def _safe_divide(num: torch.Tensor, denom: torch.Tensor, zero_division: float = 
     return torch.where(zero, torch.full_like(quotient, zero_division), quotient)
 
 
+def _float32_sum(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """A float32 sum accumulated in float64: the order of the additions (the card's, the
+    CPU's) then moves only the float64's last bits, not the float32 result's."""
+    return (x.sum(dtype=torch.float64) if dim is None else x.sum(dim, dtype=torch.float64)).to(torch.float32)
+
+
 def _adjust_weights_safe_divide(
     score: torch.Tensor,
     average: Optional[str],
