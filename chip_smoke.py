@@ -139,6 +139,35 @@ Phases, one JSON line each, in order:
    Edge rows from ``curve_edge_inputs`` (scores and scores in quarters, exact and with an
    unsorted list of thresholds holding 1.0): ties on the objective, NaN precision, a
    class without positives, whose operating points fall back to (0, NaN) and (0, 1e6).
+21. regression: an M5-shaped demand forecast (30,490 item-store series x 28 days in 28
+   updates, 68% zero sales, the rest 1 + a gamma count, positive forecasts) through MSE,
+   RMSE, MAE, MAPE (the zeros hit its 1.17e-6 clip), SMAPE, WMAPE, MSLE, log-cosh,
+   Minkowski (p=3), Tweedie (power 1.5), R2, RSE, explained variance, NRMSE in its four
+   normalizations, Pearson and Spearman (853,720 points, a 68% tie run); a WeatherBench-2-
+   shaped verification (z500, t850, t2m and u10 on the 1.5-degree grid, 29,040 points, as
+   ``num_outputs=4``, 64 initialisations) through Pearson, concordance, R2 (raw values,
+   variance weighted), explained variance and NRMSE (std, range); CRPS of a 50-member
+   ensemble on the 0.25-degree grid (1,038,240 points, 2 updates); CSI at 1, 4 and 8 mm/h
+   on 16 x 18 x 256 x 256 radar nowcasts in 4 updates, summed and per lead time. Every
+   state is float32 and held against the CPU port over the same batches: bit for bit, but
+   the float sums and values of the metrics in ``TRANSCENDENTAL`` within 1e-6 relative
+   (absolute below magnitude 1); Spearman's ranks bit for bit; values within 1e-6
+   relative, R2's and explained variance's within 1e-6 times their cancellation
+   ``kappa``. A CRPS update under 1 GB beyond its inputs; R2 and RSE unchanged bit for bit
+   with TF32 matmuls allowed; profile lines for the M5 sum-state update, one CRPS update,
+   one weather Pearson update and the Spearman compute.
+22. correlation: Kendall (b with the t-test, and c) on 32,768 (metric score, human score)
+   pairs with tied human scores in 8 updates; ``CosineSimilarity`` (mean, none) on
+   65,536 x 768 embedding pairs in 16 updates; KL and Jensen-Shannon divergence (mean,
+   none; probabilities and log-probabilities) on 50,000 x 1,000 teacher and student
+   softmax rows in 50 updates. Held as in phase 21; Kendall's pair counts equal the CPU's
+   bit for bit, also on 1,000 pairs with NaN and infinities; the Kendall compute under
+   1 GB beyond its inputs and, profiled, under 500 launch calls; Kendall and cosine
+   similarity unchanged bit for bit with TF32.
+23. moments_two_ranks: two gloo ranks on the card (``--sync-child ... moments``) update
+   Pearson, concordance, NRMSE (std) and R2 over uneven shares (40 and 24) of phase 21's
+   weather initialisations; each rank's synced ``compute()`` (the stacked moments folded
+   in rank order) within 1e-6 relative of the whole data's in this process.
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -931,8 +960,8 @@ def update_two_rank(coll, inputs: dict, rank: int, world: int) -> None:
 def sync_child(rank: int, world: int, init_method: str, mode: str) -> int:
     """One rank of a two-rank phase: a gloo group on the one card, its half of the data,
     then the values through the real sync (``mode`` "sync": the collection's
-    ``compute()``; "flagship": the flagship's sync and finalize). Prints its values as a
-    RESULT line."""
+    ``compute()``; "flagship": the flagship's sync and finalize; "moments": the moment
+    metrics' ``compute()``). Prints its values as a RESULT line."""
     import datetime
 
     import torch.distributed as dist
@@ -943,6 +972,8 @@ def sync_child(rank: int, world: int, init_method: str, mode: str) -> int:
     try:
         if mode == "flagship":
             values, sync_ms = flagship_values(rank, world)
+        elif mode == "moments":
+            values, sync_ms = moment_values(rank, world)
         else:
             inputs = two_rank_inputs()
             coll = two_rank_collection(inputs)
@@ -1881,18 +1912,23 @@ def fresh_compute(metric):
     return metric.compute()
 
 
+def with_tf32(call):
+    """``call()`` with TF32 matmuls allowed, restored after."""
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return call()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+
+
 def classification_tower_phase(card: str) -> None:
     gen = torch.Generator(device="cuda").manual_seed(9)
     inputs = tower_inputs(gen)
     cpu_inputs = {kind: tuple(t.cpu() for t in pair) for kind, pair in inputs.items()}
     card_run = run_tower(tower_metrics(), inputs)
     worst = hold_tower(card_run, run_tower(tower_metrics("cpu"), cpu_inputs))
-    previous = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        hold_tower(run_tower(tower_metrics(), inputs), card_run, bitwise=True)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = previous
+    hold_tower(with_tf32(lambda: run_tower(tower_metrics(), inputs)), card_run, bitwise=True)
     timings = {}
     for name, (kind, metric) in tower_metrics().items():
         update_ms = median([synced_ms(lambda: metric.update(*inputs[kind])) for _ in range(TOWER_ITERS + 1)][1:])
@@ -2226,7 +2262,8 @@ def run_tail(metrics: dict, inputs: dict, timed: bool = True) -> dict:
             for batch in inputs[kind]:
                 metric.update(*batch)
             out[name] = {"value": metric.compute()}
-        out[name]["states"] = {k: v.clone() for k, v in metric._state.items()}
+        out[name]["states"] = {k: (torch.cat(v) if isinstance(v, list) else v).clone()
+                               for k, v in metric._state.items()}
     return out
 
 
@@ -2235,9 +2272,10 @@ def summary(value: torch.Tensor):
     return value.tolist() if value.numel() <= 8 else [float(value.nanmean()), float(value.min()), float(value.max())]
 
 
-def largest_rel_diff(got: torch.Tensor, want: torch.Tensor) -> float:
-    """The largest ``|got - want| / |want|`` (``|got - want|`` where ``want`` is 0),
-    NaN in the same places; inf if they are not."""
+def largest_rel_diff(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
+    """The largest ``|got - want| / max(|want|, floor)`` (``|got - want|`` where that
+    scale is 0), NaN in the same places; inf if they are not. ``floor=1`` makes it
+    relative above magnitude 1 and absolute below."""
     got, want = got.cpu().double(), want.cpu().double()
     if not torch.equal(got.isnan(), want.isnan()):
         return math.inf
@@ -2245,7 +2283,7 @@ def largest_rel_diff(got: torch.Tensor, want: torch.Tensor) -> float:
     if not bool(finite.any()):
         return 0.0
     diff = (got - want).abs()[finite]
-    scale = want.abs()[finite]
+    scale = want.abs()[finite].clamp(min=floor)
     return float(torch.where(scale > 0, diff / scale, diff).max())
 
 
@@ -2306,15 +2344,10 @@ def tower_tail_phase(card: str, data: dict) -> None:
     peaks = {name: update_peak_bytes(tail_metrics()[name][1], multilabel) for name in ranking}
     if not max(peaks.values()) < RANKING_PEAK_LIMIT:
         raise AssertionError(f"tower_tail: a ranking update took {peaks} bytes beyond its inputs")
-    previous = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        rerun = ranking + ("hinge_crammer-singer", "hinge_one-vs-all")
-        fresh = tail_metrics()
-        again = run_tail({name: fresh[name] for name in rerun}, inputs, timed=False)
-        hold_tail(again, {name: card_run[name] for name in rerun}, bitwise=True)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = previous
+    rerun = ranking + ("hinge_crammer-singer", "hinge_one-vs-all")
+    fresh = tail_metrics()
+    again = with_tf32(lambda: run_tail({name: fresh[name] for name in rerun}, inputs, timed=False))
+    hold_tail(again, {name: card_run[name] for name in rerun}, bitwise=True)
     lines = {name: {"update_ms": entry["update_ms"], "compute_ms": entry["compute_ms"],
                     "value": {k: summary(v) for k, v in entry["value"].items()} if isinstance(entry["value"], dict)
                     else summary(entry["value"])} for name, entry in card_run.items()}
@@ -2485,6 +2518,416 @@ def curve_points_phase(card: str, data: dict) -> None:
           "edge_cases_max_diff": edge_diff, "fallbacks": fallbacks, "floors": POINT_FLOORS, "card": card})
 
 
+# ---------------------------------------------------------------------------
+# regression and correlation (slice 10): M5 demand, WeatherBench-2-shaped verification,
+# radar nowcasts, MT metric meta-evaluation, embeddings, distillation
+# ---------------------------------------------------------------------------
+
+M5_SERIES = 30490  # the M5 competition's item-store series
+M5_DAYS = 28  # its forecast horizon: one update a day
+M5_ZERO_SHARE = 0.68
+WB_POINTS = 121 * 240  # WeatherBench 2's 1.5-degree grid
+WB_INITS = 64  # 00 and 12 UTC over 32 days: one update an initialisation
+# the four headline variables: climatological mean, spread and forecast error, in their units
+WB_VARIABLES = (("z500", 54000.0, 3300.0, 250.0), ("t850", 275.0, 15.0, 1.2), ("t2m", 280.0, 18.0, 1.5),
+                ("u10", 0.5, 5.0, 2.0))
+ENSEMBLE_POINTS = 721 * 1440  # the 0.25-degree grid
+ENSEMBLE_MEMBERS = 50
+ENSEMBLE_UPDATES = 2
+NOWCAST = (16, 18, 256, 256)  # crops, lead times, pixels: DGMR-style radar nowcast scoring
+NOWCAST_UPDATES = 4
+CSI_THRESHOLDS = (1.0, 4.0, 8.0)  # mm/h
+KENDALL_PAIRS = 32768  # (metric score, human score) pairs of an MT meta-evaluation
+KENDALL_UPDATES = 8
+EMBEDDINGS = (65536, 768)
+EMBEDDING_UPDATES = 16
+DISTILL = (50000, 1000)  # teacher and student softmax rows over ImageNet's classes
+DISTILL_UPDATES = 50
+PEAK_LIMIT = 2**30  # a CRPS update's or the Kendall compute's memory beyond its inputs
+KENDALL_LAUNCH_LIMIT = 500
+MOMENT_SPLIT = 40  # the moments children: rank 0 takes 40 initialisations, rank 1 the other 24
+# states held bit for bit, but the float sums and values of these metrics within SUM_RTOL
+# relative, or SUM_RTOL absolute below magnitude 1: their summed terms come from log, exp
+# or pow, whose last bit the card's and the CPU's libraries may round apart (every other
+# float sum is added in float64 and rounded once: bit for bit). A divergence row sums
+# terms p log(p/m) whose log is off by about one ulp of 1 per unit of probability mass,
+# and a row's mass is 1: its error is absolute, so a small row's relative error grows
+TRANSCENDENTAL = {"msle", "log_cosh", "minkowski_3", "tweedie_1.5"} | {
+    f"{div}_{red}_{kind}" for div in ("kl", "js") for red in ("mean", "none") for kind in ("probs", "log")}
+# values whose formula subtracts second moments (R2's tss = sum y^2 - sum y * mean, explained
+# variance's E[y^2] - E[y]^2): a relative error e in a state moves them by e * kappa, kappa
+# = sum y^2 / tss, so their bound is VALUE_RTOL * kappa (the class's NRMSE std uses centred
+# sums merged by Chan's formula and does not cancel)
+CANCELLING = {"r2": ("sum_squared_error", "sum_error", "total"), "rse": ("sum_squared_obs", "sum_obs", "total"),
+              "explained_variance": ("sum_squared_target", "sum_target", "num_obs")}
+
+
+def m5_inputs(series: int = M5_SERIES, days: int = M5_DAYS, seed: int = 13, device: str = "cuda"):
+    """(forecast, sold), float32 (days, series): 68% of the days sell nothing, the rest
+    1 + a gamma count; the forecasts are positive."""
+    rng = np.random.default_rng(seed)
+    sold = np.where(rng.uniform(size=(days, series)) < M5_ZERO_SHARE, 0.0,
+                    1.0 + np.floor(rng.gamma(1.2, 3.0, (days, series))))
+    forecast = np.maximum(sold * rng.uniform(0.6, 1.4, sold.shape) + rng.gamma(0.5, 0.8, sold.shape), 0.01)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in (forecast, sold))
+
+
+def weather_inputs(inits: int = WB_INITS, points: int = WB_POINTS, seed: int = 17, device: str = "cuda"):
+    """(forecast, truth), float32 (inits, points, 4): the four variables around their
+    climatology, the forecast with its error and a small bias."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mean, spread, error = (torch.tensor([v[i] for v in WB_VARIABLES], device=device) for i in (1, 2, 3))
+    truth = mean + spread * torch.randn((inits, points, 4), generator=gen, device=device)
+    forecast = truth + error * (torch.randn((inits, points, 4), generator=gen, device=device) + 0.1)
+    return forecast, truth
+
+
+def ensemble_inputs(points: int = ENSEMBLE_POINTS, members: int = ENSEMBLE_MEMBERS, updates: int = ENSEMBLE_UPDATES,
+                    seed: int = 19, device: str = "cuda") -> list:
+    """``updates`` batches of (members (points, members), truth (points,)): 2 m
+    temperature, members spread around a forecast centre."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for _ in range(updates):
+        truth = 280.0 + 18.0 * torch.randn(points, generator=gen, device=device)
+        centre = truth + 1.5 * torch.randn(points, generator=gen, device=device)
+        out.append((centre[:, None] + 1.5 * torch.randn((points, members), generator=gen, device=device), truth))
+    return out
+
+
+def nowcast_inputs(shape=NOWCAST, updates: int = NOWCAST_UPDATES, seed: int = 23, device: str = "cuda") -> list:
+    """Rain rates in mm/h (55% dry, the rest log-normal) and a nowcast of them,
+    ``updates`` batches of crops."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw():
+        return torch.randn(shape, generator=gen, device=device)
+
+    rain = torch.where(torch.rand(shape, generator=gen, device=device) < 0.55, 0.0, torch.exp(0.5 + 1.2 * draw()))
+    nowcast = rain * torch.exp(0.4 * draw()) + torch.where(torch.rand(shape, generator=gen, device=device) < 0.03,
+                                                           torch.exp(draw()), 0.0)
+    return list(zip(nowcast.chunk(updates), rain.chunk(updates)))
+
+
+def regression_inputs(device: str = "cuda", scale: float = 1.0) -> dict:
+    """kind -> batches; ``scale`` < 1 shrinks every size for a rehearsal."""
+    def size(n):
+        return max(2, int(n * scale))
+
+    m5 = m5_inputs(size(M5_SERIES), device=device)
+    weather = weather_inputs(WB_INITS, size(WB_POINTS), device=device)
+    return {"m5": list(zip(*(t.unbind(0) for t in m5))), "weather": list(zip(*(t.unbind(0) for t in weather))),
+            "ensemble": ensemble_inputs(size(ENSEMBLE_POINTS), device=device),
+            "nowcast": nowcast_inputs((NOWCAST[0], NOWCAST[1], size(NOWCAST[2]), size(NOWCAST[3])), device=device)}
+
+
+def regression_metrics(device=None) -> dict:
+    """name -> (input kind, metric): the M5 team's, the weather team's, CRPS and CSI."""
+    from torchmetrics_tpu_torch import regression as tr
+
+    kw = {"device": device}
+    out = {name: ("m5", metric) for name, metric in {
+        "mse": tr.MeanSquaredError(**kw), "rmse": tr.MeanSquaredError(squared=False, **kw),
+        "mae": tr.MeanAbsoluteError(**kw), "mape": tr.MeanAbsolutePercentageError(**kw),
+        "smape": tr.SymmetricMeanAbsolutePercentageError(**kw), "wmape": tr.WeightedMeanAbsolutePercentageError(**kw),
+        "msle": tr.MeanSquaredLogError(**kw), "log_cosh": tr.LogCoshError(**kw),
+        "minkowski_3": tr.MinkowskiDistance(3, **kw), "tweedie_1.5": tr.TweedieDevianceScore(1.5, **kw),
+        "r2": tr.R2Score(**kw), "rse": tr.RelativeSquaredError(**kw), "explained_variance": tr.ExplainedVariance(**kw),
+        **{f"nrmse_{norm}": tr.NormalizedRootMeanSquaredError(norm, **kw) for norm in ("mean", "range", "std", "l2")},
+        "pearson": tr.PearsonCorrCoef(**kw), "spearman": tr.SpearmanCorrCoef(**kw)}.items()}
+    outputs = len(WB_VARIABLES)
+    out.update({f"weather_{name}": ("weather", metric) for name, metric in {
+        "pearson": tr.PearsonCorrCoef(outputs, **kw), "concordance": tr.ConcordanceCorrCoef(outputs, **kw),
+        "r2_raw_values": tr.R2Score(outputs, multioutput="raw_values", **kw),
+        "r2_variance_weighted": tr.R2Score(outputs, multioutput="variance_weighted", **kw),
+        "explained_variance": tr.ExplainedVariance("raw_values", **kw),
+        "nrmse_std": tr.NormalizedRootMeanSquaredError("std", outputs, **kw),
+        "nrmse_range": tr.NormalizedRootMeanSquaredError("range", outputs, **kw)}.items()})
+    out["crps"] = ("ensemble", tr.ContinuousRankedProbabilityScore(**kw))
+    for thr in CSI_THRESHOLDS:
+        out[f"csi_{thr:g}"] = ("nowcast", tr.CriticalSuccessIndex(thr, **kw))
+        out[f"csi_{thr:g}_per_lead"] = ("nowcast", tr.CriticalSuccessIndex(thr, keep_sequence_dim=1, **kw))
+    return out
+
+
+def cancellation(name: str, states: dict) -> float:
+    """kappa = sum y^2 / tss of a cancelling value (the largest over its outputs), from
+    its states in float64; 1 for every other metric."""
+    stem = name.replace("weather_", "").replace("_raw_values", "").replace("_variance_weighted", "")
+    if stem not in CANCELLING:
+        return 1.0
+    squares, sums, count = (states[k].cpu().double() for k in CANCELLING[stem])
+    return float((squares / (squares - sums * sums / count)).abs().max().clamp(min=1.0))
+
+
+def hold_states(phase: str, got: dict, want: dict, bitwise: bool = False) -> dict:
+    """Metric by metric against the CPU's run: every state float32 (the JAX package's
+    dtype) and of the CPU's shape; states bit for bit, but the float sums of the
+    ``TRANSCENDENTAL`` metrics within ``SUM_RTOL`` (relative, absolute below 1); values
+    within ``VALUE_RTOL``, the cancelling ones within ``VALUE_RTOL * kappa`` and the
+    ``TRANSCENDENTAL`` ones as their sums; or everything bit for bit when ``bitwise``.
+    Returns the largest differences and kappas."""
+    worst = {"sums": 0.0, "values": 0.0, "kappa": {}}
+    for name, entry in want.items():
+        for key, value in entry["states"].items():
+            mine = got[name]["states"][key].cpu()
+            if mine.dtype != torch.float32 or value.dtype != torch.float32 or mine.shape != value.shape:
+                raise AssertionError(f"{phase} {name} {key}: {mine.dtype}{tuple(mine.shape)} against "
+                                     f"{value.dtype}{tuple(value.shape)}")
+            if name in TRANSCENDENTAL and not bitwise:
+                diff = largest_rel_diff(mine, value, floor=1.0)
+                if not diff <= SUM_RTOL:
+                    raise AssertionError(f"{phase} {name} {key}: states differ by {diff} relative")
+                worst["sums"] = max(worst["sums"], diff)
+            elif not torch.equal(mine, value.cpu()):
+                raise AssertionError(f"{phase} {name} {key}: states differ")
+        kappa = cancellation(name, entry["states"])
+        if kappa > 1.0:
+            worst["kappa"][name] = kappa
+        for a, b in zip(*((list(v) if isinstance(v, tuple) else [v]) for v in (got[name]["value"], entry["value"]))):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{phase} {name}: value {a.dtype}{tuple(a.shape)} against {b.dtype}{tuple(b.shape)}")
+            diff = largest_rel_diff(a, b, floor=1.0 if name in TRANSCENDENTAL else 0.0)
+            if not (diff == 0.0 if bitwise else diff <= VALUE_RTOL * kappa):
+                raise AssertionError(f"{phase} {name}: values differ by {diff} relative (kappa {kappa})")
+            worst["values"] = max(worst["values"], diff)
+    return worst
+
+
+def phase_seconds(clock: list) -> dict:
+    """Host seconds of a phase's parts from its clock readings: inputs (made on the card
+    and copied to the host), the card's run, the CPU port's run, and the checks after."""
+    parts = ("inputs", "card_run", "cpu_run", "checks")
+    return {name: b - a for name, a, b in zip(parts, clock, clock[1:])}
+
+
+def short_value(value):
+    return [summary(v) for v in value] if isinstance(value, tuple) else summary(value)
+
+
+def phase_lines(run: dict) -> dict:
+    return {name: {"update_ms": entry["update_ms"], "compute_ms": entry["compute_ms"],
+                   "value": short_value(entry["value"])} for name, entry in run.items()}
+
+
+def compute_peak_bytes(metric) -> int:
+    """The bytes one ``compute()`` allocates beyond what the card held before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fresh_compute(metric)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def regression_phase(card: str) -> None:
+    import warnings
+
+    from torchmetrics_tpu_torch.functional.regression.utils import _rank_data
+
+    clock = [time.perf_counter()]
+    inputs = regression_inputs()
+    cpu_inputs = {kind: [tuple(t.cpu() for t in batch) for batch in batches] for kind, batches in inputs.items()}
+    metrics = regression_metrics()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        clock.append(time.perf_counter())
+        card_run = run_tail(metrics, inputs)
+        clock.append(time.perf_counter())
+        worst = hold_states("regression", card_run, run_tail(regression_metrics("cpu"), cpu_inputs, timed=False))
+        clock.append(time.perf_counter())
+    spearman = metrics["spearman"][1]._concat_state()
+    cpu_spearman = {k: v.cpu() for k, v in spearman.items()}
+    for key in ("preds", "target"):
+        if not torch.equal(_rank_data(spearman[key]).cpu(), _rank_data(cpu_spearman[key])):
+            raise AssertionError(f"regression: Spearman's {key} ranks differ from the CPU's")
+    zero_run = int((cpu_spearman["target"] == 0).sum())
+    crps_peak = update_peak_bytes(regression_metrics()["crps"][1], inputs["ensemble"][0])
+    if not crps_peak < PEAK_LIMIT:
+        raise AssertionError(f"regression: a CRPS update took {crps_peak} bytes beyond its inputs")
+    r2_names = ("r2", "rse", "weather_r2_raw_values", "weather_r2_variance_weighted")
+    fresh = regression_metrics()
+    again = with_tf32(lambda: run_tail({name: fresh[name] for name in r2_names}, inputs, timed=False))
+    hold_states("regression tf32", again, {name: card_run[name] for name in r2_names}, bitwise=True)
+    clock.append(time.perf_counter())
+    emit({"phase": "regression", "seconds": phase_seconds(clock), "metrics": phase_lines(card_run), "max_value_rel_diff": worst["values"],
+          "max_transcendental_sum_rel_diff": worst["sums"], "kappa": worst["kappa"], "tf32_bitwise": list(r2_names),
+          "spearman_ranks_bitwise": True, "m5_zero_run": zero_run, "crps_update_peak_bytes": crps_peak,
+          "sizes": {"m5": [M5_DAYS, M5_SERIES], "weather": [WB_INITS, WB_POINTS, len(WB_VARIABLES)],
+                    "ensemble": [ENSEMBLE_UPDATES, ENSEMBLE_POINTS, ENSEMBLE_MEMBERS],
+                    "nowcast": [NOWCAST_UPDATES, *NOWCAST]}, "card": card})
+    m5_sums = [metric for name, (kind, metric) in metrics.items() if kind == "m5" and name not in ("spearman",)]
+    batch = inputs["m5"][0]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        profile_step("regression_m5_sum_state_update", lambda: [metric.update(*batch) for metric in m5_sums])
+    profile_step("regression_crps_update", lambda: metrics["crps"][1].update(*inputs["ensemble"][0]))
+    profile_step("regression_weather_pearson_update", lambda: metrics["weather_pearson"][1].update(*inputs["weather"][0]))
+    profile_step("regression_spearman_compute", lambda: fresh_compute(metrics["spearman"][1]))
+
+
+def kendall_inputs(n: int = KENDALL_PAIRS, updates: int = KENDALL_UPDATES, seed: int = 29, device: str = "cuda"):
+    """(metric score, human score) batches: direct-assessment scores in whole points
+    (ties), a metric score that follows them with noise."""
+    rng = np.random.default_rng(seed)
+    human = rng.integers(0, 101, n).astype(np.float32)
+    score = (np.tanh((human - 50) / 30 + rng.normal(0, 0.6, n))).astype(np.float32)
+    return list(zip(*(torch.from_numpy(a).to(device).chunk(updates) for a in (score, human))))
+
+
+def embedding_inputs(shape=EMBEDDINGS, updates: int = EMBEDDING_UPDATES, seed: int = 31, device: str = "cuda"):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    preds = torch.randn(shape, generator=gen, device=device)
+    target = preds + 0.7 * torch.randn(shape, generator=gen, device=device)
+    return list(zip(preds.chunk(updates), target.chunk(updates)))
+
+
+def distill_inputs(shape=DISTILL, updates: int = DISTILL_UPDATES, seed: int = 37, device: str = "cuda") -> dict:
+    """Teacher and student softmax rows, as probabilities and as log-probabilities."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    teacher = 2.0 * torch.randn(shape, generator=gen, device=device)
+    student = teacher + 0.8 * torch.randn(shape, generator=gen, device=device)
+    return {"probs": list(zip(teacher.softmax(1).chunk(updates), student.softmax(1).chunk(updates))),
+            "log": list(zip(teacher.log_softmax(1).chunk(updates), student.log_softmax(1).chunk(updates)))}
+
+
+def correlation_inputs(device: str = "cuda", scale: float = 1.0) -> dict:
+    def size(n):
+        return max(8, int(n * scale))
+
+    distill = distill_inputs((size(DISTILL[0]), DISTILL[1]), device=device)
+    return {"mt": kendall_inputs(size(KENDALL_PAIRS), device=device),
+            "embeddings": embedding_inputs((size(EMBEDDINGS[0]), EMBEDDINGS[1]), device=device),
+            "distill_probs": distill["probs"], "distill_log": distill["log"]}
+
+
+def correlation_metrics(device=None) -> dict:
+    from torchmetrics_tpu_torch import regression as tr
+
+    kw = {"device": device}
+    out = {"kendall_b_t_test": ("mt", tr.KendallRankCorrCoef("b", t_test=True, **kw)),
+           "kendall_c": ("mt", tr.KendallRankCorrCoef("c", **kw)),
+           "cosine_mean": ("embeddings", tr.CosineSimilarity("mean", **kw)),
+           "cosine_none": ("embeddings", tr.CosineSimilarity("none", **kw))}
+    for div, cls in (("kl", tr.KLDivergence), ("js", tr.JensenShannonDivergence)):
+        for red in ("mean", "none"):
+            for kind in ("probs", "log"):
+                out[f"{div}_{red}_{kind}"] = (f"distill_{kind}", cls(log_prob=kind == "log",
+                                                                     reduction=None if red == "none" else red, **kw))
+    return out
+
+
+def correlation_phase(card: str) -> None:
+    from torchmetrics_tpu_torch.functional.regression.kendall import _pair_counts
+
+    clock = [time.perf_counter()]
+    inputs = correlation_inputs()
+    cpu_inputs = {kind: [tuple(t.cpu() for t in batch) for batch in batches] for kind, batches in inputs.items()}
+    metrics = correlation_metrics()
+    clock.append(time.perf_counter())
+    card_run = run_tail(metrics, inputs)
+    clock.append(time.perf_counter())
+    worst = hold_states("correlation", card_run, run_tail(correlation_metrics("cpu"), cpu_inputs, timed=False))
+    clock.append(time.perf_counter())
+    kendall = metrics["kendall_b_t_test"][1]._concat_state()
+    con, dis = _pair_counts(kendall["preds"], kendall["target"])
+    cpu_con, cpu_dis = _pair_counts(kendall["preds"].cpu(), kendall["target"].cpu())
+    if not (torch.equal(con.cpu(), cpu_con) and torch.equal(dis.cpu(), cpu_dis)):
+        raise AssertionError("correlation: Kendall's pair counts differ from the CPU's")
+    x, y = kendall_edge_inputs()
+    edge_counts = [tuple(float(c) for c in _pair_counts(x.to(device), y.to(device))) for device in ("cuda", "cpu")]
+    if edge_counts[0] != edge_counts[1]:
+        raise AssertionError(f"correlation: Kendall's pair counts with NaN and inf differ: {edge_counts}")
+    kendall_peak = compute_peak_bytes(metrics["kendall_b_t_test"][1])
+    if not kendall_peak < PEAK_LIMIT:
+        raise AssertionError(f"correlation: the Kendall compute took {kendall_peak} bytes beyond its inputs")
+    rerun = ("kendall_b_t_test", "kendall_c", "cosine_mean", "cosine_none")
+    fresh = correlation_metrics()
+    again = with_tf32(lambda: run_tail({name: fresh[name] for name in rerun}, inputs, timed=False))
+    hold_states("correlation tf32", again, {name: card_run[name] for name in rerun}, bitwise=True)
+    events = profile_step("correlation_kendall_compute", lambda: fresh_compute(metrics["kendall_b_t_test"][1]))
+    kendall_launches = launch_calls(events)
+    if not kendall_launches < KENDALL_LAUNCH_LIMIT:
+        raise AssertionError(f"correlation: the Kendall compute made {kendall_launches} launch calls")
+    clock.append(time.perf_counter())
+    emit({"phase": "correlation", "seconds": phase_seconds(clock), "metrics": phase_lines(card_run), "max_value_rel_diff": worst["values"],
+          "max_transcendental_sum_rel_diff": worst["sums"], "kendall_pairs": [float(con), float(dis)],
+          "kendall_edge_pairs": edge_counts[0], "kendall_compute_peak_bytes": kendall_peak,
+          "kendall_compute_launch_calls": kendall_launches, "tf32_bitwise": list(rerun),
+          "sizes": {"mt": KENDALL_PAIRS, "embeddings": list(EMBEDDINGS), "distill": list(DISTILL)}, "card": card})
+    moments_two_ranks_phase(card)
+
+
+def kendall_edge_inputs():
+    """1,000 pairs in whole points with NaN and both infinities: pairs that compare NaN
+    (a NaN difference) must count neither concordant nor discordant."""
+    rng = np.random.default_rng(41)
+    x = rng.integers(0, 20, 1000).astype(np.float32)
+    y = (x + rng.integers(-3, 4, 1000)).astype(np.float32)
+    x[:6] = [np.nan, np.inf, -np.inf, np.inf, np.nan, -np.inf]
+    y[3:9] = [np.inf, np.nan, -np.inf, np.inf, np.nan, 0.0]
+    return torch.from_numpy(x), torch.from_numpy(y)
+
+
+def moment_metrics(device=None) -> dict:
+    from torchmetrics_tpu_torch import regression as tr
+
+    outputs = len(WB_VARIABLES)
+    return {"pearson": tr.PearsonCorrCoef(outputs, device=device),
+            "concordance": tr.ConcordanceCorrCoef(outputs, device=device),
+            "nrmse_std": tr.NormalizedRootMeanSquaredError("std", outputs, device=device),
+            "r2": tr.R2Score(outputs, multioutput="raw_values", device=device)}
+
+
+def moment_split(rank: int, world: int, inits: int = WB_INITS) -> range:
+    """The initialisations of rank ``rank`` (all of them at ``world=1``): uneven halves."""
+    if world == 1:
+        return range(inits)
+    return range(0, MOMENT_SPLIT) if rank == 0 else range(MOMENT_SPLIT, inits)
+
+
+def moment_values(rank: int, world: int):
+    """The moment metrics over this rank's initialisations of the weather data, then
+    ``compute()`` (synced when ``world`` > 1): values and the median sync ms."""
+    forecast, truth = weather_inputs()
+    metrics = moment_metrics()
+    for i in moment_split(rank, world):
+        for metric in metrics.values():
+            metric.update(forecast[i], truth[i])
+    torch.cuda.synchronize()
+    metric = metrics["pearson"]
+
+    def sync_once():
+        metric.sync()
+        torch.cuda.synchronize()
+
+    sync_ms = median_ms(sync_once, iters=10, after=metric.unsync) if world > 1 else 0.0
+    return {name: metric.compute() for name, metric in metrics.items()}, sync_ms
+
+
+def moments_two_ranks_phase(card: str, world: int = 2) -> None:
+    start = time.perf_counter()
+    results = run_children("moments", world)
+    children_s = time.perf_counter() - start
+    want = {k: v.cpu() for k, v in moment_values(0, 1)[0].items()}
+    worst = 0.0
+    for result in results:
+        for key, want_value in want.items():
+            dtype, got = result["values"][key]
+            got = torch.tensor(got, dtype=want_value.dtype)
+            if dtype != str(want_value.dtype) or got.shape != want_value.shape:
+                raise AssertionError(f"moments_two_ranks rank {result['rank']} {key}: {dtype}{tuple(got.shape)}")
+            diff = largest_rel_diff(got, want_value)
+            if not diff <= VALUE_RTOL:
+                raise AssertionError(f"moments_two_ranks rank {result['rank']} {key}: {diff} relative from the "
+                                     "whole data's value")
+            worst = max(worst, diff)
+    emit({"phase": "moments_two_ranks", "world": world, "children_s": children_s, "backend": "gloo", "tensors": "cuda",
+          "inits": [len(moment_split(r, world)) for r in range(world)],
+          "sync_ms": {f"rank{r['rank']}": r["sync_ms"] for r in results}, "max_rel_diff": worst,
+          "values": {k: summary(v) for k, v in want.items()}, "card": card})
+
+
 def flagship_forward(cases: dict) -> dict:
     """The 26 sepconv7 launches of one bf16 trunk forward at the flagship's batch: their
     summed times and bound, and their worst error against the plain version."""
@@ -2527,6 +2970,8 @@ def main() -> int:
     tower_tail_phase(card, curve_data)
     curve_points_phase(card, curve_data)
     del curve_data
+    regression_phase(card)
+    correlation_phase(card)
 
     print(card, flush=True)
     kernels = []

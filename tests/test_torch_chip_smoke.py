@@ -8,6 +8,8 @@ report helpers must read ptxas's output and the bound as the kernels line states
 from __future__ import annotations
 
 import collections
+import math
+import warnings
 import importlib.util
 import pathlib
 
@@ -625,3 +627,101 @@ def test_curve_point_edge_cases_reach_both_fallbacks(chip_smoke):
     assert results["multiclass_specificity_at_sensitivity_0.5_scores_exact"][1][3].item() == 1e6
     assert torch.isnan(results["multiclass_recall_at_fixed_precision_0.5_scores_exact"][1][3])
     assert torch.isnan(results["binary_precision_at_fixed_recall_0.5_scores_list"][1]).item() is False
+
+
+def test_m5_inputs_are_intermittent_counts_with_positive_forecasts(chip_smoke):
+    forecast, sold = chip_smoke.m5_inputs(series=4000, device="cpu")
+    assert forecast.shape == sold.shape == (chip_smoke.M5_DAYS, 4000)
+    assert forecast.dtype == sold.dtype == torch.float32
+    assert abs(float((sold == 0).float().mean()) - chip_smoke.M5_ZERO_SHARE) < 0.01
+    sales = sold[sold > 0]
+    assert bool((sales >= 1).all()) and torch.equal(sales, sales.round())
+    assert bool((forecast > 0).all())
+
+
+def test_weather_inputs_hold_the_four_variables_around_their_climatology(chip_smoke):
+    forecast, truth = chip_smoke.weather_inputs(inits=3, points=5000, device="cpu")
+    assert forecast.shape == truth.shape == (3, 5000, len(chip_smoke.WB_VARIABLES))
+    assert chip_smoke.WB_POINTS == 29040 and chip_smoke.WB_INITS == 64
+    for i, (_, mean, spread, error) in enumerate(chip_smoke.WB_VARIABLES):
+        assert abs(float(truth[..., i].mean()) - mean) < 0.1 * spread
+        assert abs(float((forecast - truth)[..., i].std()) / error - 1) < 0.05
+
+
+def test_ensemble_and_nowcast_inputs_have_the_stated_shapes(chip_smoke):
+    batches = chip_smoke.ensemble_inputs(points=300, members=5, updates=2, device="cpu")
+    assert len(batches) == 2 and batches[0][0].shape == (300, 5) and batches[0][1].shape == (300,)
+    assert chip_smoke.ENSEMBLE_POINTS == 1038240
+    nowcast = chip_smoke.nowcast_inputs((8, 18, 32, 32), updates=4, device="cpu")
+    assert len(nowcast) == 4 and nowcast[0][0].shape == (2, 18, 32, 32)
+    rain = torch.cat([t for _, t in nowcast])
+    assert abs(float((rain == 0).float().mean()) - 0.55) < 0.01 and bool((rain >= 0).all())
+
+
+def test_moment_split_gives_uneven_shares_of_every_initialisation(chip_smoke):
+    shares = [chip_smoke.moment_split(r, 2) for r in range(2)]
+    assert [len(s) for s in shares] == [40, 24]
+    assert sorted(i for s in shares for i in s) == list(range(chip_smoke.WB_INITS))
+    assert list(chip_smoke.moment_split(0, 1)) == list(range(chip_smoke.WB_INITS))
+
+
+def test_regression_rehearsal_holds_the_cpu_port(chip_smoke):
+    """Both phases' metrics over their inputs at a small size, twice on the CPU: the
+    holding rules accept equal runs, name every state float32 and give each cancelling
+    value its kappa."""
+    for inputs, build in ((chip_smoke.regression_inputs("cpu", scale=0.005), chip_smoke.regression_metrics),
+                          (chip_smoke.correlation_inputs("cpu", scale=0.005), chip_smoke.correlation_metrics)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            runs = [chip_smoke.run_tail(build("cpu"), inputs, timed=False) for _ in range(2)]
+        worst = chip_smoke.hold_states("rehearsal", runs[0], runs[1])
+        assert worst["values"] == 0.0 and worst["sums"] == 0.0
+        assert chip_smoke.hold_states("rehearsal", runs[0], runs[1], bitwise=True)["values"] == 0.0
+    assert set(chip_smoke.regression_metrics("cpu")) >= {"crps", "csi_8_per_lead", "weather_nrmse_range", "spearman"}
+
+
+def test_hold_states_is_bitwise_but_for_transcendental_sums_and_cancelling_values(chip_smoke):
+    def entry(states, value):
+        return {"states": {k: torch.tensor(v, dtype=torch.float32) for k, v in states.items()},
+                "value": torch.tensor(value, dtype=torch.float32)}
+
+    want = {"mse": entry({"sum_squared_error": [4.0], "total": 8.0}, 0.5),
+            "msle": entry({"sum_squared_log_error": 2.0, "total": 8.0}, 0.25)}
+    close = {"mse": want["mse"], "msle": entry({"sum_squared_log_error": 2.0 + 2e-7, "total": 8.0}, 0.25)}
+    assert chip_smoke.hold_states("t", close, want)["sums"] > 0.0
+    with pytest.raises(AssertionError, match="states differ"):
+        chip_smoke.hold_states("t", {**close, "mse": entry({"sum_squared_error": [4.0 + 4e-7], "total": 8.0}, 0.5)},
+                               want)
+    with pytest.raises(AssertionError, match="float64"):
+        bad = {"mse": {"states": {"sum_squared_error": torch.tensor([4.0], dtype=torch.float64),
+                                  "total": torch.tensor(8.0)}, "value": torch.tensor(0.5)}}
+        chip_smoke.hold_states("t", bad, {"mse": want["mse"]})
+    # R2 on data far from 0: sum y^2 = 1e4 * n against tss = n gives kappa 1e4, and a
+    # value 1e-3 relative off passes only under that bound
+    states = {"sum_squared_error": [10001.0], "sum_error": [100.0], "total": 1.0}
+    r2 = {"r2": entry({**states, "residual": [0.5]}, 0.5)}
+    assert chip_smoke.cancellation("r2", r2["r2"]["states"]) == pytest.approx(10001.0)
+    worst = chip_smoke.hold_states("t", {"r2": entry({**states, "residual": [0.5]}, 0.5005)}, r2)
+    assert worst["kappa"]["r2"] == pytest.approx(10001.0) and worst["values"] == pytest.approx(1e-3, rel=1e-3)
+
+
+def test_kendall_edge_inputs_count_nan_pairs_as_neither(chip_smoke):
+    from torchmetrics_tpu_torch.functional.regression.kendall import _pair_counts
+
+    x, y = chip_smoke.kendall_edge_inputs()
+    xs, ys = x.double().numpy(), y.double().numpy()
+    with np.errstate(invalid="ignore"):
+        prod = np.sign(xs[:, None] - xs[None, :]) * np.sign(ys[:, None] - ys[None, :])
+    upper = np.triu(np.ones(prod.shape, bool), 1)
+    con, dis = _pair_counts(x, y)
+    assert (float(con), float(dis)) == (float((upper & (prod > 0)).sum()), float((upper & (prod < 0)).sum()))
+
+
+def test_largest_rel_diff_with_a_floor_is_absolute_below_it(chip_smoke):
+    want = torch.tensor([1000.0, 0.01, float("nan")])
+    got = torch.tensor([1000.0, 0.010001, float("nan")])
+    assert chip_smoke.largest_rel_diff(got, want) == pytest.approx(1e-4, rel=1e-2)
+    assert chip_smoke.largest_rel_diff(got, want, floor=1.0) == pytest.approx(1e-6, rel=1e-2)
+    assert chip_smoke.largest_rel_diff(torch.tensor([1000.001, 0.01, float("nan")]), want, floor=1.0) == \
+        pytest.approx(1e-6, rel=0.05)
+    assert chip_smoke.largest_rel_diff(torch.tensor([1000.0, 0.01, 0.0]), want, floor=1.0) == math.inf

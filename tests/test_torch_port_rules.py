@@ -22,7 +22,7 @@ import torch
 import torchmetrics_tpu_torch
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.classification import MulticlassAccuracy
-from torchmetrics_tpu_torch import classification, detection, functional
+from torchmetrics_tpu_torch import classification, detection, functional, regression
 from torchmetrics_tpu_torch.image import (
     FrechetInceptionDistance,
     InceptionScore,
@@ -123,6 +123,23 @@ def _toy_extractor(imgs):
 def test_default_device_raises_without_cuda(no_cuda, build):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()
+
+
+REGRESSION_ARGS = {"MinkowskiDistance": (2,), "CriticalSuccessIndex": (0.5,)}
+
+
+@pytest.mark.parametrize("name", sorted(regression.__all__))
+def test_regression_class_at_default_device_raises_without_cuda(no_cuda, name):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(regression, name)(*REGRESSION_ARGS.get(name, ()))
+
+
+@pytest.mark.parametrize("name", sorted(functional.regression.__all__))
+def test_regression_function_on_host_values_raises_without_cuda(no_cuda, name):
+    """Lists, not tensors: the function makes them on the default device, CUDA."""
+    extra = (2,) if name in ("minkowski_distance", "critical_success_index") else ()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(functional, name)([[0.5, 0.5]], [[0.5, 0.5]], *extra)
 
 
 def test_explicit_cpu_device_runs_without_cuda(no_cuda):

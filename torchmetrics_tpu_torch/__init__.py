@@ -5,16 +5,17 @@ paths and imports neither JAX nor anything of the JAX package. Entry points run 
 unless the caller passes ``device="cpu"``.
 """
 
-from . import aggregation, classification, detection, image, parallel
+from . import aggregation, classification, detection, image, parallel, regression
 from .aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, RunningMean, RunningSum, SumMetric
 from .classification import *  # noqa: F401,F403
 from .collections import MetricCollection, QuarantinedMetric
 from .detection import *  # noqa: F401,F403
 from .image import *  # noqa: F401,F403
 from .metric import CompositionalMetric, HostMetric, Metric
+from .regression import *  # noqa: F401,F403
 
 __all__ = [
     "CatMetric", "CompositionalMetric", "HostMetric", "MaxMetric", "MeanMetric", "Metric", "MetricCollection",
     "MinMetric", "QuarantinedMetric", "RunningMean", "RunningSum", "SumMetric", *classification.__all__,
-    *detection.__all__, *image.__all__,
+    *detection.__all__, *image.__all__, *regression.__all__,
 ]

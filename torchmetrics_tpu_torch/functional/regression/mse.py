@@ -1,0 +1,42 @@
+"""Mean squared error (counterpart of ``torchmetrics_tpu/functional/regression/mse.py``).
+
+The squared errors are summed in float64 and rounded once to float32."""
+
+from __future__ import annotations
+
+import torch
+
+from ...utilities.checks import _as_tensor, _check_same_shape
+from ...utilities.compute import _float32_sum
+from .utils import _check_data_shape_to_num_outputs
+
+
+def _mean_squared_error_update(preds: torch.Tensor, target: torch.Tensor, num_outputs: int):
+    _check_same_shape(preds, target)
+    if num_outputs == 1:
+        preds = preds.reshape(-1)
+        target = target.reshape(-1)
+    _check_data_shape_to_num_outputs(preds, target, num_outputs, allow_1d_reshape=True)
+    diff = preds.to(torch.float32) - target.to(torch.float32)
+    return _float32_sum(diff * diff, 0), target.shape[0]
+
+
+def _mean_squared_error_compute(sum_squared_error: torch.Tensor, num_obs, squared: bool = True) -> torch.Tensor:
+    mse = sum_squared_error / num_obs
+    return mse if squared else torch.sqrt(mse)
+
+
+def mean_squared_error(preds, target, squared: bool = True, num_outputs: int = 1) -> torch.Tensor:
+    """MSE (or RMSE with ``squared=False``).
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.functional import mean_squared_error
+        >>> preds = torch.tensor([2.5, 0.0, 2.0, 8.0])
+        >>> target = torch.tensor([3.0, -0.5, 2.0, 7.0])
+        >>> mean_squared_error(preds, target)
+        tensor(0.3750)
+    """
+    preds, target = _as_tensor(preds), _as_tensor(target)
+    sum_squared_error, num_obs = _mean_squared_error_update(preds, target, num_outputs)
+    return _mean_squared_error_compute(sum_squared_error, num_obs, squared)

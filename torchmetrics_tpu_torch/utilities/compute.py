@@ -23,6 +23,24 @@ def _safe_divide(num: torch.Tensor, denom: torch.Tensor, zero_division: float = 
     return torch.where(zero, torch.full_like(quotient, zero_division), quotient)
 
 
+def _safe_xlogy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x * log(y)`` that is 0 where ``x == 0`` (even where ``y`` is 0 or inf), in at
+    least float32.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.utilities.compute import _safe_xlogy
+        >>> _safe_xlogy(torch.tensor([0.0, 2.0]), torch.tensor([0.0, 1.0]))
+        tensor([0., 0.])
+    """
+    x, y = torch.as_tensor(x), torch.as_tensor(y)
+    dtype = torch.promote_types(torch.promote_types(x.dtype, y.dtype), torch.float32)
+    x, y = x.to(dtype), y.to(dtype)
+    zero = x == 0
+    safe_y = torch.where(zero, torch.ones_like(y), y)
+    return torch.where(zero, torch.zeros_like(x), x * torch.log(safe_y))
+
+
 def _float32_sum(x: torch.Tensor, dim=None) -> torch.Tensor:
     """A float32 sum accumulated in float64: the order of the additions (the card's, the
     CPU's) then moves only the float64's last bits, not the float32 result's."""
