@@ -168,6 +168,30 @@ Phases, one JSON line each, in order:
    Pearson, concordance, NRMSE (std) and R2 over uneven shares (40 and 24) of phase 21's
    weather initialisations; each rank's synced ``compute()`` (the stacked moments folded
    in rank order) within 1e-6 relative of the whole data's in this process.
+24. wrappers: ``BootStrapper(MulticlassAccuracy(num_classes=1000), num_bootstraps=100,
+   sampling_strategy="multinomial", quantile=[0.025, 0.975])`` on 50,000 x 1,000 ImageNet
+   logits in 50 updates of 1,000 rows, which must take the stacked path (one gather of
+   100 x 1,000 x 1,000 float32 an update), and 20 Poisson replicas on the list path: the
+   replica states equal the CPU port's bit for bit after its first 5 updates, and the
+   mean, std and quantiles within 1e-6; update ms, and under ``torch.profiler`` one
+   update's launch calls and idle share, and its peak extra bytes.
+   ``FeatureShare([FID, KID, MiFID])`` on one bf16 ``InceptionV3Features`` trunk,
+   ``normalize=False``, uint8 299x299 batches of 128 that start on the host: exactly 26
+   sepconv7 launches a shared update, each member's states equal to the same metric's
+   fed alone through the trunk, bit for bit, and images/s shared against the three
+   alone. ``ClasswiseWrapper`` (1,000 keys), ``MetricTracker`` over 3 epochs
+   (``best_metric`` must give a value and a step), ``MinMaxMetric`` and
+   ``Running(window=5)`` on the ImageNet logits, ``MultioutputWrapper(PearsonCorrCoef(),
+   num_outputs=4)`` on the weather fields with 1% of the rows NaN,
+   ``MultitaskWrapper({"cls": BinaryAccuracy, "reg": MeanSquaredError})`` and
+   ``BinaryTargetTransformer`` on the CTR scores: every value equal to the CPU port's,
+   counts bit for bit, ratios within 1e-6.
+25. panoptic: ``PanopticQuality`` (with sq and rq) and ``ModifiedPanopticQuality`` on
+   COCO-panoptic-shaped segment maps from a seed (133 categories: 80 things, 53 stuff;
+   480x640; 1-30 segments an image; 5% void), a prefix of 256 of val2017's 5,000 images
+   in updates of 16: the states on the card, equal to the CPU port's bit for bit, and
+   the values (PQ's per class too) equal; update ms and the host's share of it (the
+   statistics are host numpy).
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -2928,6 +2952,390 @@ def moments_two_ranks_phase(card: str, world: int = 2) -> None:
           "values": {k: summary(v) for k, v in want.items()}, "card": card})
 
 
+# ---------------------------------------------------------------------------
+# wrappers (slice 11): BootStrapper, FeatureShare, Classwise, Tracker, MinMax, Running,
+# Multioutput, Multitask and the input transformers, on the card against the CPU port
+# ---------------------------------------------------------------------------
+
+BOOT_REPLICAS = 100
+BOOT_LIST_REPLICAS = 20
+BOOT_QUANTILES = [0.025, 0.975]
+BOOT_CPU_PREFIX = 5  # updates the CPU port replays; it holds 100 replicas of 1,000 x 1,000 rows
+SHARE_BATCH = 128
+SHARE_UPDATES = 4  # two real and two fake batches
+SHARE_KID = {"subsets": 10, "subset_size": SHARE_BATCH, "seed": 0}
+TRACKER_EPOCHS = 3
+RUNNING_WINDOW = 5
+WEATHER_NAN_SHARE = 0.01
+
+
+def clock_seconds(clock: list) -> dict:
+    """Host seconds of a phase's parts from its ``(label, time)`` readings: each label's
+    part ends at its reading."""
+    return {label: t - before for (_, before), (label, t) in zip(clock, clock[1:])}
+
+
+def tree_leaves(value, prefix: str = "") -> dict:
+    """A nested output (dicts, tuples, tensors) as a flat dict of tensors by path."""
+    if isinstance(value, dict):
+        return {k: v for key, item in value.items() for k, v in tree_leaves(item, f"{prefix}{key}.").items()}
+    if isinstance(value, (tuple, list)):
+        return {k: v for i, item in enumerate(value) for k, v in tree_leaves(item, f"{prefix}{i}.").items()}
+    return {prefix.rstrip("."): torch.as_tensor(value)}
+
+
+def hold_tree(label: str, got, want) -> float:
+    """``hold_against_cpu`` over nested outputs: counts bit for bit, ratios within 1e-6."""
+    got, want = tree_leaves(got), tree_leaves(want)
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: keys {list(got)[:5]}... on the card, {list(want)[:5]}... on the CPU")
+    return hold_against_cpu(label, got, {k: v.cpu() for k, v in want.items()})
+
+
+def replica_states(boot) -> list:
+    """BootStrapper's replica states: the stacked ``(k, ...)`` states, or each clone's
+    states and update count."""
+    if boot._use_stacked:
+        return [dict(boot._stacked)]
+    return [{**m._state, "update_count": torch.tensor(m._update_count)} for m in boot.metrics]
+
+
+def bootstrapper(device=None, classes: int = IMAGENET_CLASSES, replicas: int = BOOT_REPLICAS,
+                 sampling: str = "multinomial"):
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+    from torchmetrics_tpu_torch.wrappers import BootStrapper
+
+    return BootStrapper(MulticlassAccuracy(num_classes=classes, device=device), num_bootstraps=replicas,
+                        sampling_strategy=sampling, quantile=BOOT_QUANTILES, seed=0)
+
+
+def hold_bootstrap(label: str, boot, cpu_boot) -> float:
+    """Replica states bit for bit (integer counts), mean, std and quantiles within 1e-6."""
+    for r, (got, want) in enumerate(zip(replica_states(boot), replica_states(cpu_boot))):
+        if not states_equal({k: v.cpu() for k, v in got.items()}, want):
+            raise AssertionError(f"{label}: replica states {r} differ from the CPU port's")
+    return hold_tree(label, boot.compute(), cpu_boot.compute())
+
+
+def wrapper_suite(device, data: dict, classes: int = IMAGENET_CLASSES) -> dict:
+    """Classwise, Tracker, MinMax, Running, Multioutput, Multitask and
+    BinaryTargetTransformer over ``data`` (``imagenet``, ``ctr`` and ``weather`` batches)
+    on ``device``: name -> value, and the update ms of each."""
+    from torchmetrics_tpu_torch.classification import BinaryAccuracy, MulticlassAccuracy
+    from torchmetrics_tpu_torch.regression import MeanSquaredError, PearsonCorrCoef
+    from torchmetrics_tpu_torch.wrappers import (
+        BinaryTargetTransformer,
+        ClasswiseWrapper,
+        MetricTracker,
+        MinMaxMetric,
+        MultioutputWrapper,
+        MultitaskWrapper,
+        Running,
+    )
+
+    timed = device != "cpu"
+    ms: dict = {}
+
+    def run(name, call):
+        if timed:
+            ms.setdefault(name, []).append(synced_ms(call))
+        else:
+            call()
+
+    imagenet, ctr, weather = data["imagenet"], data["ctr"], data["weather"]
+    classwise = ClasswiseWrapper(MulticlassAccuracy(classes, average=None, device=device))
+    minmax = MinMaxMetric(MulticlassAccuracy(classes, device=device))
+    running = Running(MulticlassAccuracy(classes, device=device), window=RUNNING_WINDOW)
+    tracker = MetricTracker(MulticlassAccuracy(classes, device=device))
+    for i, (logits, target) in enumerate(imagenet):
+        if i % -(-len(imagenet) // TRACKER_EPOCHS) == 0:
+            tracker.increment()
+        run("classwise", lambda: classwise.update(logits, target))
+        run("minmax_forward", lambda: minmax.forward(logits, target))
+        run("running", lambda: running.update(logits, target))
+        run("tracker", lambda: tracker.update(logits, target))
+    best, step = tracker.best_metric(return_step=True)
+    if best is None or step is None:
+        raise AssertionError(f"wrappers: MetricTracker.best_metric gave {best, step} on {device}")
+    multioutput = MultioutputWrapper(PearsonCorrCoef(device=device), num_outputs=4)
+    for forecast, truth in weather:
+        run("multioutput", lambda: multioutput.update(forecast, truth))
+    multitask = MultitaskWrapper({"cls": BinaryAccuracy(device=device), "reg": MeanSquaredError(device=device)})
+    binarised = BinaryTargetTransformer(BinaryAccuracy(device=device), threshold=0.5)
+    for scores, target in ctr:
+        run("multitask", lambda: multitask.update({"cls": scores, "reg": scores},
+                                                  {"cls": target, "reg": target.to(scores.dtype)}))
+        run("binary_target", lambda: binarised.update(scores, target.to(scores.dtype)))
+    values = {"classwise": classwise.compute(), "minmax": minmax.compute(), "running": running.compute(),
+              "tracker": {"all": tracker.compute_all(), "best": torch.tensor(best), "step": torch.tensor(step)},
+              "multioutput": multioutput.compute(), "multitask": multitask.compute(),
+              "binary_target": binarised.compute()}
+    if len(values["classwise"]) != classes:
+        raise AssertionError(f"wrappers: ClasswiseWrapper gave {len(values['classwise'])} keys")
+    return {"values": values, "update_ms": {k: median(v) for k, v in ms.items()}}
+
+
+def wrapper_data(device: str = "cuda", scale: float = 1.0, seed: int = 11) -> dict:
+    """The ImageNet logits, the CTR scores and the weather fields of the earlier phases,
+    in their update batches; 1% of the weather rows get a NaN. ``scale`` < 1 shrinks them
+    for a rehearsal."""
+    def size(n):
+        return max(8, int(n * scale))
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    logits, target = imagenet_logits(gen, size(IMAGENET_ROWS), size(IMAGENET_CLASSES), device)
+    scores, clicks = ctr_scores(gen, size(CTR_SCORES), device)
+    forecast, truth = weather_inputs(max(2, int(WB_INITS * scale)), size(WB_POINTS), device=device)
+    nan_rows = torch.rand(forecast.shape[:2], generator=gen, device=device) < WEATHER_NAN_SHARE
+    column = torch.randint(0, 4, forecast.shape[:2], generator=gen, device=device)
+    forecast = forecast.clone()
+    forecast[nan_rows, column[nan_rows]] = float("nan")
+    return {"imagenet": list(zip(logits.chunk(IMAGENET_UPDATES), target.chunk(IMAGENET_UPDATES))),
+            "ctr": list(zip(scores.chunk(CTR_UPDATES), clicks.chunk(CTR_UPDATES))),
+            "weather": list(zip(forecast.unbind(0), truth.unbind(0))), "nan_rows": int(nan_rows.sum())}
+
+
+def share_members(extractor, device=None) -> list:
+    """FID, KID and MiFID behind one extractor, ``normalize=False`` (uint8 input)."""
+    from torchmetrics_tpu_torch.image import (
+        FrechetInceptionDistance,
+        KernelInceptionDistance,
+        MemorizationInformedFrechetInceptionDistance,
+    )
+
+    return [FrechetInceptionDistance(feature=extractor, device=device),
+            KernelInceptionDistance(feature=extractor, device=device, **SHARE_KID),
+            MemorizationInformedFrechetInceptionDistance(feature=extractor, device=device)]
+
+
+def feature_share_run(extractor, batches: list, device=None) -> dict:
+    """The members shared (``FeatureShare``) and each alone, over ``batches`` of
+    (images, real) that lie on the host: the members' states, the seconds of each, and
+    the sepconv7 launches of each, counted from 0 around each loop."""
+    from torchmetrics_tpu_torch.kernels.sepconv import sepconv7
+    from torchmetrics_tpu_torch.wrappers import FeatureShare
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    share = FeatureShare(share_members(extractor, device))
+    sync()
+    sepconv7.launches = 0
+    start = time.perf_counter()
+    for imgs, real in batches:
+        share.update(imgs, real=real)
+    sync()
+    shared_s, shared_launches = time.perf_counter() - start, sepconv7.launches
+    alone = share_members(extractor, device)
+    sync()
+    sepconv7.launches = 0
+    start = time.perf_counter()
+    for member in alone:
+        for imgs, real in batches:
+            member.update(imgs, real=real)
+    sync()
+    return {"shared": [m._state for m in share.values()], "alone": [m._state for m in alone],
+            "shared_s": shared_s, "alone_s": time.perf_counter() - start, "share": share,
+            "shared_launches": shared_launches, "alone_launches": sepconv7.launches}
+
+
+def wrappers_phase(card: str) -> int:
+    """Returns the sepconv7 launches of FeatureShare's shared updates."""
+    from torchmetrics_tpu_torch.image import InceptionV3Features
+
+    clock = [("start", time.perf_counter())]
+    data = wrapper_data()
+    cpu_data = {k: [tuple(t.cpu() for t in batch) for batch in v] if isinstance(v, list) else v
+                for k, v in data.items()}
+    # BootStrapper, stacked (multinomial) and list (poisson) paths, against the CPU port
+    # on a prefix of the updates
+    boot_lines = {}
+    for path, sampling, replicas in (("stacked", "multinomial", BOOT_REPLICAS),
+                                     ("list", "poisson", BOOT_LIST_REPLICAS)):
+        boot, cpu_boot = (bootstrapper(device, replicas=replicas, sampling=sampling) for device in (None, "cpu"))
+        if boot._use_stacked is not (path == "stacked"):
+            raise AssertionError(f"wrappers: BootStrapper({sampling}) took the wrong path")
+        times = []
+        for i, batch in enumerate(data["imagenet"]):
+            times.append(synced_ms(lambda: boot.update(*batch)))
+            if i < BOOT_CPU_PREFIX:
+                cpu_boot.update(*cpu_data["imagenet"][i])
+            if i == BOOT_CPU_PREFIX - 1:
+                worst = hold_bootstrap(f"wrappers bootstrap {path}", boot, cpu_boot)
+        value = boot.compute()
+        if not all(bool(torch.isfinite(v).all()) for v in tree_leaves(value).values()):
+            raise AssertionError(f"wrappers bootstrap {path}: {value}")
+        probe = bootstrapper(None, replicas=replicas, sampling=sampling)
+        peak = update_peak_bytes(probe, data["imagenet"][0])
+        events = profile_step(f"wrappers_bootstrap_{path}_update", lambda: probe.update(*data["imagenet"][0]))
+        boot_lines[path] = {"replicas": replicas, "sampling": sampling, "update_ms": median(times[1:]),
+                            "launch_calls": launch_calls(events), "peak_extra_bytes": peak,
+                            "cpu_prefix_updates": BOOT_CPU_PREFIX, "max_value_diff": worst,
+                            "value": {k: summary(v) for k, v in tree_leaves(value).items()}}
+        clock.append((f"bootstrap_{path}", time.perf_counter()))
+    # FeatureShare over FID, KID and MiFID on one bf16 trunk; the batches start on the host
+    trunk = InceptionV3Features.from_numpy_params(he_scaled(InceptionV3Features._random_params(0)),
+                                                  compute_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(12)
+    batches = [(torch.randint(0, 256, (SHARE_BATCH, 3, 299, 299), generator=gen, dtype=torch.uint8), i % 2 == 0)
+               for i in range(SHARE_UPDATES)]
+    for member in share_members(trunk):  # warm-up: cuDNN plans, cuBLAS, the allocator
+        member.update(batches[0][0].cuda(), real=True)
+    run = feature_share_run(trunk, batches)
+    launches = run["shared_launches"]
+    if launches != SEPCONV_PER_FORWARD * SHARE_UPDATES:
+        raise AssertionError(f"wrappers: {launches} sepconv7 launches over {SHARE_UPDATES} shared updates")
+    if run["alone_launches"] != 3 * SEPCONV_PER_FORWARD * SHARE_UPDATES:
+        raise AssertionError(f"wrappers: {run['alone_launches']} sepconv7 launches over the members alone")
+    for i, (got, want) in enumerate(zip(run["shared"], run["alone"])):
+        if not states_equal(got, want):
+            raise AssertionError(f"wrappers: FeatureShare member {i}'s states differ from the metric alone")
+    images = SHARE_BATCH * SHARE_UPDATES
+    clock.append(("feature_share", time.perf_counter()))
+    # the other wrappers, against the CPU port
+    card_run = wrapper_suite(None, data)
+    worst = hold_tree("wrappers suite", card_run["values"], wrapper_suite("cpu", cpu_data)["values"])
+    clock.append(("suite", time.perf_counter()))
+    emit({"phase": "wrappers", "bootstrap": boot_lines,
+          "feature_share": {"batch": SHARE_BATCH, "updates": SHARE_UPDATES, "trunk": "bfloat16",
+                            "inputs": "uint8 on the host", "sepconv7_launches": launches,
+                            "sepconv7_launches_alone": run["alone_launches"],
+                            "launches_per_update": launches / SHARE_UPDATES,
+                            "images_per_s_shared": images / run["shared_s"],
+                            "images_per_s_alone": images / run["alone_s"],
+                            "members_equal_alone": True},
+          "suite": {"update_ms": card_run["update_ms"], "max_value_diff": worst,
+                    "weather_nan_rows": data["nan_rows"],
+                    "tracker_best": summary(card_run["values"]["tracker"]["best"]),
+                    "tracker_step": int(card_run["values"]["tracker"]["step"])},
+          "seconds": clock_seconds(clock), "card": card})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# panoptic (slice 11): PanopticQuality and ModifiedPanopticQuality on COCO-panoptic maps
+# ---------------------------------------------------------------------------
+
+PANOPTIC_THINGS = tuple(range(1, 81))  # COCO panoptic: 80 thing and 53 stuff categories
+PANOPTIC_STUFFS = tuple(range(81, 134))
+PANOPTIC_SHAPE = (480, 640)
+PANOPTIC_IMAGES = 128  # of val2017's 5,000: the JAX algorithm takes ~0.3 s an image, read twice
+PANOPTIC_BATCH = 16
+PANOPTIC_CELL = 16
+PANOPTIC_MAX_SEGMENTS = 30
+PANOPTIC_VOID = 0  # in neither set: void
+
+
+def panoptic_maps(rng, n: int, shape=PANOPTIC_SHAPE, cell: int = PANOPTIC_CELL,
+                  max_segments: int = PANOPTIC_MAX_SEGMENTS):
+    """(preds, target), int32 ``(n, H, W, 2)`` of (category, instance): 1 to
+    ``max_segments`` Voronoi segments a target on a grid of ``cell`` pixels, each of a
+    seeded category (things numbered by instance, stuff instance 0), 5% of the cells
+    void; predictions move 15% of the cells to a neighbour's segment and relabel 10% of
+    the segments."""
+    gh, gw = shape[0] // cell, shape[1] // cell
+    yy, xx = np.mgrid[0:gh, 0:gw]
+    cats = np.array(PANOPTIC_THINGS + PANOPTIC_STUFFS)
+    things = np.array(PANOPTIC_THINGS)
+    preds, target = np.zeros((2, n, gh, gw, 2), np.int32)
+    for i in range(n):
+        k = int(rng.integers(1, max_segments + 1))
+        centres = rng.uniform(0, 1, size=(k, 2)) * (gh, gw)
+        seg = ((yy[..., None] - centres[:, 0]) ** 2 + (xx[..., None] - centres[:, 1]) ** 2).argmin(-1)
+        seg_cat = cats[rng.integers(0, len(cats), size=k)]
+        inst = np.where(np.isin(seg_cat, things), np.arange(1, k + 1), 0)
+        target[i] = np.stack([seg_cat[seg], inst[seg]], -1)
+        target[i][rng.random((gh, gw)) < 0.05] = (PANOPTIC_VOID, 0)
+        moved = rng.random((gh, gw)) < 0.15
+        pseg = np.where(moved, np.roll(seg, 1, axis=1), seg)
+        pcat = np.where(rng.random(k) < 0.1, cats[rng.integers(0, len(cats), size=k)], seg_cat)
+        preds[i] = np.stack([pcat[pseg], inst[pseg]], -1)
+
+    def full(a):
+        return np.ascontiguousarray(a.repeat(cell, axis=1).repeat(cell, axis=2))
+
+    return full(preds), full(target)
+
+
+def panoptic_metrics(device=None) -> dict:
+    from torchmetrics_tpu_torch.detection import ModifiedPanopticQuality, PanopticQuality
+
+    return {"pq": PanopticQuality(PANOPTIC_THINGS, PANOPTIC_STUFFS, return_sq_and_rq=True, device=device),
+            "mpq": ModifiedPanopticQuality(PANOPTIC_THINGS, PANOPTIC_STUFFS, device=device)}
+
+
+def panoptic_values(metrics: dict) -> dict:
+    """Each metric's value, and PQ's per-class (pq, sq, rq) from the same states."""
+    pq = metrics["pq"]
+    pq.return_per_class = True
+    per_class = fresh_compute(pq)
+    pq.return_per_class = False
+    return {**{name: fresh_compute(metric) for name, metric in metrics.items()}, "pq_per_class": per_class}
+
+
+def panoptic_run(metrics: dict, batches: list) -> dict:
+    """Update every metric with every batch: per batch, the ms of each metric's host
+    statistics (``_host_batch_state``: the batch's numpy sums and their copy to the
+    metric's device) and, on the card, the ms of the whole update that ran them."""
+    timed = next(iter(metrics.values())).device.type == "cuda"
+    ms = {name: [] for name in metrics}
+    host = {name: [] for name in metrics}
+
+    def clocked(inner, record: list):
+        def call(*args, **kwargs):
+            start = time.perf_counter()
+            out = inner(*args, **kwargs)
+            record.append((time.perf_counter() - start) * 1e3)
+            return out
+        return call
+
+    for name, metric in metrics.items():
+        metric._host_batch_state = clocked(metric._host_batch_state, host[name])
+    try:
+        for preds, target in batches:
+            for name, metric in metrics.items():
+                if timed:
+                    ms[name].append(synced_ms(lambda: metric.update(preds, target)))
+                else:
+                    metric.update(preds, target)
+    finally:
+        for metric in metrics.values():
+            metric.__dict__.pop("_host_batch_state", None)
+    return {"update_ms": ms, "host_ms": host}
+
+
+def panoptic_phase(card: str) -> None:
+    clock = [("start", time.perf_counter())]
+    preds, target = panoptic_maps(np.random.default_rng(14), PANOPTIC_IMAGES)
+    batches = [(torch.from_numpy(p), torch.from_numpy(t)) for p, t in
+               zip(np.split(preds, PANOPTIC_IMAGES // PANOPTIC_BATCH), np.split(target, PANOPTIC_IMAGES // PANOPTIC_BATCH))]
+    clock.append(("data", time.perf_counter()))
+    metrics, cpu_metrics = panoptic_metrics(), panoptic_metrics("cpu")
+    run = panoptic_run(metrics, batches)
+    clock.append(("card", time.perf_counter()))
+    panoptic_run(cpu_metrics, batches)
+    clock.append(("cpu", time.perf_counter()))
+    for name, metric in metrics.items():
+        if any(t.device.type != "cuda" for t in metric._state.values()):
+            raise AssertionError(f"panoptic {name}: a state left the card")
+        if not states_equal({k: v.cpu() for k, v in metric._state.items()}, cpu_metrics[name]._state):
+            raise AssertionError(f"panoptic {name}: states differ from the CPU port's")
+    values = {}
+    for (name, got), want in zip(panoptic_values(metrics).items(), panoptic_values(cpu_metrics).values()):
+        got = got.cpu()
+        if not torch.equal(torch.nan_to_num(got, nan=-1.0), torch.nan_to_num(want, nan=-1.0)):
+            raise AssertionError(f"panoptic {name}: {got} on the card, {want} on the CPU")
+        values[name] = summary(got)
+    # the host's share of each update, from the clocks of that same update
+    host_ms, ms = run["host_ms"], run["update_ms"]
+    shares = {name: median([h / u for h, u in zip(host_ms[name], ms[name])]) for name in metrics}
+    emit({"phase": "panoptic", "images": PANOPTIC_IMAGES, "batch": PANOPTIC_BATCH, "shape": list(PANOPTIC_SHAPE),
+          "categories": {"things": len(PANOPTIC_THINGS), "stuffs": len(PANOPTIC_STUFFS)},
+          "reduced": f"{PANOPTIC_IMAGES} of val2017's 5000 images",
+          "update_ms": {name: median(v) for name, v in ms.items()},
+          "host_ms_of_an_update": {name: median(v) for name, v in host_ms.items()},
+          "host_share": shares, "segments_per_image": [1, PANOPTIC_MAX_SEGMENTS],
+          "states": "bit for bit", "values": values, "seconds": clock_seconds(clock), "card": card})
+
+
 def flagship_forward(cases: dict) -> dict:
     """The 26 sepconv7 launches of one bf16 trunk forward at the flagship's batch: their
     summed times and bound, and their worst error against the plain version."""
@@ -2963,7 +3371,6 @@ def main() -> int:
     launches_by_path = {"fid": launches["bfloat16"], "flagship": flagship_phase(card, preds, target, host_values["map"])}
     flagship_two_ranks_phase(card)
     launches_by_path["generative"] = generative_phase(card)
-    launches["bfloat16"] = sum(launches_by_path.values())
     collection_groups_phase(card)
     classification_tower_phase(card)
     curve_data = curves_phase(card)
@@ -2972,6 +3379,9 @@ def main() -> int:
     del curve_data
     regression_phase(card)
     correlation_phase(card)
+    launches_by_path["feature_share"] = wrappers_phase(card)
+    launches["bfloat16"] = sum(launches_by_path.values())
+    panoptic_phase(card)
 
     print(card, flush=True)
     kernels = []

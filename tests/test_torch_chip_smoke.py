@@ -725,3 +725,120 @@ def test_largest_rel_diff_with_a_floor_is_absolute_below_it(chip_smoke):
     assert chip_smoke.largest_rel_diff(torch.tensor([1000.001, 0.01, float("nan")]), want, floor=1.0) == \
         pytest.approx(1e-6, rel=0.05)
     assert chip_smoke.largest_rel_diff(torch.tensor([1000.0, 0.01, 0.0]), want, floor=1.0) == math.inf
+
+
+def _small_wrapper_data(chip_smoke):
+    return chip_smoke.wrapper_data("cpu", scale=0.004)
+
+
+def test_wrapper_data_makers_give_the_stated_batches_and_nan_rows(chip_smoke):
+    data = _small_wrapper_data(chip_smoke)
+    assert len(data["imagenet"]) == chip_smoke.IMAGENET_UPDATES and len(data["ctr"]) == chip_smoke.CTR_UPDATES
+    assert len(data["weather"]) == max(2, int(chip_smoke.WB_INITS * 0.004))
+    forecast = torch.stack([f for f, _ in data["weather"]])
+    rows = int(torch.isnan(forecast).any(-1).sum())
+    assert rows == data["nan_rows"] > 0 and int(torch.isnan(forecast).sum()) == rows  # one NaN a row
+    assert data["imagenet"][0][0].shape[1] == max(8, int(chip_smoke.IMAGENET_CLASSES * 0.004))
+
+
+def test_wrapper_suite_rehearsal_holds_the_cpu_port(chip_smoke):
+    """The suite twice on the CPU at a small size: the holding rule accepts equal runs,
+    Classwise gives one key a class, the tracker a best value and its step."""
+    data = _small_wrapper_data(chip_smoke)
+    classes = data["imagenet"][0][0].shape[1]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        runs = [chip_smoke.wrapper_suite("cpu", data, classes=classes) for _ in range(2)]
+    assert chip_smoke.hold_tree("rehearsal", runs[0]["values"], runs[1]["values"]) == 0.0
+    values = runs[0]["values"]
+    assert len(values["classwise"]) == classes and 0 <= int(values["tracker"]["step"]) < chip_smoke.TRACKER_EPOCHS
+    assert values["multioutput"].shape == (4,) and bool(torch.isfinite(values["multioutput"]).all())
+    assert values["tracker"]["all"].shape == (chip_smoke.TRACKER_EPOCHS,)
+
+
+def test_hold_tree_reads_nested_outputs_and_names_the_leaf(chip_smoke):
+    want = {"a": {"x": torch.tensor([1, 2], dtype=torch.int32)}, "b": (torch.tensor(0.5), torch.tensor(0.25))}
+    assert list(chip_smoke.tree_leaves(want)) == ["a.x", "b.0", "b.1"]
+    assert chip_smoke.hold_tree("t", {"a": {"x": torch.tensor([1, 2], dtype=torch.int32)},
+                                      "b": (torch.tensor(0.5000005), torch.tensor(0.25))}, want) > 0.0
+    with pytest.raises(AssertionError, match="a.x: counts differ"):
+        chip_smoke.hold_tree("t", {"a": {"x": torch.tensor([1, 3], dtype=torch.int32)}, "b": want["b"]}, want)
+    assert chip_smoke.clock_seconds([("start", 1.0), ("a", 3.0), ("b", 3.5)]) == {"a": 2.0, "b": 0.5}
+
+
+@pytest.mark.parametrize("sampling, stacked", [("multinomial", True), ("poisson", False)])
+def test_bootstrap_rehearsal_takes_its_path_and_holds_same_seeded_replicas(chip_smoke, sampling, stacked):
+    data = _small_wrapper_data(chip_smoke)
+    classes = data["imagenet"][0][0].shape[1]
+    boots = [chip_smoke.bootstrapper("cpu", classes=classes, replicas=6, sampling=sampling) for _ in range(2)]
+    assert all(b._use_stacked is stacked for b in boots)
+    for boot in boots:
+        for batch in data["imagenet"][:3]:
+            boot.update(*batch)
+    assert chip_smoke.hold_bootstrap("rehearsal", boots[0], boots[1]) == 0.0
+    assert set(boots[0].compute()) == {"mean", "std", "quantile"}
+    assert boots[0].compute()["quantile"].shape == (len(chip_smoke.BOOT_QUANTILES),)
+    boots[1].update(*data["imagenet"][3])  # one update more: the replicas differ
+    with pytest.raises(AssertionError, match="replica states"):
+        chip_smoke.hold_bootstrap("rehearsal", boots[0], boots[1])
+
+
+class _CountingWidth:
+    """A toy extractor with a declared width, counting its calls."""
+
+    num_features = 8
+
+    def __init__(self) -> None:
+        self.calls = 0
+
+    def __call__(self, imgs, normalize=False):
+        self.calls += 1
+        return imgs.reshape(imgs.shape[0], -1)[:, :8].float() / 255
+
+
+def test_feature_share_rehearsal_runs_the_extractor_once_per_shared_update(chip_smoke):
+    """Host batches, as on the card: the shared members call the extractor once an
+    update, the members alone once each, and both end with the same states."""
+    gen = torch.Generator().manual_seed(0)
+    batches = [(torch.randint(0, 256, (4, 3, 8, 8), generator=gen, dtype=torch.uint8).numpy(), i % 2 == 0)
+               for i in range(chip_smoke.SHARE_UPDATES)]
+    extractor = _CountingWidth()
+    extractor.accepts_normalize = True
+    run = chip_smoke.feature_share_run(extractor, batches, device="cpu")
+    assert extractor.calls == 4 * chip_smoke.SHARE_UPDATES  # 1 shared + 3 alone an update
+    assert run["shared_launches"] == run["alone_launches"] == 0  # the toy extractor launches no kernel
+    assert len(run["shared"]) == 3
+    for got, want in zip(run["shared"], run["alone"]):
+        assert chip_smoke.states_equal(got, want)
+
+
+def test_panoptic_maps_have_the_stated_shape_and_categories(chip_smoke):
+    preds, target = chip_smoke.panoptic_maps(np.random.default_rng(0), 5, shape=(64, 96))
+    assert preds.shape == target.shape == (5, 64, 96, 2) and preds.dtype == target.dtype == np.int32
+    known = set(chip_smoke.PANOPTIC_THINGS) | set(chip_smoke.PANOPTIC_STUFFS)
+    assert set(np.unique(target[..., 0])) <= known | {chip_smoke.PANOPTIC_VOID}
+    assert set(np.unique(preds[..., 0])) <= known
+    assert len(chip_smoke.PANOPTIC_THINGS) == 80 and len(chip_smoke.PANOPTIC_STUFFS) == 53
+    stuff = np.isin(target[..., 0], chip_smoke.PANOPTIC_STUFFS)
+    assert (target[..., 1][stuff] == 0).all()
+    for image in target:
+        colours = {tuple(c) for c in image.reshape(-1, 2)} - {(chip_smoke.PANOPTIC_VOID, 0)}
+        assert 1 <= len(colours) <= chip_smoke.PANOPTIC_MAX_SEGMENTS
+
+
+def test_panoptic_rehearsal_matches_and_keeps_its_states_on_the_metric_device(chip_smoke):
+    rng = np.random.default_rng(1)
+    batches = [tuple(torch.from_numpy(a) for a in chip_smoke.panoptic_maps(rng, 2, shape=(64, 96))) for _ in range(2)]
+    runs = []
+    for _ in range(2):
+        metrics = chip_smoke.panoptic_metrics("cpu")
+        run = chip_smoke.panoptic_run(metrics, batches)
+        assert all(len(ms) == len(batches) for ms in run["host_ms"].values())  # one reading an update
+        assert all("_host_batch_state" not in m.__dict__ for m in metrics.values())  # the clock is taken off
+        runs.append(metrics)
+    for name in runs[0]:
+        assert chip_smoke.states_equal(runs[0][name]._state, runs[1][name]._state)
+    assert int(runs[0]["pq"].true_positives.sum()) > 0
+    values = chip_smoke.panoptic_values(runs[0])
+    assert values["pq"].shape == (3,) and values["pq_per_class"].shape == (133, 3) and values["mpq"].shape == ()
+    assert values["pq"].shape == runs[0]["pq"].compute().shape  # the per-class read left the flag as it was

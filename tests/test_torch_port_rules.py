@@ -16,13 +16,14 @@ import importlib
 import pathlib
 import pkgutil
 
+import numpy as np
 import pytest
 import torch
 
 import torchmetrics_tpu_torch
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.classification import MulticlassAccuracy
-from torchmetrics_tpu_torch import classification, detection, functional, regression
+from torchmetrics_tpu_torch import classification, detection, functional, regression, wrappers
 from torchmetrics_tpu_torch.image import (
     FrechetInceptionDistance,
     InceptionScore,
@@ -113,12 +114,21 @@ def _toy_extractor(imgs):
         lambda: classification.LogAUC(task="binary"),
         lambda: classification.MultilabelRecallAtFixedPrecision(3, min_precision=0.5),
         lambda: functional.binary_sensitivity_at_specificity([0.25, 0.75], [0, 1], 0.5),
+        lambda: wrappers.BootStrapper(MulticlassAccuracy(3)),
+        lambda: wrappers.MinMaxMetric(MulticlassAccuracy(3, device="cpu"), device="cuda"),
+        lambda: wrappers.Running(regression.MeanSquaredError()),
+        lambda: wrappers.FeatureShare([FrechetInceptionDistance(feature=_toy_extractor)]),
+        lambda: wrappers.FeatureShare([FrechetInceptionDistance(feature=_toy_extractor, device="cpu")], device="cuda"),
+        lambda: detection.PanopticQuality({0}, {1}),
+        lambda: functional.panoptic_quality(np.zeros((1, 2, 2, 2), np.int64), np.zeros((1, 2, 2, 2), np.int64),
+                                            {0}, {1}),
     ],
     ids=["metric", "extractor", "extractor_from_params", "fid", "collection", "resolve_none", "resolve_cuda",
          "accumulator", "pack", "map", "map_device_backend", "device_map", "iou", "giou", "diou", "ciou",
          "kid", "mifid", "inception_score", "jaccard", "exact_match", "auroc_binned", "average_precision",
          "functional_auroc", "calibration", "hinge", "ranking_loss", "fairness", "eer", "logauc", "recall_at_precision",
-         "functional_sensitivity_at_specificity"],
+         "functional_sensitivity_at_specificity", "bootstrapper", "minmax_on_cuda", "running", "feature_share",
+         "feature_share_on_cuda", "panoptic_quality", "functional_panoptic_quality"],
 )
 def test_default_device_raises_without_cuda(no_cuda, build):
     with pytest.raises(RuntimeError, match="device='cpu'"):

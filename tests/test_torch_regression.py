@@ -384,3 +384,51 @@ def test_explained_variance_checkpoint_keeps_the_jax_packages_shape_guard():
         restored.load_state_dict(pearson.state_dict())
         np.testing.assert_array_equal(_np(restored.compute()), _np(pearson.compute()))
     assert errors[0] == errors[1] and errors[0][0] == "StateCorruptionError"
+
+
+@pytest.mark.parametrize("power", [1.5, 3.0])
+@pytest.mark.parametrize("zero", [-0.0, 0.0])
+def test_tweedie_on_a_signed_zero_prediction_is_the_jax_value(power, zero):
+    """torch takes pow(x, -0.5) and pow(x, 0.5) as rsqrt and sqrt, which keep the sign of
+    a zero (rsqrt(-0.0) is -inf); the port gives IEEE pow's value there, as jnp.power
+    does: at power 1.5 and preds -0.0 both give +inf, and at power 3 (reciprocal and
+    square, where torch is IEEE) the sign still decides between inf and NaN."""
+    preds, target = np.array([zero, 1.0], np.float32), np.array([1.0, 1.0], np.float32)
+    want = jax_fn.tweedie_deviance_score(jnp.asarray(preds), jnp.asarray(target), power=power)
+    got = port_fn.tweedie_deviance_score(torch.from_numpy(preds), torch.from_numpy(target), power=power)
+    _assert_close(got, want, bitwise=True, ctx="functional")
+    jax_metric, port_metric = jax_reg.TweedieDevianceScore(power=power), CPU_REGRESSION.TweedieDevianceScore(power=power)
+    jax_metric.update(jnp.asarray(preds), jnp.asarray(target))
+    port_metric.update(torch.from_numpy(preds), torch.from_numpy(target))
+    _assert_close(port_metric.compute(), jax_metric.compute(), bitwise=True, ctx="class")
+    if power == 1.5 and zero == -0.0:
+        assert float(got) == float("inf")
+
+
+@pytest.mark.parametrize("target", [[-0.0], [-0.0, -0.0], [0.0, -0.0], "floats"],
+                         ids=["one_negative_zero", "two_negative_zeros", "mixed_zeros", "floats"])
+def test_nrmse_mean_keeps_the_jax_sign_of_zero(target):
+    """``jnp.mean`` over one value is that value, so NRMSE over a single target of -0.0
+    is -inf in JAX; over two or more values its sum starts from +0.0 (all -0.0 give
+    +inf). The port's mean does the same; the class, whose mean folds by Chan's merge,
+    agrees with JAX as it did."""
+    target = _rng_floats() if target == "floats" else np.array(target, np.float32)
+    preds = np.full(target.shape, 0.5, np.float32)
+    want = jax_fn.normalized_root_mean_squared_error(jnp.asarray(preds), jnp.asarray(target), normalization="mean")
+    got = port_fn.normalized_root_mean_squared_error(torch.from_numpy(preds), torch.from_numpy(target),
+                                                     normalization="mean")
+    if target.size > 2:
+        _assert_close(got, want, ctx="functional")
+    else:
+        _assert_close(got, want, bitwise=True, ctx="functional")
+        jax_metric = jax_reg.NormalizedRootMeanSquaredError(normalization="mean")
+        port_metric = CPU_REGRESSION.NormalizedRootMeanSquaredError(normalization="mean")
+        jax_metric.update(jnp.asarray(preds), jnp.asarray(target))
+        port_metric.update(torch.from_numpy(preds), torch.from_numpy(target))
+        _assert_close(port_metric.compute(), jax_metric.compute(), bitwise=True, ctx="class")
+    if target.tolist() == [-0.0]:
+        assert float(got) == -float("inf")
+
+
+def _rng_floats(n: int = 1000) -> np.ndarray:
+    return np.random.default_rng(11).normal(1.0, 2.0, size=n).astype(np.float32)

@@ -54,6 +54,7 @@ class BinaryAUROC(BinaryPrecisionRecallCurve):
             _binary_auroc_arg_validation(max_fpr, thresholds, ignore_index)
         self.validate_args = validate_args
         self.max_fpr = max_fpr
+        self._jittable_compute = max_fpr is None and thresholds is not None
 
     def _compute(self, state):
         return _binary_auroc_compute(*self._curve_state(state), self.max_fpr)

@@ -33,6 +33,7 @@ class BinaryEER(BinaryPrecisionRecallCurve):
     """
 
     higher_is_better = False
+    _jittable_compute = False
     plot_lower_bound = 0.0
     plot_upper_bound = 1.0
 
@@ -56,6 +57,7 @@ class MulticlassEER(MulticlassPrecisionRecallCurve):
     """
 
     higher_is_better = False
+    _jittable_compute = False
     plot_lower_bound = 0.0
     plot_upper_bound = 1.0
     plot_legend_name = "Class"
@@ -90,6 +92,7 @@ class MultilabelEER(MultilabelPrecisionRecallCurve):
     """
 
     higher_is_better = False
+    _jittable_compute = False
     plot_lower_bound = 0.0
     plot_upper_bound = 1.0
     plot_legend_name = "Label"

@@ -75,6 +75,7 @@ class BinaryGroupStatRates(_AbstractGroupStatScores):
     is_differentiable = False
     higher_is_better = False
     full_state_update = False
+    _jittable_compute = False
 
     def _compute(self, state) -> Dict[str, torch.Tensor]:
         return _groups_rates(state["tp"], state["fp"], state["tn"], state["fn"])
@@ -99,6 +100,7 @@ class BinaryFairness(_AbstractGroupStatScores):
     is_differentiable = False
     higher_is_better = False
     full_state_update = False
+    _jittable_compute = False
 
     def __init__(
         self,

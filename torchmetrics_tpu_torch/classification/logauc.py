@@ -40,6 +40,7 @@ class BinaryLogAUC(BinaryPrecisionRecallCurve):
     """
 
     higher_is_better = True
+    _jittable_compute = False
     plot_lower_bound = 0.0
     plot_upper_bound = 1.0
 
@@ -71,6 +72,7 @@ class MulticlassLogAUC(MulticlassPrecisionRecallCurve):
     """
 
     higher_is_better = True
+    _jittable_compute = False
     plot_lower_bound = 0.0
     plot_upper_bound = 1.0
     plot_legend_name = "Class"
@@ -106,6 +108,7 @@ class MultilabelLogAUC(MultilabelPrecisionRecallCurve):
     """
 
     higher_is_better = True
+    _jittable_compute = False
     plot_lower_bound = 0.0
     plot_upper_bound = 1.0
     plot_legend_name = "Label"

@@ -17,6 +17,7 @@ from .confusion_matrix import BinaryConfusionMatrix, MulticlassConfusionMatrix, 
 class _MCCCompute:
     is_differentiable = False
     higher_is_better = True
+    _jittable_compute = False  # as in the JAX package, whose edge cases run on the host
 
     def _compute(self, state):
         return _matthews_corrcoef_reduce(state["confmat"])

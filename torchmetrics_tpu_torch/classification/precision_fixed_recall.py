@@ -40,6 +40,7 @@ class BinaryPrecisionAtFixedRecall(BinaryPrecisionRecallCurve):
     """
 
     higher_is_better = True
+    _jittable_compute = False
     plot_lower_bound = 0.0
     plot_upper_bound = 1.0
 
@@ -72,6 +73,7 @@ class MulticlassPrecisionAtFixedRecall(MulticlassPrecisionRecallCurve):
     """
 
     higher_is_better = True
+    _jittable_compute = False
     plot_lower_bound = 0.0
     plot_upper_bound = 1.0
     plot_legend_name = "Class"
@@ -108,6 +110,7 @@ class MultilabelPrecisionAtFixedRecall(MultilabelPrecisionRecallCurve):
     """
 
     higher_is_better = True
+    _jittable_compute = False
     plot_lower_bound = 0.0
     plot_upper_bound = 1.0
     plot_legend_name = "Label"

@@ -51,6 +51,7 @@ class _CurveStates(Metric):
         """``shape``: the binned state's shape after its thresholds axis."""
         self.thresholds = _adjust_threshold_arg(thresholds, self.device)
         if self.thresholds is None:
+            self._jittable_compute = False
             self.add_state("preds", default=[], dist_reduce_fx="cat")
             self.add_state("target", default=[], dist_reduce_fx="cat")
         else:

@@ -38,6 +38,7 @@ class BinarySensitivityAtSpecificity(BinaryPrecisionRecallCurve):
     """
 
     higher_is_better = True
+    _jittable_compute = False
     plot_lower_bound = 0.0
     plot_upper_bound = 1.0
 
@@ -70,6 +71,7 @@ class MulticlassSensitivityAtSpecificity(MulticlassPrecisionRecallCurve):
     """
 
     higher_is_better = True
+    _jittable_compute = False
     plot_lower_bound = 0.0
     plot_upper_bound = 1.0
     plot_legend_name = "Class"
@@ -106,6 +108,7 @@ class MultilabelSensitivityAtSpecificity(MultilabelPrecisionRecallCurve):
     """
 
     higher_is_better = True
+    _jittable_compute = False
     plot_lower_bound = 0.0
     plot_upper_bound = 1.0
     plot_legend_name = "Label"

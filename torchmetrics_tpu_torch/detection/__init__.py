@@ -1,11 +1,11 @@
-"""Detection metrics (counterpart of ``torchmetrics_tpu/detection``; panoptic quality is
-not ported yet)."""
+"""Detection metrics (counterpart of ``torchmetrics_tpu/detection``)."""
 
 from .ciou import CompleteIntersectionOverUnion
 from .diou import DistanceIntersectionOverUnion
 from .giou import GeneralizedIntersectionOverUnion
 from .iou import IntersectionOverUnion
 from .mean_ap import DeviceMeanAveragePrecision, MeanAveragePrecision
+from .panoptic_qualities import ModifiedPanopticQuality, PanopticQuality
 from .sharded import PaddedDetectionAccumulator, pack_detection_batch
 
 __all__ = [
@@ -17,4 +17,6 @@ __all__ = [
     "IntersectionOverUnion",
     "DeviceMeanAveragePrecision",
     "MeanAveragePrecision",
+    "ModifiedPanopticQuality",
+    "PanopticQuality",
 ]

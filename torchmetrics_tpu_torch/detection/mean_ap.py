@@ -471,6 +471,7 @@ class DeviceMeanAveragePrecision(Metric):
     is_differentiable: bool = False
     higher_is_better: Optional[bool] = True
     full_state_update: bool = True
+    _jittable_compute = False  # its compute is a host-orchestrated pass, as in the JAX package
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
     warn_on_many_detections: bool = True

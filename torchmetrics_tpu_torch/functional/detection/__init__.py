@@ -1,11 +1,11 @@
-"""Detection functions (counterpart of ``torchmetrics_tpu/functional/detection``;
-panoptic quality is not ported yet)."""
+"""Detection functions (counterpart of ``torchmetrics_tpu/functional/detection``)."""
 
 from .ciou import complete_intersection_over_union
 from .diou import distance_intersection_over_union
 from .giou import generalized_intersection_over_union
 from .iou import intersection_over_union
 from .map import mean_average_precision
+from .panoptic_qualities import modified_panoptic_quality, panoptic_quality
 
 __all__ = [
     "complete_intersection_over_union",
@@ -13,4 +13,6 @@ __all__ = [
     "generalized_intersection_over_union",
     "intersection_over_union",
     "mean_average_precision",
+    "modified_panoptic_quality",
+    "panoptic_quality",
 ]

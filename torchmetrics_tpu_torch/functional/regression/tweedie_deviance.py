@@ -12,6 +12,14 @@ from ...utilities.checks import _as_tensor, _check_same_shape
 from ...utilities.compute import _float32_sum, _safe_xlogy
 
 
+def _ieee_pow(x: torch.Tensor, exponent: float) -> torch.Tensor:
+    """``x ** exponent`` as IEEE ``pow`` (and ``jnp.power``) gives it at a zero of either
+    sign: torch takes the exponents 0.5 and -0.5 as ``sqrt`` and ``rsqrt``, which keep the
+    zero's sign (``rsqrt(-0.0)`` is ``-inf``, where ``pow(-0.0, -0.5)`` is ``+inf``), so
+    for those two the zero is made ``+0.0`` first (``x + 0.0``)."""
+    return torch.pow(x + 0.0 if exponent in (0.5, -0.5) else x, exponent)
+
+
 def _tweedie_deviance_score_update(preds: torch.Tensor, targets: torch.Tensor, power: float = 0.0):
     _check_same_shape(preds, targets)
     preds, targets = preds.to(torch.float32), targets.to(torch.float32)
@@ -29,9 +37,9 @@ def _tweedie_deviance_score_update(preds: torch.Tensor, targets: torch.Tensor, p
     elif power == 2:
         deviance_score = 2 * (torch.log(preds / targets) + (targets / preds) - 1)
     else:
-        term_1 = torch.pow(targets.clamp(min=0), 2 - power) / ((1 - power) * (2 - power))
-        term_2 = targets * torch.pow(preds, 1 - power) / (1 - power)
-        term_3 = torch.pow(preds, 2 - power) / (2 - power)
+        term_1 = _ieee_pow(targets.clamp(min=0), 2 - power) / ((1 - power) * (2 - power))
+        term_2 = targets * _ieee_pow(preds, 1 - power) / (1 - power)
+        term_3 = _ieee_pow(preds, 2 - power) / (2 - power)
         deviance_score = 2 * (term_1 - term_2 + term_3)
     num = torch.tensor(float(deviance_score.numel()), dtype=torch.float32, device=preds.device)
     return _float32_sum(deviance_score), num

@@ -36,7 +36,13 @@ def _check_data_shape_to_num_outputs(preds: torch.Tensor, target: torch.Tensor, 
 
 
 def _mean32(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """The float32 mean along ``dim``: the float64 sum over the count, rounded once."""
+    """The float32 mean along ``dim``: the float64 sum over the count, rounded once.
+
+    Over a single value the mean is that value, ``-0.0`` included, as ``jnp.mean`` gives
+    it; torch's sum starts from ``+0.0`` and would lose the sign. (Over two or more values
+    ``jnp.mean`` starts from ``+0.0`` too, so all ``-0.0`` give ``+0.0`` in both.)"""
+    if x.shape[dim] == 1:
+        return x.select(dim, 0).to(torch.float32)
     return (x.sum(dim, dtype=torch.float64) / x.shape[dim]).to(torch.float32)
 
 

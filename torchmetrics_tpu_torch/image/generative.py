@@ -70,6 +70,7 @@ class FrechetInceptionDistance(Metric):
     is_differentiable = False
     higher_is_better = False
     full_state_update = False
+    _jittable_compute = False
 
     def __init__(
         self,
@@ -334,6 +335,7 @@ class InceptionScore(Metric):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    _jittable_compute = False
 
     def __init__(
         self,

@@ -94,6 +94,9 @@ class Metric:
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = False
+    # False where the JAX package's compute runs on the host (host algorithms, float64
+    # edge cases): BootStrapper keeps its replicas stacked only where this holds, as there
+    _jittable_compute: bool = True
 
     def __init__(self, **kwargs: Any) -> None:
         self._device = resolve_device(kwargs.pop("device", None))
@@ -631,6 +634,8 @@ class HostMetric(Metric):
     computes the value of the batch alone from it. List states live on the host: a sync
     brings them back there, not to the metric's device.
     """
+
+    _jittable_compute = False
 
     def _host_batch_state(self, *args: Any, **kwargs: Any) -> StateDict:
         raise NotImplementedError
