@@ -192,6 +192,37 @@ Phases, one JSON line each, in order:
    in updates of 16: the states on the card, equal to the CPU port's bit for bit, and
    the values (PQ's per class too) equal; update ms and the host's share of it (the
    statistics are host numpy).
+26. retrieval: an MS MARCO passage dev-small re-ranking run from a seed: 6,980 sparse
+   query ids (int64 on the host, int32 states) x 1,000 BM25 candidates in 70 updates of
+   100 queries, 1-3 judged passages a query (about 14% of the queries without one among
+   the candidates), cross-encoder logits in bfloat16 (a tie share within a query is
+   reported; a few queries carry exact +0.0 and -0.0). MRR@10, MAP, MAP (median, skip),
+   NDCG@10, precision@10, recall@100, hit rate@10, fall-out@10, R-precision, AUROC, the
+   PR curve at k <= 100 and recall at precision 0.05: the states and the padded layout
+   equal to the CPU port's bit for bit, values within 1e-6 relative (1e-7 absolute below
+   0.1), ``ks`` and ``best_k`` equal; a TREC DL 2019-shaped set (43 x 1,000, graded
+   gains) through NDCG at 10 and at full depth; ``RetrievalAUROC(max_fpr=0.1)`` on the
+   first 256 queries (ms a query); edge queries (+-0.0, NaN, +-inf scores, one document,
+   all positive, all negative under each empty-target action, ignored targets, top-k
+   beyond a query, ``adaptive_k``, the median of an even count) on the card and the CPU.
+   Update and compute ms, a compute's peak extra bytes, state bytes; the NDCG@10 and MAP
+   computes profiled.
+27. segmentation: Cityscapes val from a seed (500 frames of 1024 x 2048, 19 classes,
+   index input, batches of 8, void 255 on about 10% of the target): ``MeanIoU`` (mean
+   and per class), ``DiceScore(average="macro")`` and ``GeneralizedDiceScore``; the
+   states after the first two updates held against the CPU port (counts bit for bit,
+   float sums within 1e-6), values within 1e-6, the mIoU in [0.6, 0.8]; small edge
+   inputs (an absent class, logits with argmax ties, multi-hot one-hots, the background
+   in and out, anisotropic 3-D spacing, the three distances) on the card and the CPU.
+   Update ms and frames/s, a profiled update, each metric's peak extra bytes, the bytes
+   an update reads.
+28. segmentation_3d: BraTS 2021-shaped volumes from a seed (16 of 240 x 240 x 155 at
+   1 mm, updates of 2; nested noisy ellipsoids; predictions shifted, scaled and with
+   stray blobs): ``DiceScore(4, include_background=False, average="none")`` and the
+   directed euclidean ``HausdorffDistance`` over the gathered edge voxels; the first
+   update's states equal to the CPU port's bit for bit. Hausdorff ms an update, edge
+   voxels per (volume, class), distances evaluated, host reads an update (counted by
+   ``torch.cuda.set_sync_debug_mode``), a profiled update.
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -2293,7 +2324,8 @@ def run_tail(metrics: dict, inputs: dict, timed: bool = True) -> dict:
 
 def summary(value: torch.Tensor):
     """A value for a report line: its entries, or of a long vector its mean, min and max."""
-    return value.tolist() if value.numel() <= 8 else [float(value.nanmean()), float(value.min()), float(value.max())]
+    return value.tolist() if value.numel() <= 8 else [float(value.double().nanmean()), float(value.min()),
+                                                      float(value.max())]
 
 
 def largest_rel_diff(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
@@ -3336,6 +3368,569 @@ def panoptic_phase(card: str) -> None:
           "states": "bit for bit", "values": values, "seconds": clock_seconds(clock), "card": card})
 
 
+# ---------------------------------------------------------------------------
+# retrieval (slice 12): an MS MARCO passage dev-small re-ranking run
+# ---------------------------------------------------------------------------
+
+MSMARCO_QUERIES = 6980  # dev-small's queries
+MSMARCO_DEPTH = 1000  # BM25 candidates a query
+MSMARCO_IDS = 1_102_400  # query ids are sparse, up to about 1.1M
+MSMARCO_UPDATE_QUERIES = 100  # each query's candidates arrive together, 100 queries an update
+MSMARCO_JUDGED = (0.94, 0.055, 0.005)  # 1, 2 or 3 judged passages: 1.065 a query, as dev-small's qrels
+MSMARCO_RECALL = 0.86  # a judged passage among BM25's 1,000 candidates
+MSMARCO_SIGNED_ZERO_QUERIES = 8  # queries that carry exact +0.0 and -0.0 scores
+TREC_QUERIES = 43  # TREC DL 2019 passage: judged queries
+TREC_GAINS = (0.9, 0.05, 0.03, 0.02)  # graded 0-3, about a tenth of the candidates above 0
+MAX_FPR_QUERIES = 256  # RetrievalAUROC(max_fpr=0.1) loops over the queries on the host
+RETRIEVAL_RTOL = 1e-6
+RETRIEVAL_ATOL = 1e-7  # below magnitude 1e-1
+
+
+def bf16_logits(gen: torch.Generator, shape, mean: float, std: float, device: str) -> torch.Tensor:
+    """Cross-encoder logits: normal, rounded to bfloat16 and held as float32."""
+    logits = torch.randn(shape, generator=gen, device=device) * std + mean
+    return logits.to(torch.bfloat16).to(torch.float32)
+
+
+def msmarco_inputs(queries: int = MSMARCO_QUERIES, depth: int = MSMARCO_DEPTH,
+                   update_queries: int = MSMARCO_UPDATE_QUERIES, seed: int = 41, device: str = "cuda") -> dict:
+    """A re-ranking run in MS MARCO dev-small's shape: ``queries`` sparse query ids
+    (int64), ``depth`` candidates each in BM25 order, binary relevance (1-3 judged
+    passages a query, each among the candidates with probability ``MSMARCO_RECALL``,
+    nearer the top more often), cross-encoder logits in bfloat16 (negatives about
+    N(-2, 2), positives about N(3, 2)), and a few queries with exact +0.0 and -0.0
+    scores. Returns the update batches ``(preds, target, indexes)`` and the run's shares
+    of queries without a positive and of tied scores within a query."""
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.choice(MSMARCO_IDS, size=queries, replace=False).astype(np.int64))
+    judged = rng.choice(len(MSMARCO_JUDGED), size=queries, p=MSMARCO_JUDGED) + 1
+    target = np.zeros((queries, depth), np.int64)
+    for q in range(queries):
+        found = rng.random(judged[q]) < MSMARCO_RECALL
+        ranks = np.minimum(rng.geometric(8.0 / depth, size=found.sum()) - 1, depth - 1)
+        target[q, ranks] = 1
+    gen = torch.Generator(device=device).manual_seed(seed)
+    target = torch.from_numpy(target).to(device)
+    preds = torch.where(target > 0, bf16_logits(gen, target.shape, 3.0, 2.0, device),
+                        bf16_logits(gen, target.shape, -2.0, 2.0, device))
+    for q in rng.choice(queries, size=min(MSMARCO_SIGNED_ZERO_QUERIES, queries), replace=False):
+        preds[q, :4] = torch.tensor([0.0, -0.0, 0.0, -0.0], device=device)
+    indexes = ids.to(device)[:, None].expand(queries, depth)
+    ordered = preds.sort(-1).values
+    tied = torch.zeros_like(ordered, dtype=torch.bool)
+    tied[:, 1:] |= ordered[:, 1:] == ordered[:, :-1]
+    tied[:, :-1] |= ordered[:, :-1] == ordered[:, 1:]
+    batches = [tuple(x[i:i + update_queries].reshape(-1) for x in (preds, target, indexes))
+               for i in range(0, queries, update_queries)]
+    return {"batches": batches, "empty_share": float((target.sum(-1) == 0).double().mean()),
+            "tie_share": float(tied.double().mean()), "rows": queries * depth}
+
+
+def trec_inputs(queries: int = TREC_QUERIES, depth: int = MSMARCO_DEPTH, seed: int = 43, device: str = "cuda"):
+    """A TREC DL 2019 passage-shaped set: ``queries`` x ``depth`` candidates, graded
+    gains 0-3 (about a tenth above 0), logits that rise with the gain, in bfloat16."""
+    rng = np.random.default_rng(seed)
+    gains = torch.from_numpy(rng.choice(len(TREC_GAINS), size=(queries, depth), p=TREC_GAINS)).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    preds = bf16_logits(gen, gains.shape, 0.0, 2.0, device) + 1.5 * gains - 2.0
+    ids = torch.from_numpy(rng.choice(MSMARCO_IDS, size=queries, replace=False).astype(np.int64)).to(device)
+    return preds.reshape(-1), gains.reshape(-1), ids[:, None].expand(queries, depth).reshape(-1)
+
+
+def retrieval_metrics(device=None) -> dict:
+    from torchmetrics_tpu_torch import retrieval as r
+
+    return {
+        "mrr@10": r.RetrievalMRR(top_k=10, device=device),
+        "map": r.RetrievalMAP(device=device),
+        "map_median_skip": r.RetrievalMAP(aggregation="median", empty_target_action="skip", device=device),
+        "ndcg@10": r.RetrievalNormalizedDCG(top_k=10, device=device),
+        "precision@10": r.RetrievalPrecision(top_k=10, device=device),
+        "recall@100": r.RetrievalRecall(top_k=100, device=device),
+        "hit_rate@10": r.RetrievalHitRate(top_k=10, device=device),
+        "fall_out@10": r.RetrievalFallOut(top_k=10, device=device),
+        "r_precision": r.RetrievalRPrecision(device=device),
+        "auroc": r.RetrievalAUROC(device=device),
+        "pr_curve@100": r.RetrievalPrecisionRecallCurve(max_k=100, device=device),
+        "recall@precision0.05": r.RetrievalRecallAtFixedPrecision(min_precision=0.05, max_k=100, device=device),
+    }
+
+
+def run_retrieval(metrics: dict, batches: list, timed: bool = True) -> dict:
+    """Every batch into every metric, then each ``compute()``: name -> states, value and,
+    when ``timed``, the median update ms and the ms of a first and a second compute
+    (host clock, synchronised; the first loads the kernels no earlier phase ran)."""
+    out = {}
+    for name, metric in metrics.items():
+        times = [synced_ms(lambda: metric.update(*batch)) if timed else metric.update(*batch) for batch in batches]
+        compute_ms = [synced_ms(lambda: fresh_compute(metric)) for _ in range(2)] if timed else None
+        out[name] = {"value": fresh_compute(metric), "states": metric._concat_state(),
+                     "update_ms": median(times) if timed else None, "compute_ms": compute_ms}
+    return out
+
+
+def retrieval_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    """How far ``got`` is from ``want`` in units of the retrieval tolerance (relative
+    ``RETRIEVAL_RTOL``, absolute ``RETRIEVAL_ATOL`` below magnitude 1e-1): at most 1
+    passes. Integers must be equal, NaN in the same places."""
+    got, want = got.cpu(), want.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return math.inf
+    if not want.is_floating_point():
+        return 0.0 if torch.equal(got, want) else math.inf
+    got, want = got.double(), want.double()
+    if not torch.equal(got.isnan(), want.isnan()):
+        return math.inf
+    keep = ~want.isnan()
+    if not bool(keep.any()):
+        return 0.0
+    scale = torch.where(want.abs() < 0.1, RETRIEVAL_ATOL, RETRIEVAL_RTOL * want.abs())[keep]
+    return float(((got - want).abs()[keep] / scale).max())
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (NaN payloads and signed zeros too)."""
+    got, want = got.cpu(), want.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return torch.equal(got, want)
+
+
+def hold_retrieval(label: str, got: dict, want: dict) -> dict:
+    """States bit for bit, values (``ks`` and ``best_k`` equal) within the retrieval
+    tolerance. Returns each value's difference in tolerance units."""
+    worst = {}
+    for name, entry in want.items():
+        mine, theirs = got[name]["states"], entry["states"]
+        if list(mine) != list(theirs) or not all(same_bits(mine[k], theirs[k]) for k in theirs):
+            raise AssertionError(f"{label} {name}: states differ from the CPU's")
+        values = [tree_leaves(got[name]["value"]), tree_leaves(entry["value"])]
+        if list(values[0]) != list(values[1]):
+            raise AssertionError(f"{label} {name}: values {list(values[0])} against {list(values[1])}")
+        diffs = [retrieval_diff(a, b) for a, b in zip(values[0].values(), values[1].values())]
+        if not max(diffs) <= 1.0:
+            raise AssertionError(f"{label} {name}: {values[0]} on the card, {values[1]} on the CPU")
+        worst[name] = max(diffs)
+    return worst
+
+
+def retrieval_edge_inputs():
+    """Five queries (ids 2-11) on the host: one with +-0.0, NaN and +-inf scores, one
+    of a single document, one all positive, one all negative, and one with ignored (-1)
+    targets; ``skip`` of the all-negative query leaves an even count for the median."""
+    preds = torch.tensor([0.5, -0.0, 0.0, float("nan"), float("inf"), -float("inf"), 0.25, 0.5,  # id 5
+                          0.75,  # id 9
+                          0.1, 0.3, 0.3,  # id 2
+                          0.9, 0.2, 0.4, 0.4,  # id 7
+                          0.6, 0.2, 0.8, 0.1, 0.7, 0.3])  # id 11
+    target = torch.tensor([1, 0, 1, 0, 1, 0, 0, 1, 1, 1, 1, 1, 0, 0, 0, 0, 1, -1, 0, -1, 1, 0])
+    indexes = torch.tensor([5] * 8 + [9] + [2] * 3 + [7] * 4 + [11] * 6)
+    return preds, target, indexes
+
+
+def retrieval_edge_results(device) -> dict:
+    """The edge queries through each empty-target action, ``ignore_index``, top-k beyond
+    a query's length, ``adaptive_k`` and the median of an even count; ``error`` must raise."""
+    from torchmetrics_tpu_torch import retrieval as r
+
+    preds, target, indexes = (t.to(device) for t in retrieval_edge_inputs())
+    out = {}
+    for action in ("neg", "pos", "skip"):
+        kw = {"empty_target_action": action, "ignore_index": -1, "device": device}
+        built = {"map_median": r.RetrievalMAP(aggregation="median", **kw),
+                 "ndcg@50": r.RetrievalNormalizedDCG(top_k=50, **kw),
+                 "precision@50_adaptive": r.RetrievalPrecision(top_k=50, adaptive_k=True, **kw),
+                 "mrr@2": r.RetrievalMRR(top_k=2, **kw), "fall_out": r.RetrievalFallOut(**kw),
+                 "auroc": r.RetrievalAUROC(**kw), "r_precision": r.RetrievalRPrecision(**kw),
+                 "pr_curve@8_adaptive": r.RetrievalPrecisionRecallCurve(max_k=8, adaptive_k=True, **kw)}
+        for name, metric in built.items():
+            metric.update(preds, target, indexes)
+            out[f"{name}_{action}"] = {"value": metric.compute(), "states": metric._concat_state()}
+    error = r.RetrievalMAP(empty_target_action="error", ignore_index=-1, device=device)
+    error.update(preds, target, indexes)
+    try:
+        error.compute()
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"retrieval edges: empty_target_action='error' did not raise on {device}")
+    return out
+
+
+def retrieval_phase(card: str) -> None:
+    import warnings
+
+    from torchmetrics_tpu_torch import retrieval as r
+    from torchmetrics_tpu_torch.functional.retrieval.utils import _pad_queries
+
+    clock = [("start", time.perf_counter())]
+    data = msmarco_inputs()
+    cpu_batches = [tuple(t.cpu() for t in batch) for batch in data["batches"]]
+    clock.append(("inputs", time.perf_counter()))
+    metrics = retrieval_metrics()
+    card_run = run_retrieval(metrics, data["batches"])
+    clock.append(("card", time.perf_counter()))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cpu_run = run_retrieval(retrieval_metrics("cpu"), cpu_batches, timed=False)
+    clock.append(("cpu", time.perf_counter()))
+    worst = hold_retrieval("retrieval", card_run, cpu_run)
+    state = card_run["map"]["states"]
+    layout = _pad_queries(state["indexes"], state["preds"], state["target"])
+    cpu_state = cpu_run["map"]["states"]
+    for got, want in zip(layout, _pad_queries(cpu_state["indexes"], cpu_state["preds"], cpu_state["target"])):
+        if not same_bits(got, want):
+            raise AssertionError("retrieval: the padded layout differs from the CPU's")
+    # TREC DL 2019: graded gains at 10 and at full depth
+    trec = trec_inputs()
+    trec_values = {}
+    for top_k in (10, None):
+        card_ndcg, cpu_ndcg = (r.RetrievalNormalizedDCG(top_k=top_k, device=d) for d in (None, "cpu"))
+        card_ndcg.update(*trec)
+        cpu_ndcg.update(*(t.cpu() for t in trec))
+        got, want = card_ndcg.compute(), cpu_ndcg.compute()
+        if not retrieval_diff(got, want) <= 1.0:
+            raise AssertionError(f"retrieval trec ndcg@{top_k}: {got} on the card, {want} on the CPU")
+        trec_values[f"ndcg@{top_k or 'all'}"] = float(got)
+    # RetrievalAUROC(max_fpr=0.1): one binary_auroc a query, on a prefix of the queries
+    rows = MAX_FPR_QUERIES * MSMARCO_DEPTH
+    prefix = [torch.cat([b[i] for b in data["batches"]])[:rows] for i in range(3)]
+    partial, cpu_partial = (r.RetrievalAUROC(max_fpr=MAX_FPR, device=d) for d in (None, "cpu"))
+    partial.update(*prefix)
+    cpu_partial.update(*(t.cpu() for t in prefix))
+    partial_ms = synced_ms(lambda: fresh_compute(partial))
+    if not retrieval_diff(partial.compute(), cpu_partial.compute()) <= 1.0:
+        raise AssertionError(f"retrieval max_fpr: {partial.compute()} on the card, {cpu_partial.compute()} on the CPU")
+    clock.append(("trec_and_max_fpr", time.perf_counter()))
+    edges = retrieval_edge_results("cuda")
+    edge_worst = hold_retrieval("retrieval edges", edges, retrieval_edge_results("cpu"))
+    peak = {name: compute_peak_bytes(metrics[name]) for name in ("map", "ndcg@10", "auroc", "pr_curve@100")}
+    clock.append(("edges_and_peaks", time.perf_counter()))
+    emit({"phase": "retrieval", "queries": MSMARCO_QUERIES, "depth": MSMARCO_DEPTH, "rows": data["rows"],
+          "updates": len(data["batches"]), "queries_without_positive": data["empty_share"],
+          "tied_score_share": data["tie_share"],
+          "update_ms": {name: entry["update_ms"] for name, entry in card_run.items()},
+          "compute_ms_first_second": {name: entry["compute_ms"] for name, entry in card_run.items()},
+          "values": {name: {k: summary(v) for k, v in tree_leaves(entry["value"]).items()}
+                     for name, entry in card_run.items()},
+          "max_diff_in_tolerance_units": max(worst.values()), "states": "bit for bit",
+          "padded_layout": "bit for bit", "trec_dl_2019": trec_values,
+          "max_fpr": {"queries": MAX_FPR_QUERIES, "compute_ms": partial_ms, "ms_per_query": partial_ms / MAX_FPR_QUERIES,
+                      "value": float(partial.compute())},
+          "edges": {"cases": len(edges), "max_diff_in_tolerance_units": max(edge_worst.values())},
+          "compute_peak_extra_bytes": peak, "state_bytes": metric_state_bytes(metrics["map"]),
+          "seconds": clock_seconds(clock), "card": card})
+    for name in ("ndcg@10", "map"):
+        profile_step(f"retrieval_{name}_compute", lambda: fresh_compute(metrics[name]))
+
+
+# ---------------------------------------------------------------------------
+# segmentation (slice 12): Cityscapes val, and BraTS 2021-shaped MRI volumes
+# ---------------------------------------------------------------------------
+
+CITYSCAPES_FRAMES = 500  # val
+CITYSCAPES_SHAPE = (1024, 2048)
+CITYSCAPES_CLASSES = 19  # the training classes
+CITYSCAPES_BATCH = 8
+CITYSCAPES_VOID = 255
+CITYSCAPES_VOID_SHARE = 0.1
+CITYSCAPES_CPU_UPDATES = 2  # the CPU port reads the first 16 frames
+# the classes' pixel shares, roughly Cityscapes': road, sidewalk, building, wall, fence,
+# pole, traffic light, traffic sign, vegetation, terrain, sky, person, rider, car, truck,
+# bus, train, motorcycle, bicycle
+CITYSCAPES_SHARES = (0.37, 0.055, 0.22, 0.006, 0.008, 0.015, 0.002, 0.006, 0.17, 0.008, 0.035, 0.012, 0.002,
+                     0.065, 0.0025, 0.002, 0.002, 0.001, 0.004)
+CITYSCAPES_CELLS = (16, 32)  # the random fields' cells over a frame: the regions' scale
+CITYSCAPES_NOISE = 0.05  # the prediction's field noise: boundary errors
+CITYSCAPES_SWAPS = 1  # classes a frame's prediction confuses for another
+BRATS_SHAPE = (240, 240, 155)  # 1 mm isotropic, the MSD Task01 layout
+BRATS_VOLUMES = 16
+BRATS_BATCH = 2
+BRATS_CLASSES = 4  # background, necrotic core, oedema, enhancing (BraTS's label 4 as 3)
+BRATS_WT_VOXELS = (20_000, 120_000)  # whole tumour, 20-120 cm3
+BRATS_SHIFT = 3  # the prediction's shift in voxels, at most
+BRATS_SCALE = 0.1  # and its scale, +-10%
+BRATS_STRAYS = (2, 5)  # stray blobs a prediction
+SEGMENTATION_RTOL = 1e-6
+
+
+def cityscapes_batch(gen: torch.Generator, frames: int, shape=CITYSCAPES_SHAPE, classes: int = CITYSCAPES_CLASSES,
+                     device: str = "cuda"):
+    """``frames`` (prediction, target) label maps, int64 ``(frames, H, W)``: the target's
+    regions are the argmax of smooth random class fields biased by the classes' pixel
+    shares, with void (255) on about a tenth of the pixels in blobs; the prediction is
+    the argmax of the same fields plus smooth noise (errors along the boundaries), with
+    ``CITYSCAPES_SWAPS`` classes a frame confused for another."""
+    cells = CITYSCAPES_CELLS
+    shares = torch.tensor(CITYSCAPES_SHARES[:classes], device=device)
+    bias = (shares / shares.sum()).log()[None, :, None, None] * 0.5
+
+    def smooth(channels, size):
+        field = torch.randn((frames, channels, *size), generator=gen, device=device)
+        return torch.nn.functional.interpolate(field, size=shape, mode="bicubic", align_corners=False)
+
+    field = smooth(classes, cells) + bias
+    target = field.argmax(1)
+    noise = smooth(classes, (cells[0] * 4, cells[1] * 4))
+    pred = (field + CITYSCAPES_NOISE * noise).argmax(1)
+    del field, noise
+    swap = torch.arange(classes, device=device).repeat(frames, 1)
+    picks = torch.randint(0, classes, (frames, CITYSCAPES_SWAPS, 2), generator=gen, device=device)
+    swap.scatter_(1, picks[..., 0], picks[..., 1])
+    pred = swap.gather(1, pred.reshape(frames, -1)).reshape(pred.shape)
+    void = smooth(1, cells)[:, 0]
+    cut = torch.quantile(void[:, ::8, ::8].reshape(-1).float(), 1 - CITYSCAPES_VOID_SHARE)
+    target = torch.where(void > cut, CITYSCAPES_VOID, target)
+    return pred, target
+
+
+def segmentation_metrics(device=None, classes: int = CITYSCAPES_CLASSES) -> dict:
+    from torchmetrics_tpu_torch import segmentation as s
+
+    return {"miou": s.MeanIoU(classes, input_format="index", device=device),
+            "miou_per_class": s.MeanIoU(classes, per_class=True, input_format="index", device=device),
+            "dice_macro": s.DiceScore(classes, input_format="index", average="macro", device=device),
+            "generalized_dice": s.GeneralizedDiceScore(classes, input_format="index", device=device)}
+
+
+def hold_segmentation(label: str, got: dict, want: dict) -> dict:
+    """Metric by metric: states float32 and bit for bit (the counts and ``DiceScore``'s
+    rows), but the float sums (``MeanIoU``'s and ``GeneralizedDiceScore``'s ``score``)
+    within ``SEGMENTATION_RTOL``; values within it."""
+    worst = {"sums": 0.0, "values": 0.0}
+    for name, metric in want.items():
+        mine = got[name]
+        for key, value in metric._concat_state().items():
+            card = mine._concat_state()[key].cpu()
+            if card.dtype != torch.float32 or card.dtype != value.dtype or card.shape != value.shape:
+                raise AssertionError(f"{label} {name} {key}: {card.dtype}{tuple(card.shape)} against "
+                                     f"{value.dtype}{tuple(value.shape)}")
+            if key == "score":
+                diff = largest_rel_diff(card, value)
+                if not diff <= SEGMENTATION_RTOL:
+                    raise AssertionError(f"{label} {name} {key}: differs by {diff} relative")
+                worst["sums"] = max(worst["sums"], diff)
+            elif not torch.equal(card, value):
+                raise AssertionError(f"{label} {name} {key}: states differ from the CPU's")
+        diff = largest_rel_diff(fresh_compute(mine), fresh_compute(metric))
+        if not diff <= SEGMENTATION_RTOL:
+            raise AssertionError(f"{label} {name}: values differ by {diff} relative")
+        worst["values"] = max(worst["values"], diff)
+    return worst
+
+
+def segmentation_edge_results(device) -> dict:
+    """Small inputs, the same on the card and the CPU: an absent class (Hausdorff 0,
+    per-class IoU -1), float logits with argmax ties, multi-hot one-hot input, the
+    background in and out, anisotropic 3-D spacing, chessboard and taxicab."""
+    from torchmetrics_tpu_torch import functional as f
+
+    gen = torch.Generator().manual_seed(47)
+    index_p = torch.randint(0, 4, (2, 24, 20), generator=gen)
+    index_t = torch.randint(0, 4, (2, 24, 20), generator=gen)
+    index_p[index_p == 2] = 0
+    index_t[index_t == 2] = 1  # class 2 is absent
+    logits = torch.randint(-1, 2, (2, 4, 24, 20), generator=gen).float()  # argmax ties
+    multi_p = torch.randint(0, 2, (2, 4, 24, 20), generator=gen)
+    multi_t = torch.randint(0, 2, (2, 4, 24, 20), generator=gen)
+    vol_p = torch.randint(0, 2, (1, 3, 12, 10, 9), generator=gen)
+    vol_t = torch.randint(0, 2, (1, 3, 12, 10, 9), generator=gen)
+    ip, it, lg, mp, mt, vp, vt = (x.to(device) for x in (index_p, index_t, logits, multi_p, multi_t, vol_p, vol_t))
+    out = {}
+    for background in (True, False):
+        out[f"miou_per_class_absent_{background}"] = f.mean_iou(ip, it, 4, background, True, "index")
+        out[f"hausdorff_absent_{background}"] = f.hausdorff_distance(ip, it, 4, background, input_format="index")
+        out[f"dice_logits_{background}"] = f.dice_score(lg, mt, 4, background, "none")
+        out[f"dice_multi_hot_{background}"] = f.dice_score(mp, mt, 4, background, "weighted")
+        out[f"generalized_dice_mixed_{background}"] = f.generalized_dice_score(lg, it, 4, background, True,
+                                                                               input_format="mixed")
+    for metric in ("euclidean", "chessboard", "taxicab"):
+        out[f"hausdorff_3d_{metric}"] = f.hausdorff_distance(vp, vt, 3, True, metric, spacing=[0.7, 1.3, 2.9])
+        out[f"hausdorff_3d_{metric}_directed"] = f.hausdorff_distance(vp, vt, 3, True, metric, directed=True,
+                                                                      spacing=[0.7, 1.3, 2.9])
+    if not bool((out["miou_per_class_absent_True"][:, 2] == -1).all()):
+        raise AssertionError(f"segmentation edges: an absent class's IoU is not -1 on {device}")
+    if not bool((out["hausdorff_absent_False"][:, 1] == 0).all()):
+        raise AssertionError(f"segmentation edges: an absent class's Hausdorff distance is not 0 on {device}")
+    return out
+
+
+def segmentation_phase(card: str) -> None:
+    clock = [("start", time.perf_counter())]
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    metrics = segmentation_metrics()
+    cpu_metrics = segmentation_metrics("cpu")
+    ms, frames, update_batches = [], 0, []
+    snapshot = None
+    while frames < CITYSCAPES_FRAMES:
+        n = min(CITYSCAPES_BATCH, CITYSCAPES_FRAMES - frames)
+        batch = cityscapes_batch(gen, n)
+        ms.append(synced_ms(lambda: [m.update(*batch) for m in metrics.values()]))
+        if len(update_batches) < CITYSCAPES_CPU_UPDATES:
+            update_batches.append(tuple(t.cpu() for t in batch))
+            if len(update_batches) == CITYSCAPES_CPU_UPDATES:
+                snapshot = {name: m.clone() for name, m in metrics.items()}
+        frames += n
+    clock.append(("card", time.perf_counter()))
+    for batch in update_batches:
+        for m in cpu_metrics.values():
+            m.update(*batch)
+    clock.append(("cpu", time.perf_counter()))
+    worst = hold_segmentation("segmentation", snapshot, cpu_metrics)
+    values = {name: m.compute() for name, m in metrics.items()}
+    miou = float(values["miou"])
+    if not (0.6 <= miou <= 0.8 and all(bool(torch.isfinite(v).all()) for v in values.values()
+                                       if v.numel() == 1)):
+        raise AssertionError(f"segmentation: {values}")
+    edges = segmentation_edge_results("cuda")
+    edge_worst = 0.0
+    for name, want in segmentation_edge_results("cpu").items():
+        got = edges[name].cpu()
+        diff = 0.0 if torch.equal(got, want) else largest_rel_diff(got, want)
+        if not ((name.startswith("hausdorff") and diff == 0.0) or diff <= SEGMENTATION_RTOL):
+            raise AssertionError(f"segmentation edges {name}: {got} on the card, {want} on the CPU")
+        edge_worst = max(edge_worst, diff)
+    probe = segmentation_metrics()
+    batch = cityscapes_batch(gen, CITYSCAPES_BATCH)
+    peak = {name: update_peak_bytes(m, batch) for name, m in probe.items()}
+    read = sum(t.numel() * t.element_size() for t in batch)
+    clock.append(("checks", time.perf_counter()))
+    update_ms = median(ms[:-1])
+    emit({"phase": "segmentation", "frames": CITYSCAPES_FRAMES, "shape": list(CITYSCAPES_SHAPE),
+          "classes": CITYSCAPES_CLASSES, "batch": CITYSCAPES_BATCH, "updates": len(ms),
+          "update_ms_all_four": update_ms, "frames_per_s": CITYSCAPES_BATCH / update_ms * 1e3,
+          "update_ms_each": {name: synced_ms(lambda: m.update(*batch)) for name, m in probe.items()},
+          "void_share": float((batch[1] == CITYSCAPES_VOID).double().mean()),
+          "values": {name: summary(v) for name, v in values.items()}, "miou": miou,
+          "cpu_updates": CITYSCAPES_CPU_UPDATES, "max_sum_rel_diff": worst["sums"],
+          "max_value_rel_diff": worst["values"], "edges": {"cases": len(edges), "max_rel_diff": edge_worst},
+          "update_peak_extra_bytes": peak, "bytes_read_per_update": read,
+          "read_bound_ms_per_metric": read / PEAK_BYTES_PER_S * 1e3, "seconds": clock_seconds(clock), "card": card})
+    profile_step("segmentation_update_all_four", lambda: [m.update(*batch) for m in probe.values()])
+
+
+def ellipsoid(grid, center, radii, noise: torch.Tensor) -> torch.Tensor:
+    """Voxels within a noisy ellipsoid: scaled distance below ``1 + noise``."""
+    d = sum(((g - c) / r) ** 2 for g, c, r in zip(grid, center, radii))
+    return d <= (1.0 + noise) ** 2
+
+
+def brats_volume(rng, shape=BRATS_SHAPE, device: str = "cuda", wt_voxels=BRATS_WT_VOXELS):
+    """One (prediction, target) pair of int64 label volumes: nested noisy ellipsoids
+    (whole tumour of ``wt_voxels`` voxels; within it the tumour core, necrotic core (1)
+    inside enhancing (3); oedema (2) the rest), and a prediction of the same ellipsoids
+    shifted by up to ``BRATS_SHIFT`` voxels, scaled by up to ``BRATS_SCALE`` and given
+    a few stray blobs."""
+    grid = torch.meshgrid(*[torch.arange(s, dtype=torch.float32, device=device) for s in shape], indexing="ij")
+    size = np.asarray(shape, np.float64)
+    volume = rng.uniform(*wt_voxels)
+    aspect = rng.uniform(0.75, 1.3, 3)
+    radii = (3 * volume / (4 * np.pi) / aspect.prod()) ** (1 / 3) * aspect
+    center = rng.uniform(0.3, 0.7, 3) * size
+    core = (center + rng.uniform(-0.15, 0.15, 3) * radii, radii * rng.uniform(0.45, 0.6))
+    necrotic = (core[0] + rng.uniform(-0.1, 0.1, 3) * core[1], core[1] * rng.uniform(0.4, 0.6))
+
+    def noise():
+        cells = torch.from_numpy(rng.normal(0, 0.12, (1, 1, 6, 6, 4)).astype(np.float32)).to(device)
+        return torch.nn.functional.interpolate(cells, size=shape, mode="trilinear", align_corners=False)[0, 0]
+
+    def labels(shift, scale):
+        wt = ellipsoid(grid, center + shift, radii * scale, noise())
+        tc = ellipsoid(grid, core[0] + shift, core[1] * scale, noise()) & wt
+        ncr = ellipsoid(grid, necrotic[0] + shift, necrotic[1] * scale, noise()) & tc
+        return torch.where(ncr, 1, torch.where(tc, 3, torch.where(wt, 2, 0)))
+
+    target = labels(np.zeros(3), 1.0)
+    pred = labels(rng.integers(-BRATS_SHIFT, BRATS_SHIFT + 1, 3), rng.uniform(1 - BRATS_SCALE, 1 + BRATS_SCALE))
+    for _ in range(rng.integers(*BRATS_STRAYS)):
+        blob = ellipsoid(grid, rng.uniform(0.15, 0.85, 3) * size, np.full(3, rng.uniform(2.0, 5.0)),
+                         torch.zeros((), device=device))
+        pred = torch.where(blob, int(rng.integers(1, BRATS_CLASSES)), pred)
+    return pred, target
+
+
+def brats_metrics(device=None) -> dict:
+    from torchmetrics_tpu_torch import segmentation as s
+
+    return {"dice": s.DiceScore(BRATS_CLASSES, include_background=False, input_format="index", average="none",
+                                device=device),
+            "hausdorff": s.HausdorffDistance(BRATS_CLASSES, input_format="index", distance_metric="euclidean",
+                                             spacing=[1.0, 1.0, 1.0], directed=True, device=device)}
+
+
+def host_reads(call) -> int:
+    """The synchronising calls (host reads) of ``call`` on the card, counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def edge_counts(pred: torch.Tensor, target: torch.Tensor, classes: int = BRATS_CLASSES):
+    """Edge voxels per (volume, class) of index volumes, background left out, and the
+    directed distances the Hausdorff update evaluates (``E_pred x E_target`` a pair)."""
+    from torchmetrics_tpu_torch.functional.segmentation.utils import _mask_edges, _segmentation_inputs_format
+
+    p, t = _segmentation_inputs_format(pred, target, False, classes, "index")
+    ep, et = (_mask_edges(x).flatten(2).sum(-1) for x in (p, t))
+    return ep.cpu(), et.cpu(), int((ep * et).sum())
+
+
+def segmentation_3d_phase(card: str) -> None:
+    clock = [("start", time.perf_counter())]
+    rng = np.random.default_rng(59)
+    volumes = [brats_volume(rng) for _ in range(BRATS_VOLUMES)]
+    batches = [tuple(torch.stack(x) for x in zip(*volumes[i:i + BRATS_BATCH]))
+               for i in range(0, BRATS_VOLUMES, BRATS_BATCH)]
+    clock.append(("inputs", time.perf_counter()))
+    metrics = brats_metrics()
+    hd_ms, dice_ms = [], []
+    for i, batch in enumerate(batches):
+        dice_ms.append(synced_ms(lambda: metrics["dice"].update(*batch)))
+        hd_ms.append(synced_ms(lambda: metrics["hausdorff"].update(*batch)))
+        if i == 0:
+            first = {name: m.clone() for name, m in metrics.items()}
+    clock.append(("card", time.perf_counter()))
+    cpu_metrics = brats_metrics("cpu")
+    for m in cpu_metrics.values():
+        m.update(*(t.cpu() for t in batches[0]))
+    clock.append(("cpu", time.perf_counter()))
+    for name, m in cpu_metrics.items():
+        if not states_equal({k: v.cpu() for k, v in first[name]._concat_state().items()}, m._concat_state()):
+            raise AssertionError(f"segmentation_3d {name}: states differ from the CPU's")
+    values = {name: m.compute() for name, m in metrics.items()}
+    if not bool(torch.isfinite(values["hausdorff"])) or not bool(((values["dice"] >= 0) & (values["dice"] <= 1)).all()):
+        raise AssertionError(f"segmentation_3d: {values}")
+    counts = [edge_counts(*batch) for batch in batches]
+    probe = brats_metrics()["hausdorff"]
+    reads = host_reads(lambda: probe.update(*batches[0]))
+    clock.append(("checks", time.perf_counter()))
+    edges_pred = torch.cat([c[0] for c in counts]).float()
+    edges_target = torch.cat([c[1] for c in counts]).float()
+    emit({"phase": "segmentation_3d", "volumes": BRATS_VOLUMES, "shape": list(BRATS_SHAPE), "batch": BRATS_BATCH,
+          "spacing_mm": [1.0, 1.0, 1.0], "updates": len(batches),
+          "hausdorff_update_ms": median(hd_ms), "hausdorff_update_ms_max": max(hd_ms),
+          "dice_update_ms": median(dice_ms),
+          "edge_voxels_per_volume_class": {"pred": [float(edges_pred.mean()), float(edges_pred.min()),
+                                                    float(edges_pred.max())],
+                                           "target": [float(edges_target.mean()), float(edges_target.min()),
+                                                      float(edges_target.max())]},
+          "distances_evaluated": sum(c[2] for c in counts), "host_reads_per_update": reads,
+          "values": {name: summary(v) for name, v in values.items()},
+          "cpu_updates": 1, "states": "bit for bit", "seconds": clock_seconds(clock), "card": card})
+    profile_step("segmentation_3d_hausdorff_update", lambda: probe.update(*batches[0]))
+
+
 def flagship_forward(cases: dict) -> dict:
     """The 26 sepconv7 launches of one bf16 trunk forward at the flagship's batch: their
     summed times and bound, and their worst error against the plain version."""
@@ -3382,6 +3977,9 @@ def main() -> int:
     launches_by_path["feature_share"] = wrappers_phase(card)
     launches["bfloat16"] = sum(launches_by_path.values())
     panoptic_phase(card)
+    retrieval_phase(card)
+    segmentation_phase(card)
+    segmentation_3d_phase(card)
 
     print(card, flush=True)
     kernels = []

@@ -842,3 +842,115 @@ def test_panoptic_rehearsal_matches_and_keeps_its_states_on_the_metric_device(ch
     values = chip_smoke.panoptic_values(runs[0])
     assert values["pq"].shape == (3,) and values["pq_per_class"].shape == (133, 3) and values["mpq"].shape == ()
     assert values["pq"].shape == runs[0]["pq"].compute().shape  # the per-class read left the flag as it was
+
+
+def test_msmarco_inputs_have_the_stated_shape_ties_and_empty_queries(chip_smoke):
+    data = chip_smoke.msmarco_inputs(queries=300, depth=200, update_queries=100, device="cpu")
+    assert len(data["batches"]) == 3 and data["rows"] == 300 * 200
+    preds, target, indexes = data["batches"][0]
+    assert preds.dtype == torch.float32 and target.dtype == torch.int64 and indexes.dtype == torch.int64
+    assert preds.shape == target.shape == indexes.shape == (100 * 200,)
+    assert torch.equal(preds, preds.to(torch.bfloat16).float())  # bfloat16 logits held as float32
+    assert indexes.unique().numel() == 100 and int(indexes.max()) < chip_smoke.MSMARCO_IDS
+    assert 0.08 < data["empty_share"] < 0.22  # about 14% of the queries without a positive among the candidates
+    assert 0.2 < data["tie_share"] < 1.0  # bfloat16 ties within a query
+    assert bool((preds == 0).any()) and bool(torch.signbit(preds[preds == 0]).any())  # +0.0 and -0.0 scores
+    positives = torch.cat([b[1] for b in data["batches"]]).reshape(300, 200).sum(-1)
+    assert int(positives.max()) <= 3
+
+
+def test_trec_inputs_are_graded_with_a_tenth_above_zero(chip_smoke):
+    preds, gains, indexes = chip_smoke.trec_inputs(queries=43, depth=100, device="cpu")
+    assert preds.shape == gains.shape == indexes.shape == (4300,)
+    assert set(gains.unique().tolist()) == {0, 1, 2, 3} and 0.05 < float((gains > 0).double().mean()) < 0.15
+    assert indexes.unique().numel() == 43
+
+
+def test_retrieval_rehearsal_holds_the_cpu_port(chip_smoke):
+    data = chip_smoke.msmarco_inputs(queries=40, depth=50, update_queries=20, device="cpu")
+    runs = [chip_smoke.run_retrieval(chip_smoke.retrieval_metrics("cpu"), data["batches"], timed=False)
+            for _ in range(2)]
+    worst = chip_smoke.hold_retrieval("rehearsal", *runs)
+    assert set(worst) == set(chip_smoke.retrieval_metrics("cpu")) and max(worst.values()) == 0.0
+    assert runs[0]["pr_curve@100"]["value"][2].dtype == torch.int32
+    runs[1]["map"]["states"]["preds"] = runs[1]["map"]["states"]["preds"].clone()
+    runs[1]["map"]["states"]["preds"][0] = -runs[1]["map"]["states"]["preds"][0]
+    with pytest.raises(AssertionError, match="states differ"):
+        chip_smoke.hold_retrieval("rehearsal", *runs)
+    edges = chip_smoke.retrieval_edge_results("cpu")
+    assert len(edges) == 24 and max(chip_smoke.hold_retrieval("edges", edges, edges).values()) == 0.0
+
+
+def test_retrieval_diff_is_relative_above_a_tenth_and_absolute_below(chip_smoke):
+    diff = chip_smoke.retrieval_diff
+    assert diff(torch.tensor([0.5 + 2**-21]), torch.tensor([0.5])) == pytest.approx(2**-21 / 0.5e-6)
+    low = torch.tensor([0.05])
+    assert diff(low + 2**-27, low) == pytest.approx(2**-27 / 1e-7)
+    assert diff(torch.tensor([float("nan")]), torch.tensor([float("nan")])) == 0.0
+    assert diff(torch.tensor([float("nan")]), torch.tensor([0.0])) == math.inf
+    assert diff(torch.tensor([3], dtype=torch.int32), torch.tensor([4], dtype=torch.int32)) == math.inf
+    assert diff(torch.tensor([3], dtype=torch.int32), torch.tensor([3])) == math.inf  # dtypes must agree
+    assert chip_smoke.same_bits(torch.tensor([float("nan"), -0.0]), torch.tensor([float("nan"), -0.0]))
+    assert not chip_smoke.same_bits(torch.tensor([-0.0]), torch.tensor([0.0]))
+
+
+def test_cityscapes_batch_has_void_regions_and_predictions_near_the_target(chip_smoke):
+    gen = torch.Generator().manual_seed(0)
+    pred, target = chip_smoke.cityscapes_batch(gen, 2, shape=(128, 256), device="cpu")
+    assert pred.shape == target.shape == (2, 128, 256) and pred.dtype == target.dtype == torch.int64
+    void = target == chip_smoke.CITYSCAPES_VOID
+    assert 0.05 < float(void.double().mean()) < 0.15
+    assert int(pred.max()) < chip_smoke.CITYSCAPES_CLASSES and int(target[~void].max()) < chip_smoke.CITYSCAPES_CLASSES
+    agree = float((pred == target)[~void].double().mean())
+    assert 0.6 < agree < 0.99
+    assert len(chip_smoke.CITYSCAPES_SHARES) == chip_smoke.CITYSCAPES_CLASSES == 19
+
+
+def test_segmentation_rehearsal_holds_the_cpu_port(chip_smoke):
+    gen = torch.Generator().manual_seed(1)
+    batches = [chip_smoke.cityscapes_batch(gen, 2, shape=(64, 128), device="cpu") for _ in range(2)]
+    runs = [chip_smoke.segmentation_metrics("cpu") for _ in range(2)]
+    for metrics in runs:
+        for batch in batches:
+            for m in metrics.values():
+                m.update(*batch)
+    worst = chip_smoke.hold_segmentation("rehearsal", *runs)
+    assert worst == {"sums": 0.0, "values": 0.0}
+    runs[1]["dice_macro"]._state["numerator"][0] = runs[1]["dice_macro"]._state["numerator"][0] + 1
+    with pytest.raises(AssertionError, match="states differ"):
+        chip_smoke.hold_segmentation("rehearsal", *runs)
+    edges = chip_smoke.segmentation_edge_results("cpu")
+    assert len(edges) == 16 and all(not v.is_floating_point() or v.dtype == torch.float32 for v in edges.values())
+
+
+def test_brats_volume_nests_the_tumour_labels(chip_smoke):
+    rng = np.random.default_rng(2)
+    pred, target = chip_smoke.brats_volume(rng, shape=(64, 64, 40), device="cpu", wt_voxels=(2000, 6000))
+    assert pred.shape == target.shape == (64, 64, 40) and pred.dtype == target.dtype == torch.int64
+    assert set(target.unique().tolist()) == {0, 1, 2, 3}
+    whole = target > 0
+    assert 1500 < int(whole.sum()) < 8000  # the noise moves the surface a little
+
+    def box(mask):
+        idx = mask.nonzero()
+        return idx.min(0).values, idx.max(0).values
+
+    # necrotic core (1) within the core (1, 3) within the whole tumour (1, 2, 3)
+    for inner, outer in ((target == 1, (target == 1) | (target == 3)), ((target == 1) | (target == 3), whole)):
+        (lo_in, hi_in), (lo_out, hi_out) = box(inner), box(outer)
+        assert bool((lo_in >= lo_out).all() and (hi_in <= hi_out).all())
+    assert int(((pred > 0) != whole).sum()) > 0  # shifted, scaled and with strays
+
+
+def test_edge_counts_and_brats_metrics_rehearsal(chip_smoke):
+    rng = np.random.default_rng(3)
+    pred, target = (t[None] for t in chip_smoke.brats_volume(rng, shape=(40, 40, 30), device="cpu",
+                                                              wt_voxels=(800, 2000)))
+    edges_pred, edges_target, pairs = chip_smoke.edge_counts(pred, target)
+    assert edges_pred.shape == edges_target.shape == (1, 3)
+    assert pairs == int((edges_pred * edges_target).sum()) > 0
+    metrics = chip_smoke.brats_metrics("cpu")
+    for m in metrics.values():
+        m.update(pred, target)
+    assert metrics["dice"].compute().shape == (3,) and float(metrics["hausdorff"].compute()) > 0
+    assert metrics["hausdorff"].directed and metrics["hausdorff"].spacing == [1.0, 1.0, 1.0]

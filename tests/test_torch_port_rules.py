@@ -23,7 +23,7 @@ import torch
 import torchmetrics_tpu_torch
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.classification import MulticlassAccuracy
-from torchmetrics_tpu_torch import classification, detection, functional, regression, wrappers
+from torchmetrics_tpu_torch import classification, detection, functional, regression, retrieval, segmentation, wrappers
 from torchmetrics_tpu_torch.image import (
     FrechetInceptionDistance,
     InceptionScore,
@@ -122,13 +122,18 @@ def _toy_extractor(imgs):
         lambda: detection.PanopticQuality({0}, {1}),
         lambda: functional.panoptic_quality(np.zeros((1, 2, 2, 2), np.int64), np.zeros((1, 2, 2, 2), np.int64),
                                             {0}, {1}),
+        lambda: retrieval.RetrievalNormalizedDCG(top_k=10),
+        lambda: segmentation.MeanIoU(),
+        lambda: functional.retrieval_reciprocal_rank([0.5, 0.25], [1, 0]),
+        lambda: functional.hausdorff_distance(np.zeros((1, 2, 4, 4), np.int64), np.zeros((1, 2, 4, 4), np.int64), 2),
     ],
     ids=["metric", "extractor", "extractor_from_params", "fid", "collection", "resolve_none", "resolve_cuda",
          "accumulator", "pack", "map", "map_device_backend", "device_map", "iou", "giou", "diou", "ciou",
          "kid", "mifid", "inception_score", "jaccard", "exact_match", "auroc_binned", "average_precision",
          "functional_auroc", "calibration", "hinge", "ranking_loss", "fairness", "eer", "logauc", "recall_at_precision",
          "functional_sensitivity_at_specificity", "bootstrapper", "minmax_on_cuda", "running", "feature_share",
-         "feature_share_on_cuda", "panoptic_quality", "functional_panoptic_quality"],
+         "feature_share_on_cuda", "panoptic_quality", "functional_panoptic_quality", "retrieval_ndcg",
+         "lazy_mean_iou", "functional_reciprocal_rank", "functional_hausdorff"],
 )
 def test_default_device_raises_without_cuda(no_cuda, build):
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -150,6 +155,27 @@ def test_regression_function_on_host_values_raises_without_cuda(no_cuda, name):
     extra = (2,) if name in ("minkowski_distance", "critical_success_index") else ()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         getattr(functional, name)([[0.5, 0.5]], [[0.5, 0.5]], *extra)
+
+
+@pytest.mark.parametrize("module, name", [(m, n) for m in (retrieval, segmentation) for n in sorted(m.__all__)])
+def test_retrieval_and_segmentation_classes_at_default_device_raise_without_cuda(no_cuda, module, name):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(module, name)(**({"num_classes": 3} if module is segmentation else {}))
+
+
+HOST_VALUES = {
+    **{name: ([0.5, 0.25, 0.75], [1, 0, 1]) for name in functional.retrieval.__all__},
+    **{name: ([[[0, 1], [1, 1]]], [[[0, 1], [1, 0]]]) for name in functional.segmentation.__all__},
+}
+
+
+@pytest.mark.parametrize("name", sorted(HOST_VALUES))
+def test_retrieval_and_segmentation_functions_on_host_values_raise_without_cuda(no_cuda, name):
+    """Lists, not tensors: the function makes them on the default device, CUDA."""
+    preds, target = HOST_VALUES[name]
+    kw = {"num_classes": 2, "input_format": "index"} if name in functional.segmentation.__all__ else {}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(functional, name)(preds, target, **kw)
 
 
 def test_explicit_cpu_device_runs_without_cuda(no_cuda):

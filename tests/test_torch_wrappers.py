@@ -135,7 +135,7 @@ TASKS = {"binary": {}, "multiclass": {}, "multilabel": {}}
 
 def _flag_cases():
     cases = []
-    for modname in ("classification", "regression", "detection", "image", "aggregation"):
+    for modname in ("classification", "regression", "detection", "image", "aggregation", "retrieval", "segmentation"):
         module = getattr(T, modname)
         for name in module.__all__:
             cls = getattr(module, name)
