@@ -188,7 +188,7 @@ Phases, one JSON line each, in order:
    counts bit for bit, ratios within 1e-6.
 25. panoptic: ``PanopticQuality`` (with sq and rq) and ``ModifiedPanopticQuality`` on
    COCO-panoptic-shaped segment maps from a seed (133 categories: 80 things, 53 stuff;
-   480x640; 1-30 segments an image; 5% void), a prefix of 256 of val2017's 5,000 images
+   480x640; 1-30 segments an image; 5% void), a prefix of 64 of val2017's 5,000 images
    in updates of 16: the states on the card, equal to the CPU port's bit for bit, and
    the values (PQ's per class too) equal; update ms and the host's share of it (the
    statistics are host numpy).
@@ -223,6 +223,46 @@ Phases, one JSON line each, in order:
    update's states equal to the CPU port's bit for bit. Hausdorff ms an update, edge
    voxels per (volume, class), distances evaluated, host reads an update (counted by
    ``torch.cuda.set_sync_debug_mode``), a profiled update.
+29. pairwise: dense-retrieval query and passage embeddings from a seed (8,192 x 768
+   against 8,192 x 768, float32): cosine, linear and euclidean (float64 products rounded
+   once, in row blocks), manhattan and minkowski (p = 3; float64 differences in row
+   blocks under 256 MiB), each with ``reduction=None`` and ``"mean"``, and each on the
+   first 4,096 queries against themselves (``y=None``, the diagonal zeroed). Every result
+   finite; the products rerun with TF32 matmuls allowed equal bit for bit; the first
+   256 rows (64 for manhattan and minkowski) within 4 float32 rounding units of the
+   terms of the CPU port's; each call under 1 GB beyond its output. Call ms; the cosine
+   and the self manhattan calls profiled.
+30. procrustes: PA-MPJPE-style evaluation of 65,536 seeded 17-joint 3-D poses (Human3.6M's
+   layout; rotated, scaled, shifted and noisy predictions; 1% planar, whose rotation is
+   not unique) through ``ProcrustesDisparity("mean")`` and ``("sum")`` in 16 updates of
+   4,096, and ``procrustes_disparity(..., return_all=True)`` over all of them: states and
+   values within 1e-6 relative (1e-7 absolute below 0.1) of the CPU port's; the rotation
+   within 1e-6 over the singular gap where the singular values are 1e-3 apart, and
+   elsewhere giving the CPU's disparity; a second run of the updates under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host read) with equal states. The same
+   updates with the SVD taken by ``torch.linalg.svd`` (the states within the value
+   tolerance, update ms, host reads, both SVDs alone on one batch, a profiled update);
+   4,096 clouds of 64 points 16 wide (an embedding-space alignment, whose SVD is
+   ``torch.linalg.svd``'s) held against the CPU port as the poses are. Update and compute
+   ms, host reads, an update's peak extra bytes, a profiled update.
+31. nominal: a UCI Adult-shaped table (48,842 rows x 8 categorical columns of 9, 16, 7,
+   15, 6, 5, 2 and 42 categories, skewed, 1% NaN) through the four ``_matrix`` forms
+   under ``nan_strategy`` "replace" and "drop" (every column pair's table bit for bit,
+   the matrices within the value tolerance of the CPU port's); ``CramersV``,
+   ``PearsonsContingencyCoefficient``, ``TheilsU`` and ``TschuprowsT`` on education
+   against occupation in 8 updates; ``FleissKappa`` on a crowd-labelling set (10,000
+   items x 5 categories x 5 raters) in "probs" and "counts" modes in 10 updates: states
+   bit for bit, values within tolerance; ``torch.argmax`` on the card equal to numpy's on
+   ties and NaNs (the updates' collapse of probabilities). Update, compute and matrix ms,
+   host reads of an update, a profiled update and matrix run.
+32. clustering: k-means evaluation of ImageNet-val-shaped embeddings from a seed (50,000
+   samples, 1,000 classes of 50 against 1,000 clusters of uneven size, 768-wide float32
+   embeddings around the cluster centres) in 50 updates of 1,000, through all 13
+   clustering classes (``ClusterAccuracy(1000)`` with them): the contingency's nonzero
+   cells, margins and pair sums bit for bit against the CPU port's, values within the
+   value tolerance (AMI absolutely), each compute under 1 GB beyond its states. Update
+   and compute ms, the expected mutual information's term count, the AMI and
+   Davies-Bouldin computes profiled.
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -2379,12 +2419,18 @@ def update_peak_bytes(metric, batch) -> int:
     """The bytes one update allocates beyond what the card held before it (an update
     ran first, so the states exist)."""
     metric.update(*batch)
+    return peak_extra_bytes(lambda: metric.update(*batch))[1]
+
+
+def peak_extra_bytes(call, keep: int = 0):
+    """``(result, bytes)``: the bytes ``call()`` allocates beyond what the card held before
+    it, less ``keep`` (its output's bytes)."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    metric.update(*batch)
+    result = call()
     torch.cuda.synchronize()
-    return torch.cuda.max_memory_allocated() - base
+    return result, torch.cuda.max_memory_allocated() - base - keep
 
 
 def tower_tail_phase(card: str, data: dict) -> None:
@@ -2768,12 +2814,7 @@ def phase_lines(run: dict) -> dict:
 
 def compute_peak_bytes(metric) -> int:
     """The bytes one ``compute()`` allocates beyond what the card held before it."""
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    fresh_compute(metric)
-    torch.cuda.synchronize()
-    return torch.cuda.max_memory_allocated() - base
+    return peak_extra_bytes(lambda: fresh_compute(metric))[1]
 
 
 def regression_phase(card: str) -> None:
@@ -3249,7 +3290,7 @@ def wrappers_phase(card: str) -> int:
 PANOPTIC_THINGS = tuple(range(1, 81))  # COCO panoptic: 80 thing and 53 stuff categories
 PANOPTIC_STUFFS = tuple(range(81, 134))
 PANOPTIC_SHAPE = (480, 640)
-PANOPTIC_IMAGES = 128  # of val2017's 5,000: the JAX algorithm takes ~0.3 s an image, read twice
+PANOPTIC_IMAGES = 64  # of val2017's 5,000: the JAX algorithm takes ~0.3 s an image, read twice
 PANOPTIC_BATCH = 16
 PANOPTIC_CELL = 16
 PANOPTIC_MAX_SEGMENTS = 30
@@ -3382,8 +3423,7 @@ MSMARCO_SIGNED_ZERO_QUERIES = 8  # queries that carry exact +0.0 and -0.0 scores
 TREC_QUERIES = 43  # TREC DL 2019 passage: judged queries
 TREC_GAINS = (0.9, 0.05, 0.03, 0.02)  # graded 0-3, about a tenth of the candidates above 0
 MAX_FPR_QUERIES = 256  # RetrievalAUROC(max_fpr=0.1) loops over the queries on the host
-RETRIEVAL_RTOL = 1e-6
-RETRIEVAL_ATOL = 1e-7  # below magnitude 1e-1
+VALUE_ATOL = 1e-7  # below magnitude 1e-1, with VALUE_RTOL above
 
 
 def bf16_logits(gen: torch.Generator, shape, mean: float, std: float, device: str) -> torch.Tensor:
@@ -3469,11 +3509,12 @@ def run_retrieval(metrics: dict, batches: list, timed: bool = True) -> dict:
     return out
 
 
-def retrieval_diff(got: torch.Tensor, want: torch.Tensor) -> float:
-    """How far ``got`` is from ``want`` in units of the retrieval tolerance (relative
-    ``RETRIEVAL_RTOL``, absolute ``RETRIEVAL_ATOL`` below magnitude 1e-1): at most 1
-    passes. Integers must be equal, NaN in the same places."""
-    got, want = got.cpu(), want.cpu()
+def value_diff(got: torch.Tensor, want: torch.Tensor, absolute: bool = False) -> float:
+    """How far ``got`` is from ``want`` in units of the value tolerance (relative
+    ``VALUE_RTOL``, absolute ``VALUE_ATOL`` below magnitude 1e-1, or absolute throughout):
+    at most 1 passes. Equal values (infinities too) pass, NaN must be in the same places,
+    integers and dtypes equal."""
+    got, want = torch.as_tensor(got).cpu(), torch.as_tensor(want).cpu()
     if got.dtype != want.dtype or got.shape != want.shape:
         return math.inf
     if not want.is_floating_point():
@@ -3481,11 +3522,12 @@ def retrieval_diff(got: torch.Tensor, want: torch.Tensor) -> float:
     got, want = got.double(), want.double()
     if not torch.equal(got.isnan(), want.isnan()):
         return math.inf
-    keep = ~want.isnan()
+    keep = ~want.isnan() & (got != want)
     if not bool(keep.any()):
         return 0.0
-    scale = torch.where(want.abs() < 0.1, RETRIEVAL_ATOL, RETRIEVAL_RTOL * want.abs())[keep]
-    return float(((got - want).abs()[keep] / scale).max())
+    scale = torch.full_like(want, VALUE_ATOL) if absolute else torch.where(
+        want.abs() < 0.1, VALUE_ATOL, VALUE_RTOL * want.abs())
+    return float(((got - want).abs() / scale)[keep].max())
 
 
 def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -3509,7 +3551,7 @@ def hold_retrieval(label: str, got: dict, want: dict) -> dict:
         values = [tree_leaves(got[name]["value"]), tree_leaves(entry["value"])]
         if list(values[0]) != list(values[1]):
             raise AssertionError(f"{label} {name}: values {list(values[0])} against {list(values[1])}")
-        diffs = [retrieval_diff(a, b) for a, b in zip(values[0].values(), values[1].values())]
+        diffs = [value_diff(a, b) for a, b in zip(values[0].values(), values[1].values())]
         if not max(diffs) <= 1.0:
             raise AssertionError(f"{label} {name}: {values[0]} on the card, {values[1]} on the CPU")
         worst[name] = max(diffs)
@@ -3591,7 +3633,7 @@ def retrieval_phase(card: str) -> None:
         card_ndcg.update(*trec)
         cpu_ndcg.update(*(t.cpu() for t in trec))
         got, want = card_ndcg.compute(), cpu_ndcg.compute()
-        if not retrieval_diff(got, want) <= 1.0:
+        if not value_diff(got, want) <= 1.0:
             raise AssertionError(f"retrieval trec ndcg@{top_k}: {got} on the card, {want} on the CPU")
         trec_values[f"ndcg@{top_k or 'all'}"] = float(got)
     # RetrievalAUROC(max_fpr=0.1): one binary_auroc a query, on a prefix of the queries
@@ -3601,7 +3643,7 @@ def retrieval_phase(card: str) -> None:
     partial.update(*prefix)
     cpu_partial.update(*(t.cpu() for t in prefix))
     partial_ms = synced_ms(lambda: fresh_compute(partial))
-    if not retrieval_diff(partial.compute(), cpu_partial.compute()) <= 1.0:
+    if not value_diff(partial.compute(), cpu_partial.compute()) <= 1.0:
         raise AssertionError(f"retrieval max_fpr: {partial.compute()} on the card, {cpu_partial.compute()} on the CPU")
     clock.append(("trec_and_max_fpr", time.perf_counter()))
     edges = retrieval_edge_results("cuda")
@@ -3931,6 +3973,603 @@ def segmentation_3d_phase(card: str) -> None:
     profile_step("segmentation_3d_hausdorff_update", lambda: probe.update(*batches[0]))
 
 
+# ---------------------------------------------------------------------------
+# pairwise, procrustes, nominal and clustering (slice 13)
+# ---------------------------------------------------------------------------
+
+PAIRWISE_ROWS = 8192  # queries and passages of a dense-retrieval batch
+PAIRWISE_WIDTH = 768  # a BERT-base embedding
+PAIRWISE_SELF_ROWS = 4096
+PAIRWISE_CPU_ROWS = 256  # the CPU port's rows for the products (the rows are independent)
+PAIRWISE_CPU_DIFF_ROWS = 64  # and for manhattan and minkowski: float64 differences take seconds on the host
+PAIRWISE_EXPONENT = 3
+PAIRWISE_FUNCTIONS = ("cosine", "linear", "euclidean", "manhattan", "minkowski")
+PRODUCTS_13 = ("cosine", "linear", "euclidean")
+PAIRWISE_UNITS = 4  # card against CPU: within 4 float32 rounding units (2**-24) of the terms
+PEAK_LIMIT_13 = 10**9  # a call's or a compute's bytes beyond its inputs and output
+POSES = 65536
+POSE_JOINTS = 17  # Human3.6M's skeleton
+POSE_BATCH = 4096
+POSE_PLANAR_SHARE = 0.01
+SINGULAR_GAP = 1e-3  # a rotation is held where the singular values are this far apart (and from zero)
+WIDE_CLOUDS = (4096, 64, 16)  # clouds, points, dimensions: wider than 3, so through torch.linalg.svd
+ADULT_ROWS = 48842  # UCI Adult, train and test
+# workclass, education, marital-status, occupation, relationship, race, sex, native-country
+ADULT_CARDINALITIES = (9, 16, 7, 15, 6, 5, 2, 42)
+ADULT_NAN_SHARE = 0.01  # Adult's missing ('?') entries
+ADULT_PAIR = (1, 3)  # education against occupation, for the classes
+ADULT_UPDATES = 8
+CROWD = (10000, 5, 5)  # items, categories, raters
+CROWD_UPDATES = 10
+CLUSTER_SAMPLES = 50000  # ImageNet val
+CLUSTER_CLASSES = 1000
+CLUSTERS = 1000
+CLUSTER_WIDTH = 768
+CLUSTER_UPDATES = 50
+CLUSTER_PURITY = 0.6  # a class's share in its own cluster; the rest by the clusters' uneven sizes
+def pairwise_inputs(rows: int = PAIRWISE_ROWS, width: int = PAIRWISE_WIDTH, seed: int = 61, device: str = "cuda"):
+    """Query and passage embeddings as a dual encoder gives them: each passage near some
+    query (so the distances cancel as a retriever's do), float32."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    queries = torch.randn(rows, width, generator=gen, device=device)
+    near = queries[torch.randperm(rows, generator=gen, device=device)]
+    return queries, 0.6 * near + 0.8 * torch.randn(rows, width, generator=gen, device=device)
+
+
+def pairwise_call(name: str, x, y=None, reduction=None, **kw):
+    from torchmetrics_tpu_torch.functional import pairwise as p
+
+    fn = {"cosine": p.pairwise_cosine_similarity, "linear": p.pairwise_linear_similarity,
+          "euclidean": p.pairwise_euclidean_distance, "manhattan": p.pairwise_manhattan_distance,
+          "minkowski": functools.partial(p.pairwise_minkowski_distance, exponent=PAIRWISE_EXPONENT)}[name]
+    return fn(x, y, reduction=reduction, **kw)
+
+
+def pairwise_tolerance(name: str, x: torch.Tensor, y: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+    """``PAIRWISE_UNITS`` float32 rounding units of each entry's terms: ``|x_i| |y_j|``
+    for linear (1 for cosine's unit rows); for euclidean the root of that many units of
+    ``|x_i|^2 + |y_j|^2`` (the identity cancels); for manhattan and minkowski, sums of
+    positive terms, of the value."""
+    unit = PAIRWISE_UNITS * 2.0**-24
+    nx, ny = x.double().norm(dim=1), y.double().norm(dim=1)
+    if name == "cosine":
+        return torch.full(matrix.shape, unit, dtype=torch.float64)
+    if name == "linear":
+        return unit * nx[:, None] * ny[None]
+    if name == "euclidean":
+        return (unit * (nx[:, None] ** 2 + ny[None] ** 2)).sqrt()
+    return unit * matrix.double().abs()
+
+
+def hold_pairwise(label: str, got: dict, want: dict, tolerances: dict) -> float:
+    """Card rows ``got[key]`` against the CPU's ``want[key]`` within ``tolerances[key]``;
+    NaN in the same places. Returns the largest difference in tolerance units."""
+    worst = 0.0
+    for key, ref in want.items():
+        mine, ref, tol = got[key].cpu().double(), ref.double(), tolerances[key]
+        if mine.shape != ref.shape or not torch.equal(mine.isnan(), ref.isnan()):
+            raise AssertionError(f"{label} {key}: {tuple(mine.shape)} on the card, {tuple(ref.shape)} on the CPU")
+        keep = ~ref.isnan() & (mine != ref)
+        units = float(((mine - ref).abs() / tol)[keep].max()) if bool(keep.any()) else 0.0
+        if not units <= 1.0:
+            raise AssertionError(f"{label} {key}: {units} tolerance units from the CPU's")
+        worst = max(worst, units)
+    return worst
+
+
+def pairwise_reference(x: torch.Tensor, y: torch.Tensor, rows: int, self_pairs: bool) -> tuple:
+    """The CPU port's first ``rows`` rows of each function (None and "mean"; for
+    ``self_pairs`` the diagonal zeroed as ``y=None`` does) and their tolerances."""
+    from torchmetrics_tpu_torch.functional.pairwise.helpers import _reduce_distance_matrix
+
+    want, tolerances = {}, {}
+    for name in PAIRWISE_FUNCTIONS:
+        cut = rows if name in PRODUCTS_13 else min(rows, PAIRWISE_CPU_DIFF_ROWS)
+        xs = x[:cut].cpu()
+        matrix = pairwise_call(name, xs, y.cpu(), zero_diagonal=self_pairs)
+        tol = pairwise_tolerance(name, xs, y.cpu(), matrix)
+        if self_pairs:
+            tol.diagonal().zero_()
+        mean = _reduce_distance_matrix(matrix, "mean")
+        want[name], want[f"{name}_mean"] = matrix, mean
+        tolerances[name] = tol
+        tolerances[f"{name}_mean"] = tol.mean(-1) + PAIRWISE_UNITS * 2.0**-24 * mean.double().abs()
+    return want, tolerances
+
+
+def pairwise_phase(card: str) -> None:
+    clock = [("start", time.perf_counter())]
+    queries, passages = pairwise_inputs()
+    selves = queries[:PAIRWISE_SELF_ROWS]
+    for name in PAIRWISE_FUNCTIONS:  # load each call's kernels (cuBLAS's float64 GEMM) before the clocks
+        pairwise_call(name, queries[:128], passages[:128], "mean")
+    clock.append(("inputs", time.perf_counter()))
+    got, ms, peaks = {}, {}, {}
+    for kind, x, y in (("", queries, passages), ("self_", selves, None)):
+        for name in PAIRWISE_FUNCTIONS:
+            for reduction in (None, "mean"):
+                key = f"{kind}{name}" + ("_mean" if reduction else "")
+                out_rows = x.shape[0]
+                out_bytes = out_rows * (1 if reduction else (y if y is not None else x).shape[0]) * 4
+                start = time.perf_counter()
+                out, peak = peak_extra_bytes(lambda: pairwise_call(name, x, y, reduction), keep=out_bytes)
+                ms[key] = (time.perf_counter() - start) * 1e3
+                peaks[key] = peak
+                if peak > PEAK_LIMIT_13:
+                    raise AssertionError(f"pairwise {key}: {peak} bytes beyond its output")
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"pairwise {key}: a value is not finite")
+                got[key] = out[:PAIRWISE_CPU_ROWS if name in PRODUCTS_13 else PAIRWISE_CPU_DIFF_ROWS].cpu()
+                if name in PRODUCTS_13 and reduction is None:
+                    again = with_tf32(lambda: pairwise_call(name, x, y))
+                    if not same_bits(again, out):
+                        raise AssertionError(f"pairwise {key}: a rerun with TF32 allowed changed the bits")
+                del out
+    clock.append(("card", time.perf_counter()))
+    want, tolerances = pairwise_reference(queries, passages, PAIRWISE_CPU_ROWS, False)
+    self_want, self_tolerances = pairwise_reference(selves, selves, PAIRWISE_CPU_ROWS, True)
+    clock.append(("cpu", time.perf_counter()))
+    worst = hold_pairwise("pairwise", got, want, tolerances)
+    worst_self = hold_pairwise("pairwise self", {k[5:]: v for k, v in got.items() if k.startswith("self_")},
+                               self_want, self_tolerances)
+    emit({"phase": "pairwise", "x": [PAIRWISE_ROWS, PAIRWISE_WIDTH], "y": [PAIRWISE_ROWS, PAIRWISE_WIDTH],
+          "self_rows": PAIRWISE_SELF_ROWS, "exponent": PAIRWISE_EXPONENT, "call_ms": ms,
+          "peak_extra_bytes_beyond_output": peaks,
+          "reduced": f"the CPU port reads the first {PAIRWISE_CPU_ROWS} rows of the products and the first "
+                     f"{PAIRWISE_CPU_DIFF_ROWS} of manhattan and minkowski (the rows are independent)",
+          "max_diff_in_tolerance_units": max(worst, worst_self), "tf32_rerun": "bit for bit",
+          "seconds": clock_seconds(clock), "card": card})
+    profile_step("pairwise_cosine", lambda: pairwise_call("cosine", queries, passages))
+    profile_step("pairwise_self_manhattan", lambda: pairwise_call("manhattan", selves))
+
+
+def quaternion_rotations(q: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices ``(n, 3, 3)`` of unnormalised quaternions ``(n, 4)``."""
+    w, x, y, z = (q / q.norm(dim=1, keepdim=True)).unbind(1)
+    return torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+                        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], 1).reshape(-1, 3, 3)
+
+
+def pose_inputs(n: int = POSES, joints: int = POSE_JOINTS, seed: int = 67, device: str = "cuda"):
+    """(predicted, ground-truth) 3-D poses in mm, as PA-MPJPE evaluation gives them: a
+    seeded skeleton moved per pose, the prediction rotated, scaled, shifted and noisy.
+    The first ``POSE_PLANAR_SHARE`` of the pairs lie in the plane z = 0 (a zero singular
+    value: their rotation is not unique)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    skeleton = 300.0 * torch.randn(joints, 3, generator=gen, device=device)
+    truth = skeleton + 80.0 * torch.randn(n, joints, 3, generator=gen, device=device)
+    rotation = quaternion_rotations(torch.randn(n, 4, generator=gen, device=device))
+    scale = 0.8 + 0.4 * torch.rand(n, 1, 1, generator=gen, device=device)
+    shift = 500.0 * torch.randn(n, 1, 3, generator=gen, device=device)
+    pred = scale * truth @ rotation.transpose(1, 2) + shift + 40.0 * torch.randn(n, joints, 3, generator=gen,
+                                                                                  device=device)
+    planar = max(1, int(n * POSE_PLANAR_SHARE))
+    pred[:planar, :, 2] = 0.0
+    truth[:planar, :, 2] = 0.0
+    return pred, truth
+
+
+def wide_cloud_inputs(n: int = WIDE_CLOUDS[0], points: int = WIDE_CLOUDS[1], dim: int = WIDE_CLOUDS[2],
+                      seed: int = 69, device: str = "cuda"):
+    """(moved, reference) clouds of ``dim``-wide points, as in aligning two embedding
+    spaces: one seeded rotation, a scale per cloud and noise."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    truth = torch.randn(n, points, dim, generator=gen, device=device)
+    rotation = torch.linalg.qr(torch.randn(dim, dim, generator=gen, device=device).cpu())[0].to(device)
+    scale = 0.8 + 0.4 * torch.rand(n, 1, 1, generator=gen, device=device)
+    return scale * truth @ rotation.T + 0.1 * torch.randn(n, points, dim, generator=gen, device=device), truth
+
+
+def procrustes_metrics(device=None) -> dict:
+    from torchmetrics_tpu_torch.shape import ProcrustesDisparity
+
+    return {"mean": ProcrustesDisparity("mean", device=device), "sum": ProcrustesDisparity("sum", device=device)}
+
+
+def singular_gaps(pred: torch.Tensor, truth: torch.Tensor) -> torch.Tensor:
+    """Per pose pair: the least gap between the sorted singular values of the normalised
+    cross-covariance, zero included (LAPACK's, on the host)."""
+    p1, p2 = (p.double().cpu() for p in (pred, truth))
+    p1, p2 = p1 - p1.mean(1, keepdim=True), p2 - p2.mean(1, keepdim=True)
+    p1, p2 = p1 / p1.norm(dim=(1, 2), keepdim=True), p2 / p2.norm(dim=(1, 2), keepdim=True)
+    w = torch.linalg.svdvals((p2.transpose(1, 2) @ p1).transpose(1, 2))
+    gaps = -torch.diff(torch.cat([w, torch.zeros(w.shape[0], 1, dtype=w.dtype)], 1), dim=1)
+    return gaps.min(1).values
+
+
+def hold_procrustes(label: str, got: tuple, want: tuple, gaps: torch.Tensor, pred, truth) -> dict:
+    """``(disparity, scale, rotation)`` of the card against the CPU's: disparity and scale
+    within the value tolerance; the rotation within ``1e-6 / gap`` where the singular
+    values are ``SINGULAR_GAP`` apart, and elsewhere (not unique) by the disparity it gives."""
+    disparity, scale, rotation = (t.cpu() for t in got)
+    out = {"disparity": value_diff(disparity, want[0]), "scale": value_diff(scale, want[1])}
+    distinct = gaps > SINGULAR_GAP
+    rot_diff = (rotation.double() - want[2].double()).abs().amax((1, 2))
+    out["rotation"] = float((rot_diff / (1e-6 / gaps))[distinct].max()) if bool(distinct.any()) else 0.0
+    p1, p2 = (p.double().cpu() for p in (pred, truth))
+    p1, p2 = p1 - p1.mean(1, keepdim=True), p2 - p2.mean(1, keepdim=True)
+    p1, p2 = p1 / p1.norm(dim=(1, 2), keepdim=True), p2 / p2.norm(dim=(1, 2), keepdim=True)
+    applied = (p1 - scale.double()[:, None] * (p2 @ rotation.double().transpose(1, 2))).square().sum((1, 2))
+    out["disparity_by_the_rotation"] = value_diff(applied.float()[~distinct], want[0][~distinct])
+    if not max(out.values()) <= 1.0:
+        raise AssertionError(f"{label}: {out} tolerance units from the CPU's")
+    return out
+
+
+def procrustes_phase(card: str) -> None:
+    from torchmetrics_tpu_torch.functional import procrustes_disparity
+
+    clock = [("start", time.perf_counter())]
+    pred, truth = pose_inputs()
+    batches = list(zip(pred.split(POSE_BATCH), truth.split(POSE_BATCH)))
+    clock.append(("inputs", time.perf_counter()))
+    metrics = procrustes_metrics()
+    update_ms = {name: median([synced_ms(lambda: m.update(*b)) for b in batches]) for name, m in metrics.items()}
+    compute_ms = {name: synced_ms(lambda: fresh_compute(m)) for name, m in metrics.items()}
+    guarded = procrustes_metrics()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # an update that reads the host raises
+    try:
+        for m in guarded.values():
+            for b in batches:
+                m.update(*b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    functional_ms = synced_ms(lambda: procrustes_disparity(pred, truth, return_all=True))
+    functional = procrustes_disparity(pred, truth, return_all=True)
+    clock.append(("card", time.perf_counter()))
+    cpu_metrics = procrustes_metrics("cpu")
+    for m in cpu_metrics.values():
+        for b in batches:
+            m.update(*(t.cpu() for t in b))
+    cpu_functional = procrustes_disparity(pred.cpu(), truth.cpu(), return_all=True)
+    gaps = singular_gaps(pred, truth)
+    clock.append(("cpu", time.perf_counter()))
+    for name, m in metrics.items():
+        if not states_equal(m._state, guarded[name]._state):
+            raise AssertionError(f"procrustes {name}: the guarded run's states differ")
+        for key in ("disparity", "total"):
+            if value_diff(m._state[key], cpu_metrics[name]._state[key]) > 1.0:
+                raise AssertionError(f"procrustes {name}: {key} {m._state[key]} on the card, "
+                                     f"{cpu_metrics[name]._state[key]} on the CPU")
+    values = {name: float(m.compute()) for name, m in metrics.items()}
+    diffs = {name: value_diff(m.compute(), cpu_metrics[name].compute()) for name, m in metrics.items()}
+    diffs.update(hold_procrustes("procrustes functional", functional, cpu_functional, gaps, pred, truth))
+    if not max(diffs.values()) <= 1.0:
+        raise AssertionError(f"procrustes: {diffs} tolerance units from the CPU's")
+    probe = procrustes_metrics()["mean"]
+    reads = host_reads(lambda: probe.update(*batches[0]))
+    peak = update_peak_bytes(probe, batches[0])
+    library = procrustes_svd_comparison(batches, metrics)
+    diffs.update(library.pop("diffs"))
+    clock.append(("checks", time.perf_counter()))
+    wide_pred, wide_truth = wide_cloud_inputs()
+    wide = procrustes_disparity(wide_pred, wide_truth, return_all=True)
+    wide_ms = synced_ms(lambda: procrustes_disparity(wide_pred, wide_truth, return_all=True))
+    wide_reads = host_reads(lambda: procrustes_disparity(wide_pred, wide_truth))
+    cpu_wide = procrustes_disparity(wide_pred.cpu(), wide_truth.cpu(), return_all=True)
+    wide_gaps = singular_gaps(wide_pred, wide_truth)
+    wide_diffs = hold_procrustes("procrustes wide", wide, cpu_wide, wide_gaps, wide_pred, wide_truth)
+    diffs.update({f"wide_{key}": value for key, value in wide_diffs.items()})
+    clock.append(("wide", time.perf_counter()))
+    emit({"phase": "procrustes", "poses": POSES, "joints": POSE_JOINTS, "batch": POSE_BATCH,
+          "planar_poses": int((gaps < SINGULAR_GAP).sum()), "update_ms": update_ms, "compute_ms": compute_ms,
+          "functional_ms_all_poses": functional_ms, "values": values, "host_reads_per_update": reads,
+          "sync_debug_error_mode": "16 updates a metric, no host read", "update_peak_extra_bytes": peak,
+          "torch_linalg_svd": library,
+          "wide": {"clouds": list(WIDE_CLOUDS), "functional_ms": wide_ms, "host_reads": wide_reads,
+                   "rotations_held": int((wide_gaps > SINGULAR_GAP).sum())},
+          "max_diff_in_tolerance_units": diffs, "seconds": clock_seconds(clock), "card": card})
+    profile_step("procrustes_update", lambda: probe.update(*batches[0]))
+    with procrustes_through_the_library():
+        profile_step("procrustes_update_torch_linalg_svd", lambda: probe.update(*batches[0]))
+
+
+def procrustes_through_the_library():
+    """A context in which every Procrustes SVD is one ``torch.linalg.svd`` of the batch."""
+    from unittest import mock
+
+    import torchmetrics_tpu_torch.functional.shape.procrustes as procrustes_module
+
+    return mock.patch.object(procrustes_module, "_JACOBI_MAX_D", 0)
+
+
+def procrustes_svd_comparison(batches: list, metrics: dict) -> dict:
+    """The same pose updates with the SVD taken by ``torch.linalg.svd``: update ms and host
+    reads, the states within the value tolerance of the Jacobi path's (``metrics``), and
+    the two SVDs alone on one batch's cross-covariances (median ms of 5)."""
+    from torchmetrics_tpu_torch.functional.shape.procrustes import _jacobi_svd
+
+    library = procrustes_metrics()
+    with procrustes_through_the_library():
+        update_ms = {name: median([synced_ms(lambda: m.update(*b)) for b in batches]) for name, m in library.items()}
+        reads = host_reads(lambda: procrustes_metrics()["mean"].update(*batches[0]))
+    diffs = {f"torch_linalg_svd_{name}": value_diff(m.compute(), metrics[name].compute()) for name, m in library.items()}
+    p1, p2 = (p.double() for p in batches[0])
+    p1, p2 = p1 - p1.mean(1, keepdim=True), p2 - p2.mean(1, keepdim=True)
+    cross = (p2.transpose(1, 2) @ p1).transpose(1, 2)
+    svd_ms = {"jacobi": median([synced_ms(lambda: _jacobi_svd(cross)) for _ in range(5)]),
+              "torch_linalg_svd": median([synced_ms(lambda: torch.linalg.svd(cross)) for _ in range(5)])}
+    return {"update_ms": update_ms, "host_reads_per_update": reads, "svd_ms_one_batch": svd_ms, "diffs": diffs}
+
+
+def adult_table(rows: int = ADULT_ROWS, cardinalities=ADULT_CARDINALITIES, seed: int = 71, device: str = "cuda"):
+    """A UCI Adult-shaped categorical table ``(rows, 8)`` float32: skewed categories
+    (Zipf-like weights in a seeded order), tied to a latent group so the columns
+    associate, and ``ADULT_NAN_SHARE`` of the entries NaN."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    latent = torch.randint(0, 6, (rows,), generator=gen, device=device)
+    columns = []
+    for k in cardinalities:
+        weights = (torch.arange(1, k + 1, device=device, dtype=torch.float64) ** -1.1)[
+            torch.randperm(k, generator=gen, device=device)]
+        drawn = torch.multinomial(weights, rows, replacement=True, generator=gen)
+        tied = (latent * 5 + torch.randint(0, 2, (rows,), generator=gen, device=device)) % k
+        columns.append(torch.where(torch.rand(rows, generator=gen, device=device) < 0.5, tied, drawn))
+    table = torch.stack(columns, 1).to(torch.float32)
+    table[torch.rand(table.shape, generator=gen, device=device) < ADULT_NAN_SHARE] = float("nan")
+    return table
+
+
+def crowd_ratings(shape=CROWD, seed: int = 73, device: str = "cuda"):
+    """(probabilities ``(items, categories, raters)``, counts ``(items, categories)``):
+    raters' softmax outputs around each item's true category, and the votes they give."""
+    items, categories, raters = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    truth = torch.randint(0, categories, (items,), generator=gen, device=device)
+    logits = torch.randn(items, categories, raters, generator=gen, device=device)
+    logits[torch.arange(items, device=device), truth] += 1.5
+    probs = logits.softmax(1)
+    counts = torch.nn.functional.one_hot(probs.argmax(1), categories).sum(1)
+    return probs, counts
+
+
+def nominal_classes(device=None, num_classes: int = max(ADULT_CARDINALITIES[i] for i in ADULT_PAIR)) -> dict:
+    from torchmetrics_tpu_torch import nominal as n
+
+    return {"cramers_v": n.CramersV(num_classes, device=device),
+            "pearson": n.PearsonsContingencyCoefficient(num_classes, device=device),
+            "theils_u": n.TheilsU(num_classes, device=device),
+            "tschuprows_t": n.TschuprowsT(num_classes, device=device),
+            "fleiss_probs": n.FleissKappa("probs", device=device),
+            "fleiss_counts": n.FleissKappa("counts", device=device)}
+
+
+def nominal_batches(table: torch.Tensor, probs: torch.Tensor, counts: torch.Tensor) -> dict:
+    pair = table[:, list(ADULT_PAIR)]
+    return {"pair": [tuple(b.unbind(1)) for b in pair.tensor_split(ADULT_UPDATES)],
+            "probs": [(b,) for b in probs.tensor_split(CROWD_UPDATES)],
+            "counts": [(b,) for b in counts.tensor_split(CROWD_UPDATES)]}
+
+
+def run_nominal(metrics: dict, batches: dict, timed: bool = True) -> dict:
+    """Every batch into its metrics, then each ``compute()``: name -> states, value and,
+    when ``timed``, the median update ms and the compute ms."""
+    out = {}
+    for name, metric in metrics.items():
+        feed = batches["probs" if name == "fleiss_probs" else "counts" if name == "fleiss_counts" else "pair"]
+        times = [synced_ms(lambda: metric.update(*b)) if timed else metric.update(*b) for b in feed]
+        out[name] = {"update_ms": median(times) if timed else None,
+                     "compute_ms": synced_ms(lambda: fresh_compute(metric)) if timed else None,
+                     "value": fresh_compute(metric), "states": metric._concat_state()}
+    return out
+
+
+def nominal_matrices(table: torch.Tensor) -> dict:
+    from torchmetrics_tpu_torch.functional import nominal as f
+
+    out = {}
+    for strategy in ("replace", "drop"):
+        for name in ("cramers_v_matrix", "pearsons_contingency_coefficient_matrix", "theils_u_matrix",
+                     "tschuprows_t_matrix"):
+            start = time.perf_counter()
+            out[f"{name}_{strategy}"] = (getattr(f, name)(table, nan_strategy=strategy),
+                                         (time.perf_counter() - start) * 1e3)
+    return out
+
+
+def nominal_tables(table: torch.Tensor) -> dict:
+    """The contingency table of every column pair under both NaN strategies."""
+    from torchmetrics_tpu_torch.functional.nominal._association import _nominal_update
+
+    columns = table.shape[1]
+    return {(i, j, s): _nominal_update(table[:, i], table[:, j], None, s).cpu()
+            for s in ("replace", "drop") for i in range(columns) for j in range(i + 1, columns)}
+
+
+def hold_nominal(label: str, got: dict, want: dict) -> float:
+    """States bit for bit, values within the value tolerance. Returns the largest value
+    difference in tolerance units."""
+    worst = 0.0
+    for name, entry in want.items():
+        if not states_equal({k: v.cpu() for k, v in got[name]["states"].items()}, entry["states"]):
+            raise AssertionError(f"{label} {name}: states differ from the CPU's")
+        diff = value_diff(got[name]["value"], entry["value"])
+        if not diff <= 1.0:
+            raise AssertionError(f"{label} {name}: {got[name]['value']} on the card, {entry['value']} on the CPU")
+        worst = max(worst, diff)
+    return worst
+
+
+def argmax_cases(seed: int = 73) -> list:
+    """(array, axis) pairs whose argmax numpy resolves by its rules: the first maximum,
+    and the first NaN in a row that holds one. Small integers (many ties) with 2% NaN,
+    along each axis of 2-D and 3-D arrays and along rows long enough to be split across
+    blocks, in float32 and float64, and a few rows of infinities and signed zeros."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for dtype in (np.float32, np.float64):
+        edges = np.asarray([[0.5, 1.0, 1.0], [np.nan, 0.0, np.nan], [0.0, np.nan, 1.0],
+                            [-np.inf, -np.inf, -np.inf], [-0.0, 0.0, -1.0], [np.inf, np.inf, 0.0]], dtype)
+        cases += [(edges, 1), (edges.T.copy(), 0)]
+        for shape, axis in (((4096, 40), 1), ((40, 4096), 0), ((10000, 5, 5), 1), ((4, 1 << 20), 1)):
+            x = rng.integers(0, 4, size=shape).astype(dtype)
+            x[rng.random(shape) < 0.02] = np.nan
+            cases.append((x, axis))
+    return cases
+
+
+def argmax_mismatches(device: str, argmax=torch.argmax) -> int:
+    """Indices where ``argmax`` on ``device`` differs from numpy's over ``argmax_cases``:
+    the nominal and Fleiss updates collapse probabilities with ``torch.argmax``."""
+    return sum(int((argmax(torch.from_numpy(x).to(device), axis).cpu().numpy() != x.argmax(axis)).sum())
+               for x, axis in argmax_cases())
+
+
+def nominal_phase(card: str) -> None:
+    import warnings
+
+    clock = [("start", time.perf_counter())]
+    table = adult_table()
+    probs, counts = crowd_ratings()
+    batches = nominal_batches(table, probs, counts)
+    cpu_batches = {k: [tuple(t.cpu() for t in b) for b in v] for k, v in batches.items()}
+    clock.append(("inputs", time.perf_counter()))
+    metrics = nominal_classes()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        card_run = run_nominal(metrics, batches)
+        matrices = nominal_matrices(table)
+        tables = nominal_tables(table)
+        clock.append(("card", time.perf_counter()))
+        cpu_run = run_nominal(nominal_classes("cpu"), cpu_batches, timed=False)
+        cpu_matrices = nominal_matrices(table.cpu())
+        cpu_tables = nominal_tables(table.cpu())
+    clock.append(("cpu", time.perf_counter()))
+    worst = hold_nominal("nominal", card_run, cpu_run)
+    for key, want in cpu_tables.items():
+        if not same_bits(tables[key], want):
+            raise AssertionError(f"nominal: the table of columns {key} differs from the CPU's")
+    matrix_worst = 0.0
+    for name, (value, _) in matrices.items():
+        diff = value_diff(value, cpu_matrices[name][0])
+        if not diff <= 1.0:
+            raise AssertionError(f"nominal {name}: {value} on the card, {cpu_matrices[name][0]} on the CPU")
+        matrix_worst = max(matrix_worst, diff)
+    probe = nominal_classes()["cramers_v"]
+    reads = host_reads(lambda: probe.update(*batches["pair"][0]))
+    mismatches = argmax_mismatches("cuda")
+    if mismatches:
+        raise AssertionError(f"nominal: torch.argmax on the card differs from numpy's at {mismatches} indices")
+    clock.append(("checks", time.perf_counter()))
+    emit({"phase": "nominal", "rows": ADULT_ROWS, "cardinalities": list(ADULT_CARDINALITIES),
+          "nan_share": ADULT_NAN_SHARE, "class_pair": list(ADULT_PAIR), "updates": ADULT_UPDATES,
+          "crowd": list(CROWD), "crowd_updates": CROWD_UPDATES,
+          "update_ms": {n: e["update_ms"] for n, e in card_run.items()},
+          "compute_ms": {n: e["compute_ms"] for n, e in card_run.items()},
+          "matrix_ms": {n: ms for n, (_, ms) in matrices.items()},
+          "values": {n: float(e["value"]) for n, e in card_run.items()},
+          "tables": f"{len(tables)} column-pair tables bit for bit", "states": "bit for bit",
+          "host_reads_per_update": reads, "argmax": f"numpy's on ties and NaNs ({len(argmax_cases())} cases)",
+          "max_diff_in_tolerance_units": max(worst, matrix_worst), "seconds": clock_seconds(clock), "card": card})
+    profile_step("nominal_cramers_v_update", lambda: probe.update(*batches["pair"][0]))
+    profile_step("nominal_cramers_v_matrix", lambda: nominal_matrices(table))
+
+
+def cluster_inputs(samples: int = CLUSTER_SAMPLES, classes: int = CLUSTER_CLASSES, clusters: int = CLUSTERS,
+                   width: int = CLUSTER_WIDTH, seed: int = 79, device: str = "cuda"):
+    """k-means evaluation of ImageNet-val-shaped embeddings: (cluster labels, class labels
+    int64, float32 embeddings ``(samples, width)``). Each class has ``samples / classes``
+    samples; ``CLUSTER_PURITY`` of them fall in the class's own cluster and the rest in
+    clusters drawn by uneven (Zipf-like) sizes; an embedding lies around its cluster's
+    centre."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    target = (torch.arange(samples, device=device) % classes)[torch.randperm(samples, generator=gen, device=device)]
+    own = torch.randperm(clusters, generator=gen, device=device)[target % clusters]
+    sizes = torch.arange(1, clusters + 1, device=device, dtype=torch.float64) ** -0.8
+    drawn = torch.multinomial(sizes, samples, replacement=True, generator=gen)
+    preds = torch.where(torch.rand(samples, generator=gen, device=device) < CLUSTER_PURITY, own, drawn)
+    centres = torch.randn(clusters, width, generator=gen, device=device)
+    data = centres[preds] + 0.7 * torch.randn(samples, width, generator=gen, device=device)
+    return preds, target, data
+
+
+def cluster_metrics(device=None, classes: int = CLUSTER_CLASSES) -> dict:
+    from torchmetrics_tpu_torch import clustering as c
+
+    names = ("MutualInfoScore", "AdjustedMutualInfoScore", "NormalizedMutualInfoScore", "RandScore",
+             "AdjustedRandScore", "FowlkesMallowsIndex", "HomogeneityScore", "CompletenessScore", "VMeasureScore",
+             "CalinskiHarabaszScore", "DaviesBouldinScore", "DunnIndex")
+    return {**{name: getattr(c, name)(device=device) for name in names},
+            "ClusterAccuracy": c.ClusterAccuracy(classes, device=device)}
+
+
+INTRINSIC_13 = ("CalinskiHarabaszScore", "DaviesBouldinScore", "DunnIndex")
+
+
+def run_clustering(metrics: dict, batches: list, timed: bool = True) -> dict:
+    """Every batch of (preds, target, data) into every metric (the intrinsic ones take
+    (data, preds)), then each ``compute()``: name -> value and, when ``timed``, the median
+    update ms, the ms of a first and a second compute and a third one's peak extra bytes."""
+    out = {}
+    for name, metric in metrics.items():
+        args = [(d, p) if name in INTRINSIC_13 else (p, t) for p, t, d in batches]
+        times = [synced_ms(lambda: metric.update(*a)) if timed else metric.update(*a) for a in args]
+        entry = {"update_ms": median(times), "compute_ms": [synced_ms(lambda: fresh_compute(metric)) for _ in range(2)],
+                 "peak": compute_peak_bytes(metric)} if timed else {}
+        out[name] = {**entry, "value": fresh_compute(metric)}
+    return out
+
+
+def expected_terms(preds: torch.Tensor, target: torch.Tensor) -> int:
+    """The hypergeometric terms the expected mutual information sums over all cluster pairs."""
+    from torchmetrics_tpu_torch.functional.clustering.utils import _contingency_cells
+
+    cells = _contingency_cells(preds, target)
+    a, b, n = cells.row_sums[:, None], cells.col_sums[None], preds.numel()
+    return int((torch.minimum(a, b) + 1 - (a + b - n).clamp(min=1)).clamp(min=0).sum())
+
+
+def hold_contingency(label: str, preds, target, cpu_preds, cpu_target) -> None:
+    """The nonzero cells, margins and pair sums on the card equal the CPU's bit for bit."""
+    from torchmetrics_tpu_torch.functional.clustering.utils import _contingency_cells, _pair_sums
+
+    card, cpu = _contingency_cells(preds, target), _contingency_cells(cpu_preds, cpu_target)
+    if not all(same_bits(a, b) for a, b in zip(card, cpu)) or _pair_sums(card) != _pair_sums(cpu):
+        raise AssertionError(f"{label}: the contingency cells or pair sums differ from the CPU's")
+
+
+def hold_clustering(label: str, got: dict, want: dict) -> float:
+    worst = 0.0
+    for name, entry in want.items():
+        diff = value_diff(got[name]["value"], entry["value"], absolute=name == "AdjustedMutualInfoScore")
+        if not diff <= 1.0:
+            raise AssertionError(f"{label} {name}: {got[name]['value']} on the card, {entry['value']} on the CPU")
+        worst = max(worst, diff)
+    return worst
+
+
+def clustering_phase(card: str) -> None:
+    clock = [("start", time.perf_counter())]
+    preds, target, data = cluster_inputs()
+    batches = list(zip(preds.tensor_split(CLUSTER_UPDATES), target.tensor_split(CLUSTER_UPDATES),
+                       data.tensor_split(CLUSTER_UPDATES)))
+    clock.append(("inputs", time.perf_counter()))
+    metrics = cluster_metrics()
+    card_run = run_clustering(metrics, batches)
+    clock.append(("card", time.perf_counter()))
+    cpu_run = run_clustering(cluster_metrics("cpu"), [tuple(t.cpu() for t in b) for b in batches], timed=False)
+    clock.append(("cpu", time.perf_counter()))
+    hold_contingency("clustering", preds, target, preds.cpu(), target.cpu())
+    worst = hold_clustering("clustering", card_run, cpu_run)
+    peaks = {name: entry["peak"] for name, entry in card_run.items()}
+    if max(peaks.values()) > PEAK_LIMIT_13:
+        raise AssertionError(f"clustering: a compute's peak extra bytes {peaks}")
+    terms = expected_terms(preds, target)
+    clock.append(("checks", time.perf_counter()))
+    emit({"phase": "clustering", "samples": CLUSTER_SAMPLES, "classes": CLUSTER_CLASSES, "clusters": CLUSTERS,
+          "width": CLUSTER_WIDTH, "updates": CLUSTER_UPDATES, "clusters_used": int(preds.unique().numel()),
+          "expected_mutual_info_terms": terms,
+          "update_ms": {n: e["update_ms"] for n, e in card_run.items()},
+          "compute_ms_first_second": {n: e["compute_ms"] for n, e in card_run.items()},
+          "compute_peak_extra_bytes": peaks, "values": {n: float(e["value"]) for n, e in card_run.items()},
+          "contingency_and_pair_sums": "bit for bit", "max_diff_in_tolerance_units": worst,
+          "seconds": clock_seconds(clock), "card": card})
+    for name in ("AdjustedMutualInfoScore", "DaviesBouldinScore"):
+        profile_step(f"clustering_{name}_compute", lambda: fresh_compute(metrics[name]))
+
+
 def flagship_forward(cases: dict) -> dict:
     """The 26 sepconv7 launches of one bf16 trunk forward at the flagship's batch: their
     summed times and bound, and their worst error against the plain version."""
@@ -3980,6 +4619,10 @@ def main() -> int:
     retrieval_phase(card)
     segmentation_phase(card)
     segmentation_3d_phase(card)
+    pairwise_phase(card)
+    procrustes_phase(card)
+    nominal_phase(card)
+    clustering_phase(card)
 
     print(card, flush=True)
     kernels = []

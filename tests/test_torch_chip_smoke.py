@@ -882,7 +882,7 @@ def test_retrieval_rehearsal_holds_the_cpu_port(chip_smoke):
 
 
 def test_retrieval_diff_is_relative_above_a_tenth_and_absolute_below(chip_smoke):
-    diff = chip_smoke.retrieval_diff
+    diff = chip_smoke.value_diff
     assert diff(torch.tensor([0.5 + 2**-21]), torch.tensor([0.5])) == pytest.approx(2**-21 / 0.5e-6)
     low = torch.tensor([0.05])
     assert diff(low + 2**-27, low) == pytest.approx(2**-27 / 1e-7)
@@ -954,3 +954,154 @@ def test_edge_counts_and_brats_metrics_rehearsal(chip_smoke):
         m.update(pred, target)
     assert metrics["dice"].compute().shape == (3,) and float(metrics["hausdorff"].compute()) > 0
     assert metrics["hausdorff"].directed and metrics["hausdorff"].spacing == [1.0, 1.0, 1.0]
+
+
+def test_value_diff_is_relative_above_a_tenth_absolute_below_and_passes_equal_infinities(chip_smoke):
+    diff = chip_smoke.value_diff
+    assert diff(torch.tensor(0.5 + 2**-21), torch.tensor(0.5)) == pytest.approx(2**-21 / 0.5e-6)
+    assert diff(torch.tensor(0.05 + 2**-27), torch.tensor(0.05)) == pytest.approx(2**-27 / 1e-7)
+    assert diff(torch.tensor(0.5 + 2**-21), torch.tensor(0.5), absolute=True) == pytest.approx(2**-21 / 1e-7)
+    assert diff(torch.tensor(float("inf")), torch.tensor(float("inf"))) == 0.0
+    assert diff(torch.tensor(float("nan")), torch.tensor(0.0)) == math.inf
+    assert diff(torch.tensor(3, dtype=torch.int32), torch.tensor(3)) == math.inf
+
+
+def test_pairwise_rehearsal_holds_the_cpu_port(chip_smoke, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "PAIRWISE_CPU_DIFF_ROWS", 8)
+    queries, passages = chip_smoke.pairwise_inputs(rows=48, width=16, device="cpu")
+    assert queries.shape == passages.shape == (48, 16) and queries.dtype == torch.float32
+    for x, y, self_pairs in ((queries, passages, False), (queries[:24], queries[:24], True)):
+        want, tolerances = chip_smoke.pairwise_reference(x, y, 16, self_pairs)
+        assert set(want) == {f"{n}{s}" for n in chip_smoke.PAIRWISE_FUNCTIONS for s in ("", "_mean")}
+        assert want["manhattan"].shape == (8, y.shape[0]) and want["cosine"].shape == (16, y.shape[0])
+        # the card's rows, as the phase takes them from the full calls
+        got = {}
+        for name in chip_smoke.PAIRWISE_FUNCTIONS:
+            rows = 16 if name in chip_smoke.PRODUCTS_13 else 8
+            for reduction, suffix in ((None, ""), ("mean", "_mean")):
+                out = chip_smoke.pairwise_call(name, x, None if self_pairs else y, reduction)
+                got[f"{name}{suffix}"] = out[:rows]
+        assert chip_smoke.hold_pairwise("rehearsal", got, want, tolerances) == 0.0
+        if self_pairs:
+            assert float(got["euclidean"].diagonal().abs().max()) == 0.0
+    got["linear"] = got["linear"].clone()
+    got["linear"][0, 1] += 1e-3
+    with pytest.raises(AssertionError, match="tolerance units"):
+        chip_smoke.hold_pairwise("rehearsal", got, want, tolerances)
+
+
+def test_pose_inputs_rotate_scale_and_flatten_a_share(chip_smoke):
+    pred, truth = chip_smoke.pose_inputs(n=300, device="cpu")
+    assert pred.shape == truth.shape == (300, chip_smoke.POSE_JOINTS, 3)
+    assert int((pred[:, :, 2] == 0).all(1).sum()) == 3 == int((truth[:, :, 2] == 0).all(1).sum())
+    rotation = chip_smoke.quaternion_rotations(torch.randn(5, 4, dtype=torch.float64))
+    assert torch.allclose(rotation @ rotation.transpose(1, 2), torch.eye(3, dtype=torch.float64).expand(5, 3, 3))
+    assert torch.allclose(torch.linalg.det(rotation), torch.ones(5, dtype=torch.float64))
+    gaps = chip_smoke.singular_gaps(pred, truth)
+    assert bool((gaps[:3] < 1e-9).all()) and int((gaps > chip_smoke.SINGULAR_GAP).sum()) > 250
+
+
+def test_procrustes_rehearsal_holds_the_cpu_port(chip_smoke):
+    from torchmetrics_tpu_torch.functional import procrustes_disparity
+
+    pred, truth = chip_smoke.pose_inputs(n=256, device="cpu")
+    runs = [procrustes_disparity(pred, truth, return_all=True) for _ in range(2)]
+    gaps = chip_smoke.singular_gaps(pred, truth)
+    worst = chip_smoke.hold_procrustes("rehearsal", runs[0], runs[1], gaps, pred, truth)
+    assert set(worst) == {"disparity", "scale", "rotation", "disparity_by_the_rotation"} and max(worst.values()) == 0
+    metrics = chip_smoke.procrustes_metrics("cpu")
+    for m in metrics.values():
+        for batch in zip(pred.split(64), truth.split(64)):
+            m.update(*batch)
+    assert int(metrics["sum"].total) == 256 and float(metrics["sum"].compute()) > float(metrics["mean"].compute()) > 0
+    planted = (runs[1][0], runs[1][1], runs[1][2].clone())
+    row = int(torch.nonzero(gaps > chip_smoke.SINGULAR_GAP)[0])
+    planted[2][row, 0, 0] += 1e-3
+    with pytest.raises(AssertionError, match="tolerance units"):
+        chip_smoke.hold_procrustes("rehearsal", planted, runs[1], gaps, pred, truth)
+
+
+def test_procrustes_rehearsal_of_the_library_svd_and_the_wide_clouds(chip_smoke):
+    """The pose updates through ``torch.linalg.svd`` hold the Jacobi path's values, and
+    the wide clouds (D = 16, the library's SVD) hold themselves and fail on a plant."""
+    from torchmetrics_tpu_torch.functional import procrustes_disparity
+    from torchmetrics_tpu_torch.functional.shape import procrustes as procrustes_module
+
+    pred, truth = chip_smoke.pose_inputs(n=256, device="cpu")
+    jacobi, library = chip_smoke.procrustes_metrics("cpu"), chip_smoke.procrustes_metrics("cpu")
+    with chip_smoke.procrustes_through_the_library():
+        assert procrustes_module._JACOBI_MAX_D == 0
+        for batch in zip(pred.split(64), truth.split(64)):
+            library["mean"].update(*batch)
+    assert procrustes_module._JACOBI_MAX_D == 3
+    for batch in zip(pred.split(64), truth.split(64)):
+        jacobi["mean"].update(*batch)
+    assert chip_smoke.value_diff(library["mean"].compute(), jacobi["mean"].compute()) <= 1.0
+    wide_pred, wide_truth = chip_smoke.wide_cloud_inputs(n=32, device="cpu")
+    assert wide_pred.shape == wide_truth.shape == (32, *chip_smoke.WIDE_CLOUDS[1:])
+    runs = [procrustes_disparity(wide_pred, wide_truth, return_all=True) for _ in range(2)]
+    gaps = chip_smoke.singular_gaps(wide_pred, wide_truth)
+    worst = chip_smoke.hold_procrustes("wide", runs[0], runs[1], gaps, wide_pred, wide_truth)
+    assert worst["disparity"] == worst["scale"] == worst["rotation"] == 0
+    # recomputed in float64 from the float32 rotation, so it is a rounding away from 0
+    assert worst["disparity_by_the_rotation"] <= 1.0
+    planted = (runs[1][0].clone(), runs[1][1], runs[1][2])
+    planted[0][0] *= 1.001
+    with pytest.raises(AssertionError, match="tolerance units"):
+        chip_smoke.hold_procrustes("wide", planted, runs[1], gaps, wide_pred, wide_truth)
+
+
+def test_argmax_rehearsal_is_numpys_and_sees_a_last_max_rule(chip_smoke):
+    assert chip_smoke.argmax_mismatches("cpu") == 0
+
+    def last_argmax(x, axis):
+        return x.shape[axis] - 1 - x.flip(axis).argmax(axis)
+
+    assert chip_smoke.argmax_mismatches("cpu", last_argmax) > 0
+
+
+def test_adult_table_and_crowd_ratings_have_the_stated_shapes(chip_smoke):
+    table = chip_smoke.adult_table(rows=5000, device="cpu")
+    assert table.shape == (5000, 8) and table.dtype == torch.float32
+    assert 0.005 < float(table.isnan().double().mean()) < 0.015
+    for k, column in zip(chip_smoke.ADULT_CARDINALITIES, table.T):
+        values = column[~column.isnan()]
+        assert int(values.max()) < k and int(values.min()) >= 0
+    probs, counts = chip_smoke.crowd_ratings((200, 5, 5), device="cpu")
+    assert probs.shape == (200, 5, 5) and counts.shape == (200, 5) and bool((counts.sum(1) == 5).all())
+    assert torch.allclose(probs.sum(1), torch.ones(200, 5))
+
+
+def test_nominal_rehearsal_holds_the_cpu_port(chip_smoke):
+    table = chip_smoke.adult_table(rows=3000, device="cpu")
+    probs, counts = chip_smoke.crowd_ratings((300, 5, 5), device="cpu")
+    batches = chip_smoke.nominal_batches(table, probs, counts)
+    assert len(batches["pair"]) == chip_smoke.ADULT_UPDATES and len(batches["probs"]) == chip_smoke.CROWD_UPDATES
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        runs = [chip_smoke.run_nominal(chip_smoke.nominal_classes("cpu"), batches, timed=False) for _ in range(2)]
+        matrices = chip_smoke.nominal_matrices(table)
+    assert chip_smoke.hold_nominal("rehearsal", *runs) == 0.0
+    assert all(0.0 < float(e["value"]) < 1.0 for n, e in runs[0].items() if not n.startswith("fleiss"))
+    assert len(chip_smoke.nominal_tables(table)) == 56 and len(matrices) == 8
+    assert all(m.shape == (8, 8) for m, _ in matrices.values())
+    runs[1]["theils_u"]["states"]["confmat"] = runs[1]["theils_u"]["states"]["confmat"] + 1
+    with pytest.raises(AssertionError, match="states differ"):
+        chip_smoke.hold_nominal("rehearsal", *runs)
+
+
+def test_cluster_inputs_and_clustering_rehearsal(chip_smoke):
+    preds, target, data = chip_smoke.cluster_inputs(samples=600, classes=20, clusters=20, width=8, device="cpu")
+    assert preds.shape == target.shape == (600,) and data.shape == (600, 8) and data.dtype == torch.float32
+    assert bool((torch.bincount(target) == 30).all()) and int(preds.max()) < 20
+    batches = list(zip(preds.tensor_split(3), target.tensor_split(3), data.tensor_split(3)))
+    runs = [chip_smoke.run_clustering(chip_smoke.cluster_metrics("cpu", classes=20), batches, timed=False)
+            for _ in range(2)]
+    assert len(runs[0]) == 13 and chip_smoke.hold_clustering("rehearsal", *runs) == 0.0
+    chip_smoke.hold_contingency("rehearsal", preds, target, preds.clone(), target.clone())
+    with pytest.raises(AssertionError, match="contingency"):
+        chip_smoke.hold_contingency("rehearsal", preds, target, preds.flip(0), target)
+    assert chip_smoke.expected_terms(preds, target) > 400
+    runs[1]["RandScore"]["value"] = runs[1]["RandScore"]["value"] + 1e-3
+    with pytest.raises(AssertionError, match="RandScore"):
+        chip_smoke.hold_clustering("rehearsal", *runs)

@@ -23,7 +23,8 @@ import torch
 import torchmetrics_tpu_torch
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.classification import MulticlassAccuracy
-from torchmetrics_tpu_torch import classification, detection, functional, regression, retrieval, segmentation, wrappers
+from torchmetrics_tpu_torch import (classification, clustering, detection, functional, nominal, regression, retrieval,
+                                    segmentation, shape, wrappers)
 from torchmetrics_tpu_torch.image import (
     FrechetInceptionDistance,
     InceptionScore,
@@ -176,6 +177,37 @@ def test_retrieval_and_segmentation_functions_on_host_values_raise_without_cuda(
     kw = {"num_classes": 2, "input_format": "index"} if name in functional.segmentation.__all__ else {}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         getattr(functional, name)(preds, target, **kw)
+
+
+SLICE_13_ARGS = {"ClusterAccuracy": {"num_classes": 3}, "CramersV": {"num_classes": 3},
+                 "PearsonsContingencyCoefficient": {"num_classes": 3}, "TheilsU": {"num_classes": 3},
+                 "TschuprowsT": {"num_classes": 3}}
+
+
+@pytest.mark.parametrize("module, name", [(m, n) for m in (clustering, nominal, shape) for n in sorted(m.__all__)])
+def test_clustering_nominal_and_shape_classes_at_default_device_raise_without_cuda(no_cuda, module, name):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(module, name)(**SLICE_13_ARGS.get(name, {}))
+
+
+SLICE_13_HOST_VALUES = {
+    **{name: ([0, 1, 1, 0], [1, 1, 0, 0]) for name in functional.clustering.__all__},
+    **{name: ([[0.0, 1.0], [1.0, 0.0], [0.0, 0.0], [1.0, 1.0]], [0, 1, 0, 1])
+       for name in ("calinski_harabasz_score", "davies_bouldin_score", "dunn_index")},
+    **{name: ([0, 1, 1, 0], [1, 1, 0, 0]) for name in functional.nominal.__all__ if not name.endswith("_matrix")},
+    **{name: ([[0, 1], [1, 1], [1, 0]],) for name in functional.nominal.__all__ if name.endswith("_matrix")},
+    "fleiss_kappa": ([[1, 2], [2, 1]],),
+    **{name: ([[0.5, 0.25], [0.75, 1.0]],) for name in functional.pairwise.__all__},
+    "procrustes_disparity": ([[[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]]], [[[0.0, 0.0], [2.0, 0.0], [0.0, 1.0]]]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE_13_HOST_VALUES))
+def test_clustering_nominal_pairwise_and_shape_functions_on_host_values_raise_without_cuda(no_cuda, name):
+    """Lists, not tensors: the function makes them on the default device, CUDA."""
+    kw = {"num_classes": 2} if name == "cluster_accuracy" else {}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(functional, name)(*SLICE_13_HOST_VALUES[name], **kw)
 
 
 def test_explicit_cpu_device_runs_without_cuda(no_cuda):

@@ -110,6 +110,24 @@ def _bincount_2d(
     return counts.reshape(nx, ny)
 
 
+_JAX_DTYPES = {torch.int64: torch.int32, torch.float64: torch.float32, torch.complex128: torch.complex64}
+
+
+def _jax_dtype(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype ``jnp.asarray`` gives it with 64-bit types off, as the JAX
+    package's states hold it: int64 wraps to int32 (a label of 2**33 becomes 0) and
+    float64 rounds to float32; other dtypes stay.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.utilities.data import _jax_dtype
+        >>> _jax_dtype(torch.tensor([2**33 + 1, 1]))
+        tensor([1, 1], dtype=torch.int32)
+    """
+    target = _JAX_DTYPES.get(x.dtype)
+    return x if target is None else x.to(target)
+
+
 def allclose(a: torch.Tensor, b: torch.Tensor, rtol: float = 1e-5, atol: float = 1e-8) -> bool:
     """``numpy.allclose`` on two tensors of any dtypes (compared in their promoted dtype).
     On the card the answer is one bool read back to the host."""
