@@ -263,6 +263,29 @@ Phases, one JSON line each, in order:
    value tolerance (AMI absolutely), each compute under 1 GB beyond its states. Update
    and compute ms, the expected mutual information's term count, the AMI and
    Davies-Bouldin computes profiled.
+33. image_quality: a x4 super-resolution model's evaluation on DIV2K's validation set
+   from a seed (100 RGB images of 1356 x 2040 float32 in [0, 1], 25 updates of 4;
+   smooth random targets; predictions blurred, noisy, with 8 x 8 block offsets) through
+   PSNR (and per image), SSIM, MS-SSIM (five scales), UQI, VIF, TV, RMSE-SW (window 8),
+   RASE, PSNR-B on the Y channel and ``image_gradients``: the first update's first 2
+   images' per-image values within ``IMAGE_UNITS`` float32 rounding units of the CPU
+   port's (the gradients bit for bit); SSIM, MS-SSIM, UQI and VIF the same bits with
+   TF32 allowed in cuDNN and cuBLAS; the PSNR, SSIM, MS-SSIM, UQI and TV updates under
+   ``torch.cuda.set_sync_debug_mode("error")``; an SSIM or MS-SSIM update under 6 GB
+   beyond what the card held. Update and compute ms, peak extra bytes, profiled updates.
+34. image_quality_3d: 3-D SSIM of MRI-synthesis volumes (16 BraTS-shaped volumes of
+   1 x 240 x 240 x 155 in raw intensities, updates of 2, ``data_range`` from the data,
+   the 11^3 gaussian window) and MS-SSIM with four scales on the first update: a central
+   96 x 96 x 64 crop of the first volume within ``IMAGE_UNITS`` of the CPU port's, the
+   same bits with TF32 allowed, no host read in an update; the window applied directly
+   and as three 1-D passes, both timed on one batch.
+35. pansharpening: PanCollection's WorldView-3 test sets at their published sizes from a
+   seed (20 reduced-resolution samples of 8 x 256 x 256 against their truth; 20
+   full-resolution samples of 8 x 512 x 512 with ``ms`` 8 x 128 x 128 and the 512 x 512
+   ``pan`` repeated to 8 bands) in updates of 4: SAM, ERGAS (ratio 4), SCC and UQI on the
+   reduced set; D_lambda, D_s without and with ``pan_lr`` and QNR on the full set. The
+   first 4 samples' values within ``PAN_UNITS`` of the CPU port's; D_lambda's compute
+   under 6 GB beyond its states; a profiled D_lambda compute and UQI update.
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -4570,6 +4593,428 @@ def clustering_phase(card: str) -> None:
         profile_step(f"clustering_{name}_compute", lambda: fresh_compute(metrics[name]))
 
 
+# ---------------------------------------------------------------------------
+# image quality, 3-D SSIM and pan-sharpening (slice 14)
+# ---------------------------------------------------------------------------
+
+DIV2K_IMAGES = 100  # DIV2K's validation set: 100 high-resolution images
+DIV2K_SHAPE = (1356, 2040)  # one size for all: DIV2K's images are 2040 wide, 1356 its common height
+DIV2K_BATCH = 4
+DIV2K_CPU_IMAGES = 2  # the CPU port reads the first update's first 2 images
+IMAGE_UNITS = 32  # card against CPU: float32 rounding units (2**-24) of a value's magnitude, at least 1
+UNIT = 2.0**-24
+SSIM_PEAK_LIMIT = 6 * 10**9  # an SSIM or MS-SSIM update's bytes beyond what the card held
+NO_HOST_READ = ("psnr", "ssim", "ms_ssim", "uqi", "tv")
+TF32_PROOF = ("ssim", "ms_ssim", "uqi", "vif")
+BRATS_MRI_VOLUMES = 16
+BRATS_MRI_BATCH = 2
+BRATS_MRI_CROP = (96, 96, 64)  # the CPU port's central crop of the first volume
+BRATS_MRI_INTENSITY = (400.0, 200.0, 650.0, 900.0)  # T1ce-like: background, necrotic, oedema, enhancing
+BRATS_MS_BETAS = (0.0448, 0.2856, 0.3001, 0.2363)  # five scales need 155 // 16 > 10: the default's first four
+SEPARABLE_MIN_SPEEDUP = 3.0
+PAN_REDUCED = (20, 8, 256)  # WorldView-3 reduced-resolution test set: samples, bands, fused size (ms a quarter)
+PAN_FULL = (20, 8, 512)  # full resolution: fused 512, ms 128, pan 512
+PAN_RATIO = 4
+PAN_BATCH = 4
+PAN_CPU_SAMPLES = 4
+D_LAMBDA_PEAK_LIMIT = 6 * 10**9  # D_lambda's compute beyond its states: its band pairs go in chunks
+# card against CPU, in float32 rounding units of the magnitude (at least 1): 121-tap UQI maps
+# averaged (a UQI mean within 121 units; D_lambda and D_s difference two, QNR four); SAM's
+# arccos multiplies the cosine's few units by 1 / sin(angle), about 30 at these angles
+PAN_UNITS = {"sam": 256, "ergas": 32, "scc": 32, "uqi": 121, "d_lambda": 242, "d_s": 242, "d_s_pan_lr": 242,
+             "qnr": 484}
+
+
+def luma(rgb: torch.Tensor) -> torch.Tensor:
+    """The Y channel (BT.601) of an RGB batch, ``(B, 1, H, W)``: PSNR-B's grayscale input."""
+    weights = torch.tensor([0.299, 0.587, 0.114], dtype=rgb.dtype, device=rgb.device).reshape(1, 3, 1, 1)
+    return (rgb * weights).sum(1, keepdim=True)
+
+
+def div2k_batch(gen: torch.Generator, n: int, shape=DIV2K_SHAPE, device: str = "cuda"):
+    """(preds, target) of ``n`` RGB float32 images in [0, 1], as a x4 super-resolution model's
+    evaluation sees them: smooth random targets (bicubic upsampling of a 1/16-scale field
+    plus a finer 1/4-scale layer), and predictions that are the targets blurred (3 x 3
+    box), with noise (std 0.01) and 8 x 8 block offsets (std 0.01)."""
+    fn = torch.nn.functional
+    h, w = shape
+    coarse = torch.rand(n, 3, h // 16 + 2, w // 16 + 2, generator=gen, device=device)
+    fine = torch.rand(n, 3, h // 4 + 1, w // 4 + 1, generator=gen, device=device)
+    target = (0.8 * fn.interpolate(coarse, size=shape, mode="bicubic", align_corners=False)
+              + 0.2 * fn.interpolate(fine, size=shape, mode="bilinear", align_corners=False)).clamp(0, 1)
+    blurred = fn.avg_pool2d(fn.pad(target, (1, 1, 1, 1), mode="replicate"), 3, stride=1)
+    blocks = torch.randn(n, 3, -(-h // 8), -(-w // 8), generator=gen, device=device)
+    blocks = blocks.repeat_interleave(8, 2).repeat_interleave(8, 3)[..., :h, :w]
+    noise = torch.randn(target.shape, generator=gen, device=device)
+    return (blurred + 0.01 * noise + 0.01 * blocks).clamp(0, 1).contiguous(), target.contiguous()
+
+
+def image_metrics(device=None) -> dict:
+    from torchmetrics_tpu_torch import image as im
+
+    return {"psnr": im.PeakSignalNoiseRatio(data_range=1.0, device=device),
+            "psnr_per_image": im.PeakSignalNoiseRatio(data_range=1.0, dim=(1, 2, 3), reduction="none", device=device),
+            "ssim": im.StructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+            "ms_ssim": im.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+            "uqi": im.UniversalImageQualityIndex(device=device),
+            "vif": im.VisualInformationFidelity(device=device),
+            "tv": im.TotalVariation(device=device),
+            "rmse_sw": im.RootMeanSquaredErrorUsingSlidingWindow(window_size=8, device=device),
+            "rase": im.RelativeAverageSpectralError(device=device),
+            "psnrb": im.PeakSignalNoiseRatioWithBlockedEffect(data_range=1.0, device=device)}
+
+
+def image_args(name: str, preds: torch.Tensor, target: torch.Tensor) -> tuple:
+    """A metric's update arguments: TV reads the predictions, PSNR-B their Y channel."""
+    if name == "tv":
+        return (preds,)
+    if name == "psnrb":
+        return luma(preds), luma(target)
+    return preds, target
+
+
+def image_values(preds: torch.Tensor, target: torch.Tensor, names=None) -> dict:
+    """Every image metric's per-image values (``names`` only, where given), through the
+    port's functions: UQI's map mean, RMSE-SW (window 8), RASE and PSNR-B an image at a
+    time, TV of the predictions; and the gradients' ``(dy, dx)``."""
+    from torchmetrics_tpu_torch.functional import image as fi
+    from torchmetrics_tpu_torch.functional.image.uqi import _uqi_map
+
+    def each(fn):
+        return torch.stack([fn(p[None], t[None]) for p, t in zip(preds, target)])
+
+    makers = {
+        "psnr": lambda: fi.peak_signal_noise_ratio(preds, target, 1.0, dim=(1, 2, 3), reduction="none"),
+        "ssim": lambda: fi.structural_similarity_index_measure(preds, target, data_range=1.0, reduction="none"),
+        "ms_ssim": lambda: fi.multiscale_structural_similarity_index_measure(preds, target, data_range=1.0,
+                                                                             reduction="none"),
+        "uqi": lambda: _uqi_map(preds, target).flatten(1).mean(1, dtype=torch.float64).to(torch.float32),
+        "vif": lambda: fi.visual_information_fidelity(preds, target, reduction="none"),
+        "tv": lambda: fi.total_variation(preds, reduction="none"),
+        "rmse_sw": lambda: each(lambda p, t: fi.root_mean_squared_error_using_sliding_window(p, t, 8)),
+        "rase": lambda: each(fi.relative_average_spectral_error),
+        "psnrb": lambda: each(lambda p, t: fi.peak_signal_noise_ratio_with_blocked_effect(luma(p), luma(t), 1.0)),
+        "gradients": lambda: torch.stack(fi.image_gradients(preds)),
+    }
+    return {name: make() for name, make in makers.items() if names is None or name in names}
+
+
+def units_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want|`` in float32 rounding units of ``max(|want|, 1)``; NaN
+    must be in the same places, dtypes and shapes equal (else inf)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return math.inf
+    return largest_rel_diff(got, want, floor=1.0) / UNIT
+
+
+def hold_units(label: str, got: dict, want: dict, units) -> dict:
+    """Key by key within ``units`` (a number, or a dict by key) rounding units; the
+    gradients bit for bit. Returns each key's difference in units."""
+    worst = {}
+    for name, value in want.items():
+        if name == "gradients":
+            if not same_bits(got[name], value):
+                raise AssertionError(f"{label} gradients: not the CPU's bits")
+            worst[name] = 0.0
+            continue
+        limit = units[name] if isinstance(units, dict) else units
+        diff = units_diff(got[name], value)
+        if not diff <= limit:
+            raise AssertionError(f"{label} {name}: {summary(got[name])} on the card, {summary(value)} on the CPU "
+                                 f"({diff} units, limit {limit})")
+        worst[name] = diff
+    return worst
+
+
+def ieee_then_tf32(call):
+    """``call()`` with TF32 off in cuDNN and cuBLAS, then again with both on (the caller's
+    settings restored after): the two results."""
+    previous = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        results = []
+        for allowed in (False, True):
+            torch.backends.cudnn.allow_tf32 = allowed
+            torch.backends.cuda.matmul.allow_tf32 = allowed
+            results.append(call())
+        return results
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = previous
+
+
+def hold_tf32_bits(label: str, call) -> list:
+    """The keys of ``call()``'s dict, each the same bits with TF32 allowed as without."""
+    ieee, tf32 = ieee_then_tf32(call)
+    for name, value in ieee.items():
+        if not same_bits(tf32[name], value):
+            raise AssertionError(f"{label} {name}: TF32 allowed changes the bits ({units_diff(tf32[name], value)} "
+                                 "units)")
+    return sorted(ieee)
+
+
+def no_host_read(call):
+    """``call()`` under ``torch.cuda.set_sync_debug_mode("error")``: a host read raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def central_crop(x: torch.Tensor, size) -> torch.Tensor:
+    """The central ``size`` window of the trailing axes."""
+    index = [slice(None)] * (x.ndim - len(size))
+    index += [slice((n - s) // 2, (n - s) // 2 + s) for n, s in zip(x.shape[-len(size):], size)]
+    return x[tuple(index)]
+
+
+def run_image_updates(metrics: dict, batches, timed: bool = True) -> dict:
+    """Every batch into every metric, and ``image_gradients`` of each: name -> update ms
+    (median; 0 when not ``timed``)."""
+    from torchmetrics_tpu_torch.functional import image_gradients
+
+    clock = synced_ms if timed else (lambda call: (call(), 0.0)[1])
+    times = {name: [] for name in [*metrics, "image_gradients"]}
+    for preds, target in batches:
+        for name, metric in metrics.items():
+            times[name].append(clock(lambda: metric.update(*image_args(name, preds, target))))
+        times["image_gradients"].append(clock(lambda: image_gradients(preds)))
+    return {name: median(t) for name, t in times.items()}
+
+
+def image_quality_phase(card: str) -> None:
+    clock = [("start", time.perf_counter())]
+    gen = torch.Generator(device="cuda").manual_seed(89)
+    updates = DIV2K_IMAGES // DIV2K_BATCH
+    first = div2k_batch(gen, DIV2K_BATCH)
+    clock.append(("inputs", time.perf_counter()))
+    metrics = image_metrics()
+
+    def batches():
+        yield first
+        for _ in range(updates - 1):
+            yield div2k_batch(gen, DIV2K_BATCH)
+
+    update_ms = run_image_updates(metrics, batches())
+    compute_ms = {name: [synced_ms(lambda: fresh_compute(m)) for _ in range(2)] for name, m in metrics.items()}
+    values = {name: fresh_compute(m) for name, m in metrics.items()}
+    clock.append(("card", time.perf_counter()))
+    for name, value in values.items():
+        if not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"image_quality {name}: {summary(value)}")
+    if not 0.5 < float(values["ssim"]) < 1.0 or values["psnr_per_image"].shape != (DIV2K_IMAGES,):
+        raise AssertionError(f"image_quality: SSIM {float(values['ssim'])}, {values['psnr_per_image'].shape}")
+    preds, target = (x[:DIV2K_CPU_IMAGES] for x in first)
+    card_values = image_values(preds, target)
+    cpu_values = image_values(preds.cpu(), target.cpu())
+    clock.append(("cpu", time.perf_counter()))
+    worst = hold_units("image_quality", card_values, cpu_values, IMAGE_UNITS)
+    tf32 = hold_tf32_bits("image_quality", lambda: image_values(*first, names=TF32_PROOF))
+    guarded = image_metrics()
+    for name in NO_HOST_READ:
+        guarded[name].update(*image_args(name, *first))
+        no_host_read(lambda: guarded[name].update(*image_args(name, *first)))
+    peaks = {name: update_peak_bytes(image_metrics()[name], image_args(name, *first)) for name in ("ssim", "ms_ssim")}
+    if max(peaks.values()) > SSIM_PEAK_LIMIT:
+        raise AssertionError(f"image_quality: an update's peak extra bytes {peaks}")
+    peaks.update({name: update_peak_bytes(image_metrics()[name], image_args(name, *first))
+                  for name in ("uqi", "vif")})
+    peaks["rase_compute"] = compute_peak_bytes(metrics["rase"])
+    clock.append(("checks", time.perf_counter()))
+    emit({"phase": "image_quality", "images": DIV2K_IMAGES, "shape": [3, *DIV2K_SHAPE], "batch": DIV2K_BATCH,
+          "updates": updates, "update_ms": update_ms, "compute_ms_first_second": compute_ms,
+          "values": {name: summary(v) for name, v in values.items()},
+          "cpu_images": DIV2K_CPU_IMAGES, "per_image_units": worst,
+          "units_limit": IMAGE_UNITS, "tf32_same_bits": tf32, "no_host_read_updates": list(NO_HOST_READ),
+          "update_peak_extra_bytes": peaks, "seconds": clock_seconds(clock), "card": card})
+    for name in ("ssim", "ms_ssim", "vif"):
+        profile_step(f"image_quality_{name}_update", lambda: guarded.get(name, metrics[name]).update(*first))
+
+
+def brats_mri(rng, device: str = "cuda", gen=None, shape=BRATS_SHAPE, wt_voxels=BRATS_WT_VOXELS):
+    """(preds, target) of one MRI-synthesis pair, ``(1, 240, 240, 155)`` float32 volumes in
+    raw intensities: ``brats_volume``'s label maps at T1ce-like levels under a smooth bias
+    field; the prediction's labels are the shifted ones, with noise (std 15)."""
+    pred_labels, target_labels = brats_volume(rng, shape=shape, device=device, wt_voxels=wt_voxels)
+    levels = torch.tensor(BRATS_MRI_INTENSITY, device=device)
+    cells = torch.from_numpy(rng.normal(0, 0.05, (1, 1, 4, 4, 3)).astype(np.float32)).to(device)
+    bias = 1 + torch.nn.functional.interpolate(cells, size=shape, mode="trilinear", align_corners=False)[0]
+    noise = torch.randn((1, *shape), generator=gen, device=device)
+    return levels[pred_labels][None] * bias + 15 * noise, levels[target_labels][None] * bias
+
+
+def separable_conv3d(x: torch.Tensor, sigma: float = 1.5, size: int = 11) -> torch.Tensor:
+    """The 11^3 gaussian window as three 1-D passes (33 taps), at full float32 precision."""
+    from torchmetrics_tpu_torch.functional.image.utils import _gaussian, conv3d
+
+    g = _gaussian(size, sigma, x.dtype, x.device).reshape(-1)
+    c = x.shape[1]
+    for shape in ((size, 1, 1), (1, size, 1), (1, 1, size)):
+        x = conv3d(x, g.reshape(1, 1, *shape).expand(c, 1, *shape).contiguous(), groups=c)
+    return x
+
+
+def ssim_3d_moments(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """SSIM's stacked, padded moment batch of a 3-D pair (the convolutions' input)."""
+    from torchmetrics_tpu_torch.functional.image.utils import reflect_pad_3d
+
+    preds, target = (reflect_pad_3d(x, 5, 5, 5) for x in (preds, target))
+    return torch.cat([preds, target, preds * preds, target * target, preds * target])
+
+
+def image_quality_3d_phase(card: str) -> None:
+    from torchmetrics_tpu_torch.functional import image as fi
+    from torchmetrics_tpu_torch.functional.image.utils import _gaussian_kernel_3d, conv3d
+    from torchmetrics_tpu_torch.image import StructuralSimilarityIndexMeasure
+
+    clock = [("start", time.perf_counter())]
+    rng = np.random.default_rng(97)
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    pairs = [brats_mri(rng, gen=gen) for _ in range(BRATS_MRI_VOLUMES)]
+    batches = [tuple(torch.stack(x) for x in zip(*pairs[i:i + BRATS_MRI_BATCH]))
+               for i in range(0, BRATS_MRI_VOLUMES, BRATS_MRI_BATCH)]
+    del pairs
+    clock.append(("inputs", time.perf_counter()))
+    metric = StructuralSimilarityIndexMeasure()
+    update_ms = [synced_ms(lambda: metric.update(*batch)) for batch in batches]
+    compute_ms = [synced_ms(lambda: fresh_compute(metric)) for _ in range(2)]
+    ssim = fresh_compute(metric)
+    ms_ssim_ms = synced_ms(lambda: fi.multiscale_structural_similarity_index_measure(*batches[0],
+                                                                                    betas=BRATS_MS_BETAS))
+    ms_ssim = fi.multiscale_structural_similarity_index_measure(*batches[0], betas=BRATS_MS_BETAS, reduction="none")
+    if not 0.0 < float(ssim) < 1.0 or not bool(torch.isfinite(ms_ssim).all()):
+        raise AssertionError(f"image_quality_3d: SSIM {float(ssim)}, MS-SSIM {ms_ssim.tolist()}")
+    clock.append(("card", time.perf_counter()))
+    crop = [central_crop(x[:1], BRATS_MRI_CROP) for x in batches[0]]
+    card_value = fi.structural_similarity_index_measure(*crop, reduction="none")
+    cpu_value = fi.structural_similarity_index_measure(*(x.cpu() for x in crop), reduction="none")
+    clock.append(("cpu", time.perf_counter()))
+    worst = hold_units("image_quality_3d", {"ssim": card_value}, {"ssim": cpu_value}, IMAGE_UNITS)
+    tf32 = hold_tf32_bits("image_quality_3d", lambda: {
+        "ssim": fi.structural_similarity_index_measure(*batches[0], reduction="none"),
+        "ms_ssim": fi.multiscale_structural_similarity_index_measure(*batches[0], betas=BRATS_MS_BETAS,
+                                                                     reduction="none")})
+    no_host_read(lambda: metric.update(*batches[0]))
+    peak = update_peak_bytes(StructuralSimilarityIndexMeasure(), batches[0])
+    if peak > SSIM_PEAK_LIMIT:
+        raise AssertionError(f"image_quality_3d: an update's peak extra bytes {peak}")
+    # the 11^3 window: directly (the port's form, JAX's sum order) and as three 1-D passes
+    moments = ssim_3d_moments(*batches[0])
+    kernel = _gaussian_kernel_3d(1, (11, 11, 11), (1.5, 1.5, 1.5), moments.dtype, moments.device)
+    direct = conv3d(moments, kernel)
+    separable = separable_conv3d(moments)
+    forms = {"direct_ms": cuda_ms(lambda: conv3d(moments, kernel), iters=3, warmup=1),
+             "separable_ms": cuda_ms(lambda: separable_conv3d(moments), iters=3, warmup=1),
+             "max_rel_diff": float(((separable - direct).abs() / direct.abs().clamp(min=1e-30)).max())}
+    forms["speedup"] = forms["direct_ms"] / forms["separable_ms"]
+    forms["separable_at_least_3x"] = forms["speedup"] >= SEPARABLE_MIN_SPEEDUP
+    del moments, direct, separable
+    clock.append(("checks", time.perf_counter()))
+    emit({"phase": "image_quality_3d", "volumes": BRATS_MRI_VOLUMES, "shape": [1, *BRATS_SHAPE],
+          "batch": BRATS_MRI_BATCH, "updates": len(batches), "window": [11, 11, 11], "data_range": None,
+          "update_ms": median(update_ms), "update_ms_max": max(update_ms), "compute_ms_first_second": compute_ms,
+          "ms_ssim_first_update_ms": ms_ssim_ms, "ms_ssim_betas": list(BRATS_MS_BETAS),
+          "values": {"ssim": float(ssim), "ms_ssim": ms_ssim.tolist()}, "cpu_crop": list(BRATS_MRI_CROP),
+          "crop_units": worst, "units_limit": IMAGE_UNITS, "tf32_same_bits": tf32, "no_host_read_update": True,
+          "update_peak_extra_bytes": peak, "window_forms": forms, "seconds": clock_seconds(clock), "card": card})
+    profile_step("image_quality_3d_ssim_update", lambda: metric.update(*batches[0]))
+
+
+def pan_set(gen: torch.Generator, samples: int, bands: int, size: int, device: str = "cuda") -> dict:
+    """A WorldView-3-shaped test set: ``truth`` (smooth random bands, a bicubic 1/8-scale
+    field), ``fused`` (truth with noise std 0.02 and a band bias), ``pan`` (the bands' mean,
+    repeated to every band), ``ms`` and ``pan_lr`` (truth and pan area-averaged by the
+    ratio 4)."""
+    fn = torch.nn.functional
+    coarse = torch.rand(samples, bands, size // 8 + 2, size // 8 + 2, generator=gen, device=device)
+    truth = (0.05 + 0.9 * fn.interpolate(coarse, size=(size, size), mode="bicubic", align_corners=False)).clamp(0.01, 1)
+    bias = 0.02 * torch.randn(samples, bands, 1, 1, generator=gen, device=device)
+    fused = (truth + bias + 0.02 * torch.randn(truth.shape, generator=gen, device=device)).clamp(0.01, 1)
+    pan = truth.mean(1, keepdim=True).expand(-1, bands, -1, -1).contiguous()
+    return {"truth": truth, "fused": fused, "pan": pan, "ms": fn.avg_pool2d(truth, PAN_RATIO),
+            "pan_lr": fn.avg_pool2d(pan, PAN_RATIO)}
+
+
+def pan_metrics(device=None) -> dict:
+    from torchmetrics_tpu_torch import image as im
+
+    return {"sam": im.SpectralAngleMapper(device=device),
+            "ergas": im.ErrorRelativeGlobalDimensionlessSynthesis(ratio=PAN_RATIO, device=device),
+            "scc": im.SpatialCorrelationCoefficient(device=device),
+            "uqi": im.UniversalImageQualityIndex(device=device),
+            "d_lambda": im.SpectralDistortionIndex(device=device),
+            "d_s": im.SpatialDistortionIndex(device=device),
+            "d_s_pan_lr": im.SpatialDistortionIndex(device=device),
+            "qnr": im.QualityWithNoReference(device=device)}
+
+
+def pan_args(name: str, reduced: dict, full: dict, rows: slice) -> tuple:
+    """A metric's update arguments over ``rows`` of the sets: the reduced set's fused
+    images against the truth, the full set's against ``ms`` and ``pan`` (and ``pan_lr``)."""
+    if name in ("sam", "ergas", "scc", "uqi"):
+        return reduced["fused"][rows], reduced["truth"][rows]
+    if name == "d_lambda":
+        return full["fused"][rows], full["ms"][rows]
+    target = {"ms": full["ms"][rows], "pan": full["pan"][rows]}
+    if name == "d_s_pan_lr":
+        target["pan_lr"] = full["pan_lr"][rows]
+    return full["fused"][rows], target
+
+
+def pan_values(reduced: dict, full: dict) -> dict:
+    """Every index on the sets through the port's functions; QNR from D_lambda and D_s, as
+    its compute takes it."""
+    from torchmetrics_tpu_torch.functional import image as fi
+
+    fused, truth = reduced["fused"], reduced["truth"]
+    out = {"sam": fi.spectral_angle_mapper(fused, truth),
+           "ergas": fi.error_relative_global_dimensionless_synthesis(fused, truth, ratio=PAN_RATIO),
+           "scc": fi.spatial_correlation_coefficient(fused, truth),
+           "uqi": fi.universal_image_quality_index(fused, truth),
+           "d_lambda": fi.spectral_distortion_index(full["fused"], full["ms"]),
+           "d_s": fi.spatial_distortion_index(full["fused"], full["ms"], full["pan"]),
+           "d_s_pan_lr": fi.spatial_distortion_index(full["fused"], full["ms"], full["pan"], full["pan_lr"])}
+    out["qnr"] = (1 - out["d_lambda"]) * (1 - out["d_s"])
+    return out
+
+
+def pansharpening_phase(card: str) -> None:
+    clock = [("start", time.perf_counter())]
+    gen = torch.Generator(device="cuda").manual_seed(101)
+    reduced, full = pan_set(gen, *PAN_REDUCED), pan_set(gen, *PAN_FULL)
+    clock.append(("inputs", time.perf_counter()))
+    metrics = pan_metrics()
+    samples = PAN_REDUCED[0]
+    update_ms = {name: median([synced_ms(lambda: m.update(*pan_args(name, reduced, full, slice(i, i + PAN_BATCH))))
+                               for i in range(0, samples, PAN_BATCH)]) for name, m in metrics.items()}
+    compute_ms = {name: [synced_ms(lambda: fresh_compute(m)) for _ in range(2)] for name, m in metrics.items()}
+    values = {name: fresh_compute(m) for name, m in metrics.items()}
+    peak = compute_peak_bytes(metrics["d_lambda"])
+    if peak > D_LAMBDA_PEAK_LIMIT:
+        raise AssertionError(f"pansharpening: D_lambda's compute took {peak} bytes beyond its states")
+    for name, value in values.items():
+        if not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"pansharpening {name}: {summary(value)}")
+    clock.append(("card", time.perf_counter()))
+    head = slice(0, PAN_CPU_SAMPLES)
+    sets = [{k: v[head] for k, v in s.items()} for s in (reduced, full)]
+    card_values = pan_values(*sets)
+    cpu_values = pan_values(*({k: v.cpu() for k, v in s.items()} for s in sets))
+    clock.append(("cpu", time.perf_counter()))
+    worst = hold_units("pansharpening", card_values, cpu_values, PAN_UNITS)
+    clock.append(("checks", time.perf_counter()))
+    emit({"phase": "pansharpening", "reduced": {"samples": PAN_REDUCED[0], "bands": PAN_REDUCED[1],
+                                                "fused": PAN_REDUCED[2], "ms": PAN_REDUCED[2] // PAN_RATIO},
+          "full": {"samples": PAN_FULL[0], "bands": PAN_FULL[1], "fused": PAN_FULL[2], "ms": PAN_FULL[2] // PAN_RATIO,
+                   "pan": PAN_FULL[2]},
+          "batch": PAN_BATCH, "update_ms": update_ms, "compute_ms_first_second": compute_ms,
+          "values": {name: summary(v) for name, v in values.items()}, "cpu_samples": PAN_CPU_SAMPLES,
+          "cpu_units": worst, "units_limit": PAN_UNITS, "d_lambda_compute_peak_extra_bytes": peak,
+          "seconds": clock_seconds(clock), "card": card})
+    profile_step("pansharpening_d_lambda_compute", lambda: fresh_compute(metrics["d_lambda"]))
+    profile_step("pansharpening_uqi_update", lambda: metrics["uqi"].update(*pan_args("uqi", reduced, full, head)))
+
+
 def flagship_forward(cases: dict) -> dict:
     """The 26 sepconv7 launches of one bf16 trunk forward at the flagship's batch: their
     summed times and bound, and their worst error against the plain version."""
@@ -4584,6 +5029,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     from torchmetrics_tpu_torch.kernels.sepconv import KERNEL
 
     card = card_line()
@@ -4623,6 +5069,10 @@ def main() -> int:
     procrustes_phase(card)
     nominal_phase(card)
     clustering_phase(card)
+    image_quality_phase(card)
+    image_quality_3d_phase(card)
+    pansharpening_phase(card)
+    emit({"phase": "script", "seconds": time.perf_counter() - started})
 
     print(card, flush=True)
     kernels = []

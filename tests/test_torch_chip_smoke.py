@@ -1105,3 +1105,75 @@ def test_cluster_inputs_and_clustering_rehearsal(chip_smoke):
     runs[1]["RandScore"]["value"] = runs[1]["RandScore"]["value"] + 1e-3
     with pytest.raises(AssertionError, match="RandScore"):
         chip_smoke.hold_clustering("rehearsal", *runs)
+
+
+def test_div2k_batch_and_image_rehearsal_holds_the_cpu_port(chip_smoke):
+    gen = torch.Generator().manual_seed(0)
+    preds, target = chip_smoke.div2k_batch(gen, 2, shape=(176, 184), device="cpu")  # MS-SSIM's five scales
+    assert preds.shape == target.shape == (2, 3, 176, 184) and preds.dtype == torch.float32
+    assert float(preds.min()) >= 0 and float(preds.max()) <= 1 and 0 < float((preds - target).abs().mean()) < 0.05
+    assert chip_smoke.luma(preds).shape == (2, 1, 176, 184)
+    metrics = chip_smoke.image_metrics("cpu")
+    times = chip_smoke.run_image_updates(metrics, [(preds, target)] * 2, timed=False)
+    assert set(times) == {*metrics, "image_gradients"}
+    for name, metric in metrics.items():
+        assert metric.update_count == 2 and bool(torch.isfinite(metric.compute()).all()), name
+    assert 0.5 < float(metrics["ssim"].compute()) < 1.0
+    got, want = chip_smoke.image_values(preds, target), chip_smoke.image_values(preds.clone(), target.clone())
+    assert set(got) == {"psnr", "ssim", "ms_ssim", "uqi", "vif", "tv", "rmse_sw", "rase", "psnrb", "gradients"}
+    worst = chip_smoke.hold_units("rehearsal", got, want, chip_smoke.IMAGE_UNITS)
+    assert max(worst.values()) == 0.0
+    got["ssim"] = got["ssim"] + 64 * chip_smoke.UNIT
+    with pytest.raises(AssertionError, match="ssim"):
+        chip_smoke.hold_units("rehearsal", got, want, chip_smoke.IMAGE_UNITS)
+    got["ssim"] = want["ssim"]
+    got["gradients"] = got["gradients"].clone()
+    got["gradients"][0, 0, 0, 0, 0] += 2**-20
+    with pytest.raises(AssertionError, match="gradients"):
+        chip_smoke.hold_units("rehearsal", got, want, chip_smoke.IMAGE_UNITS)
+    assert chip_smoke.units_diff(torch.tensor([2.0 + 2**-22]), torch.tensor([2.0])) == pytest.approx(2.0)
+    assert chip_smoke.units_diff(torch.tensor([float("nan")]), torch.tensor([1.0])) == math.inf
+    assert chip_smoke.central_crop(torch.zeros(1, 3, 10, 12), (4, 6)).shape == (1, 3, 4, 6)
+
+
+def test_brats_mri_and_the_3d_window_forms(chip_smoke):
+    rng = np.random.default_rng(0)
+    preds, target = chip_smoke.brats_mri(rng, device="cpu", shape=(24, 24, 16), wt_voxels=(300, 600))
+    assert preds.shape == target.shape == (1, 24, 24, 16) and target.dtype == torch.float32
+    assert set(torch.unique(target / target.median()).round(decimals=0).tolist()) <= {0.0, 1.0, 2.0, 3.0}
+    moments = chip_smoke.ssim_3d_moments(preds[None], target[None])
+    assert moments.shape == (5, 1, 34, 34, 26)
+    from torchmetrics_tpu_torch.functional.image.utils import _gaussian_kernel_3d, conv3d
+
+    direct = conv3d(moments, _gaussian_kernel_3d(1, (11, 11, 11), (1.5, 1.5, 1.5)))
+    separable = chip_smoke.separable_conv3d(moments)
+    assert separable.shape == direct.shape == (5, 1, 24, 24, 16)
+    assert float(((separable - direct).abs() / direct.abs().clamp(min=1e-30)).max()) < 1e-5
+
+
+def test_pan_sets_and_pansharpening_rehearsal_holds_the_cpu_port(chip_smoke):
+    gen = torch.Generator().manual_seed(0)
+    reduced, full = chip_smoke.pan_set(gen, 2, 4, 64, device="cpu"), chip_smoke.pan_set(gen, 2, 4, 64, device="cpu")
+    assert reduced["ms"].shape == (2, 4, 16, 16) and full["pan"].shape == (2, 4, 64, 64)
+    assert torch.equal(full["pan"][:, 0], full["pan"][:, 3]) and full["pan_lr"].shape == (2, 4, 16, 16)
+    metrics = chip_smoke.pan_metrics("cpu")
+    for name, metric in metrics.items():
+        metric.update(*chip_smoke.pan_args(name, reduced, full, slice(0, 2)))
+        assert bool(torch.isfinite(metric.compute()).all()), name
+    got, want = chip_smoke.pan_values(reduced, full), chip_smoke.pan_values(reduced, full)
+    assert set(got) == set(chip_smoke.PAN_UNITS)
+    assert max(chip_smoke.hold_units("rehearsal", got, want, chip_smoke.PAN_UNITS).values()) == 0.0
+    assert torch.allclose(got["qnr"], metrics["qnr"].compute(), atol=1e-6)
+    got["d_s"] = got["d_s"] + 1e-3
+    with pytest.raises(AssertionError, match="d_s"):
+        chip_smoke.hold_units("rehearsal", got, want, chip_smoke.PAN_UNITS)
+
+
+def test_tf32_helper_runs_twice_and_restores_the_flags(chip_smoke):
+    seen = []
+    prior = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    results = chip_smoke.ieee_then_tf32(
+        lambda: seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)) or len(seen))
+    assert results == [1, 2] and seen == [(False, False), (True, True)]
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == prior
+    assert chip_smoke.hold_tf32_bits("rehearsal", lambda: {"x": torch.ones(3)}) == ["x"]

@@ -23,8 +23,8 @@ import torch
 import torchmetrics_tpu_torch
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.classification import MulticlassAccuracy
-from torchmetrics_tpu_torch import (classification, clustering, detection, functional, nominal, regression, retrieval,
-                                    segmentation, shape, wrappers)
+from torchmetrics_tpu_torch import (classification, clustering, detection, functional, image, nominal, regression,
+                                    retrieval, segmentation, shape, wrappers)
 from torchmetrics_tpu_torch.image import (
     FrechetInceptionDistance,
     InceptionScore,
@@ -208,6 +208,42 @@ def test_clustering_nominal_pairwise_and_shape_functions_on_host_values_raise_wi
     kw = {"num_classes": 2} if name == "cluster_accuracy" else {}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         getattr(functional, name)(*SLICE_13_HOST_VALUES[name], **kw)
+
+
+IMAGE_CLASS_ARGS = {"PeakSignalNoiseRatio": {"data_range": 1.0}, "PeakSignalNoiseRatioWithBlockedEffect": {"data_range": 1.0},
+                    "FrechetInceptionDistance": {"feature": _toy_extractor},
+                    "KernelInceptionDistance": {"feature": _toy_extractor}, "InceptionScore": {"feature": _toy_extractor},
+                    "MemorizationInformedFrechetInceptionDistance": {"feature": _toy_extractor}}
+
+
+@pytest.mark.parametrize("name", sorted(image.__all__))
+def test_image_classes_at_default_device_raise_without_cuda(no_cuda, name):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(image, name)(**IMAGE_CLASS_ARGS.get(name, {}))
+
+
+def test_top_level_compat_psnr_at_default_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torchmetrics_tpu_torch.PeakSignalNoiseRatio()
+
+
+_IMG = np.full((1, 3, 48, 48), 0.5, np.float32).tolist()
+IMAGE_HOST_VALUES = {
+    **{name: (_IMG, _IMG) for name in functional.image.__all__},
+    "image_gradients": (np.zeros((1, 1, 4, 4), np.float32),),
+    "total_variation": (_IMG,),
+    "spatial_distortion_index": (_IMG, np.zeros((1, 3, 16, 16), np.float32).tolist(), _IMG),
+    "quality_with_no_reference": (_IMG, np.zeros((1, 3, 16, 16), np.float32).tolist(), _IMG),
+}
+
+
+@pytest.mark.parametrize("name", sorted(IMAGE_HOST_VALUES))
+def test_image_functions_on_host_values_raise_without_cuda(no_cuda, name):
+    """Lists (numpy for the gradients, which ask for a ``shape``), not tensors: the
+    function makes them on the default device, CUDA."""
+    kw = {"data_range": 1.0} if name.startswith("peak_signal_noise_ratio") else {}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(functional, name)(*IMAGE_HOST_VALUES[name], **kw)
 
 
 def test_explicit_cpu_device_runs_without_cuda(no_cuda):

@@ -129,7 +129,7 @@ def _toy_extractor(imgs):
 
 FILL = {"num_classes": 3, "num_labels": 3, "min_recall": 0.5, "min_precision": 0.5, "min_specificity": 0.5,
         "min_sensitivity": 0.5, "num_groups": 2, "p": 2, "threshold": 0.5, "beta": 2.0, "feature": _toy_extractor,
-        "things": {0, 1}, "stuffs": {2}}
+        "things": {0, 1}, "stuffs": {2}, "data_range": 1.0}
 TASKS = {"binary": {}, "multiclass": {}, "multilabel": {}}
 
 

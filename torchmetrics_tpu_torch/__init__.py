@@ -13,6 +13,9 @@ from .clustering import *  # noqa: F401,F403
 from .collections import MetricCollection, QuarantinedMetric
 from .detection import *  # noqa: F401,F403
 from .image import *  # noqa: F401,F403
+# as in the JAX package, the top-level PeakSignalNoiseRatio is the compat class whose
+# data_range defaults to 3.0; image.PeakSignalNoiseRatio stays strict
+from .image.psnr import _CompatPeakSignalNoiseRatio as PeakSignalNoiseRatio  # noqa: E402,F811
 from .metric import CompositionalMetric, HostMetric, Metric
 from .nominal import *  # noqa: F401,F403
 from .regression import *  # noqa: F401,F403

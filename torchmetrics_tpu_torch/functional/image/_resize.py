@@ -9,8 +9,9 @@ products with 1-D weight tables built on the host in numpy:
 - ``resize_bilinear_tf1``: torch-fidelity's TF1-compatible bilinear
   (``half_pixel_centers=False``).
 
-The products run in float32 at full precision (``torch.matmul`` does not use TF32
-unless a caller enables it).
+The products run in the images' dtype: float32 at full precision (``torch.matmul``
+does not use TF32 unless a caller enables it), or float64 where a caller wants no TF32
+at all (D_s's degraded pan).
 """
 
 from __future__ import annotations
@@ -65,8 +66,8 @@ def _separable_resize(
     """Apply (out_h, in_h) and (out_w, in_w) weight matrices over the last two axes."""
     out_h, out_w = size
     in_h, in_w = imgs.shape[-2:]
-    wh = torch.from_numpy(weights_fn(in_h, out_h)).to(imgs.device)
-    ww = torch.from_numpy(weights_fn(in_w, out_w)).to(imgs.device)
+    wh = torch.from_numpy(weights_fn(in_h, out_h)).to(imgs.device, imgs.dtype)
+    ww = torch.from_numpy(weights_fn(in_w, out_w)).to(imgs.device, imgs.dtype)
     out = torch.einsum("...hw,Hh->...Hw", imgs, wh)
     return torch.einsum("...Hw,Ww->...HW", out, ww)
 
