@@ -286,6 +286,34 @@ Phases, one JSON line each, in order:
    reduced set; D_lambda, D_s without and with ``pan_lr`` and QNR on the full set. The
    first 4 samples' values within ``PAN_UNITS`` of the CPU port's; D_lambda's compute
    under 6 GB beyond its states; a profiled D_lambda compute and UQI update.
+36. audio_separation: Libri2Mix test at its published scale from a seed (3,000 mixtures of 2
+   speech-like sources of 5 s at 16 kHz, 60 updates of 50; each estimate its source plus
+   leakage and noise, half of them in swapped order) through SNR, SI-SNR, SI-SDR, SA-SDR,
+   PIT over SI-SNR (speaker-wise and permutation-wise), SDR with 512 taps (float64 Toeplitz
+   solves on the card) and C-SI-SNR on the 512-point STFT (hop 128). The first update's
+   first 4 mixtures against the CPU port: dB values within ``AUDIO_ULPS``, permutations
+   and SDR's solver flags bit for bit, SDR's float64 dB within ``SDR_DB_ATOL``; every
+   update named in ``SEPARATION_NO_HOST_READ`` under ``torch.cuda.set_sync_debug_mode
+   ("error")``; PIT at 3 speakers (a Libri3Mix-shaped update, no host read either) and at
+   5 (16 WSJ0-5mix-shaped mixtures of 5 s at 8 kHz, the Hungarian branch, host reads
+   counted). Update ms (first and median), peak extra bytes, profiled updates.
+37. speech_quality: SRMR on 16 REVERB-style utterances (8 s at 16 kHz, speech-like sources
+   under seeded reverberation of 0.3-0.9 s); DNSMOS on 32 DNS-Challenge-style clips of 10 s
+   at 16 kHz through seeded linear stand-ins for its two ONNX models; NISQA on 16 clips of
+   10 s at 48 kHz through a checkpoint the phase writes in the published ``nisqa.tar``
+   layout at the published widths (seeded weights). The first 2 of each against the CPU
+   port within ``SPEECH_UNITS``; NISQA the same bits with TF32 allowed; host reads
+   counted, and none in the DNSMOS and NISQA updates (``SPEECH_NO_HOST_READ``); first and
+   second update ms, peak extra bytes; SRMR's Hilbert envelope timed
+   on the card and in numpy on the host; profiled NISQA and DNSMOS updates.
+38. vmaf: 1080p video from a seed (8 videos of 24 frames of 3 x 1080 x 1920, updates of 2;
+   a panning texture, its copy blurred, noisy and shifted) through
+   ``VideoMultiMethodAssessmentFusion(features=True)`` and a model file the phase writes in
+   libvmaf's layout (v0.6.1's feature list, seeded support vectors): the first video's
+   first 4 frames' features within ``VMAF_UNITS`` of the CPU port's and the fused score
+   within ``VMAF_SCORE_ATOL``, the features the same bits with TF32 allowed; ADM's DWT
+   in the port's 4-tap form and through the dense matrices, timed and held together.
+   Update and compute ms, peak extra bytes, host reads, a profiled update.
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -4707,23 +4735,27 @@ def units_diff(got: torch.Tensor, want: torch.Tensor) -> float:
     return largest_rel_diff(got, want, floor=1.0) / UNIT
 
 
+def hold_all(label: str, got: dict, want: dict, measure, limits) -> dict:
+    """Every key's difference ``measure(key, got, want)`` against its limit (a number, or
+    a dict by key); one error naming every key beyond its limit, with the difference
+    and the limit. Returns the differences."""
+    worst = {name: measure(name, got[name], value) for name, value in want.items()}
+    limit = {name: limits[name] if isinstance(limits, dict) else limits for name in worst}
+    beyond = {name: [worst[name], limit[name]] for name in worst if not worst[name] <= limit[name]}
+    if beyond:
+        raise AssertionError(f"{label}: card against CPU beyond the limits [difference, limit]: {beyond}")
+    return worst
+
+
 def hold_units(label: str, got: dict, want: dict, units) -> dict:
     """Key by key within ``units`` (a number, or a dict by key) rounding units; the
     gradients bit for bit. Returns each key's difference in units."""
-    worst = {}
-    for name, value in want.items():
+    def measure(name, mine, value):
         if name == "gradients":
-            if not same_bits(got[name], value):
-                raise AssertionError(f"{label} gradients: not the CPU's bits")
-            worst[name] = 0.0
-            continue
-        limit = units[name] if isinstance(units, dict) else units
-        diff = units_diff(got[name], value)
-        if not diff <= limit:
-            raise AssertionError(f"{label} {name}: {summary(got[name])} on the card, {summary(value)} on the CPU "
-                                 f"({diff} units, limit {limit})")
-        worst[name] = diff
-    return worst
+            return 0.0 if same_bits(mine, value) else math.inf
+        return units_diff(mine, value)
+
+    return hold_all(label, got, want, measure, units)
 
 
 def ieee_then_tf32(call):
@@ -5015,6 +5047,461 @@ def pansharpening_phase(card: str) -> None:
     profile_step("pansharpening_uqi_update", lambda: metrics["uqi"].update(*pan_args("uqi", reduced, full, head)))
 
 
+LIBRI_MIXTURES = 3000  # Libri2Mix test: 3,000 mixtures of 2 speakers
+LIBRI_SAMPLES = 80000  # 5 s at 16 kHz
+LIBRI_BATCH = 50
+LIBRI_CPU_MIXTURES = 4  # the CPU port reads the first update's first 4 mixtures
+WSJ5_SHAPE = (16, 5, 40000)  # WSJ0-5mix-shaped: 16 mixtures of 5 speakers, 5 s at 8 kHz
+STFT_N_FFT, STFT_HOP = 512, 128
+SDR_TAPS = 512
+AUDIO_ULPS = 2  # card against CPU: dB values within 2 float32 spacings of the CPU's value (log10 differs by one)
+SDR_DB_ATOL = 1e-6  # card against CPU: SDR in float64 before its float32 rounding
+SEPARATION_NO_HOST_READ = ("snr", "si_snr", "si_sdr", "sa_sdr", "c_si_snr", "sdr", "pit", "pit_permutation_wise")
+REVERB_SHAPE = (16, 8 * 16000)  # REVERB-style utterances: 8 s at 16 kHz
+DNS_SHAPE = (32, 10 * 16000)  # DNS-Challenge-style clips: 10 s at 16 kHz
+NISQA_SHAPE = (16, 10 * 48000)  # 10 s at 48 kHz
+SPEECH_CPU_CLIPS = 2
+SPEECH_NO_HOST_READ = ("dnsmos", "nisqa")  # DNSMOS through infer_fns that stay on the card
+SPEECH_UNITS = {"srmr": 4, "dnsmos": 2, "nisqa": 64}
+# NISQA's published configuration (config/nisqa.yaml of the NISQA repository)
+NISQA_PUBLISHED_ARGS = {
+    "ms_n_fft": 4096, "ms_hop_length": 0.01, "ms_win_length": 0.02, "ms_n_mels": 48, "ms_fmax": 20000,
+    "ms_seg_length": 15, "ms_seg_hop_length": 4, "ms_max_segments": 1300, "cnn_c_out_1": 16, "cnn_c_out_2": 32,
+    "cnn_c_out_3": 64, "cnn_kernel_size": (3, 3), "cnn_dropout": 0.2, "cnn_pool_1": [24, 7], "cnn_pool_2": [12, 5],
+    "cnn_pool_3": [6, 3], "td_sa_d_model": 64, "td_sa_nhead": 1, "td_sa_num_layers": 2, "td_sa_h": 64,
+    "td_sa_dropout": 0.1, "pool_att_h": 128, "pool_att_dropout": 0.1,
+}
+VMAF_VIDEOS = 8  # 1080p videos of 24 frames, 2 an update
+VMAF_SHAPE = (3, 24, 1080, 1920)
+VMAF_BATCH = 2
+VMAF_CPU_FRAMES = 4  # the CPU port reads the first video's first 4 frames
+VMAF_UNITS = 64  # card against CPU: features within 64 float32 rounding units of their magnitude (at least 1)
+VMAF_SCORE_ATOL = 1e-3  # and the fused score, on its 0-100 scale
+V061_FEATURES = ["VMAF_feature_adm2_score", "VMAF_feature_motion2_score", "VMAF_feature_vif_scale0_score",
+                 "VMAF_feature_vif_scale1_score", "VMAF_feature_vif_scale2_score", "VMAF_feature_vif_scale3_score"]
+
+
+def speech_like(gen: torch.Generator, shape, fs: int, device: str = "cuda") -> torch.Tensor:
+    """Speech-like float32 signals: white noise with a spectral tilt (gain 1 / sqrt(1 +
+    f / 500 Hz)) under a syllabic envelope (3-6 Hz, squared, so it pauses)."""
+    n = shape[-1]
+    noise = torch.randn(shape, generator=gen, device=device)
+    freqs = torch.fft.rfftfreq(n, 1.0 / fs, device=device)
+    tilted = torch.fft.irfft(torch.fft.rfft(noise) / torch.sqrt(1 + freqs / 500.0), n=n)
+    rate = 3 + 3 * torch.rand((*shape[:-1], 1), generator=gen, device=device)
+    phase = 2 * math.pi * torch.rand((*shape[:-1], 1), generator=gen, device=device)
+    t = torch.arange(n, device=device) / fs
+    envelope = torch.sin(2 * math.pi * rate * t + phase).clamp(min=0) ** 2
+    x = tilted * envelope
+    return (0.5 * x / x.abs().amax(-1, keepdim=True)).contiguous()
+
+
+def libri_mixture(gen: torch.Generator, batch: int, speakers: int = 2, samples: int = LIBRI_SAMPLES,
+                  fs: int = 16000, device: str = "cuda"):
+    """(preds, target) of a separation system's output: each estimate is its source plus
+    20% of the other sources and noise at -26 dB, and half the mixtures come out in
+    another speaker order (rolled by one), as PIT must find."""
+    target = speech_like(gen, (batch, speakers, samples), fs, device)
+    leak = (target.sum(1, keepdim=True) - target) / max(speakers - 1, 1)
+    preds = 0.9 * target + 0.2 * leak + 0.05 * torch.randn(target.shape, generator=gen, device=device) * 0.5
+    swap = torch.rand(batch, generator=gen, device=device) < 0.5
+    preds = torch.where(swap[:, None, None], preds.roll(1, dims=1), preds)
+    return preds.contiguous(), target
+
+
+def stft_pairs(x: torch.Tensor) -> torch.Tensor:
+    """(B, spk, T) -> (B, spk, 257, frames, 2): the 512-point STFT (hop 128, Hann) as real
+    pairs, C-SI-SNR's input."""
+    window = torch.hann_window(STFT_N_FFT, device=x.device)
+    spec = torch.stft(x.reshape(-1, x.shape[-1]), STFT_N_FFT, STFT_HOP, window=window, return_complex=True)
+    return torch.view_as_real(spec).reshape(*x.shape[:2], *spec.shape[1:], 2).contiguous()
+
+
+def separation_metrics(device=None) -> dict:
+    from torchmetrics_tpu_torch import audio as au
+    from torchmetrics_tpu_torch.functional import scale_invariant_signal_noise_ratio
+
+    return {"snr": au.SignalNoiseRatio(device=device), "si_snr": au.ScaleInvariantSignalNoiseRatio(device=device),
+            "si_sdr": au.ScaleInvariantSignalDistortionRatio(device=device),
+            "sa_sdr": au.SourceAggregatedSignalDistortionRatio(device=device),
+            "c_si_snr": au.ComplexScaleInvariantSignalNoiseRatio(device=device),
+            "sdr": au.SignalDistortionRatio(filter_length=SDR_TAPS, device=device),
+            "pit": au.PermutationInvariantTraining(scale_invariant_signal_noise_ratio, device=device),
+            "pit_permutation_wise": au.PermutationInvariantTraining(scale_invariant_signal_noise_ratio,
+                                                                    mode="permutation-wise", device=device)}
+
+
+def separation_args(name: str, preds: torch.Tensor, target: torch.Tensor, spectra) -> tuple:
+    return spectra if name == "c_si_snr" else (preds, target)
+
+
+def separation_values(preds: torch.Tensor, target: torch.Tensor, spectra) -> dict:
+    """Each separation metric's per-sample values through the port's functions; PIT's
+    best values and permutations; SDR in float64 before its rounding."""
+    from torchmetrics_tpu_torch import functional as fn
+    from torchmetrics_tpu_torch.functional.audio.sdr import _sdr_solve
+
+    pit = fn.permutation_invariant_training(preds, target, fn.scale_invariant_signal_noise_ratio)
+    pit_perm = fn.permutation_invariant_training(preds, target, fn.scale_invariant_signal_noise_ratio,
+                                                 mode="permutation-wise")
+    sdr_db, info = _sdr_solve(preds, target, SDR_TAPS)
+    return {"snr": fn.signal_noise_ratio(preds, target), "si_snr": fn.scale_invariant_signal_noise_ratio(preds, target),
+            "si_sdr": fn.scale_invariant_signal_distortion_ratio(preds, target),
+            "sa_sdr": fn.source_aggregated_signal_distortion_ratio(preds, target),
+            "c_si_snr": fn.complex_scale_invariant_signal_noise_ratio(*spectra),
+            "pit": pit[0], "pit_perm": pit[1], "pit_permutation_wise": pit_perm[0], "pit_permutation_wise_perm":
+            pit_perm[1], "sdr_float64": sdr_db, "sdr_info": info}
+
+
+def ulps_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want|`` in float32 spacings at ``want`` (inf where dtypes,
+    shapes or NaN places differ)."""
+    got, want = got.cpu(), want.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got.isnan(), want.isnan()):
+        return math.inf
+    keep = ~want.isnan()
+    magnitude = want[keep].abs()
+    spacing = (torch.nextafter(magnitude, torch.full_like(magnitude, math.inf)) - magnitude).double()
+    return float(((got[keep].double() - want[keep].double()).abs() / spacing).max()) if bool(keep.any()) else 0.0
+
+
+def separation_diff(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Permutations and solver flags: 0 where equal, else inf; SDR's float64 dB: the
+    largest absolute difference; float32 dB: ``ulps_diff``."""
+    if want.dtype == torch.float64:
+        return float((got.cpu() - want).abs().max())
+    if not want.is_floating_point():
+        return 0.0 if same_bits(got, want) else math.inf
+    return ulps_diff(got, want)
+
+
+def hold_separation(label: str, got: dict, want: dict) -> dict:
+    """Permutations and solver flags bit for bit, SDR's float64 dB within ``SDR_DB_ATOL``,
+    the dB values within ``AUDIO_ULPS``. Returns each key's difference."""
+    limits = {name: SDR_DB_ATOL if value.dtype == torch.float64 else AUDIO_ULPS for name, value in want.items()}
+    return hold_all(label, got, want, separation_diff, limits)
+
+
+def audio_separation_phase(card: str) -> None:
+    from torchmetrics_tpu_torch import audio as au
+    from torchmetrics_tpu_torch.functional import permutation_invariant_training, scale_invariant_signal_noise_ratio
+
+    clock = [("start", time.perf_counter())]
+    gen = torch.Generator(device="cuda").manual_seed(151)
+    updates = LIBRI_MIXTURES // LIBRI_BATCH
+    metrics = separation_metrics()
+    times = {name: [] for name in metrics}
+    first = None
+    for step in range(updates):
+        preds, target = libri_mixture(gen, LIBRI_BATCH)
+        spectra = (stft_pairs(preds), stft_pairs(target))
+        if first is None:
+            first = (preds, target, spectra)
+        for name, metric in metrics.items():
+            times[name].append(synced_ms(lambda: metric.update(*separation_args(name, preds, target, spectra))))
+    update_ms = {name: {"first": t[0], "median": median(t[1:])} for name, t in times.items()}
+    values = {name: fresh_compute(m) for name, m in metrics.items()}
+    clock.append(("card", time.perf_counter()))
+    for name, value in values.items():
+        if not bool(torch.isfinite(value)):
+            raise AssertionError(f"audio_separation {name}: {float(value)}")
+    # half the mixtures come out in swapped order: SI-SNR pairs the wrong speakers there, PIT does not
+    if not 0.0 < float(values["pit"]) < 30.0 or float(values["pit"]) < float(values["si_snr"]):
+        raise AssertionError(f"audio_separation: SI-SNR {float(values['si_snr'])}, PIT {float(values['pit'])}")
+    preds, target, spectra = first
+    head = slice(0, LIBRI_CPU_MIXTURES)
+    card_values = separation_values(preds[head], target[head], tuple(s[head] for s in spectra))
+    cpu_values = separation_values(preds[head].cpu(), target[head].cpu(), tuple(s[head].cpu() for s in spectra))
+    if bool(card_values["sdr_info"].any()):
+        raise AssertionError(f"audio_separation: SDR's solver flags {card_values['sdr_info'].tolist()}")
+    clock.append(("cpu", time.perf_counter()))
+    worst = hold_separation("audio_separation", card_values, cpu_values)
+    for name in SEPARATION_NO_HOST_READ:
+        no_host_read(lambda: metrics[name].update(*separation_args(name, preds, target, spectra)))
+    peaks = {name: update_peak_bytes(separation_metrics()[name], separation_args(name, preds, target, spectra))
+             for name in ("sdr", "pit", "pit_permutation_wise", "c_si_snr")}
+    # Libri3Mix-shaped: one update of 50 mixtures of 3 speakers, no host read either
+    three = libri_mixture(gen, LIBRI_BATCH, speakers=3)
+    pit3 = {mode: au.PermutationInvariantTraining(scale_invariant_signal_noise_ratio, mode=mode)
+            for mode in ("speaker-wise", "permutation-wise")}
+    pit3_ms = {mode: synced_ms(lambda: m.update(*three)) for mode, m in pit3.items()}
+    for m in pit3.values():
+        no_host_read(lambda: m.update(*three))
+    three_cpu = tuple(x[:LIBRI_CPU_MIXTURES] for x in three)
+    for mode in pit3:
+        card_pit = permutation_invariant_training(*three_cpu, scale_invariant_signal_noise_ratio, mode)
+        cpu_pit = permutation_invariant_training(*(x.cpu() for x in three_cpu), scale_invariant_signal_noise_ratio,
+                                                 mode)
+        worst[f"pit3_{mode}"] = hold_separation("audio_separation 3 speakers", {"v": card_pit[0], "v_perm": card_pit[1]},
+                                                {"v": cpu_pit[0], "v_perm": cpu_pit[1]})["v"]
+    # WSJ0-5mix-shaped: 5 speakers, the Hungarian branch (one host read of the matrix)
+    five = libri_mixture(gen, WSJ5_SHAPE[0], speakers=WSJ5_SHAPE[1], samples=WSJ5_SHAPE[2], fs=8000)
+    pit5 = au.PermutationInvariantTraining(scale_invariant_signal_noise_ratio)
+    pit5.update(*five)
+    pit5_ms = synced_ms(lambda: pit5.update(*five))
+    pit5_reads = host_reads(lambda: pit5.update(*five))
+    card_pit = permutation_invariant_training(*five, scale_invariant_signal_noise_ratio)
+    cpu_pit = permutation_invariant_training(*(x.cpu() for x in five), scale_invariant_signal_noise_ratio)
+    worst["pit5"] = hold_separation("audio_separation 5 speakers", {"v": card_pit[0], "v_perm": card_pit[1]},
+                                    {"v": cpu_pit[0], "v_perm": cpu_pit[1]})["v"]
+    clock.append(("checks", time.perf_counter()))
+    emit({"phase": "audio_separation", "mixtures": LIBRI_MIXTURES, "speakers": 2, "samples": LIBRI_SAMPLES,
+          "batch": LIBRI_BATCH, "updates": updates, "stft": [LIBRI_BATCH, 2, *spectra[0].shape[2:]],
+          "sdr_taps": SDR_TAPS, "update_ms": update_ms, "values": {n: float(v) for n, v in values.items()},
+          "cpu_mixtures": LIBRI_CPU_MIXTURES, "cpu_ulps_or_db": worst, "ulps_limit": AUDIO_ULPS,
+          "sdr_db_limit": SDR_DB_ATOL, "no_host_read_updates": [*SEPARATION_NO_HOST_READ, "pit3 (both modes)"],
+          "update_peak_extra_bytes": peaks, "pit3_update_ms": pit3_ms, "pit5": {
+              "shape": list(WSJ5_SHAPE), "update_ms": pit5_ms, "host_reads": pit5_reads,
+              "value": float(fresh_compute(pit5))},
+          "seconds": clock_seconds(clock), "card": card})
+    for name in ("sdr", "pit", "si_snr"):
+        profile_step(f"audio_separation_{name}_update",
+                     lambda: metrics[name].update(*separation_args(name, preds, target, spectra)))
+
+
+def reverberant_speech(gen: torch.Generator, shape=REVERB_SHAPE, fs: int = 16000, device: str = "cuda"):
+    """REVERB-style utterances: speech-like signals convolved (by FFT) with exponentially
+    decaying noise of a reverberation time between 0.3 and 0.9 s, half a second long."""
+    clean = speech_like(gen, shape, fs, device)
+    taps = fs // 2
+    rt60 = 0.3 + 0.6 * torch.rand((shape[0], 1), generator=gen, device=device)
+    t = torch.arange(taps, device=device) / fs
+    ir = torch.randn((shape[0], taps), generator=gen, device=device) * 10 ** (-3 * t / rt60)
+    ir[:, 0] = 1.0
+    n = shape[-1] + taps
+    wet = torch.fft.irfft(torch.fft.rfft(clean, n=n) * torch.fft.rfft(ir, n=n), n=n)[:, : shape[-1]]
+    return (0.5 * wet / wet.abs().amax(-1, keepdim=True)).contiguous()
+
+
+def host_hilbert_envelope(x: np.ndarray) -> np.ndarray:
+    """The JAX package's numpy Hilbert envelope (FFT length a multiple of 16), the host
+    side of SRMR's choice of device."""
+    t = x.shape[-1]
+    n = math.ceil(t / 16) * 16 if t % 16 else t
+    h = np.zeros(n)
+    h[0] = 1
+    if n % 2 == 0:
+        h[n // 2] = 1
+        h[1 : n // 2] = 2
+    else:
+        h[1 : (n + 1) // 2] = 2
+    return np.abs(np.fft.ifft(np.fft.fft(x, n=n, axis=-1) * h, axis=-1)[..., :t])
+
+
+class DnsLinearModels:
+    """Seeded stand-ins for the two DNSMOS ONNX models, linear maps of their inputs in
+    float64 by elementwise products (no matmul, so TF32 cannot touch them): p808 of the
+    mel features' mean over frames, sig/bak/ovr of the mean absolute sample."""
+
+    def __init__(self, seed: int, device) -> None:
+        gen = torch.Generator().manual_seed(seed)
+        self.p808 = (torch.randn(120, generator=gen, dtype=torch.float64) / 12).to(device)
+        self.sbo = (1 + torch.rand(3, generator=gen, dtype=torch.float64)).to(device)
+
+    def fns(self):
+        return (lambda mel: (mel.to(torch.float64).mean(1) * self.p808.to(mel.device)).sum(-1, keepdim=True) + 3,
+                lambda audio: audio.to(torch.float64).abs().mean(1, keepdim=True) * self.sbo.to(audio.device) + 3)
+
+
+def nisqa_checkpoint(path: str, seed: int = 157) -> None:
+    """A checkpoint in the published ``nisqa.tar`` layout at the published widths: the
+    port's model from a seed, batch-norm statistics drawn too."""
+    from torchmetrics_tpu_torch.functional.audio.nisqa import NISQAModel
+
+    torch.manual_seed(seed)
+    model = NISQAModel(NISQA_PUBLISHED_ARGS)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, torch.nn.BatchNorm2d):
+                module.running_mean.normal_(0, 0.2)
+                module.running_var.uniform_(0.5, 2.0)
+    torch.save({"args": NISQA_PUBLISHED_ARGS, "model_state_dict": model.state_dict()}, path)
+
+
+def speech_quality_phase(card: str) -> None:
+    import tempfile
+
+    from torchmetrics_tpu_torch import audio as au
+    from torchmetrics_tpu_torch import functional as fn
+    from torchmetrics_tpu_torch.functional.audio import srmr as port_srmr
+
+    clock = [("start", time.perf_counter())]
+    gen = torch.Generator(device="cuda").manual_seed(153)
+    reverb = reverberant_speech(gen)
+    dns = speech_like(gen, DNS_SHAPE, 16000) + 0.02 * torch.randn(DNS_SHAPE, generator=gen, device="cuda")
+    nisqa_clips = speech_like(gen, NISQA_SHAPE, 48000)
+    clock.append(("inputs", time.perf_counter()))
+    models = DnsLinearModels(155, "cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "nisqa.tar")
+        nisqa_checkpoint(ckpt)
+        metrics = {"srmr": au.SpeechReverberationModulationEnergyRatio(16000),
+                   "dnsmos": au.DeepNoiseSuppressionMeanOpinionScore(16000, False, infer_fns=models.fns()),
+                   "nisqa": au.NonIntrusiveSpeechQualityAssessment(48000, checkpoint_path=ckpt)}
+        inputs = {"srmr": reverb, "dnsmos": dns, "nisqa": nisqa_clips}
+        first_ms, update_ms, peaks, reads = {}, {}, {}, {}
+        for name, m in metrics.items():  # SRMR's host filters take seconds an update: three updates each
+            first_ms[name] = synced_ms(lambda: m.update(inputs[name]))
+            update_ms[name], peaks[name] = peak_extra_bytes(lambda: synced_ms(lambda: m.update(inputs[name])))
+            reads[name] = host_reads(lambda: m.update(inputs[name]))
+        for name in SPEECH_NO_HOST_READ:  # their features and models stay on the card
+            no_host_read(lambda: metrics[name].update(inputs[name]))
+        values = {name: fresh_compute(m) for name, m in metrics.items()}
+        clock.append(("card", time.perf_counter()))
+        head = slice(0, SPEECH_CPU_CLIPS)
+        calls = {"srmr": lambda x: fn.speech_reverberation_modulation_energy_ratio(x, 16000),
+                 "dnsmos": lambda x: fn.deep_noise_suppression_mean_opinion_score(
+                     x, 16000, False, infer_fns=DnsLinearModels(155, x.device).fns()),
+                 "nisqa": lambda x: fn.non_intrusive_speech_quality_assessment(x, 48000, checkpoint_path=ckpt)}
+        card_values = {name: call(inputs[name][head]) for name, call in calls.items()}
+        cpu_values = {name: call(inputs[name][head].cpu()) for name, call in calls.items()}
+        clock.append(("cpu", time.perf_counter()))
+        worst = hold_units("speech_quality", card_values, cpu_values, SPEECH_UNITS)
+        tf32 = hold_tf32_bits("speech_quality", lambda: {"nisqa": calls["nisqa"](nisqa_clips)})
+        profile_step("speech_quality_nisqa_update", lambda: metrics["nisqa"].update(nisqa_clips))
+        profile_step("speech_quality_dnsmos_update", lambda: metrics["dnsmos"].update(dns))
+    for name, value in values.items():
+        if not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"speech_quality {name}: {summary(value)}")
+    # SRMR's choice of device for its envelope: the same FFTs on the card and on the host
+    bands = port_srmr._erb_filterbank(reverb.cpu().double().numpy(), port_srmr._make_erb_filters(
+        16000, port_srmr._centre_freqs(16000, 23, 125)))
+    card_bands = torch.from_numpy(bands).cuda()
+    envelope_ms = {"card": median([synced_ms(lambda: port_srmr._hilbert_envelope(card_bands)) for _ in range(3)])}
+    start = time.perf_counter()
+    host_env = host_hilbert_envelope(bands)
+    envelope_ms["host"] = (time.perf_counter() - start) * 1e3
+    start = time.perf_counter()
+    round_trip = port_srmr._hilbert_envelope(torch.from_numpy(bands).cuda()).cpu().numpy()
+    envelope_ms["card_with_copies"] = (time.perf_counter() - start) * 1e3
+    envelope_diff = float(np.abs(round_trip - host_env).max() / np.abs(host_env).max())
+    clock.append(("checks", time.perf_counter()))
+    emit({"phase": "speech_quality", "srmr": {"utterances": REVERB_SHAPE[0], "samples": REVERB_SHAPE[1], "fs": 16000},
+          "dnsmos": {"clips": DNS_SHAPE[0], "samples": DNS_SHAPE[1], "fs": 16000, "models": "seeded linear maps"},
+          "nisqa": {"clips": NISQA_SHAPE[0], "samples": NISQA_SHAPE[1], "fs": 48000,
+                    "checkpoint": "published widths, seeded weights"},
+          "first_update_ms": first_ms, "update_ms": update_ms, "host_reads": reads,
+          "no_host_read_updates": list(SPEECH_NO_HOST_READ),
+          "values": {name: summary(v) for name, v in values.items()}, "cpu_clips": SPEECH_CPU_CLIPS,
+          "cpu_units": worst, "units_limit": SPEECH_UNITS, "tf32_same_bits": tf32,
+          "update_peak_extra_bytes": peaks, "srmr_envelope_ms": envelope_ms,
+          "srmr_envelope_card_against_host": envelope_diff, "seconds": clock_seconds(clock), "card": card})
+
+
+def vmaf_video(gen: torch.Generator, videos: int, shape=VMAF_SHAPE, device: str = "cuda"):
+    """(preds, target) RGB float32 videos in [0, 1]: a smooth texture (bicubic upsampling
+    of a 1/16-scale field plus a finer 1/4-scale layer) panning 2 pixels a frame; the
+    distorted copy blurred (3 x 3 box), noisy (std 0.02) and shifted by one pixel."""
+    fn = torch.nn.functional
+    channels, frames, h, w = shape
+    wide = w + 2 * frames
+    coarse = torch.rand(videos, channels, h // 16 + 2, wide // 16 + 2, generator=gen, device=device)
+    fine = torch.rand(videos, channels, h // 4 + 1, wide // 4 + 1, generator=gen, device=device)
+    plane = (0.8 * fn.interpolate(coarse, size=(h, wide), mode="bicubic", align_corners=False)
+             + 0.2 * fn.interpolate(fine, size=(h, wide), mode="bilinear", align_corners=False)).clamp(0, 1)
+    target = torch.stack([plane[..., 2 * f: 2 * f + w] for f in range(frames)], dim=2)
+    flat = target.transpose(1, 2).reshape(videos * frames, channels, h, w)
+    blurred = fn.avg_pool2d(fn.pad(flat, (1, 1, 1, 1), mode="replicate"), 3, stride=1)
+    blurred = blurred.reshape(videos, frames, channels, h, w).transpose(1, 2)
+    noise = torch.randn(target.shape, generator=gen, device=device)
+    preds = (blurred.roll(1, dims=-1) + 0.02 * noise).clamp(0, 1)
+    return preds.contiguous(), target.contiguous()
+
+
+def vmaf_model_blob(seed: int = 0, support_vectors: int = 211) -> dict:
+    """A libvmaf-format NuSVR model file: v0.6.1's six features, seeded support vectors
+    (v0.6.1 holds 211), rescaling, a polynomial score transform and a clip to [0, 100].
+    The coefficients are small enough that the scores land inside the clip."""
+    rng = np.random.default_rng(seed)
+    n = len(V061_FEATURES)
+    return {"model_dict": {
+        "feature_names": V061_FEATURES, "norm_type": "linear_rescale",
+        "slopes": [0.012, *rng.uniform(0.5, 3.0, n).tolist()], "intercepts": [-0.3, *rng.uniform(-2, 0, n).tolist()],
+        "model": {"gamma": 0.04, "rho": -0.4, "sv_coef": rng.uniform(-0.02, 0.02, support_vectors).tolist(),
+                  "support_vectors": rng.uniform(-1, 1, (support_vectors, n)).tolist()},
+        "score_transform": {"p0": 1.7, "p1": 1.72, "p2": -0.007, "out_gte_in": True},
+        "score_clip": [0.0, 100.0],
+    }}
+
+
+def dense_dwt_level(x: torch.Tensor) -> tuple:
+    """One db2 level through the JAX package's dense ``(m, n)`` matrices (four float32
+    matmuls, TF32 off): the other form of ADM's DWT, timed beside the port's."""
+    from torchmetrics_tpu_torch.functional.image.utils import _ieee_float32
+    from torchmetrics_tpu_torch.functional.video.vmaf import _dwt_pass
+
+    h, w = x.shape[-2:]
+    vlo, vhi = (m[0] for m in _dwt_pass(torch.eye(h, device=x.device)[None], 1))
+    hlo, hhi = (m[0] for m in _dwt_pass(torch.eye(w, device=x.device)[None], 1))
+    with _ieee_float32():
+        lo_r, hi_r = torch.matmul(vlo, x), torch.matmul(vhi, x)
+        return (torch.matmul(lo_r, hlo.T), torch.matmul(hi_r, hlo.T), torch.matmul(lo_r, hhi.T),
+                torch.matmul(hi_r, hhi.T))
+
+
+def vmaf_phase(card: str) -> None:
+    import json as json_module
+    import tempfile
+
+    from torchmetrics_tpu_torch.functional.video import vmaf as port_vmaf
+    from torchmetrics_tpu_torch.video import VideoMultiMethodAssessmentFusion
+
+    clock = [("start", time.perf_counter())]
+    gen = torch.Generator(device="cuda").manual_seed(159)
+    updates = VMAF_VIDEOS // VMAF_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        model_path = os.path.join(tmp, "vmaf_seeded.json")
+        with open(model_path, "w") as fh:
+            json_module.dump(vmaf_model_blob(), fh)
+        metric = VideoMultiMethodAssessmentFusion(features=True, model_path=model_path)
+        times, first = [], None
+        for _ in range(updates):
+            batch = vmaf_video(gen, VMAF_BATCH)
+            first = first or batch
+            times.append(synced_ms(lambda: metric.update(*batch)))
+        compute_ms = [synced_ms(lambda: fresh_compute(metric)) for _ in range(2)]
+        values = fresh_compute(metric)
+        clock.append(("card", time.perf_counter()))
+        for key, value in values.items():
+            if value.shape != (VMAF_VIDEOS * VMAF_SHAPE[1],) or not bool(torch.isfinite(value).all()):
+                raise AssertionError(f"vmaf {key}: {tuple(value.shape)} {summary(value)}")
+        preds, target = first
+        head = (slice(0, 1), slice(None), slice(0, VMAF_CPU_FRAMES))
+        card_features = port_vmaf.vmaf_features(preds[head], target[head])
+        cpu_features = port_vmaf.vmaf_features(preds[head].cpu(), target[head].cpu())
+        model = port_vmaf.VmafModel.from_file(model_path)
+        scores = {"card": model.predict({n: card_features[port_vmaf._canonical_feature_key(n)]
+                                         for n in model.feature_names}),
+                  "cpu": model.predict({n: cpu_features[port_vmaf._canonical_feature_key(n)]
+                                        for n in model.feature_names})}
+        clock.append(("cpu", time.perf_counter()))
+        worst = hold_units("vmaf", card_features, cpu_features, VMAF_UNITS)
+        score_diff = float((scores["card"].cpu() - scores["cpu"]).abs().max())
+        if not score_diff <= VMAF_SCORE_ATOL:
+            raise AssertionError(f"vmaf: fused scores {score_diff} apart (limit {VMAF_SCORE_ATOL})")
+        tf32 = hold_tf32_bits("vmaf", lambda: port_vmaf.vmaf_features(preds, target))
+        peak = update_peak_bytes(metric, first)
+        reads = host_reads(lambda: metric.update(*first))
+        # ADM's DWT: the port's 4-tap form against the JAX package's dense matrices
+        luma = port_vmaf.calculate_luma(target).reshape(-1, *VMAF_SHAPE[2:])
+        dwt_ms = {"gather": median([synced_ms(lambda: port_vmaf._dwt2_db2(luma)) for _ in range(3)]),
+                  "dense": median([synced_ms(lambda: dense_dwt_level(luma)) for _ in range(3)])}
+        scale = 2.8 * float(luma.abs().max())
+        dwt_diff = max(float((a - b).abs().max()) / scale for a, b in zip(port_vmaf._dwt2_db2(luma),
+                                                                           dense_dwt_level(luma)))
+        if not dwt_diff <= 8 * UNIT:
+            raise AssertionError(f"vmaf: the two DWT forms {dwt_diff / UNIT} units of their sums apart")
+        clock.append(("checks", time.perf_counter()))
+        emit({"phase": "vmaf", "videos": VMAF_VIDEOS, "shape": list(VMAF_SHAPE), "batch": VMAF_BATCH,
+              "updates": updates, "update_ms": {"first": times[0], "median": median(times[1:])},
+              "compute_ms_first_second": compute_ms, "values": {k: summary(v) for k, v in values.items()},
+              "cpu_frames": VMAF_CPU_FRAMES, "cpu_units": worst, "units_limit": VMAF_UNITS,
+              "fused_score_cpu_diff": score_diff, "tf32_same_bits": tf32, "update_peak_extra_bytes": peak,
+              "host_reads": reads, "dwt_level0_ms": dwt_ms, "dwt_forms_units": dwt_diff / UNIT,
+              "seconds": clock_seconds(clock), "card": card})
+        profile_step("vmaf_update", lambda: metric.update(*first))
+
+
 def flagship_forward(cases: dict) -> dict:
     """The 26 sepconv7 launches of one bf16 trunk forward at the flagship's batch: their
     summed times and bound, and their worst error against the plain version."""
@@ -5072,6 +5559,9 @@ def main() -> int:
     image_quality_phase(card)
     image_quality_3d_phase(card)
     pansharpening_phase(card)
+    audio_separation_phase(card)
+    speech_quality_phase(card)
+    vmaf_phase(card)
     emit({"phase": "script", "seconds": time.perf_counter() - started})
 
     print(card, flush=True)

@@ -1177,3 +1177,88 @@ def test_tf32_helper_runs_twice_and_restores_the_flags(chip_smoke):
     assert results == [1, 2] and seen == [(False, False), (True, True)]
     assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == prior
     assert chip_smoke.hold_tf32_bits("rehearsal", lambda: {"x": torch.ones(3)}) == ["x"]
+
+
+def test_ulps_diff_counts_float32_spacings_and_hold_all_names_every_key_beyond(chip_smoke):
+    x = torch.tensor([7.0, -0.25, 1e-3])
+    step = torch.nextafter(x, torch.full_like(x, math.inf))
+    assert chip_smoke.ulps_diff(x, x) == 0.0
+    assert chip_smoke.ulps_diff(step, x) == 1.0
+    assert chip_smoke.ulps_diff(x[:2], x) == math.inf
+    with pytest.raises(AssertionError, match="'a'.*'b'"):
+        chip_smoke.hold_all("rehearsal", {"a": step, "b": step}, {"a": x, "b": x},
+                            lambda name, got, want: chip_smoke.ulps_diff(got, want), 0)
+
+
+def test_separation_rehearsal_holds_the_cpu_port_and_fails_planted_differences(chip_smoke, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "SDR_TAPS", 64)
+    gen = torch.Generator().manual_seed(0)
+    preds, target = chip_smoke.libri_mixture(gen, 3, samples=2000, device="cpu")
+    spectra = (chip_smoke.stft_pairs(preds), chip_smoke.stft_pairs(target))
+    assert spectra[0].shape == (3, 2, 257, 16, 2) and preds.shape == target.shape == (3, 2, 2000)
+    got, want = (chip_smoke.separation_values(preds, target, spectra) for _ in range(2))
+    assert set(chip_smoke.hold_separation("rehearsal", got, want).values()) == {0.0}
+    assert not got["sdr_info"].any() and got["sdr_float64"].dtype == torch.float64
+    def three_spacings_up(v):
+        for _ in range(3):
+            v = torch.nextafter(v, v + 1)
+        return v
+
+    for key, planted in (("si_snr", three_spacings_up), ("pit_perm", lambda v: v.flip(-1)),
+                         ("sdr_float64", lambda v: v + 1e-5)):
+        with pytest.raises(AssertionError, match=key):
+            chip_smoke.hold_separation("rehearsal", {**got, key: planted(got[key])}, want)
+    three = chip_smoke.libri_mixture(gen, 2, speakers=3, samples=1000, device="cpu")
+    assert three[0].shape == (2, 3, 1000)
+
+
+def test_speech_quality_rehearsal_holds_the_cpu_port(chip_smoke, tmp_path):
+    from torchmetrics_tpu_torch import functional as fn
+    from torchmetrics_tpu_torch.functional.audio import srmr
+
+    gen = torch.Generator().manual_seed(0)
+    reverb = chip_smoke.reverberant_speech(gen, (2, 8000), device="cpu")
+    clips = chip_smoke.speech_like(gen, (2, 16000), 16000, device="cpu")
+    path = str(tmp_path / "nisqa.tar")
+    chip_smoke.nisqa_checkpoint(path)
+    wave48 = chip_smoke.speech_like(gen, (2, 48000), 48000, device="cpu")
+    values = {"srmr": fn.speech_reverberation_modulation_energy_ratio(reverb, 16000),
+              "dnsmos": fn.deep_noise_suppression_mean_opinion_score(
+                  clips, 16000, False, infer_fns=chip_smoke.DnsLinearModels(155, "cpu").fns()),
+              "nisqa": fn.non_intrusive_speech_quality_assessment(wave48, 48000, checkpoint_path=path)}
+    assert values["dnsmos"].shape == (2, 4) and values["nisqa"].shape == (2, 5)
+    assert all(bool(torch.isfinite(v).all()) for v in values.values())
+    worst = chip_smoke.hold_units("rehearsal", values, values, chip_smoke.SPEECH_UNITS)
+    assert set(worst.values()) == {0.0}
+    with pytest.raises(AssertionError, match="nisqa"):
+        chip_smoke.hold_units("rehearsal", {**values, "nisqa": values["nisqa"] * (1 + 1e-4)}, values,
+                              chip_smoke.SPEECH_UNITS)
+    bands = torch.randn(2, 3, 1000, generator=gen, dtype=torch.float64)
+    np.testing.assert_allclose(srmr._hilbert_envelope(bands).numpy(), chip_smoke.host_hilbert_envelope(bands.numpy()),
+                               rtol=0, atol=1e-12)
+
+
+def test_vmaf_rehearsal_holds_the_cpu_port_and_both_dwt_forms(chip_smoke, tmp_path):
+    import json
+
+    from torchmetrics_tpu_torch.functional.video import vmaf
+    from torchmetrics_tpu_torch.video import VideoMultiMethodAssessmentFusion
+
+    gen = torch.Generator().manual_seed(0)
+    preds, target = chip_smoke.vmaf_video(gen, 1, shape=(3, 3, 40, 48), device="cpu")
+    assert preds.shape == target.shape == (1, 3, 3, 40, 48) and 0 <= float(preds.min()) <= float(preds.max()) <= 1
+    path = tmp_path / "vmaf_seeded.json"
+    path.write_text(json.dumps(chip_smoke.vmaf_model_blob()))
+    metric = VideoMultiMethodAssessmentFusion(features=True, model_path=str(path), device="cpu")
+    metric.update(preds, target)
+    scores = metric.compute()["vmaf"]
+    assert scores.shape == (3,) and bool(((scores > 0) & (scores < 100)).all())  # inside the clip
+    features = vmaf.vmaf_features(preds, target)
+    assert set(chip_smoke.hold_units("rehearsal", features, features, chip_smoke.VMAF_UNITS).values()) == {0.0}
+    with pytest.raises(AssertionError, match="integer_adm2"):
+        chip_smoke.hold_units("rehearsal", {**features, "integer_adm2": features["integer_adm2"] + 1e-4}, features,
+                              chip_smoke.VMAF_UNITS)
+    luma = vmaf.calculate_luma(target).reshape(-1, 40, 48)
+    scale = 2.8 * float(luma.abs().max())
+    for a, b in zip(vmaf._dwt2_db2(luma), chip_smoke.dense_dwt_level(luma)):
+        assert float((a - b).abs().max()) <= 8 * chip_smoke.UNIT * scale

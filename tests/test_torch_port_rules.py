@@ -23,8 +23,8 @@ import torch
 import torchmetrics_tpu_torch
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.classification import MulticlassAccuracy
-from torchmetrics_tpu_torch import (classification, clustering, detection, functional, image, nominal, regression,
-                                    retrieval, segmentation, shape, wrappers)
+from torchmetrics_tpu_torch import (audio, classification, clustering, detection, functional, image, nominal,
+                                    regression, retrieval, segmentation, shape, video, wrappers)
 from torchmetrics_tpu_torch.image import (
     FrechetInceptionDistance,
     InceptionScore,
@@ -244,6 +244,66 @@ def test_image_functions_on_host_values_raise_without_cuda(no_cuda, name):
     kw = {"data_range": 1.0} if name.startswith("peak_signal_noise_ratio") else {}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         getattr(functional, name)(*IMAGE_HOST_VALUES[name], **kw)
+
+
+def _no_infer(x):
+    return x
+
+
+AUDIO_VIDEO_CLASS_ARGS = {
+    "PermutationInvariantTraining": {"metric_func": functional.scale_invariant_signal_noise_ratio},
+    "SpeechReverberationModulationEnergyRatio": {"fs": 8000},
+    "DeepNoiseSuppressionMeanOpinionScore": {"fs": 16000, "personalized": False, "infer_fns": (_no_infer, _no_infer)},
+    "NonIntrusiveSpeechQualityAssessment": {"fs": 16000},
+    "PerceptualEvaluationSpeechQuality": {"fs": 16000, "mode": "wb"},
+    "ShortTimeObjectiveIntelligibility": {"fs": 16000},
+    "VideoMultiMethodAssessmentFusion": {"model_path": "vmaf_v0.6.1.json"},
+}
+
+
+@pytest.mark.parametrize("module, name", [(m, n) for m in (audio, video) for n in sorted(m.__all__)])
+def test_audio_and_video_classes_at_default_device_raise_without_cuda(no_cuda, module, name):
+    """Before any gate of a wheel, a model file or a checkpoint: the device comes first."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(module, name)(**AUDIO_VIDEO_CLASS_ARGS.get(name, {}))
+
+
+_WAVE = [[0.5, -0.25, 0.75, 0.0] * 64]
+_SPEAKERS = [[[0.5, -0.25] * 8, [0.25, 0.5] * 8]]
+_VIDEO = np.full((1, 3, 2, 8, 8), 0.5, np.float32).tolist()
+AUDIO_VIDEO_HOST_VALUES = {
+    **{name: (_WAVE, _WAVE) for name in ("signal_noise_ratio", "scale_invariant_signal_noise_ratio",
+                                         "scale_invariant_signal_distortion_ratio", "signal_distortion_ratio")},
+    "source_aggregated_signal_distortion_ratio": (_SPEAKERS, _SPEAKERS),
+    "complex_scale_invariant_signal_noise_ratio": (np.ones((1, 2, 3, 2)).tolist(),) * 2,
+    "permutation_invariant_training": (_SPEAKERS, _SPEAKERS, functional.scale_invariant_signal_noise_ratio),
+    "pit_permutate": (_SPEAKERS, [[1, 0]]),
+    "perceptual_evaluation_speech_quality": (_WAVE, _WAVE, 16000, "wb"),
+    "short_time_objective_intelligibility": (_WAVE, _WAVE, 16000),
+    "speech_reverberation_modulation_energy_ratio": (_WAVE, 8000),
+    "deep_noise_suppression_mean_opinion_score": (_WAVE, 16000, False),
+    "non_intrusive_speech_quality_assessment": (_WAVE, 16000),
+    "calculate_luma": (_VIDEO,),
+    "vmaf_features": (_VIDEO, _VIDEO),
+    "video_multi_method_assessment_fusion": (_VIDEO, _VIDEO, False, "vmaf_v0.6.1.json"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AUDIO_VIDEO_HOST_VALUES))
+def test_audio_and_video_functions_on_host_values_raise_without_cuda(no_cuda, name):
+    """Lists, not tensors: the function makes them on the default device, CUDA, before
+    it looks for a wheel, a model or a checkpoint."""
+    kw = {"infer_fns": (_no_infer, _no_infer)} if name.startswith("deep_noise") else {}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(functional, name)(*AUDIO_VIDEO_HOST_VALUES[name], **kw)
+
+
+def test_vmaf_model_on_host_features_raises_without_cuda(no_cuda):
+    names = ["VMAF_feature_adm2_score", "VMAF_feature_motion2_score"]
+    model = functional.VmafModel({"feature_names": names, "slopes": [1.0] * 3, "intercepts": [0.0] * 3,
+                                  "gamma": 0.1, "rho": 0.0, "sv_coef": [1.0], "support_vectors": [[0.0, 0.0]]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.predict({name: [0.5] for name in names})
 
 
 def test_explicit_cpu_device_runs_without_cuda(no_cuda):

@@ -127,20 +127,28 @@ def _toy_extractor(imgs):
     return imgs.reshape(imgs.shape[0], -1)[:, :4]
 
 
+def _identity(*args):
+    return args[0]
+
+
 FILL = {"num_classes": 3, "num_labels": 3, "min_recall": 0.5, "min_precision": 0.5, "min_specificity": 0.5,
         "min_sensitivity": 0.5, "num_groups": 2, "p": 2, "threshold": 0.5, "beta": 2.0, "feature": _toy_extractor,
-        "things": {0, 1}, "stuffs": {2}, "data_range": 1.0}
+        "things": {0, 1}, "stuffs": {2}, "data_range": 1.0, "metric_func": _identity, "fs": 16000,
+        "personalized": False, "infer_fns": (_identity, _identity)}
+# classes that need a wheel, a checkpoint or a model file to build
+NEEDS_FILES = {"PerceptualEvaluationSpeechQuality", "ShortTimeObjectiveIntelligibility",
+               "NonIntrusiveSpeechQualityAssessment", "VideoMultiMethodAssessmentFusion"}
 TASKS = {"binary": {}, "multiclass": {}, "multilabel": {}}
 
 
 def _flag_cases():
     cases = []
     for modname in ("classification", "regression", "detection", "image", "aggregation", "retrieval", "segmentation",
-                    "clustering", "nominal", "shape"):
+                    "clustering", "nominal", "shape", "audio", "video"):
         module = getattr(T, modname)
         for name in module.__all__:
             cls = getattr(module, name)
-            if not inspect.isclass(cls) or name == "BaseAggregator":
+            if not inspect.isclass(cls) or name == "BaseAggregator" or name in NEEDS_FILES:
                 continue
             if not issubclass(cls, PortMetric) and "task" not in inspect.signature(cls.__new__).parameters:
                 continue

@@ -5,9 +5,10 @@ paths and imports neither JAX nor anything of the JAX package. Entry points run 
 unless the caller passes ``device="cpu"``.
 """
 
-from . import (aggregation, classification, clustering, detection, image, nominal, parallel, regression, retrieval,
-               segmentation, shape, wrappers)
+from . import (aggregation, audio, classification, clustering, detection, image, nominal, parallel, regression,
+               retrieval, segmentation, shape, video, wrappers)
 from .aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, RunningMean, RunningSum, SumMetric
+from .audio import *  # noqa: F401,F403
 from .classification import *  # noqa: F401,F403
 from .clustering import *  # noqa: F401,F403
 from .collections import MetricCollection, QuarantinedMetric
@@ -22,6 +23,7 @@ from .regression import *  # noqa: F401,F403
 from .retrieval import *  # noqa: F401,F403
 from .segmentation import *  # noqa: F401,F403
 from .shape import *  # noqa: F401,F403
+from .video import *  # noqa: F401,F403
 from .wrappers import (
     BootStrapper,
     ClasswiseWrapper,
@@ -35,8 +37,8 @@ from .wrappers import (
 __all__ = [
     "CatMetric", "CompositionalMetric", "HostMetric", "MaxMetric", "MeanMetric", "Metric", "MetricCollection",
     "MinMetric", "QuarantinedMetric", "RunningMean", "RunningSum", "SumMetric", *classification.__all__,
-    *clustering.__all__, *detection.__all__, *image.__all__, *nominal.__all__, *regression.__all__,
-    *retrieval.__all__, *segmentation.__all__, *shape.__all__,
+    *audio.__all__, *clustering.__all__, *detection.__all__, *image.__all__, *nominal.__all__, *regression.__all__,
+    *retrieval.__all__, *segmentation.__all__, *shape.__all__, *video.__all__,
     "BootStrapper", "ClasswiseWrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper", "MultitaskWrapper",
     "Running",
 ]

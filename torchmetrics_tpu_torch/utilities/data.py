@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from functools import lru_cache
+from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
@@ -133,3 +134,11 @@ def allclose(a: torch.Tensor, b: torch.Tensor, rtol: float = 1e-5, atol: float =
     On the card the answer is one bool read back to the host."""
     dtype = torch.promote_types(a.dtype, b.dtype)
     return bool(torch.allclose(a.to(dtype), b.to(dtype), rtol=rtol, atol=atol))
+
+
+@lru_cache(maxsize=None)
+def _device_constant(make: Callable, device: torch.device, *args) -> torch.Tensor:
+    """``make(*args)``, a numpy constant (a window, a filterbank, an index), as a tensor
+    on ``device``, made once a device and argument list: a copy from the host waits for
+    the device, so an update that reuses it reads nothing back."""
+    return torch.as_tensor(make(*args), device=device)

@@ -1,0 +1,13 @@
+"""Optional-dependency flags (counterpart of ``torchmetrics_tpu/utilities/imports.py``)."""
+
+from __future__ import annotations
+
+import importlib.util
+
+
+def _module_available(name: str) -> bool:
+    """Whether ``name`` can be imported, without importing it."""
+    try:
+        return importlib.util.find_spec(name) is not None
+    except (ModuleNotFoundError, ValueError):
+        return False
