@@ -294,7 +294,8 @@ Phases, one JSON line each, in order:
    first 4 mixtures against the CPU port: dB values within ``AUDIO_ULPS``, permutations
    and SDR's solver flags bit for bit, SDR's float64 dB within ``SDR_DB_ATOL``; every
    update named in ``SEPARATION_NO_HOST_READ`` under ``torch.cuda.set_sync_debug_mode
-   ("error")``; PIT at 3 speakers (a Libri3Mix-shaped update, no host read either) and at
+   ("error")``; SDR's update with its one read of the solver's flags (counted), timed
+   against the solve alone, and its raises on a silent target and on NaN input; PIT at 3 speakers (a Libri3Mix-shaped update, no host read either) and at
    5 (16 WSJ0-5mix-shaped mixtures of 5 s at 8 kHz, the Hungarian branch, host reads
    counted). Update ms (first and median), peak extra bytes, profiled updates.
 37. speech_quality: SRMR on 16 REVERB-style utterances (8 s at 16 kHz, speech-like sources
@@ -314,6 +315,36 @@ Phases, one JSON line each, in order:
    within ``VMAF_SCORE_ATOL``, the features the same bits with TF32 allowed; ADM's DWT
    in the port's 4-tap form and through the dense matrices, timed and held together.
    Update and compute ms, peak extra bytes, host reads, a profiled update.
+39-41. text_mt, text_asr, text_qa_sum: the string metrics on seeded stand-ins for the
+   corpora at their published sizes (a Zipf vocabulary of 20,000 pseudo-words, seeded
+   edits): WMT14 en-de newstest2014 (3,003 segments of about 27 tokens, one reference;
+   hypotheses under 30% edits, a fifth with a moved block) through BLEU, SacreBLEU
+   (``13a``, ``intl``, ``char``), chrF, chrF++, TER and EED; LibriSpeech test-clean
+   (2,620 utterances of about 20 words at a 5% edit rate) through WER, CER, MER, WIL,
+   WIP and EditDistance; SQuAD v1.1 dev (10,570 questions, 1-3 answers) through SQuAD
+   and CNN/DailyMail test (11,490 summaries of about 56 words in 3-4 highlights)
+   through ROUGE-1/2/L/Lsum. Updates of 64; the first ``TEXT_CPU_BATCHES`` updates
+   replayed by the CPU port, states bit for bit and values within ``TEXT_RTOL``; the
+   tensor states on the card; update and compute ms, and one profiled update of every
+   metric split into the card's busy time and the host's.
+42. perplexity: GPT-2-width logits from a seed (8 windows of 1,024 over 50,257 tokens,
+   1.65 GB of float32 an update, the target token raised by a seeded margin), 30
+   updates (WikiText-103 test's 245,569 tokens), also with ``ignore_index`` on each
+   window's last eighth and in bfloat16; the first window held against the CPU port
+   (counts equal, sums within ``PPL_RTOL``, bfloat16 within ``PPL_BF16_RTOL``); update
+   ms beside the logits' read bound, peak extra bytes, host reads, a profiled update.
+43. bert_score: a seeded ``BertModel`` at bert-base-uncased's published config and a
+   ``BertTokenizer`` over a 30,522-entry WordPiece vocabulary the phase writes
+   (``BERT_BASE``), loaded by path, ``num_layers=9``; 2,999 WMT16-sized pairs in updates
+   of 64, with and without IDF, TF32 off; every value finite on the card, the first 64
+   pairs within ``BERT_ATOL`` of the CPU port; update and compute ms, the embedder's
+   tokens/s and the matching's ms, a profiled matching.
+44. infolm: the ``BertForMaskedLM`` of that config, 256 pairs, the first 8 within
+   ``INFOLM_RTOL`` of the CPU port; compute ms and masked copies a second.
+45. lve: 16 VOCASET-sized sequences (240 frames of FLAME's 5,023 vertices) through
+   ``LipVertexError`` over a seeded lip region of 254 vertices: the int32 count equal
+   to the CPU port's, the float32 sum within ``LVE_RTOL``; update ms, host reads, a
+   profiled update.
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -3966,7 +3997,9 @@ def host_reads(call) -> int:
             call()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum(1 for w in caught if "synchroniz" in str(w.message))
+    # torch's one-off notice that the debug mode is a prototype names "synchronizing"
+    # operations too; it is no read
+    return sum(1 for w in caught if "synchroniz" in str(w.message) and "prototype" not in str(w.message))
 
 
 def edge_counts(pred: torch.Tensor, target: torch.Tensor, classes: int = BRATS_CLASSES):
@@ -5056,7 +5089,8 @@ STFT_N_FFT, STFT_HOP = 512, 128
 SDR_TAPS = 512
 AUDIO_ULPS = 2  # card against CPU: dB values within 2 float32 spacings of the CPU's value (log10 differs by one)
 SDR_DB_ATOL = 1e-6  # card against CPU: SDR in float64 before its float32 rounding
-SEPARATION_NO_HOST_READ = ("snr", "si_snr", "si_sdr", "sa_sdr", "c_si_snr", "sdr", "pit", "pit_permutation_wise")
+SEPARATION_NO_HOST_READ = ("snr", "si_snr", "si_sdr", "sa_sdr", "c_si_snr", "pit", "pit_permutation_wise")
+SDR_HOST_READS = 1  # SDR reads its solver's flags once a call, to raise where scipy raises
 REVERB_SHAPE = (16, 8 * 16000)  # REVERB-style utterances: 8 s at 16 kHz
 DNS_SHAPE = (32, 10 * 16000)  # DNS-Challenge-style clips: 10 s at 16 kHz
 NISQA_SHAPE = (16, 10 * 48000)  # 10 s at 48 kHz
@@ -5182,6 +5216,35 @@ def hold_separation(label: str, got: dict, want: dict) -> dict:
     return hold_all(label, got, want, separation_diff, limits)
 
 
+def sdr_read_cost(metric, preds: torch.Tensor, target: torch.Tensor) -> dict:
+    """SDR's one host read a call: counted, its cost as the update's median time against
+    the solve alone (which reads nothing), and the raise on a silent target and on NaN
+    input, as scipy's, on the card."""
+    from torchmetrics_tpu_torch.functional.audio.sdr import _sdr_solve
+
+    reads = host_reads(lambda: metric.update(preds, target))
+    if reads != SDR_HOST_READS:
+        raise AssertionError(f"audio_separation: an SDR update read the host {reads} times")
+    no_host_read(lambda: _sdr_solve(preds, target, SDR_TAPS))
+    update = [synced_ms(lambda: metric.update(preds, target)) for _ in range(5)]
+    solve = [synced_ms(lambda: _sdr_solve(preds, target, SDR_TAPS)) for _ in range(5)]
+    raised = {}
+    for case in ("silent_target", "nan_preds"):
+        bad_preds, bad_target = preds[:4].clone(), target[:4].clone()
+        if case == "silent_target":
+            bad_target[2] = 0.0
+        else:
+            bad_preds[1, 0, 9] = float("nan")
+        try:
+            metric.update(bad_preds, bad_target)
+        except (ValueError, np.linalg.LinAlgError) as err:
+            raised[case] = f"{type(err).__name__}: {err}"
+    if raised != {"silent_target": "LinAlgError: Singular principal minor",
+                  "nan_preds": "ValueError: array must not contain infs or NaNs"}:
+        raise AssertionError(f"audio_separation: SDR raised {raised}")
+    return {"host_reads": reads, "update_ms": median(update), "solve_ms": median(solve), "raised": raised}
+
+
 def audio_separation_phase(card: str) -> None:
     from torchmetrics_tpu_torch import audio as au
     from torchmetrics_tpu_torch.functional import permutation_invariant_training, scale_invariant_signal_noise_ratio
@@ -5218,6 +5281,7 @@ def audio_separation_phase(card: str) -> None:
     worst = hold_separation("audio_separation", card_values, cpu_values)
     for name in SEPARATION_NO_HOST_READ:
         no_host_read(lambda: metrics[name].update(*separation_args(name, preds, target, spectra)))
+    sdr = sdr_read_cost(metrics["sdr"], preds, target)
     peaks = {name: update_peak_bytes(separation_metrics()[name], separation_args(name, preds, target, spectra))
              for name in ("sdr", "pit", "pit_permutation_wise", "c_si_snr")}
     # Libri3Mix-shaped: one update of 50 mixtures of 3 speakers, no host read either
@@ -5250,6 +5314,7 @@ def audio_separation_phase(card: str) -> None:
           "sdr_taps": SDR_TAPS, "update_ms": update_ms, "values": {n: float(v) for n, v in values.items()},
           "cpu_mixtures": LIBRI_CPU_MIXTURES, "cpu_ulps_or_db": worst, "ulps_limit": AUDIO_ULPS,
           "sdr_db_limit": SDR_DB_ATOL, "no_host_read_updates": [*SEPARATION_NO_HOST_READ, "pit3 (both modes)"],
+          "sdr_flags_read": sdr,
           "update_peak_extra_bytes": peaks, "pit3_update_ms": pit3_ms, "pit5": {
               "shape": list(WSJ5_SHAPE), "update_ms": pit5_ms, "host_reads": pit5_reads,
               "value": float(fresh_compute(pit5))},
@@ -5502,6 +5567,618 @@ def vmaf_phase(card: str) -> None:
         profile_step("vmaf_update", lambda: metric.update(*first))
 
 
+WMT14_SEGMENTS = 3003  # WMT14 en-de newstest2014: 3,003 segments, one reference each
+WMT14_TOKENS = 27  # mean tokens a segment
+LIBRI_UTTERANCES = 2620  # LibriSpeech test-clean
+LIBRI_WORDS = 20  # mean words an utterance
+LIBRI_EDIT_RATE = 0.05  # seeded substitutions, deletions and insertions: a 5% WER system
+SQUAD_QUESTIONS = 10570  # SQuAD v1.1 dev: 1-3 answers a question
+CNNDM_SUMMARIES = 11490  # CNN/DailyMail test
+CNNDM_WORDS = 56  # mean words of a reference summary (3-4 highlights)
+TEXT_BATCH = 64  # segments an update
+TEXT_CPU_BATCHES = 2  # the CPU port replays the first 128 segments of each corpus
+ZIPF_WORDS = 20000  # the corpora's vocabulary, drawn by a Zipf law
+ZIPF_EXPONENT = 1.1
+MT_EDIT_RATE = 0.3  # a hypothesis: its reference under 30% seeded edits and a block move
+TEXT_RTOL = 1e-6  # card against CPU: values; the states bit for bit
+GPT2_VOCAB = 50257  # GPT-2's published vocabulary and context
+GPT2_CONTEXT = 1024
+PPL_WINDOWS = 8  # windows an update: 1.65 GB of float32 logits
+WIKITEXT103_TEST_TOKENS = 245569
+PPL_UPDATES = 30  # 30 x 8 x 1,024 = 245,760 tokens, WikiText-103 test's 245,569 rounded up to whole windows
+PPL_IGNORE = -100
+PPL_MARGIN = (8.5, 2.5)  # the target logit's lift over N(0, 1) noise: a perplexity of about 20-40, GPT-2's range
+PPL_RTOL = 1e-6  # card against CPU on the first window: float32 sums and the value
+PPL_BF16_RTOL = 2.0**-7  # two bfloat16 spacings: each log-probability rounds to bfloat16 first
+BERT_BASE = {"hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
+             "vocab_size": 30522, "max_position_embeddings": 512}  # bert-base-uncased's published config
+BERT_LAYERS = 9  # BERTScore's num_layers for the model
+WMT16_PAIRS = 2999  # WMT16 newstest2016, to English
+BERT_SCORE_BATCH = 64
+BERT_CPU_PAIRS = 64
+BERT_ATOL = 1e-5  # card against CPU: float32 BERT sums in other orders (TF32 off), cosines of unit vectors
+INFOLM_PAIRS = 256
+INFOLM_CPU_PAIRS = 8
+INFOLM_RTOL = 1e-4  # card against CPU: logits a few units apart, times 4 (temperature 0.25) before the softmax
+VOCASET_SEQUENCES = 16  # VOCASET-sized: 4 s at 60 fps of FLAME's 5,023 vertices
+VOCASET_FRAMES = 240
+FLAME_VERTICES = 5023
+LIP_VERTICES = 254  # a seeded lip region; FLAME's mask is not in the repo
+LVE_RTOL = 1e-6
+
+
+@functools.lru_cache(maxsize=None)
+def zipf_vocabulary(size: int = ZIPF_WORDS, seed: int = 1601) -> tuple:
+    """``size`` distinct lowercase pseudo-words of two to four syllables, from a seed."""
+    rng = np.random.default_rng(seed)
+    syllables = [a + b for a in "bcdfghjklmnprstvwz" for b in "aeiou"]
+    words, seen = [], set()
+    while len(words) < size:
+        for n, picks in zip(rng.integers(2, 5, size), rng.integers(0, len(syllables), (size, 4))):
+            word = "".join(syllables[i] for i in picks[:n])
+            if word not in seen and len(words) < size:
+                seen.add(word)
+                words.append(word)
+    return tuple(words)
+
+
+def zipf_sampler(vocab: list, exponent: float = ZIPF_EXPONENT):
+    """``draw(rng, n)``: ``n`` words by a Zipf law over ``vocab``'s order."""
+    cdf = np.cumsum(1.0 / np.arange(1, len(vocab) + 1) ** exponent)
+    cdf /= cdf[-1]
+    return lambda rng, n: [vocab[i] for i in np.searchsorted(cdf, rng.random(n))]
+
+
+def segment_lengths(rng, count: int, mean: float, shape: float = 3.0, low: int = 1) -> np.ndarray:
+    """Gamma-distributed lengths of mean ``mean`` (a corpus's length profile), at least ``low``."""
+    return np.maximum(low, np.round(rng.gamma(shape, mean / shape, count))).astype(int)
+
+
+def seeded_edits(rng, words: list, rate: float, draw) -> list:
+    """Each word substituted, deleted or followed by an inserted word with probability
+    ``rate / 3`` each."""
+    out = []
+    for word, roll in zip(words, rng.random(len(words))):
+        if roll < rate / 3:
+            out.append(draw(rng, 1)[0])
+        elif roll < 2 * rate / 3:
+            continue
+        elif roll < rate:
+            out += [word, draw(rng, 1)[0]]
+        else:
+            out.append(word)
+    return out
+
+
+def written(words: list, rng) -> str:
+    """Words as a written sentence: capitalised, a few commas and numbers, a full stop."""
+    words = [str(int(rng.integers(1, 2000))) if rng.random() < 0.02 else w for w in words]
+    words = [w + "," if rng.random() < 0.05 else w for w in words]
+    return (" ".join(words)[:1].upper() + " ".join(words)[1:] + ".") if words else ""
+
+
+def mt_corpus(segments: int = WMT14_SEGMENTS, seed: int = 1602) -> tuple:
+    """WMT14-shaped translation output: references of about 27 tokens and hypotheses
+    under seeded edits, a fifth of them with a block of 2-5 words moved (TER's shifts)."""
+    rng = np.random.default_rng(seed)
+    draw = zipf_sampler(zipf_vocabulary())
+    preds, target = [], []
+    for n in segment_lengths(rng, segments, WMT14_TOKENS - 1):
+        ref = draw(rng, int(n))
+        hyp = seeded_edits(rng, ref, MT_EDIT_RATE, draw)
+        if rng.random() < 0.2 and len(hyp) > 6:
+            size = int(rng.integers(2, 6))
+            start = int(rng.integers(0, len(hyp) - size))
+            block, rest = hyp[start:start + size], hyp[:start] + hyp[start + size:]
+            at = int(rng.integers(0, len(rest) + 1))
+            hyp = rest[:at] + block + rest[at:]
+        preds.append(written(hyp, rng))
+        target.append([written(ref, rng)])
+    return preds, target
+
+
+def asr_corpus(utterances: int = LIBRI_UTTERANCES, seed: int = 1603) -> tuple:
+    """LibriSpeech test-clean-shaped transcripts (lowercase words, about 20 an
+    utterance) and a recogniser's output at a 5% seeded edit rate."""
+    rng = np.random.default_rng(seed)
+    draw = zipf_sampler(zipf_vocabulary())
+    refs = [draw(rng, int(n)) for n in segment_lengths(rng, utterances, LIBRI_WORDS, low=2)]
+    return [" ".join(seeded_edits(rng, ref, LIBRI_EDIT_RATE, draw)) for ref in refs], [" ".join(r) for r in refs]
+
+
+def squad_corpus(questions: int = SQUAD_QUESTIONS, seed: int = 1604) -> tuple:
+    """SQuAD v1.1 dev-shaped answers: 1-3 gold answers of 1-5 words a question; a
+    prediction equal to a gold answer (65%, with case and punctuation changed half of
+    the time), overlapping one (25%) or another span (10%)."""
+    rng = np.random.default_rng(seed)
+    draw = zipf_sampler(zipf_vocabulary())
+    preds, target = [], []
+    for q in range(questions):
+        span = draw(rng, int(rng.integers(1, 6)))
+        answers = [" ".join(span)]
+        for _ in range(int(rng.choice([0, 1, 2], p=[0.3, 0.4, 0.3]))):
+            cut = int(rng.integers(0, len(span)))
+            answers.append(" ".join(["the"] + span[cut:] if rng.random() < 0.5 else span[: cut + 1]))
+        roll = rng.random()
+        if roll < 0.65:
+            pred = answers[int(rng.integers(0, len(answers)))]
+            pred = pred.capitalize() + "." if rng.random() < 0.5 else pred
+        elif roll < 0.9:
+            pred = " ".join(seeded_edits(rng, span, 0.6, draw))
+        else:
+            pred = " ".join(draw(rng, int(rng.integers(1, 6))))
+        preds.append({"prediction_text": pred, "id": f"q{q}"})
+        target.append({"answers": {"answer_start": [0] * len(answers), "text": answers}, "id": f"q{q}"})
+    return preds, target
+
+
+def summary_corpus(summaries: int = CNNDM_SUMMARIES, seed: int = 1605) -> tuple:
+    """CNN/DailyMail test-shaped summaries: references of about 56 words in 3-4
+    highlights, and system summaries sharing about half their words, sentence order
+    shuffled."""
+    rng = np.random.default_rng(seed)
+    draw = zipf_sampler(zipf_vocabulary())
+    preds, target = [], []
+    for n in segment_lengths(rng, summaries, CNNDM_WORDS, shape=6.0, low=8):
+        words = draw(rng, int(n))
+        cuts = sorted(rng.choice(np.arange(3, len(words) - 2), size=int(rng.integers(2, 4)), replace=False).tolist())
+        ref = [words[a:b] for a, b in zip([0, *cuts], [*cuts, len(words)])]
+        hyp = [seeded_edits(rng, s, 0.5, draw) for s in ref]
+        hyp = [hyp[i] for i in rng.permutation(len(hyp))]
+        target.append(" ".join(written(s, rng) for s in ref))
+        preds.append(" ".join(written(s, rng) for s in hyp if s))
+    return preds, target
+
+
+BERT_SPECIALS = ("[PAD]", *(f"[unused{i}]" for i in range(99)), "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+
+def wordpiece_vocabulary(path: str, words: list, size: int = BERT_BASE["vocab_size"]) -> list:
+    """Write a ``vocab.txt`` of ``size`` WordPiece entries in bert-base-uncased's layout
+    ([PAD] 0, [unused0-98], [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103), then ASCII
+    punctuation and digits, their ``##`` continuations, the corpus ``words``, and filler
+    pieces up to ``size``. Returns the entries."""
+    entries = list(BERT_SPECIALS)
+    chars = [c for c in "!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~0123456789abcdefghijklmnopqrstuvwxyz"]
+    entries += chars + [f"##{c}" for c in chars if c.isalnum()]
+    seen = set(entries)
+    entries += [w for w in words if not (w in seen or seen.add(w))]
+    filler = 0
+    while len(entries) < size:
+        piece = f"##q{filler}"
+        filler += 1
+        if piece not in seen:
+            seen.add(piece)
+            entries.append(piece)
+    if len(entries) != size:
+        raise ValueError(f"{len(entries)} WordPiece entries do not fit a vocabulary of {size}")
+    with open(path, "w") as fh:
+        fh.write("\n".join(entries) + "\n")
+    return entries
+
+
+def batches_of_pairs(preds: list, target: list, size: int = TEXT_BATCH) -> list:
+    return [(preds[i:i + size], target[i:i + size]) for i in range(0, len(preds), size)]
+
+
+def text_metrics(phase: str, device=None) -> dict:
+    from torchmetrics_tpu_torch import text as tx
+
+    if phase == "text_mt":
+        return {"bleu": tx.BLEUScore(device=device), "sacre_bleu_13a": tx.SacreBLEUScore(device=device),
+                "sacre_bleu_intl": tx.SacreBLEUScore(tokenize="intl", device=device),
+                "sacre_bleu_char": tx.SacreBLEUScore(tokenize="char", device=device),
+                "chrf": tx.CHRFScore(n_word_order=0, device=device), "chrf++": tx.CHRFScore(device=device),
+                "ter": tx.TranslationEditRate(device=device), "eed": tx.ExtendedEditDistance(device=device)}
+    if phase == "text_asr":
+        return {"wer": tx.WordErrorRate(device=device), "cer": tx.CharErrorRate(device=device),
+                "mer": tx.MatchErrorRate(device=device), "wil": tx.WordInfoLost(device=device),
+                "wip": tx.WordInfoPreserved(device=device), "edit_distance": tx.EditDistance(device=device)}
+    return {"squad": tx.SQuAD(device=device), "rouge": tx.ROUGEScore(device=device)}
+
+
+def text_phase_batches(phase: str, segments: int = 0) -> dict:
+    """Each metric's update batches (the published corpus sizes, or the first
+    ``segments``): the ``text_qa_sum`` phase feeds SQuAD and ROUGE their own corpora."""
+    size = {} if not segments else {"text_mt": (segments,), "text_asr": (segments,), "text_qa_sum": (segments,)}[phase]
+    if phase == "text_mt":
+        return {"*": batches_of_pairs(*mt_corpus(*size))}
+    if phase == "text_asr":
+        return {"*": batches_of_pairs(*asr_corpus(*size))}
+    return {"squad": batches_of_pairs(*squad_corpus(*size)), "rouge": batches_of_pairs(*summary_corpus(*size))}
+
+
+def run_text(metrics: dict, batches: dict, prefix: int, timed: bool = True) -> dict:
+    """Every update of every metric (``timed``: synchronised host clock around each);
+    after ``prefix`` updates a clone of each metric, whose states the CPU port is held to."""
+    times, snapshots = {}, {}
+    for name, metric in metrics.items():
+        own = batches.get(name, batches.get("*"))
+        times[name] = []
+        for i, batch in enumerate(own):
+            if i == prefix:
+                snapshots[name] = metric.clone()
+            times[name].append(synced_ms(lambda: metric.update(*batch)) if timed else metric.update(*batch))
+        snapshots.setdefault(name, metric.clone())
+    return {"times": times, "snapshots": snapshots}
+
+
+def text_states(metric) -> dict:
+    """A metric's states on the host, list states concatenated."""
+    return {k: (torch.cat([t.reshape(-1) for t in v]) if v else torch.zeros(0)).cpu() if isinstance(v, list)
+            else v.cpu() for k, v in metric._state.items()}
+
+
+def hold_text(label: str, got: dict, want: dict) -> dict:
+    """Metric by metric: states bit for bit (dtypes and shapes too), values within
+    ``TEXT_RTOL`` relative. Returns the largest relative difference of each value."""
+    worst = {}
+    for name, metric in want.items():
+        mine, theirs = text_states(got[name]), text_states(metric)
+        for key, value in theirs.items():
+            if not same_bits(mine[key], value):
+                raise AssertionError(f"{label} {name}: state {key} differs from the CPU port's")
+        leaves, ref = tree_leaves(fresh_compute(got[name])), tree_leaves(fresh_compute(metric))
+        worst[name] = max(largest_rel_diff(leaves[k], v) for k, v in ref.items())
+        if not worst[name] <= TEXT_RTOL:
+            raise AssertionError(f"{label} {name}: values {worst[name]} apart relative (limit {TEXT_RTOL})")
+    return worst
+
+
+def text_values(metrics: dict) -> dict:
+    return {name: {k: float(v) if v.numel() == 1 else summary(v) for k, v in tree_leaves(fresh_compute(m)).items()}
+            for name, m in metrics.items()}
+
+
+def text_phase(card: str, phase: str) -> None:
+    """One of the three string phases: every update on the card (states made there, the
+    string work on the host), the first ``TEXT_CPU_BATCHES`` updates replayed by the
+    port on the CPU and held, compute ms, and one update of each metric profiled as the
+    split between the host's string work and the card."""
+    clock = [("start", time.perf_counter())]
+    batches = text_phase_batches(phase)
+    clock.append(("corpus", time.perf_counter()))
+    metrics = text_metrics(phase)
+    run = run_text(metrics, batches, TEXT_CPU_BATCHES)
+    clock.append(("card", time.perf_counter()))
+    compute_ms = {name: [synced_ms(lambda: fresh_compute(m)) for _ in range(2)] for name, m in metrics.items()}
+    values = text_values(metrics)
+    for name, leaves in values.items():
+        for key, value in leaves.items():
+            if isinstance(value, float) and not math.isfinite(value):
+                raise AssertionError(f"{phase} {name} {key}: {value}")
+    cpu_metrics = text_metrics(phase, device="cpu")
+    head = {k: v[:TEXT_CPU_BATCHES] for k, v in batches.items()}
+    run_text(cpu_metrics, head, TEXT_CPU_BATCHES, timed=False)
+    clock.append(("cpu", time.perf_counter()))
+    worst = hold_text(phase, run["snapshots"], cpu_metrics)
+    for name, metric in metrics.items():
+        if any(isinstance(v, torch.Tensor) and v.device.type != "cuda" for v in metric._state.values()):
+            raise AssertionError(f"{phase} {name}: a tensor state left the card")
+    first = {name: batches.get(name, batches.get("*"))[0] for name in metrics}
+    events = profile_step(f"{phase}_update", lambda: [m.update(*first[n]) for n, m in metrics.items()])
+    segments = {name: sum(len(b[0]) for b in batches.get(name, batches.get("*"))) for name in metrics}
+    emit({"phase": phase, "segments": segments, "batch": TEXT_BATCH,
+          "update_ms": {n: {"median": median(t), "sum": sum(t)} for n, t in run["times"].items()},
+          "compute_ms_first_second": compute_ms, "values": values, "cpu_segments": TEXT_CPU_BATCHES * TEXT_BATCH,
+          "cpu_rel_diff": worst, "rel_limit": TEXT_RTOL, "host_and_card": host_card_split(events),
+          "seconds": clock_seconds(clock), "card": card})
+
+
+def host_card_split(events) -> dict:
+    """A profiled step's wall time split into the card's busy time (the union of its
+    device spans) and the rest, the host's."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events if e.device_type == DeviceType.CUDA)
+    marks = [e for e in events if e.device_type == DeviceType.CPU]
+    wall = (max(e.time_range.end for e in marks) - min(e.time_range.start for e in marks)) if marks else 0.0
+    busy, reach = 0.0, -math.inf
+    for begin, end in spans:
+        busy += max(0.0, end - max(begin, reach))
+        reach = max(reach, end)
+    return {"wall_ms": wall / 1e3, "card_busy_ms": busy / 1e3, "host_ms": (wall - busy) / 1e3}
+
+
+def ppl_window(gen: torch.Generator, windows: int = PPL_WINDOWS, context: int = GPT2_CONTEXT,
+               vocab: int = GPT2_VOCAB, device: str = "cuda") -> tuple:
+    """GPT-2-shaped logits from a seed: float32 ``(windows, context, vocab)`` noise, the
+    target token (Zipf-drawn over the vocabulary) raised by a seeded margin, so the
+    perplexity is a language model's, not the vocabulary's."""
+    ranks = torch.arange(1, vocab + 1, device=device, dtype=torch.float64)
+    weights = ranks ** -ZIPF_EXPONENT
+    target = torch.multinomial(weights.float(), windows * context, replacement=True, generator=gen)
+    target = target.reshape(windows, context)
+    logits = torch.randn((windows, context, vocab), generator=gen, device=device)
+    margin = PPL_MARGIN[0] + PPL_MARGIN[1] * torch.randn((windows, context), generator=gen, device=device)
+    logits.scatter_add_(-1, target[..., None], margin[..., None])
+    return logits, target
+
+
+def ppl_metrics(device=None) -> dict:
+    from torchmetrics_tpu_torch.text import Perplexity
+
+    return {"float32": Perplexity(device=device), "ignore_index": Perplexity(ignore_index=PPL_IGNORE, device=device),
+            "bfloat16": Perplexity(device=device)}
+
+
+def ppl_inputs(name: str, logits: torch.Tensor, target: torch.Tensor) -> tuple:
+    if name == "bfloat16":
+        return logits.to(torch.bfloat16), target
+    if name == "ignore_index":  # each window's last eighth is padding
+        return logits, target.masked_fill(torch.arange(target.shape[-1], device=target.device) >=
+                                          target.shape[-1] * 7 // 8, PPL_IGNORE)
+    return logits, target
+
+
+def perplexity_phase(card: str) -> None:
+    from torchmetrics_tpu_torch.functional.text.perplexity import _perplexity_update
+
+    clock = [("start", time.perf_counter())]
+    gen = torch.Generator(device="cuda").manual_seed(1606)
+    metrics = ppl_metrics()
+    times = {name: [] for name in metrics}
+    first = None
+    for _ in range(PPL_UPDATES):
+        logits, target = ppl_window(gen)
+        first = first or (logits[:1].clone(), target[:1].clone())
+        for name, metric in metrics.items():
+            batch = ppl_inputs(name, logits, target)
+            times[name].append(synced_ms(lambda: metric.update(*batch)))
+        del logits
+    compute_ms = {name: synced_ms(lambda: fresh_compute(m)) for name, m in metrics.items()}
+    values = {name: float(fresh_compute(m)) for name, m in metrics.items()}
+    clock.append(("card", time.perf_counter()))
+    for name, value in values.items():
+        if not 1.0 < value < 100.0:
+            raise AssertionError(f"perplexity {name}: {value}")
+    counts = {name: float(m.count) for name, m in metrics.items()}
+    if counts["float32"] != PPL_UPDATES * PPL_WINDOWS * GPT2_CONTEXT:
+        raise AssertionError(f"perplexity: counted {counts['float32']} tokens")
+    worst = {}
+    for name, metric in metrics.items():
+        batch = ppl_inputs(name, *first)
+        card_total, card_count = _perplexity_update(*batch, metric.ignore_index)
+        cpu_total, cpu_count = _perplexity_update(*(x.cpu() for x in batch), metric.ignore_index)
+        if not torch.equal(card_count.cpu(), cpu_count):
+            raise AssertionError(f"perplexity {name}: counts {int(card_count)} and {int(cpu_count)}")
+        worst[name] = largest_rel_diff(card_total.float(), cpu_total.float())
+        limit = PPL_BF16_RTOL if name == "bfloat16" else PPL_RTOL
+        if not worst[name] <= limit:
+            raise AssertionError(f"perplexity {name}: the first window's sum {worst[name]} apart (limit {limit})")
+    clock.append(("cpu", time.perf_counter()))
+    logits, target = first[0].expand(PPL_WINDOWS, -1, -1).contiguous(), first[1].expand(PPL_WINDOWS, -1).contiguous()
+    peak = update_peak_bytes(metrics["float32"], (logits, target))
+    reads = host_reads(lambda: metrics["float32"].update(logits, target))
+    logits_bytes = logits.numel() * logits.element_size()
+    emit({"phase": "perplexity", "windows": PPL_WINDOWS, "context": GPT2_CONTEXT, "vocab": GPT2_VOCAB,
+          "updates": PPL_UPDATES, "tokens": PPL_UPDATES * PPL_WINDOWS * GPT2_CONTEXT,
+          "logits_bytes_an_update": logits_bytes,
+          "update_ms": {n: {"first": t[0], "median": median(t[1:])} for n, t in times.items()},
+          "read_bound_ms": logits_bytes / PEAK_BYTES_PER_S * 1e3, "compute_ms": compute_ms, "values": values,
+          "counts": counts, "cpu_first_window_rel_diff": worst, "rel_limits": {"float32": PPL_RTOL,
+                                                                               "bfloat16": PPL_BF16_RTOL},
+          "update_peak_extra_bytes": peak, "host_reads": reads, "seconds": clock_seconds(clock), "card": card})
+    profile_step("perplexity_update", lambda: metrics["float32"].update(logits, target))
+
+
+def write_wordpiece_tokenizer(directory: str, entries: list) -> None:
+    """bert-base-uncased's tokenizer pipeline over ``entries`` (lowercasing BERT
+    normaliser, BERT pre-tokenizer, WordPiece, ``[CLS] $A [SEP]``) as a ``tokenizers``
+    file and a ``BertTokenizer`` config: transformers 4 and 5 load it alike, where 5
+    no longer builds a tokenizer from ``vocab.txt`` alone."""
+    from tokenizers import Tokenizer, decoders, models, normalizers, pre_tokenizers, processors
+
+    ids = {token: i for i, token in enumerate(entries)}
+    tokenizer = Tokenizer(models.WordPiece(ids, unk_token="[UNK]"))
+    tokenizer.normalizer = normalizers.BertNormalizer(lowercase=True)
+    tokenizer.pre_tokenizer = pre_tokenizers.BertPreTokenizer()
+    tokenizer.post_processor = processors.TemplateProcessing(
+        single="[CLS] $A [SEP]", pair="[CLS] $A [SEP] $B [SEP]",
+        special_tokens=[("[CLS]", ids["[CLS]"]), ("[SEP]", ids["[SEP]"])])
+    tokenizer.decoder = decoders.WordPiece()
+    tokenizer.save(os.path.join(directory, "tokenizer.json"))
+    with open(os.path.join(directory, "tokenizer_config.json"), "w") as fh:
+        json.dump({"tokenizer_class": "BertTokenizer", "do_lower_case": True, "unk_token": "[UNK]",
+                   "sep_token": "[SEP]", "pad_token": "[PAD]", "cls_token": "[CLS]", "mask_token": "[MASK]",
+                   "model_max_length": BERT_BASE["max_position_embeddings"]}, fh)
+
+
+def write_bert(directory: str, words: list, masked_lm: bool, seed: int, config: dict = BERT_BASE) -> str:
+    """A seeded ``BertModel`` (or ``BertForMaskedLM``) at ``config`` (bert-base-uncased's
+    published one) and its tokenizer over ``wordpiece_vocabulary``, saved to
+    ``directory``."""
+    from transformers import BertConfig, BertForMaskedLM, BertModel
+
+    os.makedirs(directory, exist_ok=True)
+    entries = wordpiece_vocabulary(os.path.join(directory, "vocab.txt"), words, config["vocab_size"])
+    write_wordpiece_tokenizer(directory, entries)
+    torch.manual_seed(seed)
+    (BertForMaskedLM if masked_lm else BertModel)(BertConfig(**config)).save_pretrained(directory)
+    return directory
+
+
+def check_tokenizer(tokenizer, sentences: list) -> int:
+    """The tokenizer splits every corpus word into known pieces: no ``[UNK]`` in the
+    sentences. Returns their pieces."""
+    ids = tokenizer(sentences, padding=True, return_tensors="np")["input_ids"]
+    if bool((ids == tokenizer.unk_token_id).any()):
+        raise AssertionError("the WordPiece tokenizer gives [UNK] on corpus words")
+    return int((ids != tokenizer.pad_token_id).sum())
+
+
+def attended_tokens(metric) -> int:
+    return int(sum(int(m.sum()) for m in metric._state["preds_attention_mask"] + metric._state["target_attention_mask"]))
+
+
+def bert_score_phase(card: str) -> None:
+    import tempfile
+
+    from torchmetrics_tpu_torch.functional.text import bert as port_bert
+    from torchmetrics_tpu_torch.text import BERTScore
+
+    clock = [("start", time.perf_counter())]
+    preds, target = mt_corpus(WMT16_PAIRS, seed=1607)
+    target = [t[0] for t in target]
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_bert(tmp, zipf_vocabulary(), masked_lm=False, seed=1608)
+        clock.append(("model", time.perf_counter()))
+        out, cpu_rows = {}, BERT_CPU_PAIRS
+        for idf in (False, True):
+            metric = BERTScore(model_dir, num_layers=BERT_LAYERS, idf=idf, batch_size=BERT_SCORE_BATCH)
+            if next(metric._forward.model.parameters()).device.type != "cuda":
+                raise AssertionError("bert_score: the HF model is not on the card")
+            check_tokenizer(metric.tokenizer, preds[:BERT_SCORE_BATCH] + target[:BERT_SCORE_BATCH])
+            update_ms = [synced_ms(lambda: metric.update(preds[i:i + BERT_SCORE_BATCH],
+                                                         target[i:i + BERT_SCORE_BATCH]))
+                         for i in range(0, len(preds), BERT_SCORE_BATCH)]
+            compute_ms = synced_ms(lambda: fresh_compute(metric))
+            value = fresh_compute(metric)
+            for key, v in value.items():
+                if v.shape != (WMT16_PAIRS,) or not bool(torch.isfinite(v).all()) or v.device.type != "cuda":
+                    raise AssertionError(f"bert_score {key}: {tuple(v.shape)} {summary(v)} on {v.device}")
+                if not 0.0 < float(v.mean()) < 0.999:  # edited pairs: similar, not equal
+                    raise AssertionError(f"bert_score idf={idf} {key}: mean {float(v.mean())}")
+            parts, embeddings = bert_score_parts(metric)
+            cpu = BERTScore(model_dir, num_layers=BERT_LAYERS, idf=idf, batch_size=BERT_SCORE_BATCH,
+                            device="cpu")
+            cpu.update(preds[:cpu_rows], target[:cpu_rows])
+            want = cpu.compute()
+            head = BERTScore(model_dir, num_layers=BERT_LAYERS, idf=idf, batch_size=BERT_SCORE_BATCH)
+            head.update(preds[:cpu_rows], target[:cpu_rows])
+            got = head.compute()
+            diff = max(float((got[k].cpu() - want[k]).abs().max()) for k in want)
+            if not diff <= BERT_ATOL:
+                raise AssertionError(f"bert_score idf={idf}: {diff} from the CPU port (limit {BERT_ATOL})")
+            out[f"idf={idf}"] = {"update_ms": {"first": update_ms[0], "median": median(update_ms[1:])},
+                                 "compute_ms": compute_ms,
+                                 "values": {k: float(v.mean()) for k, v in value.items()},
+                                 "cpu_pairs": cpu_rows, "cpu_abs_diff": diff, **parts}
+        clock.append(("runs", time.perf_counter()))
+        emit({"phase": "bert_score", "pairs": WMT16_PAIRS, "batch": BERT_SCORE_BATCH, "config": BERT_BASE,
+              "num_layers": BERT_LAYERS, "tf32": False, "runs": out, "abs_limit": BERT_ATOL,
+              "seconds": clock_seconds(clock), "card": card})
+        profile_step("bert_score_matching", lambda: port_bert._score_pairs(*embeddings))
+
+
+def bert_score_parts(metric) -> dict:
+    """The compute's two parts on the metric's states: the embedder (tokens/s over the
+    attended tokens) and the greedy matching (ms), each timed alone; and the embeddings."""
+    from torchmetrics_tpu_torch.functional.text import bert as port_bert
+
+    rows = {side: {key: metric._state[f"{side}_{key}"] for key in ("input_ids", "attention_mask")}
+            for side in ("preds", "target")}
+    rows = {side: {k: torch.cat(v).cpu().numpy() for k, v in r.items()} for side, r in rows.items()}
+    width = max(port_bert._attended_width(r["attention_mask"]) for r in rows.values())
+    rows = {side: port_bert._cut(r, width) for side, r in rows.items()}
+    lookup = port_bert._idf_weights(rows["target"]["input_ids"], rows["target"]["attention_mask"]) if metric.idf \
+        else None
+    embeddings = []
+    start = time.perf_counter()
+    for side in ("preds", "target"):
+        embeddings += port_bert._embed(metric._forward, rows[side]["input_ids"], rows[side]["attention_mask"],
+                                       metric.idf, lookup, metric.batch_size, metric.device)
+    if metric.device.type == "cuda":
+        torch.cuda.synchronize()
+    embed_s = time.perf_counter() - start
+    p_emb, p_scale, t_emb, t_scale = embeddings
+    start = time.perf_counter()
+    for _ in range(5):
+        port_bert._score_pairs(p_emb, p_scale, t_emb, t_scale)
+    if metric.device.type == "cuda":
+        torch.cuda.synchronize()
+    match_ms = (time.perf_counter() - start) / 5 * 1e3
+    parts = {"embedder_tokens_per_s": attended_tokens(metric) / embed_s, "embedder_s": embed_s,
+             "matching_ms": match_ms, "width": width}
+    return parts, (p_emb, p_scale, t_emb, t_scale)
+
+
+def infolm_phase(card: str) -> None:
+    import tempfile
+
+    from torchmetrics_tpu_torch.text import InfoLM
+
+    clock = [("start", time.perf_counter())]
+    preds, target = mt_corpus(INFOLM_PAIRS, seed=1607)
+    target = [t[0] for t in target]
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_bert(tmp, zipf_vocabulary(), masked_lm=True, seed=1609)
+        clock.append(("model", time.perf_counter()))
+        metric = InfoLM(model_dir, return_sentence_level_score=True)
+        if next(metric._forward.model.parameters()).device.type != "cuda":
+            raise AssertionError("infolm: the HF model is not on the card")
+        check_tokenizer(metric._tokenizer, preds[:64] + target[:64])
+        update_ms = [synced_ms(lambda: metric.update(preds[i:i + 64], target[i:i + 64]))
+                     for i in range(0, INFOLM_PAIRS, 64)]
+        compute_ms = synced_ms(lambda: fresh_compute(metric))
+        mean, scores = fresh_compute(metric)
+        if scores.shape != (INFOLM_PAIRS,) or not bool(torch.isfinite(scores).all()) or \
+                not bool((scores != 0).all()):
+            raise AssertionError(f"infolm: {tuple(scores.shape)} {summary(scores)}")
+        clock.append(("card", time.perf_counter()))
+        head = InfoLM(model_dir, return_sentence_level_score=True)
+        head.update(preds[:INFOLM_CPU_PAIRS], target[:INFOLM_CPU_PAIRS])
+        cpu = InfoLM(model_dir, return_sentence_level_score=True, device="cpu")
+        cpu.update(preds[:INFOLM_CPU_PAIRS], target[:INFOLM_CPU_PAIRS])
+        diff = largest_rel_diff(head.compute()[1], cpu.compute()[1])
+        clock.append(("cpu", time.perf_counter()))
+        if not diff <= INFOLM_RTOL:
+            raise AssertionError(f"infolm: {diff} relative from the CPU port (limit {INFOLM_RTOL})")
+        tokens = attended_tokens(metric)
+        emit({"phase": "infolm", "pairs": INFOLM_PAIRS, "config": BERT_BASE, "max_length": metric.max_length,
+              "attended_tokens": tokens, "update_ms": update_ms, "compute_ms": compute_ms,
+              "attended_tokens_per_s": tokens / (compute_ms / 1e3), "value": float(mean), "scores": summary(scores),
+              "cpu_pairs": INFOLM_CPU_PAIRS, "cpu_rel_diff": diff, "rel_limit": INFOLM_RTOL,
+              "seconds": clock_seconds(clock), "card": card})
+        small = InfoLM(model_dir)
+        small.update(preds[:8], target[:8])
+        profile_step("infolm_compute_8_pairs", lambda: fresh_compute(small))
+
+
+def vocaset_sequence(gen: torch.Generator, frames: int = VOCASET_FRAMES, vertices: int = FLAME_VERTICES,
+                     device: str = "cuda") -> tuple:
+    """A talking-head sequence from a seed: a template mesh of unit scale (metres / 10)
+    moving smoothly over the frames, and a prediction off by seeded per-vertex drift."""
+    template = torch.randn((1, vertices, 3), generator=gen, device=device) * 0.1
+    t = torch.linspace(0, 4 * math.pi, frames, device=device)[:, None, None]
+    motion = 0.01 * torch.sin(t + torch.rand((1, vertices, 1), generator=gen, device=device) * 6)
+    truth = template + motion
+    pred = truth + 0.002 * torch.randn((frames, vertices, 3), generator=gen, device=device)
+    return pred, truth
+
+
+def lip_map(seed: int = 1610, vertices: int = FLAME_VERTICES, count: int = LIP_VERTICES) -> list:
+    return sorted(np.random.default_rng(seed).choice(vertices, count, replace=False).tolist())
+
+
+def lve_phase(card: str) -> None:
+    from torchmetrics_tpu_torch.multimodal import LipVertexError
+
+    clock = [("start", time.perf_counter())]
+    gen = torch.Generator(device="cuda").manual_seed(1611)
+    mouth = lip_map()
+    metric = LipVertexError(mouth_map=mouth)
+    cpu = LipVertexError(mouth_map=mouth, device="cpu")
+    times = []
+    sequences = [vocaset_sequence(gen) for _ in range(VOCASET_SEQUENCES)]
+    for pred, truth in sequences:
+        times.append(synced_ms(lambda: metric.update(pred, truth)))
+        cpu.update(pred.cpu(), truth.cpu())
+    value = fresh_compute(metric)
+    clock.append(("runs", time.perf_counter()))
+    if not torch.equal(metric.total.cpu(), cpu.total) or metric.total.dtype != torch.int32:
+        raise AssertionError(f"lve: total {metric.total} against {cpu.total}")
+    diff = largest_rel_diff(metric.sum_lve, cpu.sum_lve)
+    if not diff <= LVE_RTOL or metric.sum_lve.dtype != torch.float32 or not 0 < float(value) < 1:
+        raise AssertionError(f"lve: sum {diff} apart relative, value {float(value)}")
+    reads = host_reads(lambda: metric.update(*sequences[0]))
+    emit({"phase": "lve", "sequences": VOCASET_SEQUENCES, "frames": VOCASET_FRAMES, "vertices": FLAME_VERTICES,
+          "lip_vertices": LIP_VERTICES, "update_ms": {"first": times[0], "median": median(times[1:])},
+          "value": float(value), "cpu_sum_rel_diff": diff, "rel_limit": LVE_RTOL, "host_reads": reads,
+          "seconds": clock_seconds(clock), "card": card})
+    profile_step("lve_update", lambda: metric.update(*sequences[0]))
+
+
 def flagship_forward(cases: dict) -> dict:
     """The 26 sepconv7 launches of one bf16 trunk forward at the flagship's batch: their
     summed times and bound, and their worst error against the plain version."""
@@ -5562,6 +6239,12 @@ def main() -> int:
     audio_separation_phase(card)
     speech_quality_phase(card)
     vmaf_phase(card)
+    for phase in ("text_mt", "text_asr", "text_qa_sum"):
+        text_phase(card, phase)
+    perplexity_phase(card)
+    bert_score_phase(card)
+    infolm_phase(card)
+    lve_phase(card)
     emit({"phase": "script", "seconds": time.perf_counter() - started})
 
     print(card, flush=True)

@@ -224,6 +224,45 @@ def test_sdr_of_the_sinusoid_and_float64_input():
            jax_fn.signal_distortion_ratio(wide, TARGET[0], filter_length=32), units=1)
 
 
+def _silent_or_nan(case: str):
+    preds, target = PREDS[0][:, 0, :100].copy(), TARGET[0][:, 0, :100].copy()
+    if case == "silent_target":
+        target[1] = 0.0
+    elif case == "nan_preds":
+        preds[2, 7] = np.nan
+    elif case == "inf_target":
+        target[0, 3] = np.inf
+    else:  # a silent row after a NaN row: the first failed system in row order decides
+        preds[0, 1] = np.nan
+        target[2] = 0.0
+    return preds, target
+
+
+@pytest.mark.parametrize("case", ["silent_target", "nan_preds", "inf_target", "nan_then_silent"])
+@pytest.mark.parametrize("zero_mean", [False, True])
+def test_sdr_raises_where_the_jax_packages_scipy_solve_raises(case, zero_mean):
+    """scipy's ``solve_toeplitz`` raises ``LinAlgError`` on a singular system (a silent
+    target) and ``ValueError`` on NaN or infinite input; the port reads its solver's
+    flags once a call and raises the same, for the function and the class."""
+    preds, target = _silent_or_nan(case)
+    with pytest.raises((ValueError, np.linalg.LinAlgError)) as jax_err:
+        jax_fn.signal_distortion_ratio(preds, target, filter_length=16, zero_mean=zero_mean)
+    with pytest.raises(type(jax_err.value)) as port_err:
+        port_fn.signal_distortion_ratio(*_t(preds, target), filter_length=16, zero_mean=zero_mean)
+    assert str(port_err.value) == str(jax_err.value)
+    metric = ttm.audio.SignalDistortionRatio(filter_length=16, zero_mean=zero_mean, **CPU)
+    with pytest.raises(type(jax_err.value), match=str(jax_err.value)):
+        metric.update(*_t(preds, target))
+    _, flags = port_sdr._sdr_solve(*_t(preds, target), filter_length=16, zero_mean=zero_mean)
+    assert flags.dtype == torch.int32 and bool((flags != 0).any())
+
+
+def test_sdr_with_diagonal_loading_solves_a_silent_target_as_scipy_does():
+    preds, target = _silent_or_nan("silent_target")
+    want = jax_fn.signal_distortion_ratio(preds, target, filter_length=16, load_diag=0.1)
+    _close(port_fn.signal_distortion_ratio(*_t(preds, target), filter_length=16, load_diag=0.1), want, units=1)
+
+
 def test_sdr_chunks_its_systems(monkeypatch):
     """Chunks of one system give the same values as one batch of all of them."""
     whole = port_fn.signal_distortion_ratio(*_t(PREDS[0], TARGET[0]), filter_length=64)

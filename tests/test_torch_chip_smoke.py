@@ -1262,3 +1262,139 @@ def test_vmaf_rehearsal_holds_the_cpu_port_and_both_dwt_forms(chip_smoke, tmp_pa
     scale = 2.8 * float(luma.abs().max())
     for a, b in zip(vmaf._dwt2_db2(luma), chip_smoke.dense_dwt_level(luma)):
         assert float((a - b).abs().max()) <= 8 * chip_smoke.UNIT * scale
+
+
+# ------------------------------------------------------------------- slice 16: text
+
+def test_zipf_vocabulary_is_seeded_distinct_and_alphabetic(chip_smoke):
+    words = chip_smoke.zipf_vocabulary()
+    assert len(words) == len(set(words)) == chip_smoke.ZIPF_WORDS
+    assert words == chip_smoke.zipf_vocabulary.__wrapped__() and all(w.isalpha() and w.islower() for w in words)
+    draw = chip_smoke.zipf_sampler(list(words))
+    sample = draw(np.random.default_rng(0), 20000)
+    counts = collections.Counter(sample)
+    assert counts[words[0]] > counts[words[9]] > counts[words[99]]  # ranked frequencies
+
+
+def test_mt_corpus_has_the_published_segment_count_and_length(chip_smoke):
+    preds, target = chip_smoke.mt_corpus()
+    assert len(preds) == len(target) == chip_smoke.WMT14_SEGMENTS == 3003
+    assert all(len(t) == 1 for t in target)
+    ref_tokens = np.mean([len(t[0].split()) for t in target])
+    assert abs(ref_tokens - chip_smoke.WMT14_TOKENS) < 1.5, ref_tokens
+    assert all(p.endswith(".") and (p[0].isupper() or p[0].isdigit()) for p in preds if p)
+    assert sum(p != t[0] for p, t in zip(preds, target)) > 0.95 * len(preds)
+
+
+def test_asr_corpus_has_librispeechs_shape_and_a_five_percent_error_rate(chip_smoke):
+    from torchmetrics_tpu_torch.functional.text import word_error_rate
+
+    preds, target = chip_smoke.asr_corpus()
+    assert len(preds) == len(target) == chip_smoke.LIBRI_UTTERANCES == 2620
+    assert abs(np.mean([len(t.split()) for t in target]) - chip_smoke.LIBRI_WORDS) < 1.0
+    assert all(t == t.lower() and "," not in t for t in target)
+    assert 0.04 < float(word_error_rate(preds, target, device="cpu")) < 0.07
+
+
+def test_squad_and_summary_corpora_have_the_published_shapes(chip_smoke):
+    preds, target = chip_smoke.squad_corpus()
+    assert len(preds) == len(target) == chip_smoke.SQUAD_QUESTIONS == 10570
+    assert {len(t["answers"]["text"]) for t in target} == {1, 2, 3}
+    assert [p["id"] for p in preds] == [t["id"] for t in target]
+    preds, target = chip_smoke.summary_corpus(500)
+    assert len(preds) == len(target) == 500
+    assert abs(np.mean([len(t.split()) for t in target]) - chip_smoke.CNNDM_WORDS) < 4
+    assert {t.count(". ") + 1 for t in target} <= {3, 4} and all(p for p in preds)
+
+
+def test_wordpiece_vocabulary_has_bert_base_uncaseds_layout_and_every_corpus_word(chip_smoke, tmp_path):
+    from transformers import BertTokenizer
+
+    words = list(chip_smoke.zipf_vocabulary())
+    path = tmp_path / "vocab.txt"
+    entries = chip_smoke.wordpiece_vocabulary(str(path), words)
+    assert len(entries) == len(set(entries)) == 30522 == len(path.read_text().splitlines())
+    assert [entries.index(t) for t in ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")] == [0, 100, 101, 102, 103]
+    assert set(words) <= set(entries)
+    tokenizer = BertTokenizer(vocab_file=str(path))
+    sentence = chip_smoke.mt_corpus(1)[1][0][0]
+    pieces = tokenizer.tokenize(sentence)
+    assert "[UNK]" not in pieces and sum(not p.startswith("##") for p in pieces) >= len(sentence.split())
+    with pytest.raises(ValueError, match="do not fit"):
+        chip_smoke.wordpiece_vocabulary(str(tmp_path / "small.txt"), words, size=1000)
+    from transformers import AutoTokenizer
+
+    chip_smoke.write_wordpiece_tokenizer(str(tmp_path), entries)
+    loaded = AutoTokenizer.from_pretrained(str(tmp_path), local_files_only=True)
+    assert loaded.tokenize(sentence) == pieces and loaded.mask_token_id == 103
+    assert chip_smoke.check_tokenizer(loaded, [sentence]) == len(pieces) + 2
+    with pytest.raises(AssertionError, match=r"\[UNK\]"):
+        chip_smoke.check_tokenizer(loaded, ["жж"])
+
+
+def test_text_rehearsal_holds_the_cpu_port_and_fails_a_planted_difference(chip_smoke):
+    for phase in ("text_mt", "text_asr", "text_qa_sum"):
+        batches = chip_smoke.text_phase_batches(phase, segments=chip_smoke.TEXT_BATCH + 8)
+        assert all(len(v) == 2 for v in batches.values())
+        metrics = chip_smoke.text_metrics(phase, device="cpu")
+        run = chip_smoke.run_text(metrics, batches, prefix=1, timed=False)
+        assert set(run["snapshots"]) == set(metrics)
+        replay = chip_smoke.text_metrics(phase, device="cpu")
+        chip_smoke.run_text(replay, {k: v[:1] for k, v in batches.items()}, prefix=1, timed=False)
+        assert set(chip_smoke.hold_text(phase, run["snapshots"], replay).values()) == {0.0}
+        with pytest.raises(AssertionError, match="differs from the CPU port's"):
+            chip_smoke.hold_text(phase, metrics, replay)  # two updates against one
+        values = chip_smoke.text_values(metrics)
+        assert all(math.isfinite(v) for leaves in values.values() for v in leaves.values() if isinstance(v, float))
+
+
+def test_perplexity_inputs_are_language_model_logits(chip_smoke):
+    gen = torch.Generator().manual_seed(0)
+    logits, target = chip_smoke.ppl_window(gen, windows=2, context=64, vocab=500, device="cpu")
+    assert logits.shape == (2, 64, 500) and logits.dtype == torch.float32 and target.dtype == torch.int64
+    metrics = chip_smoke.ppl_metrics(device="cpu")
+    for name, metric in metrics.items():
+        metric.update(*chip_smoke.ppl_inputs(name, logits, target))
+    assert float(metrics["ignore_index"].count) == 2 * 64 * 7 / 8 and float(metrics["float32"].count) == 128
+    assert 1.0 < float(metrics["float32"].compute()) < 50.0  # a language model's, not the vocabulary's 500
+    bf16 = chip_smoke.ppl_inputs("bfloat16", logits, target)[0]
+    assert bf16.dtype == torch.bfloat16
+    assert chip_smoke.PPL_UPDATES * chip_smoke.PPL_WINDOWS * chip_smoke.GPT2_CONTEXT >= \
+        chip_smoke.WIKITEXT103_TEST_TOKENS > (chip_smoke.PPL_UPDATES - 1) * chip_smoke.PPL_WINDOWS * chip_smoke.GPT2_CONTEXT
+
+
+def test_bert_rehearsal_writes_a_loadable_model_and_times_both_parts(chip_smoke, tmp_path):
+    from torchmetrics_tpu_torch.text import BERTScore, InfoLM
+
+    small = {**chip_smoke.BERT_BASE, "hidden_size": 32, "num_hidden_layers": 2, "num_attention_heads": 2,
+             "intermediate_size": 64, "max_position_embeddings": 128}
+    preds, target = chip_smoke.mt_corpus(12, seed=1607)
+    target = [t[0] for t in target]
+    words = list(chip_smoke.zipf_vocabulary())
+    bert = chip_smoke.write_bert(str(tmp_path / "bert"), words, masked_lm=False, seed=1, config=small)
+    metric = BERTScore(bert, num_layers=1, idf=True, batch_size=5, device="cpu")
+    metric.update(preds, target)
+    value = metric.compute()
+    assert value["f1"].shape == (12,) and bool(torch.isfinite(value["f1"]).all())
+    parts, embeddings = chip_smoke.bert_score_parts(metric)
+    assert parts["embedder_tokens_per_s"] > 0 and parts["matching_ms"] > 0 and len(embeddings) == 4
+    assert chip_smoke.attended_tokens(metric) == int(sum(int(m.sum()) for m in metric._state["preds_attention_mask"]
+                                                         + metric._state["target_attention_mask"]))
+    mlm = chip_smoke.write_bert(str(tmp_path / "mlm"), words, masked_lm=True, seed=1, config=small)
+    infolm = InfoLM(mlm, return_sentence_level_score=True, device="cpu")
+    infolm.update(preds[:3], target[:3])
+    assert infolm.compute()[1].shape == (3,)
+
+
+def test_vocaset_sequences_and_the_lip_map(chip_smoke):
+    from torchmetrics_tpu_torch.multimodal import LipVertexError
+
+    gen = torch.Generator().manual_seed(0)
+    pred, truth = chip_smoke.vocaset_sequence(gen, frames=12, vertices=300, device="cpu")
+    assert pred.shape == truth.shape == (12, 300, 3)
+    mouth = chip_smoke.lip_map(vertices=300, count=40)
+    assert len(set(mouth)) == 40 and mouth == sorted(mouth) and max(mouth) < 300
+    assert len(chip_smoke.lip_map()) == chip_smoke.LIP_VERTICES and max(chip_smoke.lip_map()) < 5023
+    metric = LipVertexError(mouth_map=mouth, device="cpu")
+    metric.update(pred, truth)
+    assert 0 < float(metric.compute()) < 1e-3 and metric.total.dtype == torch.int32

@@ -693,3 +693,104 @@ def test_exports_are_the_jax_packages_less_the_model_backed_names():
             assert [p.default for p in port_sig.parameters.values()] == [p.default for p in jax_sig.parameters.values()], name
     assert port_fn.peak_signal_noise_ratio.__name__ == "_compat_peak_signal_noise_ratio"
     assert inspect.signature(port_fn.peak_signal_noise_ratio).parameters["data_range"].default == 3.0
+
+
+# ------------------------------------------------------- float64 and mixed inputs
+
+# float64 images with bits below float32's: rounding them is the first step in JAX
+WIDE = PREDS[0].astype(np.float64) + 1e-9 * _RNG.standard_normal(SHAPE)
+WIDE_TARGET = TARGET[0].astype(np.float64) - 1e-9 * _RNG.standard_normal(SHAPE)
+FLOAT64_FUNCTIONS = {
+    "peak_signal_noise_ratio": ({"data_range": 1.0}, 2),
+    "peak_signal_noise_ratio_with_blocked_effect": ({"data_range": 1.0}, 2),
+    "structural_similarity_index_measure": ({"data_range": 1.0}, 2),
+    "multiscale_structural_similarity_index_measure": ({"data_range": 1.0, "betas": (0.4, 0.6)}, 2),
+    "universal_image_quality_index": ({}, 2),
+    "visual_information_fidelity": ({}, 2),
+    "spatial_correlation_coefficient": ({}, 2),
+    "spectral_angle_mapper": ({}, 2),
+    "error_relative_global_dimensionless_synthesis": ({}, 2),
+    "root_mean_squared_error_using_sliding_window": ({}, 2),
+    "relative_average_spectral_error": ({}, 2),
+    "total_variation": ({}, 1),
+    "image_gradients": ({}, 1),
+}
+
+
+def _image_pair(name: str, preds: np.ndarray, target: np.ndarray, arity: int) -> tuple:
+    if name == "peak_signal_noise_ratio_with_blocked_effect":
+        preds, target = preds[:, :1], target[:, :1]
+    return (preds, target)[:arity]
+
+
+@pytest.mark.parametrize("name, pair", [
+    (name, pair) for name, (_, arity) in sorted(FLOAT64_FUNCTIONS.items())
+    for pair in (("float64", "float64_float32", "float32_float64") if arity == 2 else ("float64",))])
+def test_float64_and_mixed_inputs_round_to_float32_as_in_the_jax_package(name, pair):
+    """``jnp.asarray`` rounds float64 to float32 with 64-bit types off: every JAX image
+    function returns float32 and takes a float64 image beside a float32 one. The port
+    rounds at the entry: its value is the float32 inputs' value, bit for bit."""
+    kw, arity = FLOAT64_FUNCTIONS[name]
+    preds = WIDE if pair.startswith("float64") else WIDE.astype(np.float32)
+    target = WIDE_TARGET if pair.endswith("float64") else WIDE_TARGET.astype(np.float32)
+    args = _image_pair(name, preds, target, arity)
+    rounded = _image_pair(name, WIDE.astype(np.float32), WIDE_TARGET.astype(np.float32), arity)
+    want = getattr(jax_fn, name)(*args, **kw)
+    got = getattr(port_fn, name)(*_t(*args), **kw)
+    for g, w in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
+        assert _np(g).dtype == np.asarray(w).dtype == np.float32, name
+    _bitwise(got if not isinstance(got, tuple) else torch.stack(got),
+             (lambda r: r if not isinstance(r, tuple) else torch.stack(r))(getattr(port_fn, name)(*_t(*rounded), **kw)),
+             name)
+
+
+FLOAT64_CLASSES = {
+    "psnr_none": ("PeakSignalNoiseRatio", {"data_range": 1.0, "reduction": "none", "dim": (1, 2, 3)}),
+    "psnrb": ("PeakSignalNoiseRatioWithBlockedEffect", {"data_range": 1.0}),
+    "ssim_none": ("StructuralSimilarityIndexMeasure", {"data_range": 1.0, "reduction": "none"}),
+    "ms_ssim": ("MultiScaleStructuralSimilarityIndexMeasure", {"data_range": 1.0, "betas": (0.4, 0.6)}),
+    "uqi": ("UniversalImageQualityIndex", {}),
+    "uqi_none": ("UniversalImageQualityIndex", {"reduction": "none"}),
+    "vif": ("VisualInformationFidelity", {}),
+    "scc": ("SpatialCorrelationCoefficient", {}),
+    "sam": ("SpectralAngleMapper", {}),
+    "ergas": ("ErrorRelativeGlobalDimensionlessSynthesis", {}),
+    "rase": ("RelativeAverageSpectralError", {}),
+    "rmse_sw": ("RootMeanSquaredErrorUsingSlidingWindow", {}),
+    "tv": ("TotalVariation", {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLOAT64_CLASSES))
+@pytest.mark.parametrize("pair", ["float64", "float64_float32"])
+def test_float64_and_mixed_class_updates_give_float32_as_in_the_jax_package(case, pair):
+    name, kw = FLOAT64_CLASSES[case]
+    arity = 1 if name == "TotalVariation" else 2
+    preds = WIDE
+    target = WIDE_TARGET if pair == "float64" else WIDE_TARGET.astype(np.float32)
+    args = _image_pair("peak_signal_noise_ratio_with_blocked_effect" if case == "psnrb" else name, preds, target, arity)
+    rounded = tuple(a.astype(np.float32) for a in args)
+    jax_metric = getattr(jtm.image, name)(**kw)
+    jax_metric.update(*args)
+    port_metric = getattr(ttm.image, name)(**kw, **CPU)
+    port_metric.update(*_t(*args))
+    twin = getattr(ttm.image, name)(**kw, **CPU)
+    twin.update(*_t(*rounded))
+    got = port_metric.compute()
+    assert _np(got).dtype == np.asarray(jax_metric.compute()).dtype == np.float32, case
+    _bitwise(got, twin.compute(), case)
+
+
+def test_vif_class_update_under_41_by_41_raises_the_functions_value_error():
+    """The function's check runs in the class's update, before any convolution (the JAX
+    class skips it and scores empty convolutions)."""
+    small = _RNG.random((1, 1, 32, 32), dtype=np.float32)
+    with pytest.raises(ValueError) as fn_err:
+        port_fn.visual_information_fidelity(*_t(small, small))
+    metric = ttm.image.VisualInformationFidelity(**CPU)
+    with pytest.raises(ValueError) as cls_err:
+        metric.update(*_t(small, small))
+    assert str(cls_err.value) == str(fn_err.value) == "Invalid size of preds. Expected at least 41x41, but got 32x32!"
+    with pytest.raises(ValueError, match="Invalid size of target"):
+        metric.update(*_t(np.zeros((1, 1, 48, 48), np.float32), np.zeros((1, 1, 48, 40), np.float32)))
+    assert metric.update_count == 0 and metric.vif_score == []

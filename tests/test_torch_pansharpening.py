@@ -356,3 +356,44 @@ def test_pan_target_needs_ms_and_pan():
         metric = lib.image.SpatialDistortionIndex(**({} if lib is jtm else CPU))
         with pytest.raises(ValueError, match="ms and pan"):
             metric.update(make(FUSED[0]), {"ms": make(MS[0])})
+
+
+# ------------------------------------------------------- float64 and mixed inputs
+
+_WIDE = {name: arr[0].astype(np.float64) + 1e-9 * _RNG.standard_normal(arr[0].shape)
+         for name, arr in (("fused", FUSED), ("ms", MS), ("pan", PAN), ("pan_lr", PAN_LR))}
+PAN_FLOAT64 = {
+    "spectral_distortion_index": ("fused", "ms"),
+    "spatial_distortion_index": ("fused", "ms", "pan"),
+    "quality_with_no_reference": ("fused", "ms", "pan"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAN_FLOAT64))
+@pytest.mark.parametrize("narrow", ["none", "fused", "ms"])
+def test_pan_float64_and_mixed_inputs_round_to_float32_as_in_the_jax_package(name, narrow):
+    """float64 inputs, alone or beside a float32 one, give float32 values equal to the
+    float32 inputs' bit for bit; JAX's are float32 too."""
+    args = tuple(_WIDE[k].astype(np.float32) if k == narrow else _WIDE[k] for k in PAN_FLOAT64[name])
+    rounded = tuple(_WIDE[k].astype(np.float32) for k in PAN_FLOAT64[name])
+    want = getattr(jax_fn, name)(*args)
+    got = getattr(port_fn, name)(*_t(*args))
+    assert _np(got).dtype == np.asarray(want).dtype == np.float32
+    ref = getattr(port_fn, name)(*_t(*rounded))
+    np.testing.assert_array_equal(_np(got), _np(ref))
+
+
+@pytest.mark.parametrize("case", ["d_lambda", "d_s", "d_s_lr", "qnr"])
+def test_pan_float64_class_updates_give_float32_as_in_the_jax_package(case):
+    name, kw, kind = CLASS_CASES[case]
+    wide = lambda a: torch.from_numpy(a.astype(np.float64) + 1e-9)
+    narrow = lambda a: torch.from_numpy((a.astype(np.float64) + 1e-9).astype(np.float32))
+    metric = getattr(ttm.image, name)(**kw, **CPU)
+    metric.update(*_class_args(kind, 0, wide))
+    twin = getattr(ttm.image, name)(**kw, **CPU)
+    twin.update(*_class_args(kind, 0, narrow))
+    jax_metric = getattr(jtm.image, name)(**kw)
+    jax_metric.update(*_class_args(kind, 0, lambda a: np.asarray(a, np.float64) + 1e-9))
+    got = metric.compute()
+    assert _np(got).dtype == np.asarray(jax_metric.compute()).dtype == np.float32, case
+    np.testing.assert_array_equal(_np(got), _np(twin.compute()))

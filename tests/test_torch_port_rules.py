@@ -23,8 +23,9 @@ import torch
 import torchmetrics_tpu_torch
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.classification import MulticlassAccuracy
-from torchmetrics_tpu_torch import (audio, classification, clustering, detection, functional, image, nominal,
-                                    regression, retrieval, segmentation, shape, video, wrappers)
+from torchmetrics_tpu_torch import (audio, classification, clustering, detection, functional, image, multimodal,
+                                    nominal, regression, retrieval, segmentation, shape, text, utilities, video,
+                                    wrappers)
 from torchmetrics_tpu_torch.image import (
     FrechetInceptionDistance,
     InceptionScore,
@@ -304,6 +305,82 @@ def test_vmaf_model_on_host_features_raises_without_cuda(no_cuda):
                                   "gamma": 0.1, "rho": 0.0, "sv_coef": [1.0], "support_vectors": [[0.0, 0.0]]})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.predict({name: [0.5] for name in names})
+
+
+def _chars(texts, **kw):
+    """A tokenizer of characters: [CLS] 1, a character's id, [SEP] 2, [PAD] 0."""
+    rows = [[1] + [3 + ord(c) % 5 for c in t] + [2] for t in texts]
+    width = max(len(r) for r in rows)
+    return {"input_ids": np.asarray([r + [0] * (width - len(r)) for r in rows]),
+            "attention_mask": np.asarray([[1] * len(r) + [0] * (width - len(r)) for r in rows])}
+
+
+_chars.mask_token_id, _chars.pad_token_id, _chars.sep_token_id, _chars.cls_token_id = 7, 0, 2, 1
+_EYE = torch.eye(8)
+TEXT_CLASS_ARGS = {
+    "BERTScore": {"model": lambda ids, mask: _EYE[ids], "user_tokenizer": _chars, "max_length": 8},
+    "InfoLM": {"model": lambda ids, mask: _EYE[ids], "user_tokenizer": _chars, "max_length": 8},
+    "LipVertexError": {"mouth_map": [0, 1]},
+}
+
+
+@pytest.mark.parametrize("module, name", [(m, n) for m in (text, multimodal) for n in sorted(m.__all__)])
+def test_text_and_multimodal_classes_at_default_device_raise_without_cuda(no_cuda, module, name):
+    """Before a model is loaded or moved: the device comes first."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(module, name)(**TEXT_CLASS_ARGS.get(name, {}))
+
+
+_SENTENCES = (["the cat sat"], [["a cat sat"]])
+_SPOKEN = (["the cat sat"], ["a cat sat"])
+TEXT_HOST_VALUES = {
+    **{name: _SENTENCES for name in ("bleu_score", "sacre_bleu_score", "chrf_score", "translation_edit_rate",
+                                     "extended_edit_distance", "rouge_score")},
+    **{name: _SPOKEN for name in ("char_error_rate", "word_error_rate", "match_error_rate", "word_information_lost",
+                                  "word_information_preserved", "edit_distance")},
+    "squad": ([{"prediction_text": "1976", "id": "1"}], [{"answers": {"text": ["1976"]}, "id": "1"}]),
+    "perplexity": (np.zeros((1, 2, 3), np.float32).tolist(), [[0, 1]]),
+    "bert_score": (["abc"], ["abd"]),
+    "infolm": (["abc"], ["abd"]),
+    "lip_vertex_error": (np.zeros((2, 3, 3), np.float32).tolist(), np.ones((2, 3, 3), np.float32).tolist(), [0]),
+}
+TEXT_FUNCTION_ARGS = {name: TEXT_CLASS_ARGS["BERTScore"] for name in ("bert_score", "infolm")}
+
+
+@pytest.mark.parametrize("name", sorted(TEXT_HOST_VALUES))
+def test_text_and_multimodal_functions_on_host_values_raise_without_cuda(no_cuda, name):
+    """Strings and lists, not tensors: the function makes its result (and runs its
+    model) on the default device, CUDA."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(functional, name)(*TEXT_HOST_VALUES[name], **TEXT_FUNCTION_ARGS.get(name, {}))
+
+
+ON_CPU_TENSORS = {"perplexity": lambda a: (torch.tensor(a[0]), torch.tensor(a[1])),
+                  "lip_vertex_error": lambda a: (torch.tensor(a[0]), torch.tensor(a[1]), a[2])}
+
+
+@pytest.mark.parametrize("name", sorted(TEXT_HOST_VALUES))
+def test_text_and_multimodal_functions_run_on_the_cpu_when_asked(no_cuda, name):
+    """``device="cpu"``, or, for the functions of tensors, CPU tensors."""
+    args = TEXT_HOST_VALUES[name]
+    if name in ON_CPU_TENSORS:
+        value = getattr(functional, name)(*ON_CPU_TENSORS[name](args))
+    else:
+        value = getattr(functional, name)(*args, **TEXT_FUNCTION_ARGS.get(name, {}), device="cpu")
+    leaves = value.values() if isinstance(value, dict) else [value]
+    assert all(leaf.device == torch.device("cpu") for leaf in leaves)
+
+
+def test_utilities_at_the_default_device_raise_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        utilities.check_forward_full_state_property(text.WordErrorRate, input_args={"preds": ["a"], "target": ["a"]})
+
+
+def test_the_new_modules_are_scanned_and_their_doctests_listed():
+    for name in ("text.metrics", "functional.text.bert", "functional.text.infolm", "functional.text.perplexity",
+                 "multimodal.lve", "functional.multimodal.lve", "utilities.compute", "utilities.checks"):
+        assert f"torchmetrics_tpu_torch.{name}" in PORT_MODULES
+        assert ROOT / "torchmetrics_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
 
 
 def test_explicit_cpu_device_runs_without_cuda(no_cuda):

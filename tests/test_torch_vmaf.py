@@ -305,3 +305,20 @@ def test_exports_and_signatures_are_the_jax_packages():
             [(p.name, p.default) for p in jax_params.values()], name
     assert list(inspect.signature(ttm.video.VideoMultiMethodAssessmentFusion).parameters) == \
         list(inspect.signature(jtm.video.VideoMultiMethodAssessmentFusion).parameters)
+
+
+@pytest.mark.parametrize("luma", [16, 128])
+def test_vif_of_identical_flat_videos_is_zero_at_every_scale(luma):
+    """A documented divergence: on two identical constant videos (72 x 128) the port's
+    blurs, exact float64 products rounded once, leave variances of exactly 0, so every
+    VIF scale is 0. The JAX package's float32 blurs leave rounding noise in the
+    variances, which gives about 1.0 at some scales and 0 at others by the frame size;
+    neither is libvmaf's rule."""
+    video = np.full((1, 3, 2, 72, 128), luma / 255, np.float32)
+    got = port_fn.vmaf_features(*_t(video, video))
+    want = _jax_features()(video, video)
+    for scale in range(4):
+        key = f"integer_vif_scale{scale}"
+        np.testing.assert_array_equal(_np(got[key]), np.zeros((1, 2), np.float32), err_msg=key)
+        # JAX's noise: 0, or 1 within a few float32 units
+        assert np.all(np.minimum(np.abs(np.asarray(want[key])), np.abs(np.asarray(want[key]) - 1)) < 1e-5), key

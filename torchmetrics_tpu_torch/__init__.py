@@ -5,8 +5,8 @@ paths and imports neither JAX nor anything of the JAX package. Entry points run 
 unless the caller passes ``device="cpu"``.
 """
 
-from . import (aggregation, audio, classification, clustering, detection, image, nominal, parallel, regression,
-               retrieval, segmentation, shape, video, wrappers)
+from . import (aggregation, audio, classification, clustering, detection, image, multimodal, nominal, parallel,
+               regression, retrieval, segmentation, shape, text, utilities, video, wrappers)
 from .aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, RunningMean, RunningSum, SumMetric
 from .audio import *  # noqa: F401,F403
 from .classification import *  # noqa: F401,F403
@@ -18,11 +18,13 @@ from .image import *  # noqa: F401,F403
 # data_range defaults to 3.0; image.PeakSignalNoiseRatio stays strict
 from .image.psnr import _CompatPeakSignalNoiseRatio as PeakSignalNoiseRatio  # noqa: E402,F811
 from .metric import CompositionalMetric, HostMetric, Metric
+from .multimodal import *  # noqa: F401,F403
 from .nominal import *  # noqa: F401,F403
 from .regression import *  # noqa: F401,F403
 from .retrieval import *  # noqa: F401,F403
 from .segmentation import *  # noqa: F401,F403
 from .shape import *  # noqa: F401,F403
+from .text import *  # noqa: F401,F403
 from .video import *  # noqa: F401,F403
 from .wrappers import (
     BootStrapper,
@@ -38,7 +40,7 @@ __all__ = [
     "CatMetric", "CompositionalMetric", "HostMetric", "MaxMetric", "MeanMetric", "Metric", "MetricCollection",
     "MinMetric", "QuarantinedMetric", "RunningMean", "RunningSum", "SumMetric", *classification.__all__,
     *audio.__all__, *clustering.__all__, *detection.__all__, *image.__all__, *nominal.__all__, *regression.__all__,
-    *retrieval.__all__, *segmentation.__all__, *shape.__all__, *video.__all__,
+    *multimodal.__all__, *retrieval.__all__, *segmentation.__all__, *shape.__all__, *text.__all__, *video.__all__,
     "BootStrapper", "ClasswiseWrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper", "MultitaskWrapper",
     "Running",
 ]

@@ -9,8 +9,10 @@ Full SDR runs in float64 on the device of its inputs. The JAX package solves eac
 sample's Toeplitz system on the host with scipy's Levinson recursion; here the
 ``(L, L)`` symmetric Toeplitz matrix is one gather of ``r_0`` at ``|i - j|`` and the
 systems are solved in batches by ``torch.linalg.solve_ex``, whose error flags stay on
-the device: the update reads nothing back to the host. The batch goes in chunks whose
-matrices stay under 256 MiB.
+the device. The batch goes in chunks whose matrices stay under 256 MiB. A call then
+reads the flags back once, to raise where scipy raises for the JAX package: a system
+with a non-finite entry raises ``ValueError`` and a singular one (a silent target)
+``numpy.linalg.LinAlgError``, for the first such system in row order.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ...utilities.checks import _as_tensor, _check_same_shape
@@ -52,8 +55,10 @@ def _audio_pair(preds, target) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _sdr_solve(preds, target, filter_length: int = 512, zero_mean: bool = False,
                load_diag: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SDR in dB in float64 before its rounding to float32, and the solver's ``info``
-    per system (0 where the solve succeeded), both on the inputs' device."""
+    """SDR in dB in float64 before its rounding to float32, and a flag per system, both
+    on the inputs' device: the solver's ``info`` (0 where the solve succeeded, else
+    the LU's singular pivot), or -1 where the system's matrix or right-hand side holds
+    a NaN or an infinity."""
     preds, target = _as_tensor(preds), _as_tensor(target)
     _check_same_shape(preds, target)
     preds, target = preds.to(torch.float64), target.to(torch.float64)
@@ -81,9 +86,21 @@ def _sdr_solve(preds, target, filter_length: int = 512, zero_mean: bool = False,
         part_r, part_b = flat_r[start:start + chunk], flat_b[start:start + chunk]
         sol, flags = torch.linalg.solve_ex(part_r[:, toeplitz], part_b[:, :, None])
         coh.append((part_b * sol[..., 0]).sum(-1))
-        info.append(flags)
+        finite = torch.isfinite(part_r).all(-1) & torch.isfinite(part_b).all(-1)
+        info.append(torch.where(finite, flags, -1))
     coh_all = torch.cat(coh).reshape(r_0.shape[:-1])
     return 10.0 * torch.log10(coh_all / (1 - coh_all)), torch.cat(info).reshape(r_0.shape[:-1])
+
+
+def _raise_as_scipy(flags: torch.Tensor) -> None:
+    """Raise what scipy's ``solve_toeplitz`` raises on the first failed system, in row
+    order, as the JAX package solves them. One read of the flags on the host."""
+    if bool((flags == 0).all()):
+        return
+    first = next(code for code in flags.reshape(-1).tolist() if code != 0)
+    if first < 0:
+        raise ValueError("array must not contain infs or NaNs")
+    raise np.linalg.LinAlgError("Singular principal minor")
 
 
 def signal_distortion_ratio(
@@ -96,7 +113,8 @@ def signal_distortion_ratio(
 ) -> torch.Tensor:
     """SDR in dB via the optimal linear distortion filter (fast-bss-eval semantics), in
     float64 and rounded to float32. ``use_cg_iter`` is accepted and ignored: the solve
-    is always direct.
+    is always direct. Raises as scipy does where a system cannot be solved: ``ValueError``
+    on NaN or infinite input, ``numpy.linalg.LinAlgError`` on a silent target.
 
     Example:
         >>> import torch
@@ -106,7 +124,9 @@ def signal_distortion_ratio(
         >>> signal_distortion_ratio(preds, target, filter_length=16)
         tensor(31.7806)
     """
-    return _sdr_solve(preds, target, filter_length, zero_mean, load_diag)[0].to(torch.float32)
+    sdr, flags = _sdr_solve(preds, target, filter_length, zero_mean, load_diag)
+    _raise_as_scipy(flags)
+    return sdr.to(torch.float32)
 
 
 def scale_invariant_signal_distortion_ratio(preds, target, zero_mean: bool = False) -> torch.Tensor:

@@ -11,13 +11,12 @@ from typing import Optional
 
 import torch
 
-from ...utilities.checks import _as_tensor
 from .uqi import _uqi_map
-from .utils import reduce
+from .utils import _jax_tensor, reduce
 
 
 def _spectral_distortion_index_update(preds, target):
-    preds, target = _as_tensor(preds), _as_tensor(target)
+    preds, target = _jax_tensor(preds), _jax_tensor(target)
     if preds.dtype != target.dtype:
         raise TypeError(
             f"Expected `ms` and `fused` to have the same data type. Got ms: {preds.dtype} and fused: {target.dtype}."

@@ -11,15 +11,14 @@ from typing import Optional
 
 import torch
 
-from ...utilities.checks import _as_tensor
 from ._resize import resize_bilinear_antialias
 from .uqi import _uqi_map
-from .utils import _mean64, reduce, uniform_filter
+from .utils import _jax_tensor, _mean64, reduce, uniform_filter
 
 
 def _spatial_distortion_index_update(preds, ms, pan, pan_lr=None):
-    preds, ms, pan = _as_tensor(preds), _as_tensor(ms), _as_tensor(pan)
-    pan_lr = _as_tensor(pan_lr) if pan_lr is not None else None
+    preds, ms, pan = _jax_tensor(preds), _jax_tensor(ms), _jax_tensor(pan)
+    pan_lr = _jax_tensor(pan_lr) if pan_lr is not None else None
     if preds.ndim != 4:
         raise ValueError(f"Expected `preds` to have BxCxHxW shape. Got preds: {preds.shape}.")
     for name, other in (("ms", ms), ("pan", pan)) + ((("pan_lr", pan_lr),) if pan_lr is not None else ()):

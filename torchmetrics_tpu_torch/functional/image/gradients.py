@@ -7,7 +7,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ...utilities.checks import _as_tensor
+from .utils import _jax_tensor
 
 
 def image_gradients(img) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -22,7 +22,7 @@ def image_gradients(img) -> Tuple[torch.Tensor, torch.Tensor]:
     """
     if not hasattr(img, "shape"):
         raise TypeError(f"The `img` expects a value of <Tensor> type but got {type(img)}")
-    img = _as_tensor(img)
+    img = _jax_tensor(img)
     if img.ndim != 4:
         raise RuntimeError(f"The `img` expects a 4D tensor but got {img.ndim}D tensor")
     dy = img[..., 1:, :] - img[..., :-1, :]

@@ -10,9 +10,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from ...utilities.checks import _as_tensor
 from ...utilities.prints import rank_zero_warn
-from .utils import _sum64, reduce
+from .utils import _jax_tensor, _sum64, reduce
 
 
 def _psnr_compute(
@@ -72,7 +71,7 @@ def peak_signal_noise_ratio(
     """
     if dim is None and reduction != "elementwise_mean":
         rank_zero_warn(f"The `reduction={reduction}` will not have any effect when `dim` is None.")
-    preds, target, data_range_val = _clamp_pair(_as_tensor(preds), _as_tensor(target), data_range)
+    preds, target, data_range_val = _clamp_pair(_jax_tensor(preds), _jax_tensor(target), data_range)
     sum_squared_error, num_obs = _psnr_update(preds, target, dim=dim)
     return _psnr_compute(sum_squared_error, num_obs, data_range_val, base=base, reduction=reduction)
 

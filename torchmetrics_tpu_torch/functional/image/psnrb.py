@@ -11,9 +11,8 @@ from typing import Tuple
 
 import torch
 
-from ...utilities.checks import _as_tensor
 from .psnr import _clamp_pair
-from .utils import _sum64
+from .utils import _jax_tensor, _sum64
 
 
 def _boundary_split(diff_sq: torch.Tensor, axis: int, block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,6 +71,6 @@ def peak_signal_noise_ratio_with_blocked_effect(preds, target, data_range, block
         >>> peak_signal_noise_ratio_with_blocked_effect(preds, target, data_range=1.0)
         tensor(7.6286)
     """
-    preds, target, data_range_val = _clamp_pair(_as_tensor(preds), _as_tensor(target), data_range)
+    preds, target, data_range_val = _clamp_pair(_jax_tensor(preds), _jax_tensor(target), data_range)
     sum_squared_error, bef, num_obs = _psnrb_update(preds, target, block_size=block_size)
     return _psnrb_compute(sum_squared_error, bef, num_obs, data_range_val)

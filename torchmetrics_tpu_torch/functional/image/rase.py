@@ -9,9 +9,8 @@ from typing import Tuple
 
 import torch
 
-from ...utilities.checks import _as_tensor
 from .rmse_sw import _rmse_sw_compute, _rmse_sw_update
-from .utils import _mean64, uniform_filter
+from .utils import _jax_tensor, _mean64, uniform_filter
 
 
 def _rase_update(
@@ -57,4 +56,4 @@ def relative_average_spectral_error(preds, target, window_size: int = 8) -> torc
     """
     if not isinstance(window_size, int) or window_size < 1:
         raise ValueError("Argument `window_size` is expected to be a positive integer.")
-    return _rase_over(_as_tensor(preds), _as_tensor(target), window_size)
+    return _rase_over(_jax_tensor(preds), _jax_tensor(target), window_size)

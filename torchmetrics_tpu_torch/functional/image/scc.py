@@ -12,8 +12,7 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from ...utilities.checks import _as_tensor
-from .utils import _mean64, _pad, conv2d
+from .utils import _jax_tensor, _mean64, _pad, conv2d
 
 
 def _default_hp_filter(device) -> torch.Tensor:
@@ -24,7 +23,7 @@ def _default_hp_filter(device) -> torch.Tensor:
 
 
 def _scc_update(preds, target, hp_filter, window_size: int):
-    preds, target = _as_tensor(preds), _as_tensor(target)
+    preds, target = _jax_tensor(preds), _jax_tensor(target)
     if preds.dtype != target.dtype:
         target = target.to(preds.dtype)
     if tuple(preds.shape) != tuple(target.shape):

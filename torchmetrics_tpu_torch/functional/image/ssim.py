@@ -13,8 +13,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from ...utilities.checks import _as_tensor
 from .utils import (
+    _jax_tensor,
     _gaussian_kernel_2d,
     _gaussian_kernel_3d,
     _mean64,
@@ -29,7 +29,7 @@ from .utils import (
 
 
 def _ssim_check_inputs(preds, target):
-    preds, target = _as_tensor(preds), _as_tensor(target)
+    preds, target = _jax_tensor(preds), _jax_tensor(target)
     if preds.dtype != target.dtype:
         target = target.to(preds.dtype)
     if tuple(preds.shape) != tuple(target.shape):

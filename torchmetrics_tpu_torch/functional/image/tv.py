@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...utilities.checks import _as_tensor
+from .utils import _jax_tensor
 
 _UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
 
@@ -22,7 +22,7 @@ def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def _total_variation_update(img) -> Tuple[torch.Tensor, int]:
-    img = _as_tensor(img)
+    img = _jax_tensor(img)
     if img.ndim != 4:
         raise RuntimeError(f"Expected input `img` to be an 4D tensor, but got {tuple(img.shape)}")
     diff1 = img[..., 1:, :] - img[..., :-1, :]

@@ -19,6 +19,15 @@ import torch
 import torch.nn.functional as F
 
 from ...utilities.checks import _as_tensor
+from ...utilities.data import _jax_dtype
+
+
+def _jax_tensor(x) -> torch.Tensor:
+    """``x`` as the JAX package's ``jnp.asarray`` gives it, with 64-bit types off: a
+    tensor stays on its device, anything else becomes one on the default device, and
+    float64 rounds to float32 (int64 wraps to int32). So float64 input gives float32
+    results, and a float64 image beside a float32 one is a float32 pair."""
+    return _jax_dtype(_as_tensor(x))
 
 
 def _gaussian(kernel_size: int, sigma: float, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
@@ -183,7 +192,7 @@ def reduce(x: torch.Tensor, reduction: Optional[str]) -> torch.Tensor:
 
 
 def _check_image_pair(preds, target, require_dtype_match: bool = True, ndim: Tuple[int, ...] = (4,)):
-    preds, target = _as_tensor(preds), _as_tensor(target)
+    preds, target = _jax_tensor(preds), _jax_tensor(target)
     if require_dtype_match and preds.dtype != target.dtype:
         raise TypeError(
             "Expected `preds` and `target` to have the same data type."

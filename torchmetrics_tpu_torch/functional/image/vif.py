@@ -10,8 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ...utilities.checks import _as_tensor
-from .utils import conv2d
+from .utils import _jax_tensor, conv2d
 
 
 def _filter(win_size: float, sigma: float, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
@@ -80,6 +79,16 @@ def _vif_scores(preds: torch.Tensor, target: torch.Tensor, sigma_n_sq: float) ->
     return per_channel.mean(0) if channels > 1 else per_channel[0]
 
 
+def _check_vif_size(preds: torch.Tensor, target: torch.Tensor) -> None:
+    """VIF's four dyadic scales need images of at least 41x41."""
+    if preds.shape[-2] < 41 or preds.shape[-1] < 41:
+        raise ValueError(f"Invalid size of preds. Expected at least 41x41, but got {preds.shape[-2]}x{preds.shape[-1]}!")
+    if target.shape[-2] < 41 or target.shape[-1] < 41:
+        raise ValueError(
+            f"Invalid size of target. Expected at least 41x41, but got {target.shape[-2]}x{target.shape[-1]}!"
+        )
+
+
 def visual_information_fidelity(preds, target, sigma_n_sq: float = 2.0, reduction: str = "mean") -> torch.Tensor:
     """VIF: the information the distorted image keeps of the reference. Inputs must be
     at least 41x41 (four dyadic scales).
@@ -92,14 +101,9 @@ def visual_information_fidelity(preds, target, sigma_n_sq: float = 2.0, reductio
         >>> visual_information_fidelity(preds, target)
         tensor(0.0013)
     """
-    preds = _as_tensor(preds).to(torch.float32)
-    target = _as_tensor(target).to(torch.float32)
-    if preds.shape[-2] < 41 or preds.shape[-1] < 41:
-        raise ValueError(f"Invalid size of preds. Expected at least 41x41, but got {preds.shape[-2]}x{preds.shape[-1]}!")
-    if target.shape[-2] < 41 or target.shape[-1] < 41:
-        raise ValueError(
-            f"Invalid size of target. Expected at least 41x41, but got {target.shape[-2]}x{target.shape[-1]}!"
-        )
+    preds = _jax_tensor(preds).to(torch.float32)
+    target = _jax_tensor(target).to(torch.float32)
+    _check_vif_size(preds, target)
     if reduction not in ("mean", "none"):
         raise ValueError(f"Argument `reduction` must be one of ['mean', 'none'], got {reduction}")
     score = _vif_scores(preds, target, sigma_n_sq)

@@ -22,8 +22,8 @@ from ..functional.image.sam import _sam_compute, _sam_update
 from ..functional.image.scc import spatial_correlation_coefficient
 from ..functional.image.tv import _total_variation_compute, _total_variation_update
 from ..functional.image.uqi import _uqi_compute, _uqi_map, _uqi_update
-from ..functional.image.utils import _sum64
-from ..functional.image.vif import _vif_scores
+from ..functional.image.utils import _jax_tensor, _sum64
+from ..functional.image.vif import _check_vif_size, _vif_scores
 from ..metric import Metric, _to_device
 
 def _zero(dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -128,6 +128,9 @@ class VisualInformationFidelity(Metric):
         self.add_state("vif_score", default=[], dist_reduce_fx="cat")
 
     def _batch_state(self, preds, target):
+        # the size check runs before any convolution, as the function's does (the JAX
+        # class skips it and scores empty convolutions)
+        _check_vif_size(preds, target)
         return {"vif_score": _vif_scores(preds.to(torch.float32), target.to(torch.float32), self.sigma_n_sq)}
 
     def _compute(self, state):
@@ -322,7 +325,7 @@ class RelativeAverageSpectralError(Metric):
         self.add_state("target", default=[], dist_reduce_fx="cat")
 
     def _batch_state(self, preds, target):
-        return {"preds": preds, "target": target}
+        return {"preds": _jax_tensor(preds), "target": _jax_tensor(target)}
 
     def _compute(self, state):
         return _rase_over(state["preds"], state["target"], self.window_size)

@@ -11,6 +11,7 @@ from typing import Any, Optional, Tuple, Union
 import torch
 
 from ..functional.image.psnr import _psnr_compute, _psnr_update
+from ..functional.image.utils import _jax_tensor
 from ..metric import Metric
 from ..utilities.prints import rank_zero_warn
 
@@ -62,6 +63,7 @@ class PeakSignalNoiseRatio(Metric):
         self.dim = tuple(dim) if isinstance(dim, Sequence) else dim
 
     def _batch_state(self, preds, target):
+        preds, target = _jax_tensor(preds), _jax_tensor(target)
         if self.clamp_range is not None:
             preds = torch.clamp(preds, *self.clamp_range)
             target = torch.clamp(target, *self.clamp_range)

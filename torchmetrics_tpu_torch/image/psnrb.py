@@ -12,6 +12,7 @@ from typing import Any, Tuple, Union
 import torch
 
 from ..functional.image.psnrb import _psnrb_compute, _psnrb_update
+from ..functional.image.utils import _jax_tensor
 from ..metric import Metric
 
 
@@ -55,6 +56,7 @@ class PeakSignalNoiseRatioWithBlockedEffect(Metric):
             self.data_range_val = float(data_range)
 
     def _batch_state(self, preds, target):
+        preds, target = _jax_tensor(preds), _jax_tensor(target)
         if self.clamp_range is not None:
             preds = torch.clamp(preds, *self.clamp_range)
             target = torch.clamp(target, *self.clamp_range)

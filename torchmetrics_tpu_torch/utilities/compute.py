@@ -159,3 +159,48 @@ def normalize_logits_if_needed(preds: torch.Tensor, normalization: str = "sigmoi
     if normalization == "softmax":
         return torch.where(outside, preds.softmax(dim=1), preds)
     return preds
+
+
+def reduce(x: torch.Tensor, reduction: Optional[str]) -> torch.Tensor:
+    """Reduce a tensor by ``'elementwise_mean'``, ``'sum'``, or ``'none'``/None
+    (reference ``utilities/distributed.py:22-42``).
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.utilities import reduce
+        >>> reduce(torch.tensor([1.0, 2.0, 6.0]), "elementwise_mean")
+        tensor(3.)
+    """
+    if reduction == "elementwise_mean":
+        return torch.mean(x)
+    if reduction == "none" or reduction is None:
+        return x
+    if reduction == "sum":
+        return torch.sum(x)
+    raise ValueError("Reduction parameter unknown.")
+
+
+def class_reduce(num: torch.Tensor, denom: torch.Tensor, weights: torch.Tensor,
+                 class_reduction: Optional[str] = "none") -> torch.Tensor:
+    """Reduce per-class ``num / denom * weights`` metrics by micro/macro/weighted/none
+    (reference ``utilities/distributed.py:45-88``); NaN cells (classes without
+    support) count as 0.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.utilities import class_reduce
+        >>> class_reduce(torch.tensor([1.0, 0.0]), torch.tensor([2.0, 0.0]), torch.tensor([2, 0]), "macro")
+        tensor(0.2500)
+    """
+    valid_reduction = ("micro", "macro", "weighted", "none", None)
+    fraction = torch.sum(num) / torch.sum(denom) if class_reduction == "micro" else num / denom
+    fraction = torch.where(torch.isnan(fraction), 0.0, fraction)
+    if class_reduction == "micro":
+        return fraction
+    if class_reduction == "macro":
+        return torch.mean(fraction)
+    if class_reduction == "weighted":
+        return torch.sum(fraction * (weights.to(torch.float32) / torch.sum(weights)))
+    if class_reduction == "none" or class_reduction is None:
+        return fraction
+    raise ValueError(f"Reduction parameter {class_reduction} unknown. Choose between one of these: {valid_reduction}")

@@ -18,6 +18,22 @@ def dim_zero_cat(x: Union[torch.Tensor, List[torch.Tensor]]) -> torch.Tensor:
     return torch.cat(x, dim=0)
 
 
+def dim_zero_sum(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(x, dim=0)
+
+
+def dim_zero_mean(x: torch.Tensor) -> torch.Tensor:
+    return torch.mean(x, dim=0)
+
+
+def dim_zero_max(x: torch.Tensor) -> torch.Tensor:
+    return torch.amax(x, dim=0)
+
+
+def dim_zero_min(x: torch.Tensor) -> torch.Tensor:
+    return torch.amin(x, dim=0)
+
+
 def _flatten(x: Sequence) -> list:
     """Flatten one level of nesting."""
     out = []

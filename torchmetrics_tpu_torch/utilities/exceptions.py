@@ -5,6 +5,10 @@ class TorchMetricsUserError(Exception):
     """Error raised on wrong usage of the metric API."""
 
 
+class TorchMetricsUserWarning(UserWarning):
+    """Warning raised on questionable usage of the metric API."""
+
+
 class StateCorruptionError(RuntimeError):
     """A metric state violated its ``init_state()`` spec (a missing leaf, a wrong
     shape or dtype, non-finite values) at a checkpoint-restore, sync or merge boundary.

@@ -11,3 +11,8 @@ def _module_available(name: str) -> bool:
         return importlib.util.find_spec(name) is not None
     except (ModuleNotFoundError, ValueError):
         return False
+
+
+_NLTK_AVAILABLE = _module_available("nltk")
+_REGEX_AVAILABLE = _module_available("regex")
+_TRANSFORMERS_AVAILABLE = _module_available("transformers")

@@ -1,15 +1,19 @@
-"""Rank-zero-gated warnings (counterpart of ``torchmetrics_tpu/utilities/prints.py``).
+"""Rank-zero-gated logging and warnings (counterpart of ``torchmetrics_tpu/utilities/prints.py``).
 
 The rank is the ``torch.distributed`` rank when a process group is initialised, else 0.
 """
 
 from __future__ import annotations
 
+import logging
 import warnings
 from functools import wraps
 from typing import Any, Callable
 
 import torch.distributed as dist
+
+
+_logger = logging.getLogger("torchmetrics_tpu_torch")
 
 
 def _rank() -> int:
@@ -33,3 +37,13 @@ def rank_zero_only(fn: Callable) -> Callable:
 @rank_zero_only
 def rank_zero_warn(message: str, kind: type = UserWarning, **kwargs: Any) -> None:
     warnings.warn(message, kind, stacklevel=kwargs.pop("stacklevel", 5), **kwargs)
+
+
+@rank_zero_only
+def rank_zero_debug(*args: Any, **kwargs: Any) -> None:
+    _logger.debug(*args, **kwargs)
+
+
+@rank_zero_only
+def rank_zero_info(*args: Any, **kwargs: Any) -> None:
+    _logger.info(*args, **kwargs)
