@@ -188,7 +188,7 @@ Phases, one JSON line each, in order:
    counts bit for bit, ratios within 1e-6.
 25. panoptic: ``PanopticQuality`` (with sq and rq) and ``ModifiedPanopticQuality`` on
    COCO-panoptic-shaped segment maps from a seed (133 categories: 80 things, 53 stuff;
-   480x640; 1-30 segments an image; 5% void), a prefix of 64 of val2017's 5,000 images
+   480x640; 1-30 segments an image; 5% void), a prefix of 32 of val2017's 5,000 images
    in updates of 16: the states on the card, equal to the CPU port's bit for bit, and
    the values (PQ's per class too) equal; update ms and the host's share of it (the
    statistics are host numpy).
@@ -345,6 +345,33 @@ Phases, one JSON line each, in order:
    ``LipVertexError`` over a seeded lip region of 254 vertices: the int32 count equal
    to the CPU port's, the float32 sum within ``LVE_RTOL``; update ms, host reads, a
    profiled update.
+46. lpips: ``LearnedPerceptualImagePatchSimilarity`` with seeded weights in the published
+   layouts written by ``convert_lpips_weights``: alex, vgg and squeeze on BAPPS-sized
+   64x64 patch pairs (20 updates of 50), vgg on 256x256 (8 updates of 32), and one
+   forward and backward through vgg at B=16 (the loss use); the first 2 pairs within
+   ``MODEL_ATOL`` of the CPU port, the gradient within ``GRAD_RTOL`` relative L2 of the
+   CPU port's and within ``GRAD_F64_RTOL`` of the card's own float64 backward; the same
+   gradient with TF32 in cuDNN's backward, and in the forward too, must fail them.
+47. dists: ``DeepImageStructureAndTextureSimilarity`` (VGG16, L2 pooling) at 256x256 in
+   8 updates of 32, the first 2 pairs within ``MODEL_ATOL``.
+48. arniqa: ``ARNIQA(reduction="none")`` with a seeded ResNet-50 in the published
+   checkpoint's layout read from ``$TORCH_HOME/hub/checkpoints``, on KonIQ-10k-sized
+   1024x768 images in 16 updates of 8; one image within ``MODEL_ATOL``.
+49. ppl: ``PerceptualPathLength`` (10,000 samples, batches of 64, resize 64, vgg) of a
+   seeded toy generator with StyleGAN2's 512-d latent and 256x256 output; 16 samples against
+   a CPU twin within ``PPL_MEDIAN_RTOL`` of the median distance, and the LPIPS of 4 of
+   the card's image pairs on the CPU within ``PAIR_LPIPS_RTOL``; a batch's generator and
+   similarity (resize and LPIPS) times apart.
+50. clip_score: ``CLIPScore`` on a seeded CLIP at openai/clip-vit-large-patch14's
+   published config (written once with its processor and a ``tokenizers`` BPE file),
+   1,024 COCO-val2017-sized image-caption pairs in updates of 64 (cut from 5,000, see
+   ``COCO_CAPTIONS``), text-text and image-image; pixel values equal, features within
+   ``CLIP_FEATURE_RTOL`` and scores within ``CLIP_SCORE_ATOL`` of the CPU port.
+51. clip_iqa: ``CLIPImageQualityAssessment`` on the same model, 64 images of 1024x768
+   in updates of 16, four prompts (one user-defined), the anchors on the card; 2 images
+   within ``CLIP_PROB_ATOL``.
+   Each of phases 46-51 prints update ms (first and steady), peak extra bytes, host reads
+   and a profiled update (device busy, idle share).
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -364,6 +391,7 @@ CUDA it exits with code 2.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -5605,6 +5633,57 @@ VOCASET_FRAMES = 240
 FLAME_VERTICES = 5023
 LIP_VERTICES = 254  # a seeded lip region; FLAME's mask is not in the repo
 LVE_RTOL = 1e-6
+BAPPS_PATCH = 64  # BAPPS 2AFC's patches
+LPIPS_BATCH = 50
+LPIPS_UPDATES = 20  # 1,000 patch pairs a backbone
+LPIPS_NETS = ("alex", "vgg", "squeeze")
+FULL_SIZE = 256  # LPIPS as a loss and DISTS at 256 x 256
+FULL_BATCH = 32
+FULL_UPDATES = 8
+LPIPS_GRAD_BATCH = 16
+LPIPS_CPU_PAIRS = 2
+MODEL_ATOL = 1e-5  # card against CPU: float32 backbone sums in other orders (TF32 off), distances below 1
+GRAD_F64_RTOL = 2e-5  # the gradient's relative L2 distance from the card's own float64 backward of the same
+# forward (the same max-pool picks): on an H100 the sound backward read 7.4e-7 and cuDNN's TF32 backward 5.1e-4,
+# so the limit lies between them, 27 times the one and 1/26 of the other
+GRAD_RTOL = 1e-2  # the gradient's relative L2 distance from the CPU port's: max-pool windows of smooth images
+# hold near-ties, and each device's rounding routes some windows' gradient to another pixel (a ReLU network's
+# input gradient is not continuous), so a few entries differ by their whole size; in float64 the two agree to 1e-14.
+# On an H100 it read 4.2e-3, with TF32 in the backward only 4.2e-3 (the picks hide it: GRAD_F64_RTOL catches
+# it) and with TF32 in the forward too 5.8e-2
+KONIQ_SHAPE = (768, 1024)  # KonIQ-10k's 1024 x 768 images, (H, W)
+ARNIQA_BATCH = 8
+ARNIQA_UPDATES = 16  # 128 images of KonIQ-10k's 2,015 test images
+TOY_Z = 512  # the toy generator takes StyleGAN2's latent and gives its 256 x 256 output
+TOY_RES = 256
+PPL_SAMPLES = 10000  # the metric's default
+PPL_BATCH = 64
+PPL_RESIZE = 64
+PPL_CPU_SAMPLES = 16
+PPL_MEDIAN_RTOL = 5e-2  # PPL against the CPU port, of the median distance: a deep float32 generator on two
+# devices, then image pairs 1e-4 apart whose LPIPS is divided by 1e-8 (read 1.9e-2 on an H100)
+PAIR_LPIPS_RTOL = 3e-3  # the LPIPS of the card's own image pairs against the CPU port's, relative, before the
+# division: the CPU tests' PPL tolerance (read 4.9e-4 on an H100)
+CLIP_L14 = {  # openai/clip-vit-large-patch14's published config
+    "text_config": {"vocab_size": 49408, "hidden_size": 768, "intermediate_size": 3072, "num_hidden_layers": 12,
+                    "num_attention_heads": 12, "max_position_embeddings": 77, "hidden_act": "quick_gelu",
+                    "projection_dim": 768},
+    "vision_config": {"hidden_size": 1024, "intermediate_size": 4096, "num_hidden_layers": 24,
+                      "num_attention_heads": 16, "image_size": 224, "patch_size": 14, "hidden_act": "quick_gelu",
+                      "projection_dim": 768},
+    "projection_dim": 768,
+}
+COCO_SHAPE = (480, 640)  # COCO val2017's typical image, (H, W)
+COCO_CAPTIONS = 1024  # val2017 has 5,000 images: cut to 16 updates for the time limit, the host's CLIP
+# processor taking about 17 ms an image (90 s for the 5,000 on an H100 host)
+CLIP_BATCH = 64
+CLIP_CPU_PAIRS = 2
+CLIP_FEATURE_RTOL = 1e-4  # of the largest feature: ViT-L/14's 24 float32 layers (TF32 off) on two devices
+CLIP_SCORE_ATOL = 1e-3  # of 100 x a cosine
+CLIP_IQA_IMAGES = 64  # 4 updates: the host's processor takes about 110 ms an image of 1024 x 768
+CLIP_IQA_BATCH = 16
+CLIP_IQA_PROMPTS = ("quality", "brightness", "sharpness", ("A crisp photo.", "A hazy photo."))
+CLIP_PROB_ATOL = 1e-4  # a sigmoid of 100 x the difference of two cosines
 
 
 @functools.lru_cache(maxsize=None)
@@ -6179,6 +6258,585 @@ def lve_phase(card: str) -> None:
     profile_step("lve_update", lambda: metric.update(*sequences[0]))
 
 
+def he_features(spec, gen: torch.Generator) -> dict:
+    """A seeded torchvision ``features`` state dict for an LPIPS layer spec (He-scaled
+    weights, small biases), on the host."""
+    sd = {}
+    for tv_idx, layer in enumerate(spec):
+        if layer[0] == "conv":
+            parts = {"": (layer[2], layer[1], layer[3])}
+        elif layer[0] == "fire":
+            _, c_in, sq, e1, e3 = layer
+            parts = {"squeeze.": (sq, c_in, 1), "expand1x1.": (e1, sq, 1), "expand3x3.": (e3, sq, 3)}
+        else:
+            continue
+        for name, (c_out, c_in, k) in parts.items():
+            sd[f"{tv_idx}.{name}weight"] = torch.randn((c_out, c_in, k, k), generator=gen) * math.sqrt(2 / (c_in * k * k))
+            sd[f"{tv_idx}.{name}bias"] = torch.randn((c_out,), generator=gen) * 0.05
+    return sd
+
+
+def write_lpips_weights(directory: str, net: str, seed: int) -> str:
+    """Seeded weights in the published layouts (torchvision's ``features``, the LPIPS
+    heads' ``lin{i}.model.1.weight``), written by the port's converter."""
+    from torchmetrics_tpu_torch.functional.image.lpips import _NETS, convert_lpips_weights
+
+    spec, _, chns = _NETS[net]
+    gen = torch.Generator().manual_seed(seed)
+    backbone = he_features(spec, gen)
+    heads = {f"lin{i}.model.1.weight": torch.rand((1, c, 1, 1), generator=gen) * 0.1 for i, c in enumerate(chns)}
+    path = os.path.join(directory, f"lpips_{net}.pkl")
+    convert_lpips_weights(backbone, heads, net, path)
+    return path
+
+
+def image_pairs(gen: torch.Generator, batch: int, size, low: float = -1.0, device: str = "cuda") -> tuple:
+    """Two batches of ``size`` (an int for squares, or ``(H, W)``) images in ``[low, 1]`` on
+    the card: smooth seeded content and a distorted copy (noise and a shift of
+    brightness), as BAPPS's reference and distortion."""
+    size = (size, size) if isinstance(size, int) else tuple(size)
+    base = torch.rand((batch, 3, size[0] // 8, size[1] // 8), generator=gen, device=device)
+    base = torch.nn.functional.interpolate(base, size=size, mode="bilinear", align_corners=False)
+    other = (base + 0.1 * torch.randn(base.shape, generator=gen, device=device) + 0.05).clamp(0, 1)
+    return base * (1 - low) + low, other * (1 - low) + low
+
+
+def model_phase_line(phase: str, times: list, metric, batch: tuple, extra: dict, clock: list) -> None:
+    """A model-backed phase's line: update ms (first and the median of the rest), the peak
+    bytes and host reads of one more update, and the phase's own keys."""
+    peak = update_peak_bytes(metric, batch)
+    reads = host_reads(lambda: metric.update(*batch))
+    emit({"phase": phase, "update_ms": {"first": times[0], "median": median(times[1:])},
+          "update_peak_extra_bytes": peak, "host_reads": reads, **extra, "seconds": clock_seconds(clock)})
+
+
+def grad_distance(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """A gradient's distance from another: relative L2 over the batch, cosine, and the
+    worst image's relative L2."""
+    got, want = got.double(), want.double()
+    per_image = (got - want).flatten(1).norm(dim=1) / want.flatten(1).norm(dim=1)
+    return {"rel_l2": float((got - want).norm() / want.norm()),
+            "cosine": float((got * want).sum() / (got.norm() * want.norm())),
+            "worst_image_rel_l2": float(per_image.max())}
+
+
+class _Float64BackwardConv(torch.autograd.Function):
+    """``F.conv2d`` in float32 with TF32 off, its input gradient in float64 rounded once:
+    the backward of the same forward, so the same ReLU masks and max-pool picks."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, groups):
+        from torchmetrics_tpu_torch.functional.image.utils import _ieee_float32
+
+        ctx.save_for_backward(weight)
+        ctx.conf = x.shape, stride, padding, groups
+        with _ieee_float32():
+            return torch.nn.functional.conv2d(x, weight, bias, stride, padding, 1, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (weight,) = ctx.saved_tensors
+        shape, stride, padding, groups = ctx.conf
+        grad_x = torch.nn.grad.conv2d_input(shape, weight.double(), grad.double(), stride, padding, 1, groups)
+        return grad_x.float(), None, None, None, None, None
+
+
+LPIPS_CONVS = ("float64_backward", "tf32_backward", "tf32_forward_and_backward")
+
+
+@contextlib.contextmanager
+def lpips_conv(kind: str):
+    """LPIPS with another conv in place of ``utils.conv2d_full``, and TF32 on in cuDNN and
+    cuBLAS (cuDNN's default) for the block: ``float64_backward`` (the reference of the
+    sound backward), ``tf32_backward`` (plain ``F.conv2d``, its forward under
+    ``_ieee_float32``: the fault ``conv2d_full`` is there to prevent) or
+    ``tf32_forward_and_backward`` (plain ``F.conv2d``)."""
+    from torchmetrics_tpu_torch.functional.image import lpips as module
+    from torchmetrics_tpu_torch.functional.image.utils import _ieee_float32
+
+    def conv(x, weight, bias=None, stride=1, padding=0, groups=1):
+        if kind == "float64_backward":
+            return _Float64BackwardConv.apply(x, weight, bias, stride, padding, groups)
+        if kind == "tf32_forward_and_backward":
+            return torch.nn.functional.conv2d(x, weight, bias, stride, padding, 1, groups)
+        with _ieee_float32():
+            return torch.nn.functional.conv2d(x, weight, bias, stride, padding, 1, groups)
+
+    if kind not in LPIPS_CONVS:
+        raise ValueError(kind)
+    saved = module.conv2d_full, torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    module.conv2d_full = conv
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        module.conv2d_full, torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def lpips_phase(card: str) -> None:
+    import tempfile
+
+    from torchmetrics_tpu_torch.functional.image.lpips import LPIPSNetwork
+    from torchmetrics_tpu_torch.image import LearnedPerceptualImagePatchSimilarity as LPIPS
+
+    clock = [("start", time.perf_counter())]
+    gen = torch.Generator(device="cuda").manual_seed(1701)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {net: write_lpips_weights(tmp, net, 1702 + i) for i, net in enumerate(LPIPS_NETS)}
+        runs = [(net, BAPPS_PATCH, LPIPS_BATCH, LPIPS_UPDATES) for net in LPIPS_NETS]
+        runs.append(("vgg", FULL_SIZE, FULL_BATCH, FULL_UPDATES))
+        for net, size, batch, updates in runs:
+            key = f"{net}_{size}"
+            metric = LPIPS(net, weights_path=paths[net])
+            batches = [image_pairs(gen, batch, size) for _ in range(updates)]
+            times = [synced_ms(lambda: metric.update(*b)) for b in batches]
+            value = fresh_compute(metric)
+            if not (0 < float(value) < 1) or float(metric.total) != batch * updates:
+                raise AssertionError(f"lpips {key}: value {float(value)}, total {float(metric.total)}")
+            head = [x[:LPIPS_CPU_PAIRS] for x in batches[0]]
+            card_pairs = metric.net(*head)
+            cpu_pairs = LPIPSNetwork(net, weights_path=paths[net])(*(x.cpu() for x in head))
+            diff = float((card_pairs.cpu() - cpu_pairs).abs().max())
+            if not diff <= MODEL_ATOL:
+                raise AssertionError(f"lpips {key}: {diff} from the CPU port (limit {MODEL_ATOL})")
+            peak = update_peak_bytes(metric, batches[0])
+            reads = host_reads(lambda: metric.update(*batches[0]))
+            out[key] = {"batch": batch, "updates": updates, "update_ms": {"first": times[0],
+                                                                          "median": median(times[1:])},
+                        "pairs_per_s": batch / (median(times[1:]) / 1e3), "value": float(value),
+                        "cpu_abs_diff": diff, "update_peak_extra_bytes": peak, "host_reads": reads}
+            profile_step(f"lpips_{key}_update", lambda: metric.update(*batches[0]))
+        clock.append(("updates", time.perf_counter()))
+        # the loss use: one forward and backward through vgg at B=16
+        loss_metric = LPIPS("vgg", weights_path=paths["vgg"])
+        x, y = image_pairs(gen, LPIPS_GRAD_BATCH, FULL_SIZE)
+
+        def backward():
+            leaf = x.clone().requires_grad_(True)
+            loss_metric(leaf, y).backward()
+            return leaf.grad
+
+        grad_times = [synced_ms(backward) for _ in range(3)]
+        grad, grad_peak = peak_extra_bytes(backward)
+        cpu_leaf = x[:LPIPS_CPU_PAIRS].cpu().requires_grad_(True)
+        cpu_net = LPIPSNetwork("vgg", weights_path=paths["vgg"])
+        (cpu_net(cpu_leaf, y[:LPIPS_CPU_PAIRS].cpu()).sum() / LPIPS_GRAD_BATCH).backward()
+        want = cpu_leaf.grad.double()
+        grads = {}
+        for kind in LPIPS_CONVS:
+            with lpips_conv(kind):
+                grads[kind] = backward()
+        # against the CPU port (other max-pool picks at near-ties), and against the card's
+        # own float64 backward of the same forward (the same picks: only the backward's sums)
+        readings = {kind: {"cpu": grad_distance(g[:LPIPS_CPU_PAIRS].cpu(), want),
+                           "float64_backward": grad_distance(g, grads["float64_backward"])}
+                    for kind, g in (("sound", grad), *((k, grads[k]) for k in LPIPS_CONVS[1:]))}
+        clock.append(("backward", time.perf_counter()))
+    limits = {"cpu": GRAD_RTOL, "float64_backward": GRAD_F64_RTOL}
+
+    def passes(reading):
+        return all(reading[ref]["rel_l2"] <= limit for ref, limit in limits.items())
+
+    backward_line = {"batch": LPIPS_GRAD_BATCH, "size": FULL_SIZE,
+                     "ms": {"first": grad_times[0], "median": median(grad_times[1:])},
+                     "peak_extra_bytes": grad_peak, "rel_l2": readings, "rel_l2_limits": limits}
+    emit({"phase": "lpips", "runs": out, "abs_limit": MODEL_ATOL, "cpu_pairs": LPIPS_CPU_PAIRS,
+          "backward_vgg": backward_line, "tf32": False, "seconds": clock_seconds(clock), "card": card})
+    if not (passes(readings["sound"]) and bool(torch.isfinite(grad).all())):
+        raise AssertionError(f"lpips backward: {readings['sound']} (limits {limits})")
+    if any(passes(readings[fault]) for fault in LPIPS_CONVS[1:]):
+        raise AssertionError(f"lpips backward: a TF32 gradient passes the limits {limits}: {readings}")
+    profile_step("lpips_vgg_backward", backward)
+
+
+def dists_phase(card: str) -> None:
+    import tempfile
+
+    from torchmetrics_tpu_torch.functional.image.dists import DISTSNetwork, convert_dists_weights
+    from torchmetrics_tpu_torch.functional.image.lpips import _VGG_SPEC
+    from torchmetrics_tpu_torch.image import DeepImageStructureAndTextureSimilarity as DISTS
+
+    clock = [("start", time.perf_counter())]
+    gen = torch.Generator(device="cuda").manual_seed(1711)
+    host = torch.Generator().manual_seed(1712)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dists.pkl")
+        convert_dists_weights(he_features(_VGG_SPEC, host), {"alpha": torch.rand((1, 1475, 1, 1), generator=host) * 0.1,
+                                                             "beta": torch.rand((1, 1475, 1, 1), generator=host) * 0.1},
+                              path)
+        metric = DISTS(weights_path=path)
+        batches = [image_pairs(gen, FULL_BATCH, FULL_SIZE, low=0.0) for _ in range(FULL_UPDATES)]
+        times = [synced_ms(lambda: metric.update(*b)) for b in batches]
+        value = fresh_compute(metric)
+        if not (0 < float(value) < 1) or float(metric.total) != FULL_BATCH * FULL_UPDATES:
+            raise AssertionError(f"dists: value {float(value)}, total {float(metric.total)}")
+        head = [x[:LPIPS_CPU_PAIRS] for x in batches[0]]
+        diff = float((metric.net(*head).cpu() - DISTSNetwork(weights_path=path)(*(x.cpu() for x in head))).abs().max())
+        if not diff <= MODEL_ATOL:
+            raise AssertionError(f"dists: {diff} from the CPU port (limit {MODEL_ATOL})")
+        clock.append(("runs", time.perf_counter()))
+        model_phase_line("dists", times, metric, batches[0],
+                         {"batch": FULL_BATCH, "size": FULL_SIZE, "updates": FULL_UPDATES, "value": float(value),
+                          "pairs_per_s": FULL_BATCH / (median(times[1:]) / 1e3), "cpu_pairs": LPIPS_CPU_PAIRS,
+                          "cpu_abs_diff": diff, "abs_limit": MODEL_ATOL, "tf32": False}, clock)
+        profile_step("dists_update", lambda: metric.update(*batches[0]))
+
+
+def arniqa_checkpoints(directory: str, seed: int) -> None:
+    """A seeded ResNet-50 in the published ARNIQA checkpoint's layout (``model.``-prefixed
+    ``nn.Sequential`` indices, a SimCLR projector) and a KonIQ regressor, written to
+    ``directory/hub/checkpoints`` where ``TORCH_HOME=directory`` finds them."""
+    from torchmetrics_tpu_torch.image._resnet import ResNet50Features
+
+    torch.manual_seed(seed)
+    model = ResNet50Features()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.0)
+                m.running_var.uniform_(0.5, 2.0)
+    names = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5", "layer3": "6", "layer4": "7"}
+    sd = {"model." + ".".join([names[k.split(".")[0]], *k.split(".")[1:]]): v for k, v in model.state_dict().items()}
+    sd["projector.0.weight"] = torch.zeros(8, 2048)
+    target = os.path.join(directory, "hub", "checkpoints")
+    os.makedirs(target, exist_ok=True)
+    torch.save(sd, os.path.join(target, "ARNIQA.pth"))
+    torch.save({"weights": torch.randn((1, 4096)) * 0.05, "biases": torch.tensor([50.0])},
+               os.path.join(target, "regressor_koniq10k.pth"))
+
+
+def arniqa_phase(card: str) -> None:
+    import tempfile
+
+    from torchmetrics_tpu_torch.functional.image import arniqa
+    from torchmetrics_tpu_torch.image import ARNIQA
+
+    clock = [("start", time.perf_counter())]
+    gen = torch.Generator(device="cuda").manual_seed(1721)
+    previous = os.environ.get("TORCH_HOME")
+    with tempfile.TemporaryDirectory() as tmp:
+        arniqa_checkpoints(tmp, 1722)
+        os.environ["TORCH_HOME"] = tmp
+        try:
+            metric = ARNIQA(reduction="none")
+            batches = [image_pairs(gen, ARNIQA_BATCH, KONIQ_SHAPE, low=0.0)[:1] for _ in range(ARNIQA_UPDATES)]
+            times = [synced_ms(lambda: metric.update(*b)) for b in batches]
+            scores = fresh_compute(metric)
+            if scores.shape != (ARNIQA_BATCH * ARNIQA_UPDATES,) or not bool(torch.isfinite(scores).all()):
+                raise AssertionError(f"arniqa: {tuple(scores.shape)} {summary(scores)}")
+            if metric.num_scores.dtype != torch.int32 or int(metric.num_scores) != scores.numel():
+                raise AssertionError(f"arniqa: num_scores {metric.num_scores}")
+            head = batches[0][0][:1]
+            card_score = arniqa(head, reduction="none")
+            cpu_score = arniqa(head.cpu(), reduction="none")
+            diff = float((card_score.cpu() - cpu_score).abs().max())
+            if not diff <= MODEL_ATOL:
+                raise AssertionError(f"arniqa: {diff} from the CPU port (limit {MODEL_ATOL})")
+            clock.append(("runs", time.perf_counter()))
+            # the metric reads the hub cache at each update, so the line's updates run under it too
+            model_phase_line("arniqa", times, metric, batches[0],
+                             {"batch": ARNIQA_BATCH, "shape": KONIQ_SHAPE, "updates": ARNIQA_UPDATES,
+                              "images_per_s": ARNIQA_BATCH / (median(times[1:]) / 1e3), "scores": summary(scores),
+                              "cpu_images": 1, "cpu_abs_diff": diff, "abs_limit": MODEL_ATOL, "tf32": False},
+                             clock)
+            profile_step("arniqa_update", lambda: metric.update(*batches[0]))
+        finally:
+            if previous is None:
+                os.environ.pop("TORCH_HOME", None)
+            else:
+                os.environ["TORCH_HOME"] = previous
+
+
+class ToyGenerator(torch.nn.Module):
+    """A seeded toy generator with StyleGAN2's latent (512-d) and output (256 x 256), and
+    no more of StyleGAN2: a two-layer mapping to a style, a learned 4 x 4 x 512 constant,
+    six doublings (nearest upsampling, one 3 x 3 conv modulated by the style, leaky ReLU)
+    whose widths halve from 512 to 16, a 1 x 1 conv to RGB and ``tanh``, scaled to
+    [0, 255]. StyleGAN2's own 256 x 256 generator keeps 512 channels to 64 x 64 and runs
+    two convs a block, several times this one's work, so the phase times the generator
+    and the similarity (resize and LPIPS) of a batch apart. ``sample`` draws latents from a host ``default_rng``, so
+    a twin on another device sees the same ones. TF32 is off in its forward: a 1e-4
+    latent step is below TF32's rounding."""
+
+    z_size = TOY_Z
+
+    def __init__(self, seed: int) -> None:
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        widths = (512, 512, 256, 128, 64, 32, 16)
+
+        def normal(*shape):
+            return torch.nn.Parameter(torch.randn(shape, generator=gen) / math.sqrt(np.prod(shape[1:]) or 1))
+
+        self.mapping = torch.nn.ParameterList([normal(TOY_Z, TOY_Z) for _ in range(2)])
+        self.const = torch.nn.Parameter(torch.randn((1, widths[0], 4, 4), generator=gen))
+        self.styles = torch.nn.ParameterList([normal(c, TOY_Z) for c in widths[:-1]])
+        self.convs = torch.nn.ParameterList([normal(o, c, 3, 3) for c, o in zip(widths[:-1], widths[1:])])
+        self.rgb = normal(3, widths[-1], 1, 1)
+        self.seed = seed
+        self.reset()
+
+    def reset(self) -> None:
+        self._rng = np.random.default_rng(self.seed)
+
+    def sample(self, num_samples: int) -> torch.Tensor:
+        return torch.from_numpy(self._rng.standard_normal((num_samples, TOY_Z)).astype(np.float32))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        from torchmetrics_tpu_torch.functional.image.utils import _ieee_float32
+
+        with _ieee_float32():
+            w = z
+            for m in self.mapping:
+                w = torch.nn.functional.leaky_relu(w @ m.T, 0.2)
+            x = self.const.expand(z.shape[0], -1, -1, -1)
+            for style, conv in zip(self.styles, self.convs):
+                x = x * (1 + w @ style.T)[:, :, None, None]
+                x = torch.nn.functional.interpolate(x, scale_factor=2, mode="nearest")
+                x = torch.nn.functional.leaky_relu(torch.nn.functional.conv2d(x, conv, padding=1), 0.2)
+            return (torch.tanh(torch.nn.functional.conv2d(x, self.rgb)) + 1) * 127.5
+
+
+def ppl_phase(card: str) -> None:
+    import copy
+    import tempfile
+
+    from torchmetrics_tpu_torch.functional.image import perceptual_path_length
+    from torchmetrics_tpu_torch.functional.image._resize import resize_bilinear_antialias
+    from torchmetrics_tpu_torch.functional.image.lpips import LPIPSNetwork
+    from torchmetrics_tpu_torch.functional.image.utils import _ieee_float32
+    from torchmetrics_tpu_torch.image import PerceptualPathLength
+
+    clock = [("start", time.perf_counter())]
+    generator = ToyGenerator(1731).cuda().eval().requires_grad_(False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_lpips_weights(tmp, "vgg", 1732)
+        metric = PerceptualPathLength(num_samples=PPL_SAMPLES, batch_size=PPL_BATCH, resize=PPL_RESIZE,
+                                      sim_net="vgg", sim_net_weights_path=path)
+        update_ms = synced_ms(lambda: metric.update(generator))
+        mean, std, dist = metric.compute()
+        if dist.shape != (PPL_SAMPLES,) or not bool(torch.isfinite(dist).all()) or not float(mean) > 0:
+            raise AssertionError(f"ppl: {tuple(dist.shape)} {summary(dist)}, mean {float(mean)}")
+        clock.append(("card", time.perf_counter()))
+        # a prefix against the CPU port: the same latents through a CPU twin of the generator
+        kw = {"num_samples": PPL_CPU_SAMPLES, "batch_size": PPL_CPU_SAMPLES, "resize": PPL_RESIZE,
+              "sim_net": "vgg", "sim_net_weights_path": path, "lower_discard": None, "upper_discard": None}
+        generator.reset()
+        cpu_generator = copy.deepcopy(generator).cpu()
+        card_dist = perceptual_path_length(generator, **kw)[2]
+        cpu_dist = perceptual_path_length(cpu_generator, **kw, device="cpu")[2]
+        diff = float((card_dist.cpu() - cpu_dist).abs().max()) / float(cpu_dist.median())
+        # the LPIPS of the card's own image pairs, before the division, on the CPU
+        generator.reset()
+        z1, z2 = generator.sample(4).cuda(), generator.sample(4).cuda()
+        images = generator(torch.cat([z1, z1 + (z2 - z1) * 1e-4]))
+        images = 2 * (images / 255) - 1
+        net = LPIPSNetwork("vgg", weights_path=path)
+        card_pairs = net.to("cuda")(images[:4], images[4:])
+        cpu_pairs = LPIPSNetwork("vgg", weights_path=path)(images[:4].cpu(), images[4:].cpu())
+        pair_diff = float(((card_pairs.cpu() - cpu_pairs).abs() / cpu_pairs.abs()).max())
+        clock.append(("cpu", time.perf_counter()))
+        if not (diff <= PPL_MEDIAN_RTOL and pair_diff <= PAIR_LPIPS_RTOL):
+            raise AssertionError(f"ppl: {diff} of the median (limit {PPL_MEDIAN_RTOL}), pairs {pair_diff} "
+                                 f"relative (limit {PAIR_LPIPS_RTOL}) from the CPU port")
+        # one batch's time apart: the generator on 2 x 64 latents, then the resize and LPIPS
+        z = generator.sample(2 * PPL_BATCH).cuda()
+        outputs = 2 * (generator(z) / 255) - 1
+
+        def similarity():
+            with _ieee_float32():
+                small = resize_bilinear_antialias(outputs, (PPL_RESIZE, PPL_RESIZE))
+            return net(small[:PPL_BATCH], small[PPL_BATCH:])
+
+        batch_ms = {"whole": update_ms / math.ceil(PPL_SAMPLES / PPL_BATCH),
+                    "generator": median([synced_ms(lambda: generator(z)) for _ in range(5)]),
+                    "resize_and_lpips": median([synced_ms(similarity) for _ in range(5)])}
+        generator.reset()
+        small = PerceptualPathLength(num_samples=PPL_BATCH, batch_size=PPL_BATCH, resize=PPL_RESIZE, sim_net="vgg",
+                                     sim_net_weights_path=path)
+        peak = update_peak_bytes(small, (generator,))
+        reads = host_reads(lambda: small.update(generator))
+    emit({"phase": "ppl", "num_samples": PPL_SAMPLES, "batch": PPL_BATCH, "resize": PPL_RESIZE,
+          "generator": f"toy, z {TOY_Z}, {TOY_RES}x{TOY_RES}", "batch_ms": batch_ms,
+          "update_ms": update_ms, "samples_per_s": PPL_SAMPLES / (update_ms / 1e3),
+          "mean": float(mean), "std": float(std), "distances": summary(dist),
+          "cpu_samples": PPL_CPU_SAMPLES, "cpu_rel_diff_of_median": diff, "cpu_pair_lpips_rel_diff": pair_diff,
+          "rel_limit": PPL_MEDIAN_RTOL, "pair_rel_limit": PAIR_LPIPS_RTOL, "batch_update_peak_extra_bytes": peak,
+          "batch_update_host_reads": reads,
+          "seconds": clock_seconds(clock), "card": card})
+    profile_step("ppl_batch_update", lambda: small.update(generator))
+
+
+def clip_vocabulary() -> dict:
+    """CLIP's byte-pair vocabulary cut to characters: every letter, digit, comma and full
+    stop alone and word-final (``</w>``), and the two specials."""
+    vocab = {"<|startoftext|>": 0, "<|endoftext|>": 1}
+    for c in "abcdefghijklmnopqrstuvwxyz0123456789,.":
+        vocab[c] = len(vocab)
+        vocab[c + "</w>"] = len(vocab)
+    return vocab
+
+
+def write_clip(directory: str, seed: int, config: dict = CLIP_L14, device: str = "cuda") -> str:
+    """A seeded ``CLIPModel`` at openai/clip-vit-large-patch14's published config, drawn on
+    the card, and its processor (CLIP's image preprocessing at 224, a BPE tokenizer over
+    ``clip_vocabulary`` saved as a ``tokenizers`` file, which transformers 4 and 5 both
+    load), written to ``directory``."""
+    from transformers import CLIPConfig, CLIPImageProcessor, CLIPModel, CLIPProcessor, CLIPTokenizerFast
+
+    vocab = clip_vocabulary()
+    with open(os.path.join(directory, "vocab.json"), "w") as fh:
+        json.dump(vocab, fh)
+    with open(os.path.join(directory, "merges.txt"), "w") as fh:
+        fh.write("#version: 0.2\n")
+    tokenizer = CLIPTokenizerFast(os.path.join(directory, "vocab.json"), os.path.join(directory, "merges.txt"))
+    processor = CLIPImageProcessor(size={"shortest_edge": 224}, crop_size={"height": 224, "width": 224})
+    CLIPProcessor(image_processor=processor, tokenizer=tokenizer).save_pretrained(directory)
+    if not os.path.exists(os.path.join(directory, "tokenizer.json")):
+        raise AssertionError("clip: the processor wrote no tokenizers file")
+    config = {**config, "text_config": {**config["text_config"], "bos_token_id": 0, "eos_token_id": 1,
+                                        "pad_token_id": 1}}
+    torch.manual_seed(seed)
+    with torch.device(device):
+        model = CLIPModel(CLIPConfig(**config))
+    model.save_pretrained(directory)
+    del model
+    return directory
+
+
+def coco_captions(count: int, seed: int) -> list:
+    """COCO-caption-sized stand-ins: about 10.5 Zipf-drawn words, written as sentences."""
+    rng = np.random.default_rng(seed)
+    draw = zipf_sampler(list(zipf_vocabulary()))
+    return [written(draw(rng, n), rng) for n in segment_lengths(rng, count, 10.5, low=4)]
+
+
+def host_images(gen: torch.Generator, batch: int, shape, device: str = "cuda") -> torch.Tensor:
+    """uint8 ``(batch, 3, H, W)`` images on the host, drawn on ``device`` (smooth content)."""
+    small = torch.rand((batch, 3, shape[0] // 16, shape[1] // 16), generator=gen, device=device)
+    big = torch.nn.functional.interpolate(small, size=shape, mode="bilinear", align_corners=False)
+    noise = 0.05 * torch.randn(big.shape, generator=gen, device=device)
+    return ((big + noise).clamp(0, 1) * 255).to(torch.uint8).cpu()
+
+
+def check_clip_tokens(metric, texts: list) -> int:
+    """No character of ``texts`` is unknown to the tokenizer: ``<|endoftext|>`` (CLIP's
+    unknown token) ends each row and appears nowhere else. Returns the tokens."""
+    ids, mask = metric.model.tokens(texts)
+    unk = metric.model.processor.tokenizer.unk_token_id
+    if any(bool((row[m.bool()][1:-1] == unk).any()) for row, m in zip(ids.cpu(), mask.cpu())):
+        raise AssertionError("clip: the tokenizer gives an unknown token on caption characters")
+    return int(mask.sum())
+
+
+def clip_feature_diff(card_model, cpu_model, images: list, texts: list) -> dict:
+    """The card's pixel values and features against the CPU port's, on the same inputs."""
+    out = {"pixel_values_equal": torch.equal(card_model.pixel_values(images).cpu(), cpu_model.pixel_values(images))}
+    for kind, call, inputs in (("image", "get_image_features", images), ("text", "get_text_features", texts)):
+        got, want = getattr(card_model, call)(inputs).cpu(), getattr(cpu_model, call)(inputs)
+        if got.shape != want.shape or got.shape[-1] != CLIP_L14["projection_dim"]:
+            raise AssertionError(f"clip {kind} features: {tuple(got.shape)} against {tuple(want.shape)}")
+        out[f"{kind}_rel_diff"] = float((got - want).abs().max() / want.abs().max())
+    if not out["pixel_values_equal"] or max(out["image_rel_diff"], out["text_rel_diff"]) > CLIP_FEATURE_RTOL:
+        raise AssertionError(f"clip: card against the CPU port {out} (limit {CLIP_FEATURE_RTOL})")
+    return out
+
+
+def clip_score_phase(card: str, model_dir: str) -> None:
+    from torchmetrics_tpu_torch.functional.multimodal import clip_score
+    from torchmetrics_tpu_torch.functional.multimodal.clip_score import _HFClipWrapper
+    from torchmetrics_tpu_torch.multimodal import CLIPScore
+
+    clock = [("start", time.perf_counter())]
+    gen = torch.Generator(device="cuda").manual_seed(1741)
+    captions = coco_captions(COCO_CAPTIONS, 1742)
+    metric = CLIPScore(model_dir)
+    if next(metric.model.model.parameters()).device.type != "cuda":
+        raise AssertionError("clip_score: the HF model is not on the card")
+    tokens = check_clip_tokens(metric, captions[:CLIP_BATCH])
+    times, first = [], None
+    for start in range(0, COCO_CAPTIONS, CLIP_BATCH):
+        images = host_images(gen, min(CLIP_BATCH, COCO_CAPTIONS - start), COCO_SHAPE)
+        first = images if first is None else first
+        times.append(synced_ms(lambda: metric.update(list(images), captions[start:start + CLIP_BATCH])))
+    value = fresh_compute(metric)
+    if int(metric.n_samples) != COCO_CAPTIONS or metric.n_samples.dtype != torch.int32 or \
+            metric.score.dtype != torch.float32 or not 0 <= float(value) <= 100:
+        raise AssertionError(f"clip_score: n {metric.n_samples}, score {metric.score}, value {float(value)}")
+    clock.append(("image_text", time.perf_counter()))
+    pairs = {"text_text": (captions[:CLIP_BATCH], captions[CLIP_BATCH:2 * CLIP_BATCH]),
+             "image_image": (list(first), list(host_images(gen, CLIP_BATCH, COCO_SHAPE)))}
+    other = {name: {"ms": synced_ms(lambda: clip_score(*p, model_name_or_path=metric.model)),
+                    "value": float(clip_score(*p, model_name_or_path=metric.model))} for name, p in pairs.items()}
+    head = list(first[:CLIP_CPU_PAIRS]), captions[:CLIP_CPU_PAIRS]
+    cpu_model = _HFClipWrapper(model_dir, torch.device("cpu"))
+    diffs = clip_feature_diff(metric.model, cpu_model, *head)
+    card_head = clip_score(*head, model_name_or_path=metric.model)
+    cpu_head = clip_score(*head, model_name_or_path=cpu_model, device="cpu")
+    diffs["score_abs_diff"] = float((card_head.cpu() - cpu_head).abs())
+    if not diffs["score_abs_diff"] <= CLIP_SCORE_ATOL:
+        raise AssertionError(f"clip_score: {diffs['score_abs_diff']} from the CPU port (limit {CLIP_SCORE_ATOL})")
+    clock.append(("cpu", time.perf_counter()))
+    batch = (list(first), captions[:CLIP_BATCH])
+    model_phase_line("clip_score", times, metric, batch,
+                     {"pairs": COCO_CAPTIONS, "batch": CLIP_BATCH, "image_shape": COCO_SHAPE, "config": CLIP_L14,
+                      "caption_tokens_first_batch": tokens, "value": float(value),
+                      "pairs_per_s": CLIP_BATCH / (median(times[1:]) / 1e3), "other_modalities": other,
+                      "cpu_pairs": CLIP_CPU_PAIRS, **diffs, "limits": {"feature_rel": CLIP_FEATURE_RTOL,
+                                                                      "score_abs": CLIP_SCORE_ATOL},
+                      "tf32": False}, clock)
+    profile_step("clip_score_update", lambda: metric.update(*batch))
+
+
+def clip_iqa_phase(card: str, model_dir: str) -> None:
+    from torchmetrics_tpu_torch.multimodal import CLIPImageQualityAssessment
+
+    clock = [("start", time.perf_counter())]
+    gen = torch.Generator(device="cuda").manual_seed(1751)
+    metric = CLIPImageQualityAssessment(model_dir, data_range=255.0, prompts=CLIP_IQA_PROMPTS)
+    check_clip_tokens(metric, [t for pair in metric.prompt_pairs for t in pair])
+    batches = [host_images(gen, CLIP_IQA_BATCH, KONIQ_SHAPE) for _ in range(CLIP_IQA_IMAGES // CLIP_IQA_BATCH)]
+    times = [synced_ms(lambda: metric.update(b)) for b in batches]
+    value = fresh_compute(metric)
+    if list(value) != ["quality", "brightness", "sharpness", "user_defined_0"]:
+        raise AssertionError(f"clip_iqa: keys {list(value)}")
+    for name, v in value.items():
+        if v.shape != (CLIP_IQA_IMAGES,) or not bool(((v >= 0) & (v <= 1)).all()) or v.device.type != "cuda":
+            raise AssertionError(f"clip_iqa {name}: {tuple(v.shape)} {summary(v)} on {v.device}")
+    if metric._prompt_anchors().device.type != "cuda":
+        raise AssertionError("clip_iqa: the prompt anchors are not on the card")
+    clock.append(("card", time.perf_counter()))
+    head = batches[0][:CLIP_CPU_PAIRS]
+    cpu = CLIPImageQualityAssessment(model_dir, data_range=255.0, prompts=CLIP_IQA_PROMPTS, device="cpu")
+    cpu.update(head)
+    want = cpu.compute()
+    diff = max(float((value[k][:CLIP_CPU_PAIRS].cpu() - want[k]).abs().max()) for k in want)
+    if not diff <= CLIP_PROB_ATOL:
+        raise AssertionError(f"clip_iqa: {diff} from the CPU port (limit {CLIP_PROB_ATOL})")
+    clock.append(("cpu", time.perf_counter()))
+    model_phase_line("clip_iqa", times, metric, (batches[0],),
+                     {"images": CLIP_IQA_IMAGES, "batch": CLIP_IQA_BATCH, "image_shape": KONIQ_SHAPE,
+                      "prompts": [p if isinstance(p, str) else list(p) for p in CLIP_IQA_PROMPTS],
+                      "values": {k: float(v.mean()) for k, v in value.items()},
+                      "images_per_s": CLIP_IQA_BATCH / (median(times[1:]) / 1e3), "cpu_images": CLIP_CPU_PAIRS,
+                      "cpu_abs_diff": diff, "abs_limit": CLIP_PROB_ATOL, "tf32": False}, clock)
+    profile_step("clip_iqa_update", lambda: metric.update(batches[0]))
+
+
+def clip_phases(card: str) -> None:
+    """clip_score and clip_iqa on one seeded CLIP ViT-L/14 written once to a temporary directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        start = time.perf_counter()
+        model_dir = write_clip(tmp, 1740)
+        emit({"phase": "clip_model", "config": "openai/clip-vit-large-patch14", "write_s": time.perf_counter() - start,
+              "bytes": sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))})
+        clip_score_phase(card, model_dir)
+        clip_iqa_phase(card, model_dir)
+
+
 def flagship_forward(cases: dict) -> dict:
     """The 26 sepconv7 launches of one bf16 trunk forward at the flagship's batch: their
     summed times and bound, and their worst error against the plain version."""
@@ -6245,6 +6903,13 @@ def main() -> int:
     bert_score_phase(card)
     infolm_phase(card)
     lve_phase(card)
+    models_started = time.perf_counter()
+    lpips_phase(card)
+    dists_phase(card)
+    arniqa_phase(card)
+    ppl_phase(card)
+    clip_phases(card)
+    emit({"phase": "model_backed_phases", "seconds": time.perf_counter() - models_started})
     emit({"phase": "script", "seconds": time.perf_counter() - started})
 
     print(card, flush=True)

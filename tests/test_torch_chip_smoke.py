@@ -1398,3 +1398,97 @@ def test_vocaset_sequences_and_the_lip_map(chip_smoke):
     metric = LipVertexError(mouth_map=mouth, device="cpu")
     metric.update(pred, truth)
     assert 0 < float(metric.compute()) < 1e-3 and metric.total.dtype == torch.int32
+
+
+@pytest.mark.parametrize("net", ["alex", "vgg", "squeeze"])
+def test_lpips_weights_are_written_in_the_published_layouts_and_load(chip_smoke, tmp_path, net):
+    from torchmetrics_tpu_torch.functional.image.lpips import _NETS, LPIPSNetwork
+
+    spec = _NETS[net][0]
+    sd = chip_smoke.he_features(spec, torch.Generator().manual_seed(0))
+    convs = [i for i, layer in enumerate(spec) if layer[0] == "conv"]
+    assert all(f"{i}.weight" in sd and f"{i}.bias" in sd for i in convs)
+    network = LPIPSNetwork(net, weights_path=chip_smoke.write_lpips_weights(str(tmp_path), net, 1))
+    a, b = chip_smoke.image_pairs(torch.Generator().manual_seed(1), 2, 64, device="cpu")
+    assert a.shape == (2, 3, 64, 64) and float(a.min()) >= -1 and float(b.max()) <= 1
+    values = network(a, b)
+    assert values.shape == (2,) and bool(((values > 0) & (values < 1)).all())
+
+
+def test_lpips_backward_rehearsal_swaps_the_conv_and_restores_it(chip_smoke, tmp_path):
+    """On the CPU TF32 does not exist, so the plain convs give conv2d_full's gradient and
+    the float64 backward gives it within float32's rounding of the backward's sums; the
+    swap and the flags are undone after the block, and a planted difference reads."""
+    from torchmetrics_tpu_torch.functional.image import lpips as module
+
+    network = module.LPIPSNetwork("alex", weights_path=chip_smoke.write_lpips_weights(str(tmp_path), "alex", 1))
+    a, b = chip_smoke.image_pairs(torch.Generator().manual_seed(3), 2, 64, device="cpu")
+
+    def grad():
+        leaf = a.clone().requires_grad_(True)
+        network(leaf, b).sum().backward()
+        return leaf.grad
+
+    sound = grad()
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    for kind in chip_smoke.LPIPS_CONVS:
+        with chip_smoke.lpips_conv(kind):
+            assert module.conv2d_full.__name__ == "conv"
+            swapped = grad()
+        assert module.conv2d_full.__name__ == "conv2d_full"
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+        reading = chip_smoke.grad_distance(swapped, sound)
+        assert reading["rel_l2"] < (1e-5 if kind == "float64_backward" else 1e-6), (kind, reading)
+        assert reading["cosine"] > 1 - 1e-9
+    with pytest.raises(ValueError):
+        with chip_smoke.lpips_conv("tf32"):
+            pass
+    planted = sound.clone()
+    planted[1] *= 1.5
+    reading = chip_smoke.grad_distance(planted, sound)
+    assert reading["worst_image_rel_l2"] == pytest.approx(0.5) and 0 < reading["rel_l2"] < 0.5
+
+
+def test_arniqa_checkpoints_load_through_the_hub_cache(chip_smoke, tmp_path, monkeypatch):
+    from torchmetrics_tpu_torch.functional.image import arniqa
+
+    chip_smoke.arniqa_checkpoints(str(tmp_path), 0)
+    monkeypatch.setenv("TORCH_HOME", str(tmp_path))
+    img = chip_smoke.image_pairs(torch.Generator().manual_seed(2), 1, (48, 64), low=0.0, device="cpu")[0]
+    scores = arniqa(img, reduction="none")
+    assert scores.shape == (1,) and bool(torch.isfinite(scores).all())
+
+
+def test_stylegan_stand_in_is_seeded_and_in_range(chip_smoke):
+    generator = chip_smoke.ToyGenerator(0).requires_grad_(False)
+    z = generator.sample(2)
+    assert z.shape == (2, chip_smoke.TOY_Z)
+    generator.reset()
+    assert torch.equal(generator.sample(2), z)
+    images = generator(z)
+    assert images.shape == (2, 3, chip_smoke.TOY_RES, chip_smoke.TOY_RES)
+    assert float(images.min()) >= 0 and float(images.max()) <= 255 and float(images.std()) > 1
+
+
+def test_clip_rehearsal_writes_a_loadable_model_whose_tokenizer_knows_every_caption(chip_smoke, tmp_path):
+    from torchmetrics_tpu_torch.multimodal import CLIPImageQualityAssessment, CLIPScore
+
+    small = {"text_config": {**chip_smoke.CLIP_L14["text_config"], "hidden_size": 32, "intermediate_size": 64,
+                             "num_hidden_layers": 1, "num_attention_heads": 2, "projection_dim": 16},
+             "vision_config": {**chip_smoke.CLIP_L14["vision_config"], "hidden_size": 32, "intermediate_size": 64,
+                               "num_hidden_layers": 1, "num_attention_heads": 2, "image_size": 224,
+                               "patch_size": 32, "projection_dim": 16},
+             "projection_dim": 16}
+    model_dir = chip_smoke.write_clip(str(tmp_path), 0, config=small, device="cpu")
+    assert (tmp_path / "tokenizer.json").is_file()
+    captions = chip_smoke.coco_captions(40, 1742)
+    assert set("".join(captions).lower()) - {" "} <= {k[0] for k in chip_smoke.clip_vocabulary() if len(k) <= 5}
+    metric = CLIPScore(model_dir, device="cpu")
+    assert chip_smoke.check_clip_tokens(metric, captions) > 0
+    images = chip_smoke.host_images(torch.Generator().manual_seed(3), 2, (48, 64), device="cpu")
+    assert images.dtype == torch.uint8 and images.shape == (2, 3, 48, 64)
+    metric.update(list(images), captions[:2])
+    assert int(metric.n_samples) == 2 and bool(torch.isfinite(metric.compute()))
+    iqa = CLIPImageQualityAssessment(model_dir, data_range=255.0, prompts=chip_smoke.CLIP_IQA_PROMPTS, device="cpu")
+    iqa.update(images)
+    assert list(iqa.compute()) == ["quality", "brightness", "sharpness", "user_defined_0"]

@@ -670,24 +670,19 @@ def test_truncated_checkpoint_raises():
 
 # ---------------------------------------------------------------------------- exports
 
-MODEL_BACKED = {"ARNIQA", "DeepImageStructureAndTextureSimilarity", "LearnedPerceptualImagePatchSimilarity",
-                "PerceptualPathLength", "arniqa", "deep_image_structure_and_texture_similarity",
-                "learned_perceptual_image_patch_similarity", "perceptual_path_length"}
-
-
 def test_exports_are_the_jax_packages_less_the_model_backed_names():
+    """Since the model-backed metrics (ARNIQA, DISTS, LPIPS, perceptual path length) are
+    ported, none is left out: every image name of the JAX package, in its order, with
+    its signature."""
     import inspect
 
-    assert ttm.image.__all__ == [n for n in jtm.image.__all__ if n not in MODEL_BACKED]
-    assert port_fn.image.__all__ == [n for n in jax_fn.image.__all__ if n not in MODEL_BACKED]
+    assert ttm.image.__all__ == jtm.image.__all__
+    assert port_fn.image.__all__ == jax_fn.image.__all__
     image_names = set(jtm.image.__all__) | set(jax_fn.image.__all__)
     for port_module, jax_module in ((ttm, jtm), (port_fn, jax_fn), (ttm.image, jtm.image), (port_fn.image, jax_fn.image)):
         jax_image = [n for n in jax_module.__all__ if n in image_names]
-        assert [n for n in port_module.__all__ if n in image_names] == [n for n in jax_image if n not in MODEL_BACKED]
+        assert [n for n in port_module.__all__ if n in image_names] == jax_image
         for name in jax_image:
-            if name in MODEL_BACKED:
-                assert not hasattr(port_module, name)
-                continue
             port_sig, jax_sig = inspect.signature(getattr(port_module, name)), inspect.signature(getattr(jax_module, name))
             assert list(port_sig.parameters) == list(jax_sig.parameters), name
             assert [p.default for p in port_sig.parameters.values()] == [p.default for p in jax_sig.parameters.values()], name

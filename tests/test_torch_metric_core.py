@@ -318,3 +318,70 @@ def test_unknown_keyword_still_raises():
         TorchSum(bogus=1)
     with pytest.raises(TorchMetricsUserError):
         TorchList().update_state({"x": []}, torch.tensor([1.0]))
+
+
+def _aggregators(pkg, **kw):
+    return pkg.MeanMetric(**kw), pkg.SumMetric(**kw), pkg.MaxMetric(**kw)
+
+
+def _collection_values(coll):
+    return {k: float(np.asarray(v)) for k, v in coll.compute().items()}
+
+
+@pytest.mark.parametrize("layout", ["mapping", "sequence"])
+def test_nested_collection_flattens_as_in_jax(layout):
+    import torchmetrics_tpu_torch as ptm
+
+    def build(pkg, **kw):
+        mean, total, top = _aggregators(pkg, **kw)
+        inner = pkg.MetricCollection([mean, total], **kw)
+        if layout == "mapping":
+            return pkg.MetricCollection({"outer": inner, "m": top}, **kw)
+        return pkg.MetricCollection([inner, top], **kw)
+
+    jax_c, torch_c = build(jtm), build(ptm, device="cpu")
+    assert list(torch_c.keys()) == list(jax_c.keys())
+    if layout == "mapping":
+        assert list(torch_c.keys()) == ["m", "outer_MeanMetric", "outer_SumMetric"]
+    for values in ([1.0, 4.0, 2.5], [-3.0, 0.5]):
+        arr = np.asarray(values, np.float32)
+        jax_c.update(jnp.asarray(arr))
+        torch_c.update(torch.from_numpy(arr))
+    assert _collection_values(torch_c) == _collection_values(jax_c)
+
+
+def test_nested_sequence_duplicate_name_raises_in_both_packages():
+    import torchmetrics_tpu_torch as ptm
+
+    for pkg, kw in ((jtm, {}), (ptm, {"device": "cpu"})):
+        inner = pkg.MetricCollection([pkg.SumMetric(**kw)], **kw)
+        with pytest.raises(ValueError, match="Encountered two metrics both named SumMetric"):
+            pkg.MetricCollection([inner, pkg.SumMetric(**kw)], **kw)
+
+
+def test_readding_a_mapping_key_replaces_the_member_as_in_jax():
+    import torchmetrics_tpu_torch as ptm
+
+    colls = []
+    for pkg, kw in ((jtm, {}), (ptm, {"device": "cpu"})):
+        coll = pkg.MetricCollection({"a": pkg.MeanMetric(**kw), "b": pkg.MaxMetric(**kw)}, **kw)
+        replacement = pkg.SumMetric(**kw)
+        coll.add_metrics({"a": replacement})
+        assert coll["a"] is replacement and list(coll.keys()) == ["a", "b"]
+        colls.append(coll)
+    for values in ([1.0, 2.0], [5.0]):
+        arr = np.asarray(values, np.float32)
+        colls[0].update(jnp.asarray(arr))
+        colls[1].update(torch.from_numpy(arr))
+    assert _collection_values(colls[1]) == _collection_values(colls[0]) == {"a": 8.0, "b": 5.0}
+
+
+def test_extra_arguments_that_are_not_metrics_warn_as_in_jax():
+    import torchmetrics_tpu_torch as ptm
+
+    text = "You have passes extra arguments ['junk'] which are not `Metric` so they will be ignored."
+    for pkg, kw in ((jtm, {}), (ptm, {"device": "cpu"})):
+        with pytest.warns(UserWarning) as record:
+            coll = pkg.MetricCollection([pkg.MeanMetric(**kw)], pkg.SumMetric(**kw), "junk", **kw)
+        assert text in [str(w.message) for w in record]
+        assert list(coll.keys()) == ["MeanMetric", "SumMetric"]

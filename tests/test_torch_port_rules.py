@@ -235,7 +235,25 @@ IMAGE_HOST_VALUES = {
     "total_variation": (_IMG,),
     "spatial_distortion_index": (_IMG, np.zeros((1, 3, 16, 16), np.float32).tolist(), _IMG),
     "quality_with_no_reference": (_IMG, np.zeros((1, 3, 16, 16), np.float32).tolist(), _IMG),
+    "arniqa": (_IMG,),
 }
+
+
+class _LinearGenerator:
+    """A PPL generator of 3x16x16 images in [0, 255] from 4-d latents (host lists)."""
+
+    def sample(self, num_samples):
+        return np.random.default_rng(num_samples).normal(size=(num_samples, 4)).astype(np.float32).tolist()
+
+    def __call__(self, z):
+        return (torch.tanh(z.sum(1))[:, None, None, None] + 1).expand(-1, 3, 16, 16) * 127.5
+
+
+def _mean_gap(img1, img2):
+    return (img1 - img2).abs().mean(dim=(1, 2, 3))
+
+
+IMAGE_HOST_VALUES["perceptual_path_length"] = (_LinearGenerator(),)
 
 
 @pytest.mark.parametrize("name", sorted(IMAGE_HOST_VALUES))
@@ -344,7 +362,22 @@ TEXT_HOST_VALUES = {
     "infolm": (["abc"], ["abd"]),
     "lip_vertex_error": (np.zeros((2, 3, 3), np.float32).tolist(), np.ones((2, 3, 3), np.float32).tolist(), [0]),
 }
+class _Embedder:
+    """A CLIP stand-in: images by their first 4 values, texts by 4 character codes."""
+
+    def get_image_features(self, images):
+        return torch.stack([torch.as_tensor(i, dtype=torch.float32).reshape(-1)[:4] + 1 for i in images])
+
+    def get_text_features(self, texts):
+        return torch.tensor([[float(ord(c)) for c in (t * 4)[:4]] for t in texts])
+
+
+TEXT_HOST_VALUES["clip_score"] = (["a cat"], ["a dog"])
+TEXT_HOST_VALUES["clip_image_quality_assessment"] = (np.full((2, 3, 4, 4), 0.5, np.float32).tolist(),)
 TEXT_FUNCTION_ARGS = {name: TEXT_CLASS_ARGS["BERTScore"] for name in ("bert_score", "infolm")}
+TEXT_FUNCTION_ARGS.update({"clip_score": {"model_name_or_path": _Embedder()},
+                           "clip_image_quality_assessment": {"model_name_or_path": _Embedder(),
+                                                             "prompts": ("quality", ("a", "b"))}})
 
 
 @pytest.mark.parametrize("name", sorted(TEXT_HOST_VALUES))
@@ -407,3 +440,57 @@ def test_port_module_doctests(module_name):
         if runner.failures:
             failures.append("".join(out))
     assert not failures, "\n".join(failures)
+
+
+MODEL_BACKED_CPU = {
+    "LearnedPerceptualImagePatchSimilarity": (lambda: image.LearnedPerceptualImagePatchSimilarity(
+        pretrained=False, normalize=True, device="cpu"), (torch.rand(2, 3, 32, 32), torch.rand(2, 3, 32, 32))),
+    "DeepImageStructureAndTextureSimilarity": (lambda: image.DeepImageStructureAndTextureSimilarity(
+        pretrained=False, device="cpu"), (torch.rand(1, 3, 32, 32), torch.rand(1, 3, 32, 32))),
+    "ARNIQA": (lambda: image.ARNIQA(scorer=lambda x: x.mean(dim=(1, 2, 3)), device="cpu"),
+               (torch.rand(2, 3, 8, 8),)),
+    "PerceptualPathLength": (lambda: image.PerceptualPathLength(num_samples=4, batch_size=2, sim_net=_mean_gap,
+                                                                lower_discard=None, upper_discard=None,
+                                                                device="cpu"), (_LinearGenerator(),)),
+    "CLIPScore": (lambda: multimodal.CLIPScore(_Embedder(), device="cpu"), (["a cat"], ["a dog"])),
+    "CLIPImageQualityAssessment": (lambda: multimodal.CLIPImageQualityAssessment(_Embedder(), device="cpu"),
+                                   (torch.rand(2, 3, 4, 4),)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_BACKED_CPU))
+def test_model_backed_classes_run_on_the_cpu_when_asked(no_cuda, name):
+    build, inputs = MODEL_BACKED_CPU[name]
+    metric = build()
+    metric.update(*inputs)
+    value = metric.compute()
+    leaves = value.values() if isinstance(value, dict) else value if isinstance(value, tuple) else [value]
+    assert all(leaf.device == torch.device("cpu") and torch.isfinite(leaf).all() for leaf in leaves)
+    for state in metric.metric_state.values():
+        assert all(t.device == torch.device("cpu") for t in (state if isinstance(state, list) else [state]))
+
+
+MODEL_BACKED_FUNCTIONS_CPU = {
+    "learned_perceptual_image_patch_similarity": lambda: functional.learned_perceptual_image_patch_similarity(
+        torch.rand(1, 3, 32, 32), torch.rand(1, 3, 32, 32), pretrained=False),
+    "deep_image_structure_and_texture_similarity": lambda: functional.deep_image_structure_and_texture_similarity(
+        torch.rand(1, 3, 32, 32), torch.rand(1, 3, 32, 32), pretrained=False),
+    "arniqa": lambda: functional.arniqa(torch.rand(2, 3, 8, 8), scorer=lambda x: x.mean(dim=(1, 2, 3))),
+    "perceptual_path_length": lambda: functional.perceptual_path_length(
+        _LinearGenerator(), num_samples=4, batch_size=2, sim_net=_mean_gap, device="cpu"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_BACKED_FUNCTIONS_CPU))
+def test_model_backed_image_functions_run_on_the_cpu_when_asked(no_cuda, name):
+    """CPU tensors, or ``device="cpu"`` for perceptual path length."""
+    value = MODEL_BACKED_FUNCTIONS_CPU[name]()
+    for leaf in value if isinstance(value, tuple) else [value]:
+        assert leaf.device == torch.device("cpu") and torch.isfinite(leaf).all()
+
+
+@pytest.mark.parametrize("name", ["LearnedPerceptualImagePatchSimilarity", "DeepImageStructureAndTextureSimilarity"])
+def test_model_backed_networks_follow_the_metric_to_its_device(name):
+    metric = MODEL_BACKED_CPU[name][0]()
+    assert all(b.device == torch.device("cpu") for b in metric.net.buffers())
+    assert metric.to("cpu") is metric and metric.device == torch.device("cpu")

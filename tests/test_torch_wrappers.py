@@ -134,7 +134,7 @@ def _identity(*args):
 FILL = {"num_classes": 3, "num_labels": 3, "min_recall": 0.5, "min_precision": 0.5, "min_specificity": 0.5,
         "min_sensitivity": 0.5, "num_groups": 2, "p": 2, "threshold": 0.5, "beta": 2.0, "feature": _toy_extractor,
         "things": {0, 1}, "stuffs": {2}, "data_range": 1.0, "metric_func": _identity, "fs": 16000,
-        "personalized": False, "infer_fns": (_identity, _identity)}
+        "personalized": False, "infer_fns": (_identity, _identity), "pretrained": False}
 # classes that need a wheel, a checkpoint or a model file to build
 NEEDS_FILES = {"PerceptualEvaluationSpeechQuality", "ShortTimeObjectiveIntelligibility",
                "NonIntrusiveSpeechQualityAssessment", "VideoMultiMethodAssessmentFusion"}

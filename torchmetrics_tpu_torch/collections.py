@@ -125,26 +125,54 @@ class MetricCollection:
     def add_metrics(
         self, metrics: Union[Metric, Sequence[Metric], Mapping[str, Metric]], *additional_metrics: Metric
     ) -> None:
+        """Members by name. A mapping's keys are sorted; a key added again replaces its
+        member, and a nested collection's members come in as ``{key}_{name}``. A
+        sequence's members are named by their class, a nested collection's by their own
+        names, and a name taken twice raises. Extra arguments that are not metrics are
+        ignored with a warning. Every member moves to the collection's device."""
         if isinstance(metrics, Metric):
             metrics = [metrics]
         if isinstance(metrics, Sequence):
-            metrics = list(metrics) + [m for m in additional_metrics if isinstance(m, Metric)]
+            metrics = list(metrics)
+            remain: list = []
+            for m in additional_metrics:
+                (metrics if isinstance(m, Metric) else remain).append(m)
+            if remain:
+                rank_zero_warn(
+                    f"You have passes extra arguments {remain} which are not `Metric` so they will be ignored."
+                )
         elif additional_metrics:
             raise ValueError(
                 f"You have passed extra arguments {additional_metrics} which are only valid if input is a sequence."
             )
         if isinstance(metrics, Mapping):
-            named = [(name, metrics[name]) for name in sorted(metrics.keys())]
+            for name in sorted(metrics.keys()):
+                metric = metrics[name]
+                if isinstance(metric, Metric):
+                    self._modules[name] = metric.to(self.device)
+                elif isinstance(metric, MetricCollection):
+                    for k, v in metric.items():
+                        self._modules[f"{name}_{k}"] = v.to(self.device)
+                else:
+                    raise ValueError(
+                        f"Value {metric} belonging to key {name} is not an instance of `Metric` or `MetricCollection`"
+                    )
         elif isinstance(metrics, Sequence):
-            named = [(type(m).__name__, m) for m in metrics]
+            for metric in metrics:
+                if isinstance(metric, Metric):
+                    named = [(type(metric).__name__, metric)]
+                elif isinstance(metric, MetricCollection):
+                    named = list(metric.items())
+                else:
+                    raise ValueError(
+                        f"Input {metric} to `MetricCollection` is not an instance of `Metric` or `MetricCollection`"
+                    )
+                for name, member in named:
+                    if name in self._modules:
+                        raise ValueError(f"Encountered two metrics both named {name}")
+                    self._modules[name] = member.to(self.device)
         else:
             raise ValueError("Unknown input to MetricCollection.")
-        for name, metric in named:
-            if not isinstance(metric, Metric):
-                raise ValueError(f"Value {metric} belonging to key {name} is not an instance of `Metric`")
-            if name in self._modules:
-                raise ValueError(f"Encountered two metrics both named {name}")
-            self._modules[name] = metric.to(self.device)
         self._groups_checked = False
 
     def keys(self, keep_base: bool = False) -> Iterable[str]:

@@ -1,12 +1,17 @@
-"""Functional image metrics: PSNR and PSNR-B, SSIM and MS-SSIM (2-D and 3-D), UQI,
-VIF, total variation, sliding-window RMSE, RASE, SCC, image gradients and the
-pan-sharpening indices (SAM, ERGAS, D_lambda, D_s, QNR). The model-backed ones (LPIPS,
-DISTS, ARNIQA, perceptual path length) are not ported yet."""
+"""Functional image metrics (counterpart of ``torchmetrics_tpu/functional/image``):
+PSNR and PSNR-B, SSIM and MS-SSIM (2-D and 3-D), UQI, VIF, total variation,
+sliding-window RMSE, RASE, SCC, image gradients, the pan-sharpening indices (SAM, ERGAS,
+D_lambda, D_s, QNR) and the model-backed LPIPS, DISTS, ARNIQA and perceptual path
+length."""
 
+from .arniqa import arniqa
 from .d_lambda import spectral_distortion_index
+from .dists import deep_image_structure_and_texture_similarity
 from .d_s import spatial_distortion_index
 from .ergas import error_relative_global_dimensionless_synthesis
 from .gradients import image_gradients
+from .lpips import learned_perceptual_image_patch_similarity
+from .perceptual_path_length import perceptual_path_length
 from .psnr import peak_signal_noise_ratio
 from .psnrb import peak_signal_noise_ratio_with_blocked_effect
 from .qnr import quality_with_no_reference
@@ -20,10 +25,14 @@ from .uqi import universal_image_quality_index
 from .vif import visual_information_fidelity
 
 __all__ = [
+    "arniqa",
+    "deep_image_structure_and_texture_similarity",
     "error_relative_global_dimensionless_synthesis",
     "image_gradients",
+    "learned_perceptual_image_patch_similarity",
     "multiscale_structural_similarity_index_measure",
     "peak_signal_noise_ratio",
+    "perceptual_path_length",
     "peak_signal_noise_ratio_with_blocked_effect",
     "quality_with_no_reference",
     "relative_average_spectral_error",

@@ -18,7 +18,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ...utilities.checks import _as_tensor
+from ...utilities.checks import _as_tensor, resolve_device
 from ...utilities.data import _jax_dtype
 
 
@@ -28,6 +28,11 @@ def _jax_tensor(x) -> torch.Tensor:
     float64 rounds to float32 (int64 wraps to int32). So float64 input gives float32
     results, and a float64 image beside a float32 one is a float32 pair."""
     return _jax_dtype(_as_tensor(x))
+
+
+def _image_device(img) -> torch.device:
+    """Where a function of images runs: a tensor's device, else the default (CUDA)."""
+    return img.device if isinstance(img, torch.Tensor) else resolve_device(None)
 
 
 def _gaussian(kernel_size: int, sigma: float, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
@@ -77,6 +82,39 @@ def _ieee_float32() -> Iterator[None]:
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn
         torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+class _Conv2dFullPrecision(torch.autograd.Function):
+    """``F.conv2d`` with TF32 off in its forward and in its backward: a backward runs
+    when the caller asks for it, outside any ``_ieee_float32`` block of the forward, and
+    would otherwise take the process's TF32 settings (cuDNN's default is on)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding, groups, bias is not None)
+        with _ieee_float32():
+            return F.conv2d(x, weight, bias, stride, padding, 1, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        stride, padding, groups, has_bias = ctx.conf
+        grad_x = grad_w = grad_b = None
+        with _ieee_float32():
+            if ctx.needs_input_grad[0]:
+                grad_x = torch.nn.grad.conv2d_input(x.shape, weight, grad, stride, padding, 1, groups)
+            if ctx.needs_input_grad[1]:
+                grad_w = torch.nn.grad.conv2d_weight(x, weight.shape, grad, stride, padding, 1, groups)
+        if has_bias and ctx.needs_input_grad[2]:
+            grad_b = grad.sum(dim=(0, 2, 3))
+        return grad_x, grad_w, grad_b, None, None, None
+
+
+def conv2d_full(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, stride: int = 1,
+                padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` at full float32 precision in the forward and in the backward."""
+    return _Conv2dFullPrecision.apply(x, weight, bias, stride, padding, groups)
 
 
 def _conv(conv, inputs: torch.Tensor, kernel: torch.Tensor, groups: int) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""The other tensor-math image metric classes (counterpart of
-``torchmetrics_tpu/image/metrics.py``, ``ARNIQA`` aside): UQI, VIF, TotalVariation,
-SAM, SCC, ERGAS, RASE, RMSE-SW, D_lambda, D_s and QNR.
+"""The other image metric classes (counterpart of ``torchmetrics_tpu/image/metrics.py``):
+UQI, VIF, TotalVariation, SAM, SCC, ERGAS, RASE, RMSE-SW, D_lambda, D_s, QNR and the
+model-backed ARNIQA.
 
 States follow the JAX package: the cheap metrics keep float32 sum states and int32
 counts; the statistics that do not decompose over batches (UQI and SAM with
@@ -9,7 +9,7 @@ states."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -24,7 +24,7 @@ from ..functional.image.tv import _total_variation_compute, _total_variation_upd
 from ..functional.image.uqi import _uqi_compute, _uqi_map, _uqi_update
 from ..functional.image.utils import _jax_tensor, _sum64
 from ..functional.image.vif import _check_vif_size, _vif_scores
-from ..metric import Metric, _to_device
+from ..metric import HostMetric, Metric, _to_device
 
 def _zero(dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return torch.zeros((), dtype=dtype)
@@ -533,3 +533,73 @@ class QualityWithNoReference(_PanSharpeningStates):
             self.reduction,
         )
         return (1 - d_lambda) ** self.alpha * (1 - d_s) ** self.beta
+
+
+class ARNIQA(HostMetric):
+    """ARNIQA no-reference quality (counterpart of the JAX package's class): the port's
+    ResNet-50 encoder and linear regressor (``functional/image/arniqa.py``) on the
+    metric's device; only the trained weights are external (torch-hub cache, explicit
+    state dicts or modules, or a custom ``scorer``). States as the JAX class keeps them:
+    a float32 ``sum_scores`` (its ``np.zeros(())`` default held as ``jnp.asarray`` holds
+    it with 64-bit types off), an int32 ``num_scores`` and, only under
+    ``reduction="none"``, the per-image ``scores``."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+
+    def __init__(
+        self,
+        regressor_dataset: str = "koniq10k",
+        reduction: str = "mean",
+        normalize: bool = True,
+        autocast: bool = False,
+        scorer: Optional[Callable] = None,
+        encoder_weights: Optional[Any] = None,
+        regressor_weights: Optional[Any] = None,
+        **kwargs: Any,
+    ) -> None:
+        from ..functional.image.arniqa import _REGRESSOR_DATASETS
+
+        super().__init__(**kwargs)
+        if regressor_dataset not in _REGRESSOR_DATASETS:
+            raise ValueError(
+                f"Argument `regressor_dataset` must be one of ('kadid10k', 'koniq10k'), but got {regressor_dataset}"
+            )
+        if reduction not in ("mean", "sum", "none"):
+            raise ValueError(f"Argument `reduction` must be one of ('mean', 'sum', 'none'), but got {reduction}")
+        if not isinstance(normalize, bool):
+            raise ValueError(f"Argument `normalize` should be a bool but got {normalize}")
+        self.regressor_dataset = regressor_dataset
+        self.reduction = reduction
+        self.normalize = normalize
+        self.scorer = scorer
+        self.encoder_weights = encoder_weights
+        self.regressor_weights = regressor_weights
+        self.add_state("sum_scores", default=torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
+        self.add_state("num_scores", default=torch.zeros((), dtype=torch.int32), dist_reduce_fx="sum")
+        if reduction == "none":
+            # unbounded per-image state only when the caller actually wants it
+            self.add_state("scores", default=[], dist_reduce_fx="cat")
+
+    def _host_batch_state(self, img) -> Dict[str, Any]:
+        from ..functional.image.arniqa import arniqa
+
+        scores = arniqa(
+            img, self.regressor_dataset, reduction="none", normalize=self.normalize,
+            scorer=self.scorer, encoder_weights=self.encoder_weights, regressor_weights=self.regressor_weights,
+        ).reshape(-1)
+        state = {"sum_scores": scores.sum(),
+                 "num_scores": torch.full((), scores.numel(), dtype=torch.int32, device=scores.device)}
+        if self.reduction == "none":
+            state["scores"] = scores
+        return state
+
+    def _compute(self, state):
+        if self.reduction == "mean":
+            return state["sum_scores"] / state["num_scores"]
+        if self.reduction == "sum":
+            return state["sum_scores"]
+        return state["scores"]

@@ -1,7 +1,7 @@
-"""Multimodal tower: metric classes (counterpart of ``torchmetrics_tpu/multimodal``).
-Only ``LipVertexError`` so far; CLIPScore and CLIP-IQA come with the model-backed
-image metrics."""
+"""Multimodal tower: metric classes (counterpart of ``torchmetrics_tpu/multimodal``)."""
 
+from .clip_iqa import CLIPImageQualityAssessment
+from .clip_score import CLIPScore
 from .lve import LipVertexError
 
-__all__ = ["LipVertexError"]
+__all__ = ["CLIPImageQualityAssessment", "CLIPScore", "LipVertexError"]
