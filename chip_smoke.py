@@ -372,6 +372,29 @@ Phases, one JSON line each, in order:
    within ``CLIP_PROB_ATOL``.
    Each of phases 46-51 prints update ms (first and steady), peak extra bytes, host reads
    and a profiled update (device busy, idle share).
+52. reliability (run right after phase 16): ``FrechetInceptionDistance`` behind the bf16
+   trunk (He-scaled seeded weights, sepconv7's 26 launches a forward) at batch 128, 4
+   updates of seeded images, run twice without a policy to show that the card repeats
+   itself bit for bit (else its spread and a cause are printed, and the retried run is
+   held to that spread), then under ``ReliabilityConfig(retry=RetryPolicy(max_attempts=3,
+   sleep_fn=no_sleep))`` with a transient fault injected on the first attempt of the 3rd
+   update: states and ``compute()`` equal to the uninterrupted run's. Its sepconv7
+   launches are the path's count. An exhausted budget (every attempt of the 3rd update
+   fails) raises ``TransientRuntimeError`` after 3 attempts, leaves the states of the 2nd
+   update bit for bit and update count 2, and a 4th update works; a 4-channel batch
+   raises an error that classifies deterministic, after one attempt; sepconv7's launch
+   error and a failed build carrying this run's nvcc log classify deterministic. Costs:
+   update ms without and with the policy, the bytes the backup clones and their time
+   beside the bound, the launch and memcpy calls of one update as ``fid_phase`` builds it,
+   with ``reliability=None`` (equal) and with the policy (one copy a tensor state more).
+   In an NCCL group of one, ``{fid, acc}`` (FID's states, the accuracy of 65,536 rows)
+   syncs through ``FlakyGather`` over the real gather, first call failing: the retried
+   sync equals an unfaulted one bit for bit; with one of FID's sums poisoned the
+   validated sync raises ``StateCorruptionError`` and no member adopts a synced state;
+   the host reads of one validated sync are counted. ``_to_np`` of FID's value and a
+   normalised confusion matrix on the card, in float32 and bfloat16, equals
+   ``.float().cpu().numpy()``, and ``plot`` without matplotlib raises the JAX package's
+   text (matplotlib is never imported).
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -1924,10 +1947,11 @@ def members_alias(coll) -> bool:
                for members in coll.compute_groups.values() for name in members)
 
 
-def launch_calls(events) -> int:
+def launch_calls(events, kind: str = "LaunchKernel") -> int:
+    """The host's calls of ``kind`` in a trace: kernel launches, or ``"Memcpy"`` copies."""
     from torch.autograd import DeviceType
 
-    return sum(1 for e in events if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name)
+    return sum(1 for e in events if e.device_type == DeviceType.CPU and kind in e.name)
 
 
 def collection_groups_phase(card: str) -> None:
@@ -2030,6 +2054,344 @@ def collection_groups_phase(card: str) -> None:
           "cls_max_ratio_diff": ratio_diff, "sync": {"ms": sync_ms, "traced": traced, "predicted": expected,
                                                      "bytes_shipped": shipped_bytes(states, reductions)},
           "card": card})
+
+
+# ---------------------------------------------------------------------------
+# the reliability plane: FID's retried update, a retried and validated sync, plot values
+
+RELIABILITY_BATCH = 128
+RELIABILITY_UPDATES = 4
+RELIABILITY_FAIL_ON = 3  # the update whose first attempt fails
+RELIABILITY_ATTEMPTS = 3
+RELIABILITY_TIMED = 8  # timed updates a build, after one untimed
+RELIABILITY_ACC_BATCH = 65536
+PLOT_ERROR_TEXT = "matplotlib is required to plot metrics, install it to use the `.plot` method"
+POISONED_LEAF = "real_features_sum"
+
+
+def no_sleep(seconds: float) -> None:
+    """The policies' ``sleep_fn``: a retry here waits for nothing."""
+
+
+def retry_config():
+    from torchmetrics_tpu_torch.reliability import ReliabilityConfig, RetryPolicy
+
+    return ReliabilityConfig(retry=RetryPolicy(max_attempts=RELIABILITY_ATTEMPTS, sleep_fn=no_sleep))
+
+
+def reliability_fid(extractor, reliability=None, device=None, **kwargs):
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+
+    return FrechetInceptionDistance(feature=extractor, normalize=True, reliability=reliability, device=device,
+                                    **kwargs)
+
+
+def fid_updates(metric, batches) -> None:
+    """The batches in turn, real and fake alternately, the first real."""
+    for i, imgs in enumerate(batches):
+        metric.update(imgs, real=i % 2 == 0)
+
+
+def tensor_states(metric) -> dict:
+    """Copies of a metric's tensor states."""
+    return {k: v.clone() for k, v in metric._state.items() if isinstance(v, torch.Tensor)}
+
+
+def state_spread(got: dict, want: dict) -> dict:
+    """Each state's largest absolute difference, in float64."""
+    return {k: float((got[k].double() - want[k].double()).abs().max()) for k in want}
+
+
+def within_spread(got: dict, want: dict, spread: dict) -> bool:
+    """Bit for bit where the card repeated itself bit for bit, else within its spread."""
+    return all(torch.equal(got[k], want[k]) if spread[k] == 0 else
+               float((got[k].double() - want[k].double()).abs().max()) <= spread[k] for k in want)
+
+
+@contextlib.contextmanager
+def injected(metric, fail_on: int, times: int = 1, exc_factory=None):
+    """``inject_dispatch_fault`` on ``update`` with the retry warnings silenced."""
+    import warnings
+
+    from torchmetrics_tpu_torch.reliability import inject_dispatch_fault, make_transient_error
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with inject_dispatch_fault(metric, fail_on=fail_on, times=times, tag="update",
+                                   exc_factory=exc_factory or make_transient_error) as hook:
+            yield hook
+
+
+def retried_fid_run(metric, batches) -> dict:
+    """The updates with a transient fault on the first attempt of update
+    ``RELIABILITY_FAIL_ON``: the retry must recover it, once."""
+    with injected(metric, RELIABILITY_FAIL_ON) as hook:
+        fid_updates(metric, batches)
+    if hook.raised != 1 or hook.calls != len(batches) + 1 or metric.update_count != len(batches):
+        raise AssertionError(f"reliability: {hook.raised} faults raised over {hook.calls} attempts, "
+                             f"update count {metric.update_count}")
+    return {"faults": hook.raised, "attempts": hook.calls}
+
+
+def exhausted_budget(metric, batches) -> dict:
+    """Two updates, then a third whose every attempt fails: it raises
+    ``TransientRuntimeError`` after ``RELIABILITY_ATTEMPTS`` attempts and leaves the
+    states of the second bit for bit; a fourth update then works."""
+    from torchmetrics_tpu_torch.utilities.exceptions import TransientRuntimeError
+
+    fid_updates(metric, batches[:2])
+    before = tensor_states(metric)
+    with injected(metric, 1, times=RELIABILITY_ATTEMPTS + 1) as hook:
+        try:
+            metric.update(batches[2], real=True)
+        except TransientRuntimeError:
+            pass
+        else:
+            raise AssertionError("reliability: an update whose every attempt failed returned")
+    rolled_back = states_equal(tensor_states(metric), before)
+    count = metric.update_count
+    if hook.calls != RELIABILITY_ATTEMPTS or not rolled_back or count != 2:
+        raise AssertionError(f"reliability: the exhausted budget took {hook.calls} attempts, rolled back "
+                             f"{rolled_back}, left update count {count}")
+    metric.update(batches[3], real=False)
+    if metric.update_count != 3:
+        raise AssertionError("reliability: the update after an exhausted budget did not count")
+    return {"attempts": hook.calls, "rolled_back": rolled_back, "update_count_after_failure": count,
+            "update_count_after_next": metric.update_count}
+
+
+def deterministic_attempts(metric, bad_batch) -> dict:
+    """A batch the trunk cannot take: the error classifies deterministic, takes one
+    attempt, and leaves the states and the count as they were."""
+    from torchmetrics_tpu_torch.reliability import DETERMINISTIC, classify_exception
+
+    before, count = tensor_states(metric), metric.update_count
+    with injected(metric, 99) as hook:
+        try:
+            metric.update(bad_batch, real=True)
+        except Exception as exc:  # noqa: BLE001 -- the classifier decides
+            error = exc
+        else:
+            raise AssertionError("reliability: a wrong-shaped batch was accepted")
+    verdict = classify_exception(error)
+    if verdict != DETERMINISTIC or hook.calls != 1 or metric.update_count != count \
+            or not states_equal(tensor_states(metric), before):
+        raise AssertionError(f"reliability: {type(error).__name__} classified {verdict} took {hook.calls} attempts")
+    return {"error": type(error).__name__, "verdict": verdict, "attempts": hook.calls}
+
+
+def kernel_error_verdicts(build_log: str) -> dict:
+    """The verdicts of sepconv7's launch error and of a failed build carrying this run's
+    own nvcc log: both deterministic, so no retry can hide a kernel or build fault."""
+    from torchmetrics_tpu_torch.reliability import DETERMINISTIC, classify_exception
+
+    texts = {f"launch_error_{rc}": f"sepconv7: kernel launch failed with CUDA error {rc}" for rc in (1, 2, 700, 719)}
+    texts["build_error"] = f"nvcc failed on torchmetrics_tpu_torch/csrc/sepconv7.cu:\n{build_log}"
+    verdicts = {name: classify_exception(RuntimeError(text)) for name, text in texts.items()}
+    if any(v != DETERMINISTIC for v in verdicts.values()):
+        raise AssertionError(f"reliability: a kernel error would be retried: {verdicts}")
+    return verdicts
+
+
+def sync_collection(fid_source, preds, target, gather, device=None):
+    """``{fid, acc}`` with ``gather`` as their ``dist_sync_fn`` and the retry policy:
+    FID holds ``fid_source``'s states, the accuracy one update of the main path's rows."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+
+    fid = reliability_fid(fid_source.inception, retry_config(), device, dist_sync_fn=gather)
+    fid_source.persistent(True)
+    fid.load_state_dict(fid_source.state_dict())
+    acc = MulticlassAccuracy(5, average="micro", validate_args=False, dist_sync_fn=gather,
+                             reliability=retry_config(), device=device)
+    acc.update(preds, target)
+    return MetricCollection({"fid": fid, "acc": acc}, device=device)
+
+
+def retried_sync(build, **sync_kwargs) -> dict:
+    """A sync through ``FlakyGather`` over the real gather, whose first call fails, must
+    give the unfaulted sync's states bit for bit; then, with one of FID's sums poisoned,
+    the validated sync raises ``StateCorruptionError`` and every member keeps its local
+    states. ``build(gather)`` makes the collection."""
+    import warnings
+
+    from torchmetrics_tpu_torch.parallel.sync import gather_all_arrays
+    from torchmetrics_tpu_torch.reliability import FlakyGather, poison_state_leaf
+    from torchmetrics_tpu_torch.utilities.exceptions import StateCorruptionError
+
+    clean = build(gather_all_arrays)
+    clean.sync(**sync_kwargs)
+    want = {name: dict(m._state) for name, m in clean.items(keep_base=True)}
+    flaky = FlakyGather(inner=gather_all_arrays, fail_times=1)
+    coll = build(flaky)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        coll.sync(**sync_kwargs)
+    recovered = all(states_equal(m._state, want[name]) for name, m in coll.items(keep_base=True))
+    if flaky.failures != 1 or not recovered:
+        raise AssertionError(f"reliability: the flaky sync failed {flaky.failures} times, recovered {recovered}")
+    coll.unsync()
+    poison_state_leaf(coll["fid"], POISONED_LEAF)
+    local = {name: dict(m._state) for name, m in coll.items(keep_base=True)}
+    try:
+        coll.sync(**sync_kwargs)
+    except StateCorruptionError:
+        pass
+    else:
+        raise AssertionError("reliability: a poisoned state passed the validated sync")
+    kept = all(not m._is_synced and all(m._state[k] is v for k, v in local[name].items())
+               for name, m in coll.items(keep_base=True))
+    if not kept:
+        raise AssertionError("reliability: a member adopted a synced state after the guard raised")
+    return {"gather_calls": flaky.calls, "gather_failures": flaky.failures, "recovered_bitwise": recovered,
+            "poisoned_leaf": POISONED_LEAF, "local_states_kept": kept}
+
+
+def plot_value_checks(values: dict) -> dict:
+    """``_to_np`` of each value in float32 and bfloat16 equals ``.float().cpu().numpy()``,
+    and ``Metric.plot`` without matplotlib raises the JAX package's text (matplotlib is
+    never imported). ``values`` maps a name to ``(metric, value)``."""
+    from torchmetrics_tpu_torch.utilities import plot as port_plot
+
+    checked = {}
+    for name, (metric, value) in values.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = value.to(dtype)
+            got, want = port_plot._to_np(x), x.float().cpu().numpy()
+            if got.dtype != want.dtype or not np.array_equal(got, want, equal_nan=True):
+                raise AssertionError(f"reliability: _to_np of {name} in {dtype} is not its host float32 copy")
+        available, port_plot._MATPLOTLIB_AVAILABLE = port_plot._MATPLOTLIB_AVAILABLE, False
+        try:
+            metric.plot(value)
+        except ModuleNotFoundError as exc:
+            message = str(exc)
+        else:
+            message = None
+        finally:
+            port_plot._MATPLOTLIB_AVAILABLE = available
+        if message != PLOT_ERROR_TEXT:
+            raise AssertionError(f"reliability: {name}.plot without matplotlib raised {message!r}")
+        checked[name] = list(x.shape)
+    return {"values": checked, "matplotlib_available": port_plot._MATPLOTLIB_AVAILABLE}
+
+
+def reliability_phase(card: str) -> int:
+    """FID's update under a ``RetryPolicy`` through the bf16 trunk (sepconv7's 26
+    launches a forward) at batch 128: the card repeats an uninterrupted run, a retried
+    run equals it, an exhausted budget rolls back, a deterministic error takes one
+    attempt; then a retried sync through ``FlakyGather`` over NCCL in a world of one, the
+    sync guard, the costs and the plot values. Returns the sepconv7 launches of the
+    retried run, the path's count."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.classification import MulticlassConfusionMatrix
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance, InceptionV3Features
+    from torchmetrics_tpu_torch.kernels.sepconv import KERNEL, sepconv7
+
+    started = time.perf_counter()
+    # He-scaled seeded weights: the default init's features are nearly constant, and FID
+    # between them sits at float64's cancellation floor
+    extractor = InceptionV3Features.from_numpy_params(he_scaled(InceptionV3Features._random_params(0)),
+                                                      compute_dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    # real images uniform, fake ones (the odd updates) squared: two distributions
+    batches = [torch.rand((RELIABILITY_BATCH, 3, 299, 299), generator=gen, device="cuda") ** (1 + i % 2)
+               for i in range(RELIABILITY_UPDATES)]
+    runs = []
+    for _ in range(2):  # the card against itself first
+        plain = reliability_fid(extractor)
+        fid_updates(plain, batches)
+        runs.append(plain)
+    torch.cuda.synchronize()
+    reference = tensor_states(runs[0])
+    spread = state_spread(tensor_states(runs[1]), reference)
+    repeats = all(torch.equal(runs[1]._state[k], v) for k, v in reference.items())
+    spread_cause = None if repeats else (
+        "the card's uninterrupted runs differ: cuDNN may pick other convolution algorithms between runs "
+        f"(torch.backends.cudnn.deterministic={torch.backends.cudnn.deterministic}, "
+        f"benchmark={torch.backends.cudnn.benchmark}); the retried run is held to this spread")
+    want_value = runs[0].compute()
+
+    retried = reliability_fid(extractor, retry_config())
+    torch.cuda.synchronize()
+    sepconv7.launches = 0
+    fault = retried_fid_run(retried, batches)
+    torch.cuda.synchronize()
+    launches = sepconv7.launches
+    if launches != SEPCONV_PER_FORWARD * RELIABILITY_UPDATES:
+        raise AssertionError(f"reliability: {launches} sepconv7 launches over {RELIABILITY_UPDATES} retried updates")
+    got_states = tensor_states(retried)
+    if not within_spread(got_states, reference, spread):
+        raise AssertionError(f"reliability: the retried run's states differ from the uninterrupted run's: "
+                             f"{state_spread(got_states, reference)} beyond {spread}")
+    got_value = retried.compute()
+    value_equal = torch.equal(got_value, want_value)
+    if repeats and not value_equal:
+        raise AssertionError(f"reliability: retried FID {float(got_value)} against {float(want_value)}")
+
+    exhausted = exhausted_budget(reliability_fid(extractor, retry_config()), batches)
+    deterministic = deterministic_attempts(reliability_fid(extractor, retry_config()),
+                                           torch.rand((RELIABILITY_BATCH, 4, 299, 299), generator=gen, device="cuda"))
+    verdicts = kernel_error_verdicts(KERNEL.build_log)
+
+    # costs: an update with and without the policy, the backup's clones, the launch calls
+    builds = {"none": reliability_fid(extractor), "policy": reliability_fid(extractor, retry_config())}
+    update_ms = {}
+    for key, metric in builds.items():
+        update_ms[key] = median_ms(lambda m=metric: (m.update(batches[1], real=False), torch.cuda.synchronize()),
+                                   iters=RELIABILITY_TIMED)
+    states = [v for v in builds["policy"]._state.values() if isinstance(v, torch.Tensor)]
+    clone_bytes = sum(v.numel() * v.element_size() for v in states)
+    clone_ms = cuda_ms(lambda: [v.clone() for v in states], iters=20)
+    clone_bound_ms = 2 * clone_bytes / PEAK_BYTES_PER_S * 1e3  # each byte read once and written once
+    calls = {}
+    as_built = FrechetInceptionDistance(feature=extractor, normalize=True)  # no keyword, as fid_phase builds it
+    for key, metric in (("as_fid_phase_builds_it", as_built), *builds.items()):
+        events = profile_step(f"reliability_fid_update_{key}", lambda m=metric: m.update(batches[1], real=False))
+        calls[key] = {"launch_calls": launch_calls(events), "memcpy_calls": launch_calls(events, "Memcpy")}
+    if calls["none"] != calls["as_fid_phase_builds_it"]:
+        raise AssertionError(f"reliability: an update with reliability=None made other calls: {calls}")
+    extra_calls = {k: calls["policy"][k] - calls["none"][k] for k in calls["none"]}
+    if extra_calls["launch_calls"] + extra_calls["memcpy_calls"] != len(states):
+        raise AssertionError(f"reliability: the policy's backup made {extra_calls} calls for {len(states)} states")
+
+    preds = torch.randn((RELIABILITY_ACC_BATCH, 5), generator=gen, device="cuda")
+    target = torch.randint(0, 5, (RELIABILITY_ACC_BATCH,), generator=gen, device="cuda")
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_reliability_")
+    torch.cuda.set_device(0)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}/store", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        def build(gather):
+            return sync_collection(runs[0], preds, target, gather)
+
+        sync = retried_sync(build, distributed_available=lambda: True)
+        coll = build(None)
+        reads = host_reads(lambda: coll.sync(distributed_available=lambda: True))
+        coll.unsync()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+    confmat = MulticlassConfusionMatrix(5, normalize="true", validate_args=False)
+    confmat.update(preds, target)
+    plot = plot_value_checks({"fid": (runs[0], want_value), "confusion_matrix": (confmat, confmat.compute())})
+    emit({"phase": "reliability", "batch": RELIABILITY_BATCH, "updates": RELIABILITY_UPDATES, "trunk": "bfloat16",
+          "card_repeats_bitwise": repeats, "card_spread": spread, "spread_cause": spread_cause,
+          "retried": {**fault, "fail_on": RELIABILITY_FAIL_ON, "states_equal": within_spread(got_states, reference, spread),
+                      "states_bitwise": states_equal(got_states, reference), "fid": float(got_value),
+                      "fid_uninterrupted": float(want_value), "fid_bitwise": value_equal},
+          "sepconv7_launches": launches, "exhausted": exhausted, "deterministic": deterministic,
+          "kernel_error_verdicts": verdicts,
+          "update_ms": update_ms, "clone_bytes_per_update": clone_bytes, "clone_ms": clone_ms,
+          "clone_bound_ms": clone_bound_ms, "calls_per_update": calls, "policy_extra_calls": extra_calls,
+          "sync": {**sync, "host_reads_validated_sync": reads}, "plot": plot,
+          "seconds": time.perf_counter() - started, "card": card})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6874,6 +7236,7 @@ def main() -> int:
     flagship_two_ranks_phase(card)
     launches_by_path["generative"] = generative_phase(card)
     collection_groups_phase(card)
+    launches_by_path["reliability"] = reliability_phase(card)
     classification_tower_phase(card)
     curve_data = curves_phase(card)
     tower_tail_phase(card, curve_data)

@@ -1492,3 +1492,96 @@ def test_clip_rehearsal_writes_a_loadable_model_whose_tokenizer_knows_every_capt
     iqa = CLIPImageQualityAssessment(model_dir, data_range=255.0, prompts=chip_smoke.CLIP_IQA_PROMPTS, device="cpu")
     iqa.update(images)
     assert list(iqa.compute()) == ["quality", "brightness", "sharpness", "user_defined_0"]
+
+
+# ------------------------------------------------------------ the reliability phase
+
+
+class _TinyFeatures:
+    """A 16-wide projection of 3x8x8 images: FID's update without a trunk. A batch of
+    another channel count cannot be multiplied, as the trunk's first conv cannot take it."""
+
+    num_features = 16
+
+    def __init__(self):
+        self.weight = torch.from_numpy(np.random.default_rng(3).normal(size=(3 * 8 * 8, 16)).astype(np.float32))
+
+    def __call__(self, imgs):
+        return imgs.float().reshape(imgs.shape[0], 3 * 8 * 8) @ self.weight
+
+
+def _tiny_batches(n=4, seed=18):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.rand((6, 3, 8, 8), generator=gen) for _ in range(n)]
+
+
+def test_reliability_rehearsal_recovers_rolls_back_and_attempts_once(chip_smoke):
+    extractor, batches = _TinyFeatures(), _tiny_batches()
+    runs = []
+    for _ in range(2):
+        plain = chip_smoke.reliability_fid(extractor, device="cpu")
+        chip_smoke.fid_updates(plain, batches)
+        runs.append(chip_smoke.tensor_states(plain))
+    spread = chip_smoke.state_spread(runs[1], runs[0])
+    assert set(spread.values()) == {0.0}
+    retried = chip_smoke.reliability_fid(extractor, chip_smoke.retry_config(), device="cpu")
+    assert chip_smoke.retried_fid_run(retried, batches) == {"faults": 1, "attempts": 5}
+    assert chip_smoke.within_spread(chip_smoke.tensor_states(retried), runs[0], spread)
+    assert chip_smoke.states_equal(chip_smoke.tensor_states(retried), runs[0])
+    exhausted = chip_smoke.exhausted_budget(chip_smoke.reliability_fid(extractor, chip_smoke.retry_config(),
+                                                                       device="cpu"), batches)
+    assert exhausted == {"attempts": 3, "rolled_back": True, "update_count_after_failure": 2,
+                         "update_count_after_next": 3}
+    deterministic = chip_smoke.deterministic_attempts(
+        chip_smoke.reliability_fid(extractor, chip_smoke.retry_config(), device="cpu"), torch.rand((6, 4, 8, 8)))
+    assert deterministic == {"error": "RuntimeError", "verdict": "deterministic", "attempts": 1}
+
+
+def test_reliability_rehearsal_fails_without_a_policy_and_on_a_planted_difference(chip_smoke):
+    from torchmetrics_tpu_torch.utilities.exceptions import TransientRuntimeError
+
+    extractor, batches = _TinyFeatures(), _tiny_batches()
+    with pytest.raises(TransientRuntimeError):
+        chip_smoke.retried_fid_run(chip_smoke.reliability_fid(extractor, device="cpu"), batches)
+    plain = chip_smoke.reliability_fid(extractor, device="cpu")
+    chip_smoke.fid_updates(plain, batches)
+    states = chip_smoke.tensor_states(plain)
+    planted = dict(states, real_features_sum=states["real_features_sum"] + 1e-3)
+    zero = {k: 0.0 for k in states}
+    assert not chip_smoke.within_spread(planted, states, zero)
+    assert chip_smoke.within_spread(planted, states, dict(zero, real_features_sum=2e-3))
+
+
+def test_kernel_errors_classify_deterministic(chip_smoke):
+    verdicts = chip_smoke.kernel_error_verdicts(PTXAS_LOG)
+    assert set(verdicts) == {"launch_error_1", "launch_error_2", "launch_error_700", "launch_error_719",
+                             "build_error"}
+    assert set(verdicts.values()) == {"deterministic"}
+
+
+def test_retried_sync_rehearsal_recovers_and_keeps_local_states(chip_smoke):
+    extractor, batches = _TinyFeatures(), _tiny_batches()
+    source = chip_smoke.reliability_fid(extractor, device="cpu")
+    chip_smoke.fid_updates(source, batches)
+    gen = torch.Generator().manual_seed(5)
+    preds, target = torch.randn((64, 5), generator=gen), torch.randint(0, 5, (64,), generator=gen)
+    out = chip_smoke.retried_sync(lambda gather: chip_smoke.sync_collection(source, preds, target, gather, "cpu"),
+                                  distributed_available=lambda: True)
+    assert out["gather_failures"] == 1 and out["recovered_bitwise"] and out["local_states_kept"]
+    # the failure, then two syncs (the retried one and the poisoned one) of three
+    # collectives each: the metadata and the float32 and int32 buckets
+    assert out["gather_calls"] == 1 + 3 + 3
+
+
+def test_plot_value_rehearsal_and_the_jax_packages_error_text(chip_smoke):
+    from torchmetrics_tpu.utilities.plot import _error_msg
+    from torchmetrics_tpu_torch.classification import MulticlassConfusionMatrix
+
+    assert chip_smoke.PLOT_ERROR_TEXT == _error_msg
+    extractor, batches = _TinyFeatures(), _tiny_batches()
+    fid = chip_smoke.reliability_fid(extractor, device="cpu")
+    chip_smoke.fid_updates(fid, batches)
+    confmat = MulticlassConfusionMatrix(5, normalize="true", device="cpu")
+    confmat.update(torch.randn(32, 5), torch.randint(0, 5, (32,)))
+    out = chip_smoke.plot_value_checks({"fid": (fid, fid.compute()), "confusion_matrix": (confmat, confmat.compute())})
+    assert out["values"] == {"fid": [], "confusion_matrix": [5, 5]}

@@ -334,6 +334,9 @@ def test_arniqa_loads_the_hub_cache_like_jax(resnet_state_dict, tmp_path, monkey
     torch.save({"weight": torch.from_numpy(REGRESSOR["weights"]), "bias": torch.from_numpy(REGRESSOR["biases"])},
                checkpoints / "regressor_koniq10k.pth")
     monkeypatch.setenv("TORCH_HOME", str(tmp_path))
+    # the JAX package caches a hub lookup per process whatever TORCH_HOME says: a fresh
+    # cache for this test keeps its weights from reaching a later test of the process
+    monkeypatch.setattr(importlib.import_module("torchmetrics_tpu.functional.image.arniqa"), "_PARAM_CACHE", {})
     want = jtm.functional.arniqa(ARNIQA_IMG, reduction="none")
     _close(ttm.functional.arniqa(torch.from_numpy(ARNIQA_IMG), reduction="none"), want, ARNIQA_ATOL)
 

@@ -166,8 +166,10 @@ _SHARED = textwrap.dedent(
 )
 
 
-def _run_workers(tmp_path, world):
-    (tmp_path / "worker.py").write_text(_WORKER)
+def _run_workers(tmp_path, world, worker=_WORKER):
+    """Start ``world`` processes of ``worker`` (argv: rank, world, init method) and return
+    each one's ``RESULT`` JSON line, parsed."""
+    (tmp_path / "worker.py").write_text(worker)
     (tmp_path / "tm_shared.py").write_text(_SHARED)
     env = {k: v for k, v in os.environ.items() if not k.startswith(("XLA_", "JAX_"))}
     env.update(PYTHONPATH=os.pathsep.join([ROOT, str(tmp_path), env.get("PYTHONPATH", "")]),

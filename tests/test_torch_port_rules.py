@@ -411,7 +411,9 @@ def test_utilities_at_the_default_device_raise_without_cuda(no_cuda):
 
 def test_the_new_modules_are_scanned_and_their_doctests_listed():
     for name in ("text.metrics", "functional.text.bert", "functional.text.infolm", "functional.text.perplexity",
-                 "multimodal.lve", "functional.multimodal.lve", "utilities.compute", "utilities.checks"):
+                 "multimodal.lve", "functional.multimodal.lve", "utilities.compute", "utilities.checks",
+                 "reliability.retry", "reliability.faults", "reliability.guards", "utilities.plot",
+                 "utilities.imports"):
         assert f"torchmetrics_tpu_torch.{name}" in PORT_MODULES
         assert ROOT / "torchmetrics_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
 

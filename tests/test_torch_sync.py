@@ -32,7 +32,7 @@ from torchmetrics_tpu.parallel import sync as JS
 from torchmetrics_tpu_torch import Metric, MetricCollection
 from torchmetrics_tpu_torch.parallel import coalesce as PC
 from torchmetrics_tpu_torch.parallel import sync as PS
-from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
+from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError, TransientRuntimeError
 
 CPU = {"device": "cpu"}
 PORT_REDUCTIONS = {**_FULL_REDUCTIONS, "custom": lambda stacked: torch.sum(stacked * 2.0, dim=0)}
@@ -694,3 +694,45 @@ def test_aggregator_forward_matches_jax(name):
         got, want = port(torch.from_numpy(batch)), ref(jnp.asarray(batch))
         np.testing.assert_allclose(as_f64(got), as_f64(want), rtol=1e-6)
     np.testing.assert_allclose(as_f64(port.compute()), as_f64(ref.compute()), rtol=1e-6)
+
+
+# ------------------------------------------------ a transient error of an injected gather
+
+
+def _probe_gather(lib, first_error):
+    """The seam's gather of a world of one that raises ``first_error`` on its first call."""
+    calls = {"n": 0}
+
+    def gather(value, group=None):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise first_error
+        return [torch.as_tensor(value)] if lib is torch else [jnp.asarray(value)]
+
+    return gather, calls
+
+
+@pytest.mark.parametrize("first_error, propagates", [
+    (ConnectionError("connection reset by peer"), True),
+    (TransientRuntimeError("INTERNAL: stream terminated by RST_STREAM"), True),
+    (AssertionError("expected a float32 state leaf"), False),
+])
+def test_process_sync_propagates_a_transient_gather_error_as_the_jax_package_does(first_error, propagates):
+    """A transient error of an injected gather reaches the retry layer after one call; a
+    deterministic one falls back to the per-leaf plane, in both packages."""
+    state = {"s": np.arange(3, dtype=np.float32), "n": np.asarray(4, np.int32)}
+    reductions = {"s": "sum", "n": "sum"}
+    results = []
+    for lib, sync, convert in ((torch, PS, torch.as_tensor), (jnp, JS, jnp.asarray)):
+        gather, calls = _probe_gather(lib, first_error)
+        local = {k: convert(v) for k, v in state.items()}
+        if propagates:
+            with pytest.raises(type(first_error)):
+                sync.process_sync(local, reductions, dist_sync_fn=gather)
+            results.append(calls["n"])
+        else:
+            synced = sync.process_sync(local, reductions, dist_sync_fn=gather)
+            results.append((calls["n"], {k: as_f64(v).tolist() for k, v in synced.items()}))
+    assert results[0] == results[1]
+    if propagates:
+        assert results[0] == 1

@@ -491,7 +491,7 @@ print(json.dumps(sorted((public(jtm) - public(ttm)) | (public(jf) - public(pf)))
 """
 
 
-def test_only_the_reliability_names_and_planes_are_still_missing():
+def test_only_the_planes_are_still_missing():
     """``dir()`` of both packages as a user's fresh import gives it: in a new interpreter,
     since other tests import submodules (``chaos``, ``fleet``) that then show in
     ``dir()``."""
@@ -503,7 +503,7 @@ def test_only_the_reliability_names_and_planes_are_still_missing():
     out = subprocess.run([sys.executable, "-c", _MISSING_NAMES], capture_output=True, text=True, check=True,
                          env={**os.environ, "JAX_PLATFORMS": "cpu"}, timeout=300)
     missing = set(json.loads(out.stdout.strip().splitlines()[-1]))
-    assert missing == {"ReliabilityConfig", "RetryPolicy", "aot", "observability", "serving", "streaming"}
+    assert missing == {"aot", "observability", "serving", "streaming"}
     assert ttm.multimodal.__all__ == jtm.multimodal.__all__
     assert port_fn.multimodal.__all__ == jax_fn.multimodal.__all__
     assert {"text", "multimodal", "utilities"} <= _public(ttm)

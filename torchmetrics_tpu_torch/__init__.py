@@ -19,6 +19,7 @@ from .image import *  # noqa: F401,F403
 from .image.psnr import _CompatPeakSignalNoiseRatio as PeakSignalNoiseRatio  # noqa: E402,F811
 from .metric import CompositionalMetric, HostMetric, Metric
 from .multimodal import *  # noqa: F401,F403
+from .reliability import ReliabilityConfig, RetryPolicy
 from .nominal import *  # noqa: F401,F403
 from .regression import *  # noqa: F401,F403
 from .retrieval import *  # noqa: F401,F403
@@ -38,7 +39,8 @@ from .wrappers import (
 
 __all__ = [
     "CatMetric", "CompositionalMetric", "HostMetric", "MaxMetric", "MeanMetric", "Metric", "MetricCollection",
-    "MinMetric", "QuarantinedMetric", "RunningMean", "RunningSum", "SumMetric", *classification.__all__,
+    "MinMetric", "QuarantinedMetric", "ReliabilityConfig", "RetryPolicy", "RunningMean", "RunningSum", "SumMetric",
+    *classification.__all__,
     *audio.__all__, *clustering.__all__, *detection.__all__, *image.__all__, *nominal.__all__, *regression.__all__,
     *multimodal.__all__, *retrieval.__all__, *segmentation.__all__, *shape.__all__, *text.__all__, *video.__all__,
     "BootStrapper", "ClasswiseWrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper", "MultitaskWrapper",

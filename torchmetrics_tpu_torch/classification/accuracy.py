@@ -23,6 +23,8 @@ class BinaryAccuracy(BinaryStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def _compute(self, state):
         return _accuracy_reduce(
@@ -46,6 +48,9 @@ class MulticlassAccuracy(MulticlassStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     def _compute(self, state):
         return _accuracy_reduce(
@@ -70,6 +75,9 @@ class MultilabelAccuracy(MultilabelStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     def _compute(self, state):
         return _accuracy_reduce(

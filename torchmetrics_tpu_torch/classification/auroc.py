@@ -15,7 +15,7 @@ from ..functional.classification.auroc import (
     _multilabel_auroc_compute,
 )
 from ..metric import Metric
-from .base import _ClassificationTaskWrapper
+from .base import _ClassificationTaskWrapper, _plot_value
 from .precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -38,6 +38,10 @@ class BinaryAUROC(BinaryPrecisionRecallCurve):
         >>> metric.compute()
         tensor(1.)
     """
+
+    plot = _plot_value
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     higher_is_better = True
 
@@ -73,6 +77,11 @@ class MulticlassAUROC(MulticlassPrecisionRecallCurve):
         >>> metric.compute()
         tensor(1.)
     """
+
+    plot = _plot_value
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     higher_is_better = True
 
@@ -110,6 +119,11 @@ class MultilabelAUROC(MultilabelPrecisionRecallCurve):
         >>> metric.compute()
         tensor(0.8333)
     """
+
+    plot = _plot_value
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     higher_is_better = True
 

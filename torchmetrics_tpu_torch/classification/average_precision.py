@@ -14,7 +14,7 @@ from ..functional.classification.average_precision import (
     _multilabel_average_precision_compute,
 )
 from ..metric import Metric
-from .base import _ClassificationTaskWrapper
+from .base import _ClassificationTaskWrapper, _plot_value
 from .precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -38,6 +38,10 @@ class BinaryAveragePrecision(BinaryPrecisionRecallCurve):
         tensor(1.)
     """
 
+    plot = _plot_value
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+
     higher_is_better = True
 
     def _compute(self, state):
@@ -57,6 +61,11 @@ class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
         >>> metric.compute()
         tensor(1.)
     """
+
+    plot = _plot_value
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     higher_is_better = True
 
@@ -94,6 +103,11 @@ class MultilabelAveragePrecision(MultilabelPrecisionRecallCurve):
         >>> metric.compute()
         tensor(0.8333)
     """
+
+    plot = _plot_value
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     higher_is_better = True
 

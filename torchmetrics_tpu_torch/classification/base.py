@@ -11,6 +11,12 @@ from ..metric import Metric
 from ..utilities.enums import ClassificationTask
 
 
+def _plot_value(self: Metric, val: Any = None, ax: Any = None):
+    """``Metric.plot`` for a score metric built on a curve's or a confusion matrix's
+    states, whose own ``plot`` would draw the curve or the matrix."""
+    return Metric.plot(self, *([val] if val is not None else []), ax=ax)
+
+
 class _ClassificationTaskWrapper:
     """Base of the task facades; a facade itself is never instantiated."""
 

@@ -13,7 +13,7 @@ from ..functional.classification.cohen_kappa import (
 )
 from ..metric import Metric
 from ..utilities.enums import ClassificationTaskNoMultilabel
-from .base import _ClassificationTaskWrapper
+from .base import _ClassificationTaskWrapper, _plot_value
 from .confusion_matrix import BinaryConfusionMatrix, MulticlassConfusionMatrix
 
 
@@ -30,6 +30,10 @@ class BinaryCohenKappa(BinaryConfusionMatrix):
         >>> metric.compute()
         tensor(1.)
     """
+
+    plot = _plot_value
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     is_differentiable = False
     higher_is_better = True
@@ -65,6 +69,10 @@ class MulticlassCohenKappa(MulticlassConfusionMatrix):
         >>> metric.compute()
         tensor(1.)
     """
+
+    plot = _plot_value
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     is_differentiable = False
     higher_is_better = True

@@ -52,6 +52,13 @@ class _ConfusionMatrix(Metric):
     def _compute(self, state):
         return _confusion_matrix_reduce(state["confmat"], self.normalize)
 
+    def plot(self, val: Any = None, ax: Any = None, add_text: bool = True, labels: Any = None, cmap: Any = None):
+        """A heatmap of the matrix (``val``, or ``compute()``). Needs matplotlib."""
+        from ..utilities.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels, cmap=cmap)
+
 
 class BinaryConfusionMatrix(_ConfusionMatrix):
     """Binary confusion matrix (int32 ``(2, 2)`` state, rows = target).

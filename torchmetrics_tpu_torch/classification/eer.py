@@ -9,7 +9,7 @@ from ..functional.classification.eer import _binary_eer_compute, _multiclass_eer
 from ..functional.classification.stat_scores import _check_task_args
 from ..metric import Metric
 from ..utilities.enums import ClassificationTask
-from .base import _ClassificationTaskWrapper
+from .base import _ClassificationTaskWrapper, _plot_value
 from .precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -31,6 +31,8 @@ class BinaryEER(BinaryPrecisionRecallCurve):
         >>> metric.compute()
         tensor(0.)
     """
+
+    plot = _plot_value
 
     higher_is_better = False
     _jittable_compute = False
@@ -55,6 +57,8 @@ class MulticlassEER(MulticlassPrecisionRecallCurve):
         >>> metric.compute()
         tensor([0., 0., 0.])
     """
+
+    plot = _plot_value
 
     higher_is_better = False
     _jittable_compute = False
@@ -90,6 +94,8 @@ class MultilabelEER(MultilabelPrecisionRecallCurve):
         >>> metric.compute()
         tensor([0.0000, 0.7500, 0.0000])
     """
+
+    plot = _plot_value
 
     higher_is_better = False
     _jittable_compute = False

@@ -28,6 +28,8 @@ class _ExactMatchBase(Metric):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def _create_state(self, multidim_average: str) -> None:
         if multidim_average == "samplewise":

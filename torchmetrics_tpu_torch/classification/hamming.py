@@ -20,6 +20,8 @@ class BinaryHammingDistance(BinaryStatScores):
 
     is_differentiable = False
     higher_is_better = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def _compute(self, state):
         return _hamming_distance_reduce(
@@ -41,6 +43,9 @@ class MulticlassHammingDistance(MulticlassStatScores):
 
     is_differentiable = False
     higher_is_better = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     def _compute(self, state):
         return _hamming_distance_reduce(
@@ -62,6 +67,9 @@ class MultilabelHammingDistance(MultilabelStatScores):
 
     is_differentiable = False
     higher_is_better = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     def _compute(self, state):
         return _hamming_distance_reduce(

@@ -10,7 +10,7 @@ from ..functional.classification.jaccard import _jaccard_index_reduce
 from ..functional.classification.stat_scores import _check_task_args
 from ..metric import Metric
 from ..utilities.enums import ClassificationTask
-from .base import _ClassificationTaskWrapper
+from .base import _ClassificationTaskWrapper, _plot_value
 from .confusion_matrix import BinaryConfusionMatrix, MulticlassConfusionMatrix, MultilabelConfusionMatrix
 
 _AVERAGES = ("micro", "macro", "weighted", "none", None)
@@ -34,6 +34,10 @@ class BinaryJaccardIndex(BinaryConfusionMatrix):
         >>> metric.compute()
         tensor(1.)
     """
+
+    plot = _plot_value
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     is_differentiable = False
     higher_is_better = True
@@ -66,6 +70,11 @@ class MulticlassJaccardIndex(MulticlassConfusionMatrix):
         >>> metric.compute()
         tensor(1.)
     """
+
+    plot = _plot_value
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     is_differentiable = False
     higher_is_better = True
@@ -102,6 +111,11 @@ class MultilabelJaccardIndex(MultilabelConfusionMatrix):
         >>> metric.compute()
         tensor(0.6667)
     """
+
+    plot = _plot_value
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     is_differentiable = False
     higher_is_better = True

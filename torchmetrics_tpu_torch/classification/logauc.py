@@ -14,7 +14,7 @@ from ..functional.classification.logauc import (
 from ..functional.classification.stat_scores import _check_task_args
 from ..metric import Metric
 from ..utilities.enums import ClassificationTask
-from .base import _ClassificationTaskWrapper
+from .base import _ClassificationTaskWrapper, _plot_value
 from .precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -38,6 +38,8 @@ class BinaryLogAUC(BinaryPrecisionRecallCurve):
         >>> metric.compute()
         tensor(1.)
     """
+
+    plot = _plot_value
 
     higher_is_better = True
     _jittable_compute = False
@@ -70,6 +72,8 @@ class MulticlassLogAUC(MulticlassPrecisionRecallCurve):
         >>> metric.compute()
         tensor(1.)
     """
+
+    plot = _plot_value
 
     higher_is_better = True
     _jittable_compute = False
@@ -106,6 +110,8 @@ class MultilabelLogAUC(MultilabelPrecisionRecallCurve):
         >>> metric.compute()
         tensor(0.6667)
     """
+
+    plot = _plot_value
 
     higher_is_better = True
     _jittable_compute = False

@@ -10,7 +10,7 @@ from ..functional.classification.matthews_corrcoef import _matthews_corrcoef_red
 from ..functional.classification.stat_scores import _check_task_args
 from ..metric import Metric
 from ..utilities.enums import ClassificationTask
-from .base import _ClassificationTaskWrapper
+from .base import _ClassificationTaskWrapper, _plot_value
 from .confusion_matrix import BinaryConfusionMatrix, MulticlassConfusionMatrix, MultilabelConfusionMatrix
 
 
@@ -18,6 +18,7 @@ class _MCCCompute:
     is_differentiable = False
     higher_is_better = True
     _jittable_compute = False  # as in the JAX package, whose edge cases run on the host
+    plot = _plot_value
 
     def _compute(self, state):
         return _matthews_corrcoef_reduce(state["confmat"])
@@ -36,6 +37,9 @@ class BinaryMatthewsCorrCoef(_MCCCompute, BinaryConfusionMatrix):
         >>> metric.compute()
         tensor(1.)
     """
+
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self, threshold: float = 0.5, ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any
@@ -57,6 +61,9 @@ class MulticlassMatthewsCorrCoef(_MCCCompute, MulticlassConfusionMatrix):
         tensor(1.)
     """
 
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
+
     def __init__(
         self, num_classes: int, ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any
     ) -> None:
@@ -76,6 +83,9 @@ class MultilabelMatthewsCorrCoef(_MCCCompute, MultilabelConfusionMatrix):
         >>> metric.compute()
         tensor(0.5500)
     """
+
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,

@@ -21,6 +21,8 @@ class BinaryNegativePredictiveValue(BinaryStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def _compute(self, state):
         return _negative_predictive_value_reduce(
@@ -42,6 +44,9 @@ class MulticlassNegativePredictiveValue(MulticlassStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     def _compute(self, state):
         return _negative_predictive_value_reduce(
@@ -64,6 +69,9 @@ class MultilabelNegativePredictiveValue(MultilabelStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     def _compute(self, state):
         return _negative_predictive_value_reduce(

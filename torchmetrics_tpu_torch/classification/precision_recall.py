@@ -12,6 +12,8 @@ class _PrecisionRecallMixin:
     _stat: str  # "precision" or "recall"
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
 
 class BinaryPrecision(_PrecisionRecallMixin, BinaryStatScores):
@@ -66,6 +68,7 @@ class MulticlassPrecision(_PrecisionRecallMixin, MulticlassStatScores):
     """
 
     _stat = "precision"
+    plot_legend_name = "Class"
 
     def _compute(self, state):
         return _precision_recall_reduce(
@@ -104,6 +107,7 @@ class MultilabelPrecision(_PrecisionRecallMixin, MultilabelStatScores):
     """
 
     _stat = "precision"
+    plot_legend_name = "Label"
 
     def _compute(self, state):
         return _precision_recall_reduce(

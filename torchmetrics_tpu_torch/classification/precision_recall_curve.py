@@ -58,6 +58,16 @@ class _CurveStates(Metric):
             self.add_state("confmat", default=torch.zeros((len(self.thresholds), *shape), dtype=torch.int32),
                            dist_reduce_fx="sum")
 
+    _plot_axes = ("Recall", "Precision")
+
+    def plot(self, curve: Any = None, score: Any = None, ax: Any = None):
+        """The curve (``curve``, or ``compute()``), titled with ``score`` when given.
+        Needs matplotlib."""
+        from ..utilities.plot import plot_curve
+
+        curve = curve or self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=self._plot_axes, name=type(self).__name__)
+
     def _curve_state(self, state):
         """-> (curve state, thresholds): the (preds, target) pair of the exact path, or
         the binned confusion with the thresholds moved to its device."""
@@ -126,6 +136,8 @@ class MulticlassPrecisionRecallCurve(_CurveStates):
         (tensor([0.2500, 0.3333, 0.5000, 1.0000, 1.0000]), tensor([1., 1., 1., 1., 0.]), tensor([0.1000, 0.2000, 0.3500, 0.5000]))
     """
 
+    plot_legend_name = "Class"
+
     def __init__(
         self,
         num_classes: int,
@@ -181,6 +193,8 @@ class MultilabelPrecisionRecallCurve(_CurveStates):
                 [1.0000, 1.0000, 1.0000, 0.0000, 0.0000, 0.0000],
                 [1.0000, 1.0000, 0.5000, 0.5000, 0.0000, 0.0000]])
     """
+
+    plot_legend_name = "Label"
 
     def __init__(
         self,

@@ -15,7 +15,7 @@ from ..functional.classification.recall_fixed_precision import (
     _multilabel_recall_at_fixed_precision_compute,
 )
 from ..metric import Metric
-from .base import _ClassificationTaskWrapper
+from .base import _ClassificationTaskWrapper, _plot_value
 from .precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -38,6 +38,8 @@ class BinaryRecallAtFixedPrecision(BinaryPrecisionRecallCurve):
         >>> metric.compute()
         (tensor(1.), tensor(0.7300))
     """
+
+    plot = _plot_value
 
     higher_is_better = True
     _jittable_compute = False
@@ -71,6 +73,8 @@ class MulticlassRecallAtFixedPrecision(MulticlassPrecisionRecallCurve):
         >>> metric.compute()
         (tensor([1., 1., 1.]), tensor([0.7500, 0.4000, 0.5000]))
     """
+
+    plot = _plot_value
 
     higher_is_better = True
     _jittable_compute = False
@@ -108,6 +112,8 @@ class MultilabelRecallAtFixedPrecision(MultilabelPrecisionRecallCurve):
         >>> metric.compute()
         (tensor([1., 1., 1.]), tensor([0.7500, 0.6500, 0.3500]))
     """
+
+    plot = _plot_value
 
     higher_is_better = True
     _jittable_compute = False

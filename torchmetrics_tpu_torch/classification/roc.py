@@ -31,6 +31,8 @@ class BinaryROC(BinaryPrecisionRecallCurve):
         (tensor([0.0000, 0.0000, 0.0000, 0.3333, 1.0000]), tensor([0.0000, 0.6667, 1.0000, 1.0000, 1.0000]), tensor([1.0000, 0.7500, 0.5000, 0.2500, 0.0000]))
     """
 
+    _plot_axes = ("FPR", "TPR")
+
     def _compute(self, state):
         return _binary_roc_compute(*self._curve_state(state))
 
@@ -49,6 +51,8 @@ class MulticlassROC(MulticlassPrecisionRecallCurve):
         >>> fpr.shape, float(tpr[-1])
         (torch.Size([15]), 1.0)
     """
+
+    _plot_axes = ("FPR", "TPR")
 
     def _compute(self, state):
         curve_state, thresholds = self._curve_state(state)
@@ -69,6 +73,8 @@ class MultilabelROC(MultilabelPrecisionRecallCurve):
         >>> fpr[0], tpr[0], thresholds[0]
         (tensor([0.0000, 0.0000, 0.5000, 1.0000]), tensor([0., 1., 1., 1.]), tensor([1.0000, 0.7500, 0.4500, 0.0500]))
     """
+
+    _plot_axes = ("FPR", "TPR")
 
     def _compute(self, state):
         curve_state, thresholds = self._curve_state(state)

@@ -13,7 +13,7 @@ from ..functional.classification.sensitivity_specificity import (
     _multilabel_sensitivity_at_specificity_compute,
 )
 from ..metric import Metric
-from .base import _ClassificationTaskWrapper
+from .base import _ClassificationTaskWrapper, _plot_value
 from .precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -36,6 +36,8 @@ class BinarySensitivityAtSpecificity(BinaryPrecisionRecallCurve):
         >>> metric.compute()
         (tensor(1.), tensor(0.7300))
     """
+
+    plot = _plot_value
 
     higher_is_better = True
     _jittable_compute = False
@@ -69,6 +71,8 @@ class MulticlassSensitivityAtSpecificity(MulticlassPrecisionRecallCurve):
         >>> metric.compute()
         (tensor([1., 1., 1.]), tensor([0.7500, 0.4000, 0.5000]))
     """
+
+    plot = _plot_value
 
     higher_is_better = True
     _jittable_compute = False
@@ -106,6 +110,8 @@ class MultilabelSensitivityAtSpecificity(MultilabelPrecisionRecallCurve):
         >>> metric.compute()
         (tensor([1., 1., 1.]), tensor([0.7500, 0.6500, 0.3500]))
     """
+
+    plot = _plot_value
 
     higher_is_better = True
     _jittable_compute = False

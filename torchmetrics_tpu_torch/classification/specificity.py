@@ -20,6 +20,8 @@ class BinarySpecificity(BinaryStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def _compute(self, state):
         return _specificity_reduce(
@@ -41,6 +43,9 @@ class MulticlassSpecificity(MulticlassStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     def _compute(self, state):
         return _specificity_reduce(
@@ -63,6 +68,9 @@ class MultilabelSpecificity(MultilabelStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     def _compute(self, state):
         return _specificity_reduce(

@@ -13,7 +13,7 @@ from ..functional.classification.specificity_sensitivity import (
     _multilabel_specificity_at_sensitivity_compute,
 )
 from ..metric import Metric
-from .base import _ClassificationTaskWrapper
+from .base import _ClassificationTaskWrapper, _plot_value
 from .precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -36,6 +36,8 @@ class BinarySpecificityAtSensitivity(BinaryPrecisionRecallCurve):
         >>> metric.compute()
         (tensor(1.), tensor(0.8400))
     """
+
+    plot = _plot_value
 
     higher_is_better = True
     _jittable_compute = False
@@ -69,6 +71,8 @@ class MulticlassSpecificityAtSensitivity(MulticlassPrecisionRecallCurve):
         >>> metric.compute()
         (tensor([1., 1., 1.]), tensor([0.7500, 0.8000, 0.5000]))
     """
+
+    plot = _plot_value
 
     higher_is_better = True
     _jittable_compute = False
@@ -106,6 +110,8 @@ class MultilabelSpecificityAtSensitivity(MultilabelPrecisionRecallCurve):
         >>> metric.compute()
         (tensor([1.0000, 0.5000, 1.0000]), tensor([0.7500, 0.6500, 0.7500]))
     """
+
+    plot = _plot_value
 
     higher_is_better = True
     _jittable_compute = False

@@ -2,8 +2,9 @@
 ``torchmetrics_tpu/collections.py``): dict construction, ``update``, ``forward`` and
 ``__call__``, ``compute``, ``reset``, compute groups, the ``on_error`` policies, the
 coalesced ``sync``/``unsync``, ``merge_state``, checkpoints (``persistent``,
-``state_dict``, ``load_state_dict``), ``clone``, ``set_dtype``, ``to`` and ``as_pure``
-with ``PureCollection.reduce``.
+``state_dict``, ``load_state_dict``), ``clone``, ``set_dtype``, ``to``, ``plot`` and
+``as_pure`` with ``PureCollection.reduce``. The coalesced sync retries under the first
+member's ``RetryPolicy`` and validates every synced dict before it commits any.
 
 Compute groups: after the first update, metrics whose states are equal (the same names,
 reductions and values) share one state dict, and only each group's leader runs
@@ -23,6 +24,7 @@ import torch
 
 from .metric import Metric
 from .parallel import coalesce as _coalesce
+from .reliability.guards import validate_state
 from .utilities.checks import resolve_device
 from .utilities.data import _flatten_dict, allclose
 from .utilities.exceptions import TorchMetricsUserError
@@ -525,16 +527,33 @@ class MetricCollection:
         holders: "OrderedDict[int, List[Metric]]" = OrderedDict()
         for m in metrics:
             holders.setdefault(id(m._state), []).append(m)
-        try:
-            synced = _coalesce.coalesced_process_sync(
+
+        def attempt() -> List[Dict[str, Any]]:
+            return _coalesce.coalesced_process_sync(
                 [ms[0]._state for ms in holders.values()], [ms[0]._reductions for ms in holders.values()],
                 process_group=process_group or metrics[0].process_group,
                 dist_sync_fn=dist_sync_fn or metrics[0].dist_sync_fn,
             )
+
+        # the first member's policy that has one retries the whole coalesced sync
+        retry = next((m._reliability.retry for m in metrics
+                      if m._reliability is not None and m._reliability.retry is not None), None)
+        try:
+            synced = attempt() if retry is None else retry.call(attempt, describe="MetricCollection.sync")
         except _coalesce.CoalesceFallback:
             return False  # nothing committed; the per-member path syncs from scratch
-        # one synced dict and one shared cache per distinct dict: members keep
-        # aliasing through sync and unsync
+        # validate every distinct dict before committing any: a corrupt contribution must
+        # not become any member's state, and a partial commit must never happen. Fused
+        # members share one dict and one validation (fusion requires equal defaults and
+        # reductions): each dict is scanned once, with the strictest finiteness setting
+        # among its members
+        for members_of, state in zip(holders.values(), synced):
+            validators = [m for m in members_of if m._reliability is not None and m._reliability.validate_on_sync]
+            if validators:
+                validate_state(validators[0], state, context=f"{type(validators[0]).__name__}.sync",
+                               check_finite=any(m._reliability.check_finite for m in validators))
+        # atomic commit, one synced dict and one shared cache per distinct dict: members
+        # keep aliasing through sync and unsync
         for (holder, *aliased), state in zip(holders.values(), synced):
             holder._commit_synced(state)
             for m in aliased:
@@ -633,6 +652,16 @@ class MetricCollection:
             metric.to(self.device)
         self._relink_groups()
         return self
+
+    def plot(self, val: Optional[Dict[str, Any]] = None, ax: Any = None, together: bool = False) -> list:
+        """One figure per member's value (``val``, or ``compute()``), or one for all of
+        them with ``together``. Needs matplotlib."""
+        from .utilities.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        if together:
+            return [plot_single_or_multi_val(val, ax=ax)]
+        return [plot_single_or_multi_val({k: v}, ax=ax) for k, v in val.items()]
 
     def as_pure(self) -> "PureCollection":
         """The collection as pure functions over a dict of states:

@@ -71,6 +71,7 @@ class FrechetInceptionDistance(Metric):
     higher_is_better = False
     full_state_update = False
     _jittable_compute = False
+    plot_lower_bound = 0.0
 
     def __init__(
         self,
@@ -237,6 +238,7 @@ class KernelInceptionDistance(_TwoSidedFeatures):
     is_differentiable = False
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(
         self,
@@ -336,6 +338,7 @@ class InceptionScore(Metric):
     higher_is_better = True
     full_state_update = False
     _jittable_compute = False
+    plot_lower_bound = 0.0
 
     def __init__(
         self,
@@ -420,6 +423,7 @@ class MemorizationInformedFrechetInceptionDistance(_TwoSidedFeatures):
     is_differentiable = False
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(
         self,

@@ -19,8 +19,19 @@ metric's states without communication, and ``reduce_state`` reduces a state dict
 process group. ``load_state_dict`` runs the structural checkpoint guard
 (``reliability/guards.py``) before it adopts anything. Metrics compose with the
 arithmetic operators into a ``CompositionalMetric``; ``clone``, ``copy.deepcopy`` and
-pickling copy the states by value. Not here yet: the reliability plane's retry and sync
-guards, the telemetry and AOT hooks, and the serving and streaming planes.
+pickling copy the states by value. ``plot`` draws a value with matplotlib
+(``utilities/plot.py``), imported only when a figure is drawn.
+
+The reliability plane (``reliability/``) is opt-in through
+``reliability=ReliabilityConfig(...)``: a ``RetryPolicy`` retries transient failures of
+``update``, ``forward``, ``compute`` and ``sync``, and the guards validate the states at
+``sync``, ``merge_state`` and ``load_state_dict``. PyTorch donates no buffer, but an
+attempt may change the states (an in-place ``index_add_``, a fold, a cat append), so
+under a policy ``update`` and ``forward`` clone every tensor state before the first
+attempt and roll the states, the cat lists' lengths and the update count back before a
+retry and when the budget runs out. Without a policy nothing is copied and nothing more
+is launched. Not here yet: the telemetry and AOT hooks of those boundaries, and the
+serving and streaming planes.
 ``HostMetric`` is the base of the metrics whose batch contribution is built on the host
 (detection's ragged per-image inputs).
 
@@ -40,7 +51,8 @@ import numpy as np
 import torch
 
 from .parallel import sync as _sync
-from .reliability.guards import validate_restored
+from .reliability.guards import validate_restored, validate_state
+from .reliability.retry import ReliabilityConfig
 from .utilities.checks import resolve_device
 from .utilities.data import dim_zero_cat
 from .utilities.exceptions import TorchMetricsUserError
@@ -84,7 +96,10 @@ class Metric:
     default group if None), ``dist_sync_fn`` (``fn(value, group) -> list of values``,
     in place of the real all-gather), ``distributed_available_fn`` (whether to sync;
     default: more than one process in the default group) and ``sync_on_compute``
-    (default True).
+    (default True), and ``reliability`` (a
+    :class:`~torchmetrics_tpu_torch.reliability.ReliabilityConfig`, default ``None``)
+    to opt into transient-failure retry at the update, forward, compute and sync
+    boundaries and state-integrity guards at sync, merge and restore.
 
     Where the synced states live follows the group's backend: NCCL keeps them on the
     card; gloo stages each payload through the CPU and the synced states come back to
@@ -94,6 +109,9 @@ class Metric:
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = False
+    plot_lower_bound: Optional[float] = None
+    plot_upper_bound: Optional[float] = None
+    plot_legend_name: Optional[str] = None
     # False where the JAX package's compute runs on the host (host algorithms, float64
     # edge cases): BootStrapper keeps its replicas stacked only where this holds, as there
     _jittable_compute: bool = True
@@ -114,6 +132,12 @@ class Metric:
         self.sync_on_compute = kwargs.pop("sync_on_compute", True)
         if not isinstance(self.sync_on_compute, bool):
             raise ValueError(f"Expected keyword argument `sync_on_compute` to be a `bool` but got {self.sync_on_compute}")
+        self._reliability = kwargs.pop("reliability", None)
+        if self._reliability is not None and not isinstance(self._reliability, ReliabilityConfig):
+            raise ValueError(
+                f"Expected keyword argument `reliability` to be a `ReliabilityConfig` but got {self._reliability}"
+            )
+        self._fault_hook = None  # fault-injection seam (reliability/faults.py)
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
@@ -263,6 +287,60 @@ class Metric:
         """Append one batch to a concat state; under ``compute_on_cpu`` on the host."""
         self._state[name].append(value.cpu() if self.compute_on_cpu and isinstance(value, torch.Tensor) else value)
 
+    # --------------------------------------------------------- reliability seam
+
+    def _attempt(self, tag: str, thunk: Callable[[], Any]) -> Any:
+        """One attempt; the fault-injection hook fires where a dispatch failure would
+        surface, before the attempt touches the states."""
+        hook = self._fault_hook
+        if hook is not None:
+            hook(tag)
+        return thunk()
+
+    def _reliable_call(self, tag: str, thunk: Callable[[], Any], restore: Optional[Callable] = None) -> Any:
+        """A boundary that retries transient failures when a ``RetryPolicy`` is
+        configured; otherwise one attempt. ``restore(exc, attempt)`` runs before a retry."""
+        rel = self._reliability
+        if rel is None or rel.retry is None:
+            return self._attempt(tag, thunk)
+        return rel.retry.call(
+            lambda: self._attempt(tag, thunk), on_retry=restore, describe=f"{type(self).__name__}.{tag}"
+        )
+
+    def _fold_reliably(self, tag: str, args: tuple, kwargs: dict) -> StateDict:
+        """``update``'s and ``forward``'s boundary: this batch's state, folded into the
+        live states; returns the batch state. Without a retry policy it runs once and
+        nothing is copied. With one, every tensor state is cloned before the first
+        attempt; before a retry the states take a fresh copy of the backup, the cat lists
+        their old lengths and the update count its old value, and when the budget runs out
+        the backup itself goes back into the states before the error re-raises, so the
+        metric stays usable at its last good state."""
+
+        def fold_batch() -> StateDict:
+            batch = self._batch_state(*args, **kwargs)
+            self._fold(batch)
+            return batch
+
+        rel = self._reliability
+        if rel is None or rel.retry is None:
+            return self._attempt(tag, fold_batch)
+        backup = {k: v.clone() for k, v in self._state.items() if isinstance(v, torch.Tensor)}
+        lengths = {k: len(v) for k, v in self._state.items() if isinstance(v, list)}
+        count, computed = self._update_count, self._computed
+
+        def roll_back(copy: bool) -> None:
+            for k, v in backup.items():
+                self._state[k] = v.clone() if copy else v
+            for k, n in lengths.items():
+                del self._state[k][n:]
+            self._update_count, self._computed = count, computed
+
+        try:
+            return self._reliable_call(tag, fold_batch, restore=lambda exc, attempt: roll_back(copy=True))
+        except Exception:
+            roll_back(copy=False)
+            raise
+
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Accumulate this batch into the global state."""
         if self._is_synced:
@@ -272,7 +350,7 @@ class Metric:
             )
         args, kwargs = self._on_device(args, kwargs)
         args, kwargs = self._prepare_inputs(*args, **kwargs)
-        self._fold(self._batch_state(*args, **kwargs))
+        self._fold_reliably("update", args, kwargs)
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Batch value AND global accumulation in one pass: the batch state is computed
@@ -288,8 +366,7 @@ class Metric:
             return value
         args, kwargs = self._on_device(args, kwargs)
         args, kwargs = self._prepare_inputs(*args, **kwargs)
-        batch = self._batch_state(*args, **kwargs)
-        self._fold(batch)
+        batch = self._fold_reliably("forward", args, kwargs)
         for k, default in self._defaults.items():  # states the batch does not touch
             if k not in batch:
                 batch[k] = torch.zeros((0,), device=self._device) if isinstance(default, list) else default
@@ -329,7 +406,8 @@ class Metric:
             self.sync()
             did_sync = True
         try:
-            value = self._compute(self._concat_state())
+            state = self._concat_state()
+            value = self._reliable_call("compute", lambda: self._compute(state))
         finally:
             if did_sync:
                 self.unsync()
@@ -361,12 +439,20 @@ class Metric:
             raise TorchMetricsUserError("The Metric has already been synced.")
         if not should_sync or not (distributed_available or self.distributed_available_fn)():
             return
-        synced = _sync.process_sync(
-            self._state,
-            self._reductions,
-            process_group=process_group or self.process_group,
-            dist_sync_fn=dist_sync_fn or self.dist_sync_fn,
+        synced = self._reliable_call(
+            "sync",
+            lambda: _sync.process_sync(
+                self._state,
+                self._reductions,
+                process_group=process_group or self.process_group,
+                dist_sync_fn=dist_sync_fn or self.dist_sync_fn,
+            ),
         )
+        rel = self._reliability
+        if rel is not None and rel.validate_on_sync:
+            # a corrupt contribution from any participant must not silently become this
+            # process's state: StateCorruptionError leaves the local state in place
+            validate_state(self, synced, context=f"{type(self).__name__}.sync", check_finite=rel.check_finite)
         self._commit_synced(synced)
 
     def _commit_synced(self, synced: StateDict) -> None:
@@ -426,6 +512,13 @@ class Metric:
             raise ValueError("Expected incoming state to be a dict or an instance of Metric")
         if self._is_synced:
             raise TorchMetricsUserError("The Metric shouldn't be synced when performing ``merge_state``.")
+        rel = self._reliability
+        if rel is not None and rel.validate_on_merge:
+            # both sides, separately: a merged dict would let incoming keys shadow the
+            # local accumulator's leaves, and a corrupt accumulator would hide behind them
+            for side, state in (("local", self._state), ("incoming", incoming)):
+                validate_state(self, state, context=f"{type(self).__name__}.merge_state ({side})",
+                               check_finite=rel.check_finite)
         incoming = {k: _to_device(v, self._device) if not isinstance(v, list) else v for k, v in incoming.items()}
         if self._has_custom_merge():
             merged = self._merge(dict(self._state), incoming)
@@ -458,16 +551,20 @@ class Metric:
             destination[prefix + "_saved_states"] = len(saved)
         return destination
 
-    def load_state_dict(
-        self, state_dict: dict, prefix: str = "", validate: bool = True, check_finite: bool = False
-    ) -> None:
+    def load_state_dict(self, state_dict: dict, prefix: str = "", validate: bool = True) -> None:
         """Adopt the states of ``state_dict`` under ``prefix``. With ``validate`` (the
         default) the structural guard runs first: a checkpoint that lost keys or holds a
         partially written state raises ``StateCorruptionError`` and nothing is adopted;
-        ``validate=False`` forces a partial load. ``check_finite`` also scans floating
-        states for NaN and Inf (off by default: a cat state may carry NaN by design)."""
+        ``validate=False`` forces a partial load. The floating states are scanned for NaN
+        and Inf only when the metric's ``ReliabilityConfig`` asks for it
+        (``validate_on_restore`` and ``check_finite``): a saved cat state may carry NaN
+        by design."""
         if validate:
-            validate_restored(self, state_dict, prefix, check_finite=check_finite)
+            rel = self._reliability
+            validate_restored(
+                self, state_dict, prefix,
+                check_finite=rel is not None and rel.validate_on_restore and rel.check_finite,
+            )
         loaded = False
         for name in self._defaults:
             key = prefix + name
@@ -519,7 +616,8 @@ class Metric:
 
     def __getstate__(self) -> dict:
         state = dict(self.__dict__)
-        state.update(_cache=None, _computed=None, dist_sync_fn=None)  # callables and caches stay behind
+        # callables, caches and injection hooks stay behind
+        state.update(_cache=None, _computed=None, dist_sync_fn=None, _fault_hook=None)
         state.pop("_last_batch_state", None)
         state.pop("distributed_available_fn", None)
         return state
@@ -527,6 +625,8 @@ class Metric:
     def __setstate__(self, state: dict) -> None:
         self.__dict__.update(state)
         self.__dict__["distributed_available_fn"] = _sync.distributed_available
+        self.__dict__.setdefault("_reliability", None)
+        self.__dict__.setdefault("_fault_hook", None)
 
     # --------------------------------------------------------------- dtype
 
@@ -622,6 +722,24 @@ class Metric:
     def __getitem__(self, idx) -> "CompositionalMetric":
         return CompositionalMetric(lambda x: x[idx], self, None)
 
+    # ---------------------------------------------------------------- plotting
+
+    def plot(self, *args: Any, **kwargs: Any):
+        """A figure of the value (``args[0]``, or ``compute()``): a point for a scalar,
+        bars for a vector, lines over steps for a list of values. Needs matplotlib."""
+        from .utilities.plot import plot_single_or_multi_val
+
+        val = args[0] if args else self.compute()
+        return plot_single_or_multi_val(
+            val,
+            higher_is_better=self.higher_is_better,
+            lower_bound=self.plot_lower_bound,
+            upper_bound=self.plot_upper_bound,
+            legend_name=self.plot_legend_name,
+            name=type(self).__name__,
+            ax=kwargs.get("ax"),
+        )
+
 
 class HostMetric(Metric):
     """Base for metrics whose batch contribution is built on the host: ragged per-image
@@ -629,10 +747,11 @@ class HostMetric(Metric):
     one tensor to append (list states, already concatenated over the batch's items) or
     a tensor contribution to fold.
 
-    ``update``, ``forward`` and the fold are ``Metric``'s: ``update`` appends the list
-    states and merges the tensor ones, and ``forward`` builds the contribution once and
-    computes the value of the batch alone from it. List states live on the host: a sync
-    brings them back there, not to the metric's device.
+    The fold is ``Metric``'s: ``update`` appends the list states and merges the tensor
+    ones, and ``forward`` builds the contribution once and computes the value of the
+    batch alone from it. A retry policy retries only the contribution (the host work,
+    third-party callbacks): the fold is never applied twice, so no backup is taken. List
+    states live on the host: a sync brings them back there, not to the metric's device.
     """
 
     _jittable_compute = False
@@ -642,6 +761,11 @@ class HostMetric(Metric):
 
     def _batch_state(self, *args: Any, **kwargs: Any) -> StateDict:
         return self._host_batch_state(*args, **kwargs)
+
+    def _fold_reliably(self, tag: str, args: tuple, kwargs: dict) -> StateDict:
+        batch = self._reliable_call(tag, lambda: self._host_batch_state(*args, **kwargs))
+        self._fold(batch)
+        return batch
 
     def _commit_synced(self, synced: StateDict) -> None:
         super()._commit_synced(synced)

@@ -59,6 +59,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..reliability.retry import TRANSIENT, classify_exception
+
 Reduction = Union[str, Callable, None]
 
 _MAX_RANK = 8
@@ -377,9 +379,11 @@ def coalesced_process_sync(
         rows = _gather_metadata(gather, meta, process_group, real=dist_sync_fn is None)
     except Exception as err:
         # an injected gather written against the per-leaf seam may reject the metadata
-        # vector (asserts on a state's dtype or shape): fall back to the plane it was
-        # written for. Errors of the real collective propagate.
-        if dist_sync_fn is not None:
+        # vector (asserts on a state's dtype or shape): deterministic failures fall back
+        # to the plane it was written for. Transient errors (FlakyGather and the like)
+        # and errors of the real collective propagate to the retry layer: a local
+        # fallback there would desynchronize the ranks and bypass the retry policy.
+        if dist_sync_fn is not None and classify_exception(err) != TRANSIENT:
             raise CoalesceFallback(f"injected gather rejected the metadata vector: {err!r}") from err
         raise
     plan = _plan_from_rows(rows, leaves)

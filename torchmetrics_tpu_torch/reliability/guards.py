@@ -26,6 +26,10 @@ from ..utilities.exceptions import StateCorruptionError
 _SHAPE_PRESERVING = ("sum", "mean", "min", "max")
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
 def _is_array(value: Any) -> bool:
     return isinstance(value, (torch.Tensor, np.ndarray)) or np.isscalar(value)
 
@@ -44,7 +48,10 @@ def _check_tensor_leaf(name: str, value: Any, default: Any, fx: Any, context: st
                 f"spec requires {tuple(spec.shape)} (reduction '{fx}' preserves shape)."
             )
         if value.dtype != spec.dtype:
-            raise StateCorruptionError(f"{context}: state '{name}' has dtype {value.dtype}, spec requires {spec.dtype}.")
+            raise StateCorruptionError(  # dtype names as numpy (and the JAX package) print them
+                f"{context}: state '{name}' has dtype {_dtype_name(value.dtype)}, "
+                f"spec requires {_dtype_name(spec.dtype)}."
+            )
         # finiteness is an invariant of aggregate leaves only: raw-data leaves (cat
         # lists, None-tagged gathers) may carry NaN by construction
         if check_finite and value.is_floating_point() and not bool(torch.isfinite(value).all()):

@@ -16,3 +16,4 @@ def _module_available(name: str) -> bool:
 _NLTK_AVAILABLE = _module_available("nltk")
 _REGEX_AVAILABLE = _module_available("regex")
 _TRANSFORMERS_AVAILABLE = _module_available("transformers")
+_MATPLOTLIB_AVAILABLE = _module_available("matplotlib")

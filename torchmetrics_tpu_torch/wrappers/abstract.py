@@ -134,9 +134,8 @@ class WrapperMetric(Metric):
             destination[prefix + "_wrapper_update_count"] = int(self._update_count)
         return destination
 
-    def load_state_dict(self, state_dict: dict, prefix: str = "", validate: bool = True,
-                        check_finite: bool = False) -> None:
-        super().load_state_dict(state_dict, prefix, validate=validate, check_finite=check_finite)
+    def load_state_dict(self, state_dict: dict, prefix: str = "", validate: bool = True) -> None:
+        super().load_state_dict(state_dict, prefix, validate=validate)
         for i, child in enumerate(self._merge_children()):
             child.load_state_dict(state_dict, f"{prefix}_child{i}.", validate=validate)
         count_key = prefix + "_wrapper_update_count"

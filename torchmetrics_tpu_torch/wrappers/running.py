@@ -131,8 +131,7 @@ class Running(WrapperMetric):
         destination[prefix + "_wrapper_update_count"] = int(self._update_count)
         return destination
 
-    def load_state_dict(self, state_dict: dict, prefix: str = "", validate: bool = True,
-                        check_finite: bool = False) -> None:
+    def load_state_dict(self, state_dict: dict, prefix: str = "", validate: bool = True) -> None:
         if prefix + "_ring_len" not in state_dict:
             if validate and prefix + "_wrapper_update_count" in state_dict:
                 # the update count proves this wrapper was saved: a missing ring length
