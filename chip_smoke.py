@@ -396,6 +396,27 @@ Phases, one JSON line each, in order:
    ``.float().cpu().numpy()``, and ``plot`` without matplotlib raises the JAX package's
    text (matplotlib is never imported).
 
+53. observability (run right after phase 52): the reliability phase's FID (bf16 trunk,
+   He-scaled seeded weights, batch 128, 4 updates) under ``telemetry_session(
+   TelemetryConfig(block_until_ready=True, cost_accounting=True))``: 4 dispatches, 1
+   ``jit_compiles``, 3 ``jit_cache_hits``, no readback; each update's recorded duration
+   beside its time by CUDA events (never under 0.9 of it); the cost record's flops equal
+   to the trunk's conv flops and the covariance product derived from the conv shapes
+   (``fid_update_flops``); in a ``torch.profiler`` trace of the 4 updates, all 104
+   sepconv7 launches inside their ``FrechetInceptionDistance.update`` ranges, 26 each;
+   the states equal bit for bit to a run without a session (its sepconv7 launches are the
+   path's count). Then ``{acc, f1, confmat}`` with compute groups at batch 65536: update
+   ms with telemetry off, on and on with blocking timing; launch calls and host reads
+   (the confusion matrix's ``bincount`` reads once) off and on, equal; 3 updates of the
+   stat-score members ``{acc, f1}`` under ``set_sync_debug_mode("error")`` in a fresh
+   session, the cost harvest included;
+   ``telemetry_summary()`` with f1 fused into acc. In an NCCL group of one its coalesced
+   sync's ``sync_collectives`` equal the profiler's ``nccl:all_gather`` count, its
+   ``sync_payload_bytes`` the payload shipped, its metadata row the CPU encoder's from the
+   same leaves and vectors; ``gather_counters()`` and ``gather_histograms()`` after it
+   launch no collective, ``gather_counters(prefer_sync_rows=False)`` exactly one. The
+   phase's JSONL trace goes through ``tools/trace_report.py --json``.
+
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
 lines carry ``step_ms`` (host clock around synchronised steps) and the card.
@@ -2390,6 +2411,355 @@ def reliability_phase(card: str) -> int:
           "update_ms": update_ms, "clone_bytes_per_update": clone_bytes, "clone_ms": clone_ms,
           "clone_bound_ms": clone_bound_ms, "calls_per_update": calls, "policy_extra_calls": extra_calls,
           "sync": {**sync, "host_reads_validated_sync": reads}, "plot": plot,
+          "seconds": time.perf_counter() - started, "card": card})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the observability plane: FID's update, the main path and its sync under a session
+
+OBS_BATCH = 128
+OBS_UPDATES = 4
+OBS_MAIN_BATCH = 65536
+OBS_MAIN_UPDATES = 20
+OBS_FEATURES = 2048
+FID_UPDATE_SPAN = "FrechetInceptionDistance.update"
+# the trunk's spatial sizes: the stem's convs in order from 299x299, then each block's input
+STEM_SIZES = {"stem1": 299, "stem2": 149, "stem3": 147, "stem4": 73, "stem5": 73}
+BLOCK_SIZES = {"mixed_a": 35, "mixed_b": 35, "mixed_c": 17, "mixed_d": 17, "mixed_e": 8}
+
+
+def conv_flops(conv, size: int, batch: int) -> int:
+    """``2·B·O·C·kh·kw·Ho·Wo`` of one ``BasicConv2d`` on a ``size`` x ``size`` input:
+    "VALID" convs (stride 1 or 2) shrink the plane, "SAME" stride-1 convs keep it."""
+    o, c, kh, kw = conv.w.shape
+    valid = conv.padding == 0
+    ho = (size - kh) // conv.stride + 1 if valid else size
+    wo = (size - kw) // conv.stride + 1 if valid else size
+    return 2 * batch * o * c * kh * kw * ho * wo
+
+
+def trunk_flops(extractor, batch: int) -> int:
+    """Multiply-adds times two of every conv of one InceptionV3 trunk forward at
+    ``batch`` 299x299 images, from the conv shapes alone: the 26 separable convs that
+    ``sepconv7`` runs and the rest that ``F.conv2d`` runs. Every conv of a block takes
+    the block's input plane (a strided conv shrinks its own output only)."""
+    total = sum(conv_flops(extractor.stem[name], size, batch) for name, size in STEM_SIZES.items())
+    for name, block in extractor.blocks.items():
+        size = BLOCK_SIZES[name.rstrip("0123456789")]
+        total += sum(conv_flops(conv, size, batch) for conv in block.c.values())
+    return total
+
+
+def fid_update_flops(extractor, batch: int, features: int = OBS_FEATURES) -> int:
+    """One FID update's matmul and conv flops: the trunk's convs and the ``f.T @ f``
+    covariance product (``2·B·F·F``), the ops ``FlopCounterMode`` counts."""
+    return trunk_flops(extractor, batch) + 2 * batch * features * features
+
+
+def launches_inside_spans(events, span: str, kernel: str) -> dict:
+    """Where the launches of the kernels named ``kernel`` fall in a ``torch.profiler``
+    trace: each device event whose name holds ``kernel`` is matched to its host launch
+    call (the same correlation id) and that call to the host ranges named ``span``.
+    Returns the kernels, how many launches lie inside a span, and the kernels per span."""
+    from torch.autograd import DeviceType
+
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.device_type == DeviceType.CPU and e.name == span)
+    launch_of = {e.id: e for e in events if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and kernel in e.name]
+    per_span = [0] * len(ranges)
+    inside = 0
+    for k in kernels:
+        launch = launch_of.get(k.id)
+        if launch is None:
+            continue
+        for i, (begin, end) in enumerate(ranges):
+            if begin <= launch.time_range.start and launch.time_range.end <= end:
+                per_span[i] += 1
+                inside += 1
+                break
+    return {"kernels": len(kernels), "inside": inside, "spans": len(ranges), "per_span": per_span}
+
+
+def traced(step, tries: int = 4, want=None) -> list:
+    """``step`` once under ``torch.profiler`` after ``PROFILE_LEAD_LAUNCHES`` lead
+    launches and a pause (a trace can lose the device events of its first launches);
+    taken again, up to ``tries`` times, until ``want(events)`` holds. Returns the
+    trace's events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lead = torch.zeros(1, device="cuda")
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD_LAUNCHES):
+                lead.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+            step()
+            torch.cuda.synchronize()
+        events = list(prof.events())
+        if want is None or want(events):
+            break
+    return events
+
+
+def collectives_of(events) -> dict:
+    from torch.autograd import DeviceType
+
+    return count_collective_ops(e.name for e in events if e.device_type == DeviceType.CPU)
+
+
+def captured_metadata_rows(call) -> list:
+    """The metadata rows the coalesced sync hands to its transport while ``call`` runs."""
+    from torchmetrics_tpu_torch.parallel import coalesce
+
+    rows, original = [], coalesce._gather_metadata
+
+    def capture(gather, meta, process_group, real):
+        rows.append(np.array(meta, copy=True))
+        return original(gather, meta, process_group, real)
+
+    coalesce._gather_metadata = capture
+    try:
+        call()
+    finally:
+        coalesce._gather_metadata = original
+    return rows
+
+
+def cpu_metadata_row(states, reductions, counters_vector, hist_vector):
+    """The row the port's encoder builds on the CPU from copies of ``states`` and the
+    given counter and histogram vectors."""
+    from torchmetrics_tpu_torch.parallel import coalesce
+
+    cpu = [{k: [t.cpu() for t in v] if isinstance(v, list) else v.cpu() for k, v in s.items()} for s in states]
+    return coalesce._encode_metadata(coalesce._prepare_leaves(cpu, reductions), counters_vector, hist_vector)
+
+
+def obs_collection(device=None, members=("acc", "f1", "confmat")):
+    """The main path's ``{acc, f1, confmat}`` with compute groups, or some of it."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch import classification as tc
+
+    build = {
+        "acc": lambda: tc.MulticlassAccuracy(5, average="micro", validate_args=False, device=device),
+        "f1": lambda: tc.MulticlassF1Score(5, validate_args=False, device=device),
+        "confmat": lambda: tc.MulticlassConfusionMatrix(5, validate_args=False, device=device),
+    }
+    return MetricCollection({name: build[name]() for name in members}, compute_groups=True, device=device)
+
+
+def timed_updates(coll, batches) -> list:
+    """Host ms of each update, the card synchronised around it."""
+    times = []
+    for preds, target in batches:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        coll.update(preds, target)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return times
+
+
+def trace_report(path: str) -> dict:
+    """``tools/trace_report.py --json`` on a JSONL trace, as a user runs it."""
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "trace_report.py")
+    out = subprocess.run([sys.executable, tool, path, "--json"], capture_output=True, text=True, check=True,
+                         timeout=120)
+    return json.loads(out.stdout)
+
+
+def observability_phase(card: str) -> int:
+    """FID's update through the bf16 trunk (He-scaled seeded weights, B=128, 4 updates)
+    under ``telemetry_session(TelemetryConfig(block_until_ready=True,
+    cost_accounting=True))``: the counters, each update's recorded duration beside its
+    time by CUDA events, the cost record's flops beside the trunk's conv count and the
+    covariance product, every sepconv7 launch of a traced run inside its update's
+    profiler range, and the states equal bit for bit to a run without a session. Then
+    the main path's collection ``{acc, f1, confmat}`` at batch 65536: update ms with
+    telemetry off, on and on with blocking timing, launch calls off and on, updates
+    under ``set_sync_debug_mode("error")`` with the session on, ``telemetry_summary()``;
+    its coalesced sync in an NCCL group of one: ``sync_collectives`` against the
+    profiler's NCCL count, ``sync_payload_bytes`` against the payload shipped, the
+    metadata row against the CPU encoder's, and the fleet rollups. The phase's JSONL
+    trace goes through ``tools/trace_report.py``. Returns the sepconv7 launches of the
+    session's run, the path's count."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch import observability as obs
+    from torchmetrics_tpu_torch.image import InceptionV3Features
+    from torchmetrics_tpu_torch.kernels.sepconv import sepconv7
+
+    started = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_observability_")
+    trace_path = os.path.join(workdir, "trace.jsonl")
+
+    def session(**kwargs):
+        return obs.telemetry_session(obs.TelemetryConfig(
+            sinks=(obs.JSONLSink(trace_path), obs.RingBufferSink(4096)), **kwargs))
+
+    extractor = InceptionV3Features.from_numpy_params(he_scaled(InceptionV3Features._random_params(0)),
+                                                      compute_dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    batches = [torch.rand((OBS_BATCH, 3, 299, 299), generator=gen, device="cuda") ** (1 + i % 2)
+               for i in range(OBS_UPDATES)]
+    plain = reliability_fid(extractor)
+    fid_updates(plain, batches)
+    torch.cuda.synchronize()
+
+    fid = reliability_fid(extractor)
+    event_ms = []
+    torch.cuda.synchronize()
+    sepconv7.launches = 0
+    with session(block_until_ready=True, cost_accounting=True) as rec:
+        for i, imgs in enumerate(batches):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fid.update(imgs, real=i % 2 == 0)
+            end.record()
+            end.synchronize()
+            event_ms.append(start.elapsed_time(end))
+        snap = rec.counters.snapshot()
+        costs = rec.cost_snapshot()
+        recorded_ms = [e.duration_s * 1e3 for e in rec.events_of("dispatch")]
+    torch.cuda.synchronize()
+    launches = sepconv7.launches
+    counts = {k: snap[k] for k in ("dispatches", "jit_compiles", "jit_cache_hits", "d2h_readbacks", "retraces")}
+    if counts != {"dispatches": OBS_UPDATES, "jit_compiles": 1, "jit_cache_hits": OBS_UPDATES - 1,
+                  "d2h_readbacks": 0, "retraces": 0}:
+        raise AssertionError(f"observability: FID's counters under a session are {counts}")
+    if launches != SEPCONV_PER_FORWARD * OBS_UPDATES:
+        raise AssertionError(f"observability: {launches} sepconv7 launches over {OBS_UPDATES} updates")
+    if len(recorded_ms) != OBS_UPDATES or any(r < 0.9 * e for r, e in zip(recorded_ms, event_ms)):
+        raise AssertionError(f"observability: blocking durations {recorded_ms} ms against CUDA events {event_ms} ms")
+    ((key, sigs),) = costs.items()
+    ((signature, cost),) = sigs.items()
+    want_flops = fid_update_flops(extractor, OBS_BATCH)
+    if not cost["available"] or cost["flops"] != want_flops:
+        raise AssertionError(f"observability: the cost record of {key} holds {cost}, {want_flops} flops derived")
+    bitwise = all(torch.equal(v, plain._state[k]) for k, v in tensor_states(fid).items())
+    repeats = None
+    if not bitwise:  # is the card itself repeating? (see the reliability phase)
+        again = reliability_fid(extractor)
+        fid_updates(again, batches)
+        repeats = all(torch.equal(v, plain._state[k]) for k, v in tensor_states(again).items())
+        if repeats:
+            raise AssertionError("observability: a session changed FID's states")
+
+    span_fid = reliability_fid(extractor)
+    with session():
+        events = traced(lambda: fid_updates(span_fid, batches),
+                        want=lambda ev: launches_inside_spans(ev, FID_UPDATE_SPAN, "sepconv7")["kernels"]
+                        == SEPCONV_PER_FORWARD * OBS_UPDATES)
+    spans = launches_inside_spans(events, FID_UPDATE_SPAN, "sepconv7")
+    if spans["kernels"] != SEPCONV_PER_FORWARD * OBS_UPDATES or spans["inside"] != spans["kernels"] \
+            or spans["per_span"] != [SEPCONV_PER_FORWARD] * OBS_UPDATES:
+        raise AssertionError(f"observability: sepconv7 launches against the update spans: {spans}")
+
+    # the main path: the {acc, f1, confmat} collection with compute groups
+    rows = [(torch.randn((OBS_MAIN_BATCH, 5), generator=gen, device="cuda"),
+             torch.randint(0, 5, (OBS_MAIN_BATCH,), generator=gen, device="cuda")) for _ in range(OBS_MAIN_UPDATES)]
+    coll = obs_collection()
+    coll.update(*rows[0])  # derives the groups (an allclose read), outside the timed runs
+    update_ms = {"off": [], "on": [], "on_blocking": []}
+    for _ in range(2):  # off, on, blocking, twice over: the card's drift spreads over all three
+        update_ms["off"] += timed_updates(coll, rows)
+        with session():
+            update_ms["on"] += timed_updates(coll, rows)
+        with session(block_until_ready=True):
+            update_ms["on_blocking"] += timed_updates(coll, rows)
+    update_ms = {k: median(v) for k, v in update_ms.items()}
+    calls = {"off": launch_calls(profile_step("observability_update_off", lambda: coll.update(*rows[1])))}
+    with session():
+        calls["on"] = launch_calls(profile_step("observability_update_on", lambda: coll.update(*rows[1])))
+    if calls["on"] != calls["off"]:
+        raise AssertionError(f"observability: a session changed the launch calls of an update: {calls}")
+    # the confusion matrix's bincount reads the card once an update on its own: telemetry
+    # must add no read to it, and the stat-score members must run under "error" mode
+    reads = {"off": host_reads(lambda: coll.update(*rows[3]))}
+    with session():  # a fresh session: its first update harvests the cost too
+        reads["on"] = host_reads(lambda: coll.update(*rows[3]))
+    if reads["on"] != reads["off"]:
+        raise AssertionError(f"observability: a session changed the host reads of an update: {reads}")
+    stat_scores = obs_collection(members=("acc", "f1"))
+    stat_scores.update(*rows[0])  # derives the groups
+    with session():  # fresh again: the harvest runs under "error" mode too
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for preds, target in rows[:3]:
+                stat_scores.update(preds, target)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    with session():
+        for preds, target in rows[:3]:
+            coll.update(preds, target)
+        summary = coll.telemetry_summary()
+    fused = {name: info.get("fused_into") for name, info in summary["members"].items()}
+    if fused != {"acc": None, "f1": "acc", "confmat": None} or summary["members"]["acc"]["dispatches"] != 3:
+        raise AssertionError(f"observability: telemetry_summary's members are {summary['members']}")
+
+    # the coalesced sync in an NCCL group of one
+    states, reductions = distinct_states(coll)
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_observability_nccl_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}/store", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        with session() as rec:
+            coll.update(*rows[2])
+            before = rec.counters.snapshot()
+            vectors = (rec.counters.counts_vector(), rec.histograms.fleet_vector())
+            holder = {}
+            metadata = captured_metadata_rows(lambda: holder.setdefault(
+                "events", traced(lambda: coll.sync(distributed_available=lambda: True))))
+            after = rec.counters.snapshot()
+            traced_sync = collectives_of(holder["events"])
+            want_row = cpu_metadata_row(states, reductions, *vectors)
+            meta_bytes = want_row.nbytes
+            # the row is metadata: the payload counter holds the states' bytes, as in the JAX package
+            payload = shipped_bytes(states, reductions) - meta_bytes
+            sync = {"collectives": after["sync_collectives"] - before["sync_collectives"], "traced": traced_sync,
+                    "payload_bytes": after["sync_payload_bytes"] - before["sync_payload_bytes"],
+                    "shipped_payload_bytes": payload, "metadata_row_bytes": meta_bytes,
+                    "metadata_row_equal": len(metadata) == 1 and np.array_equal(metadata[0], want_row),
+                    "gathers_coalesced": after["gathers_coalesced"] - before["gathers_coalesced"]}
+            if sync["collectives"] != traced_sync.get("by_name", {}).get("nccl:all_gather", 0) \
+                    or sync["collectives"] != traced_sync["total"] or sync["payload_bytes"] != payload \
+                    or not sync["metadata_row_equal"]:
+                raise AssertionError(f"observability: the sync's records against its trace: {sync}")
+            rollups = {}
+            for label, call in (("gather_counters", obs.gather_counters), ("gather_histograms", obs.gather_histograms),
+                                ("gather_counters_fresh", lambda: obs.gather_counters(prefer_sync_rows=False))):
+                got = {}
+                rollups[label] = collectives_of(traced(lambda c=call: got.setdefault("value", c())))
+                value = got["value"]
+                rollups[label].update({"ranks": value.ranks} if hasattr(value, "ranks") else {"kinds": len(value)})
+            if rollups["gather_counters"]["total"] or rollups["gather_histograms"]["total"] \
+                    or rollups["gather_counters_fresh"]["total"] != 1:
+                raise AssertionError(f"observability: the fleet rollups launched {rollups}")
+            coll.unsync()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    report = trace_report(trace_path)
+    shutil.rmtree(workdir, ignore_errors=True)
+    emit({"phase": "observability", "batch": OBS_BATCH, "updates": OBS_UPDATES, "trunk": "bfloat16",
+          "fid": {"counters": counts, "recorded_ms": recorded_ms, "cuda_event_ms": event_ms,
+                  "cost": {"key": key, "signature": signature, **cost}, "flops_derived": want_flops,
+                  "sepconv7_launches": launches, "spans": spans, "states_bitwise": bitwise,
+                  "card_repeats_bitwise": repeats},
+          "main_path": {"batch": OBS_MAIN_BATCH, "updates": OBS_MAIN_UPDATES, "update_ms": update_ms,
+                        "launch_calls_per_update": calls, "host_reads_per_update": reads,
+                        "sync_debug_error_updates": {"members": ["acc", "f1"], "updates": 3},
+                        "groups": group_sets(coll), "summary_members": summary["members"]},
+          "sync": sync, "rollups": rollups,
+          "trace_report": {"rows": len(report.get("rows", [])), "keys": sorted(report)},
           "seconds": time.perf_counter() - started, "card": card})
     return launches
 
@@ -7237,6 +7607,7 @@ def main() -> int:
     launches_by_path["generative"] = generative_phase(card)
     collection_groups_phase(card)
     launches_by_path["reliability"] = reliability_phase(card)
+    launches_by_path["observability"] = observability_phase(card)
     classification_tower_phase(card)
     curve_data = curves_phase(card)
     tower_tail_phase(card, curve_data)

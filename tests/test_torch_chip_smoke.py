@@ -145,7 +145,7 @@ def test_shipped_bytes_are_the_metadata_row_and_every_payload(chip_smoke):
 
     states, reductions = _sync_states()
     meta = coalesce.build_local_metadata(states, reductions)
-    assert meta.nbytes == 4 * (6 + 9 * 11)
+    assert meta.nbytes == 4 * (6 + 9 * 11 + 2 * 53 + 2 * 374)  # header, 9 leaf records, counter and histogram tails
     payload = 4 * (4 * 5 + 25 + 9 + 2 + 1)  # tp/fp/tn/fn per class, the 5x5 counts, 9 cat values, 2 sums, a max
     assert chip_smoke.shipped_bytes(states, reductions) == meta.nbytes + payload
 
@@ -1585,3 +1585,98 @@ def test_plot_value_rehearsal_and_the_jax_packages_error_text(chip_smoke):
     confmat.update(torch.randn(32, 5), torch.randint(0, 5, (32,)))
     out = chip_smoke.plot_value_checks({"fid": (fid, fid.compute()), "confusion_matrix": (confmat, confmat.compute())})
     assert out["values"] == {"fid": [], "confusion_matrix": [5, 5]}
+
+
+# ------------------------------------------------------------------ observability phase
+
+
+def test_fid_update_flops_are_what_flop_counter_mode_counts_on_the_trunk(chip_smoke):
+    """The analytic count of one FID update (the trunk's convs from their shapes and the
+    covariance product) equals ``FlopCounterMode``'s on the CPU, where sepconv7's
+    reference runs as einsums the mode sees: the card's harvest adds the kernel's own
+    ``2·B·C·O·H·W·7`` for the same work."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance, InceptionV3Features
+
+    trunk = InceptionV3Features(seed=0, device="cpu")
+    fid = FrechetInceptionDistance(feature=trunk, normalize=True, device="cpu")
+    imgs = torch.rand((1, 3, 299, 299), generator=torch.Generator().manual_seed(0))
+    with FlopCounterMode(display=False) as counter:
+        fid.update(imgs, real=True)
+    assert counter.get_total_flops() == chip_smoke.fid_update_flops(trunk, 1)
+    sep = sum(2 * c * o * 17 * 17 * 7 for c, o, _ in chip_smoke.trunk_sepconv_shapes())
+    assert chip_smoke.trunk_flops(trunk, 2) == 2 * chip_smoke.trunk_flops(trunk, 1) > 2 * sep
+
+
+def _event(name, device, start, end, eid):
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    return SimpleNamespace(name=name, device_type=getattr(DeviceType, device), id=eid,
+                           time_range=SimpleNamespace(start=start, end=end))
+
+
+def test_launches_inside_spans_matches_kernels_to_their_launch_and_range(chip_smoke):
+    span = chip_smoke.FID_UPDATE_SPAN
+    events = [
+        _event(span, "CPU", 0, 100, -1), _event(span, "CPU", 200, 300, -2),
+        _event("cudaLaunchKernel", "CPU", 10, 12, 1), _event("sepconv7_bf16_kernel", "CUDA", 20, 40, 1),
+        _event("cuLaunchKernel", "CPU", 210, 212, 2), _event("sepconv7_bf16_kernel", "CUDA", 220, 240, 2),
+        _event("cudaLaunchKernel", "CPU", 150, 152, 3), _event("sepconv7_bf16_kernel", "CUDA", 160, 170, 3),
+        _event("cudaLaunchKernel", "CPU", 20, 22, 4), _event("other_kernel", "CUDA", 30, 35, 4),
+        _event(span, "CUDA", 0, 100, -3),  # the range's device copy is no host range
+    ]
+    got = chip_smoke.launches_inside_spans(events, span, "sepconv7")
+    assert got == {"kernels": 3, "inside": 2, "spans": 2, "per_span": [1, 1]}
+
+
+def test_the_synced_metadata_row_is_the_cpu_encoders(chip_smoke):
+    """The phase's comparison on the CPU: the row a coalesced sync in a session hands to
+    its transport equals the encoder's row from CPU copies of the states and the
+    session's vectors, tails included."""
+    from torchmetrics_tpu_torch import observability as obs
+
+    coll = chip_smoke.obs_collection("cpu")
+    gen = torch.Generator().manual_seed(3)
+    preds, target = torch.randn((64, 5), generator=gen), torch.randint(0, 5, (64,), generator=gen)
+    with obs.telemetry_session() as rec:
+        coll.update(preds, target)
+        coll.update(preds, target)
+        states, reductions = chip_smoke.distinct_states(coll)
+        vectors = (rec.counters.counts_vector(), rec.histograms.fleet_vector())
+        rows = chip_smoke.captured_metadata_rows(lambda: coll.sync(distributed_available=lambda: True))
+        coll.unsync()
+    want = chip_smoke.cpu_metadata_row(states, reductions, *vectors)
+    assert len(rows) == 1 and np.array_equal(rows[0], want)
+    # 3 members dispatch the first update, the 2 group leaders the second: 5 ride the tail
+    assert vectors[0][0] == 5 and want[3] == len(vectors[0])
+    assert not np.array_equal(want, chip_smoke.cpu_metadata_row(states, reductions, None, None))
+
+
+def test_observability_rehearsal_counts_costs_and_keeps_the_states(chip_smoke, tmp_path):
+    """The phase's FID checks on the CPU through a projection extractor: 4 dispatches, 1
+    compile, 3 hits and no readback under a blocking session; the cost record's flops are
+    the projection's and the covariance product's; the states equal a run without a
+    session bit for bit; ``trace_report`` reads the session's JSONL trace."""
+    from torchmetrics_tpu_torch import observability as obs
+
+    extractor, batches = _TinyFeatures(), _tiny_batches()
+    plain = chip_smoke.reliability_fid(extractor, device="cpu")
+    chip_smoke.fid_updates(plain, batches)
+    fid = chip_smoke.reliability_fid(extractor, device="cpu")
+    trace = tmp_path / "trace.jsonl"
+    config = obs.TelemetryConfig(sinks=(obs.JSONLSink(str(trace)), obs.RingBufferSink()), block_until_ready=True,
+                                 history_clock=lambda: 0.0)
+    with obs.telemetry_session(config) as rec:
+        chip_smoke.fid_updates(fid, batches)
+        snap, costs = rec.counters.snapshot(), rec.cost_snapshot()
+    assert [snap[k] for k in ("dispatches", "jit_compiles", "jit_cache_hits", "d2h_readbacks")] == [4, 1, 3, 0]
+    ((key, sigs),) = costs.items()
+    assert key == "FrechetInceptionDistance#0.update" and list(sigs) == ["float32(6, 3, 8, 8)|bool()"]
+    assert sigs["float32(6, 3, 8, 8)|bool()"]["flops"] == 2 * 6 * 192 * 16 + 2 * 6 * 16 * 16
+    assert all(torch.equal(v, plain._state[k]) for k, v in chip_smoke.tensor_states(fid).items())
+    report = chip_smoke.trace_report(str(trace))
+    assert [(r["metric"], r["phase"], r["events"], r["compiles"], r["cache_hits"]) for r in report["rows"]] == [
+        ("FrechetInceptionDistance#0", "update", 4, 1, 3)]

@@ -418,6 +418,17 @@ def test_the_new_modules_are_scanned_and_their_doctests_listed():
         assert ROOT / "torchmetrics_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
 
 
+def test_the_observability_modules_are_scanned_and_their_doctests_listed():
+    for name in ("observability.quantile", "observability.histograms", "observability.counters",
+                 "observability.events", "observability.spans", "observability.memory", "observability.tracing",
+                 "observability.costs", "observability.timeseries", "observability.slo", "observability.flightrec",
+                 "observability.export", "streaming.telescope", "aot.keys"):
+        assert f"torchmetrics_tpu_torch.{name}" in PORT_MODULES
+        assert ROOT / "torchmetrics_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
+    for package in ("observability", "streaming", "aot"):
+        assert ROOT / "torchmetrics_tpu_torch" / package / "__init__.py" in PORT_FILES
+
+
 def test_explicit_cpu_device_runs_without_cuda(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     metric = MulticlassAccuracy(5, device="cpu")

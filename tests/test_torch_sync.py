@@ -192,16 +192,19 @@ def test_coalesced_process_sync_equals_jax_bitwise(world, seed):
 
 
 def test_metadata_row_layout_matches_the_jax_header_and_leaf_records():
-    """The port's row is the JAX row without the telemetry tails: same header (with 0
-    counter fields) and the same leaf records."""
+    """The port's row is the JAX row int for int: the same header (with
+    ``len(COUNTER_FIELDS)`` counter fields), the same leaf records and the telemetry
+    tails, zeros when no session is on."""
+    from torchmetrics_tpu_torch.observability import COUNTER_FIELDS
+    from torchmetrics_tpu_torch.observability.histograms import FLEET_VECTOR_LEN
+
     jax_states, port_states = world_states(2, 1)
     port_row = PC.build_local_metadata([port_states[0]], [PORT_REDUCTIONS])
     jax_row = JC.build_local_metadata([jax_states[0]], [_FULL_REDUCTIONS])
-    n = PC._HEADER_LEN + len(port_states[0]) * PC._LEAF_REC_LEN
+    n = PC._HEADER_LEN + len(port_states[0]) * PC._LEAF_REC_LEN + 2 * len(COUNTER_FIELDS) + 2 * FLEET_VECTOR_LEN
     assert port_row.dtype == np.int32 and port_row.shape == (n,)
-    np.testing.assert_array_equal(port_row[[0, 1, 2, 4, 5]], jax_row[[0, 1, 2, 4, 5]])
-    assert port_row[3] == 0
-    np.testing.assert_array_equal(port_row[PC._HEADER_LEN :], jax_row[PC._HEADER_LEN : n])
+    assert port_row[3] == len(COUNTER_FIELDS)
+    np.testing.assert_array_equal(port_row, jax_row)
 
 
 # ------------------------------------------------------- fallbacks and errors
@@ -268,7 +271,7 @@ def test_tombstone_row_folds_the_survivors_only_like_jax(dead):
 
 
 def test_all_zero_world_is_a_fallback_not_a_fold():
-    rows = [np.zeros(PC._HEADER_LEN + PC._LEAF_REC_LEN, np.int32)] * 2
+    rows = [np.zeros(len(PC.build_local_metadata([{"x": torch.zeros(2)}], [{"x": "sum"}])), np.int32)] * 2
     leaves = PC._prepare_leaves([{"x": torch.zeros(2)}], [{"x": "sum"}])
     with pytest.raises(PC.CoalesceFallback, match="tombstone"):
         PC._plan_from_rows(rows, leaves)

@@ -5,8 +5,8 @@ paths and imports neither JAX nor anything of the JAX package. Entry points run 
 unless the caller passes ``device="cpu"``.
 """
 
-from . import (aggregation, audio, classification, clustering, detection, image, multimodal, nominal, parallel,
-               regression, retrieval, segmentation, shape, text, utilities, video, wrappers)
+from . import (aggregation, audio, classification, clustering, detection, image, multimodal, nominal, observability,
+               parallel, regression, retrieval, segmentation, shape, text, utilities, video, wrappers)
 from .aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, RunningMean, RunningSum, SumMetric
 from .audio import *  # noqa: F401,F403
 from .classification import *  # noqa: F401,F403

@@ -5,6 +5,9 @@ coalesced ``sync``/``unsync``, ``merge_state``, checkpoints (``persistent``,
 ``state_dict``, ``load_state_dict``), ``clone``, ``set_dtype``, ``to``, ``plot`` and
 ``as_pure`` with ``PureCollection.reduce``. The coalesced sync retries under the first
 member's ``RetryPolicy`` and validates every synced dict before it commits any.
+``state_memory`` and ``telemetry_summary`` report the members' state bytes and their
+dispatches in a telemetry session, with the fused members of a compute group pointing
+at their leader; a quarantine or a skip and a coalesced sync are recorded there too.
 
 Compute groups: after the first update, metrics whose states are equal (the same names,
 reductions and values) share one state dict, and only each group's leader runs
@@ -22,8 +25,12 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from . import observability as _observability
 from .metric import Metric
+from .observability import memory as _obs_memory
+from .observability import tracing as _tracing
 from .parallel import coalesce as _coalesce
+from .parallel import sync as _par_sync
 from .reliability.guards import validate_state
 from .utilities.checks import resolve_device
 from .utilities.data import _flatten_dict, allclose
@@ -330,6 +337,14 @@ class MetricCollection:
         """Degrade by the policy (never called under ``on_error="raise"``)."""
         self._detach_from_group(name)
         self._degraded = True
+        rec = _observability._ACTIVE
+        if rec is not None:
+            # the degradation lands in the telemetry stream when it is decided, not
+            # only as a marker in a later compute()
+            rec.record_quarantine(
+                name, stage, "quarantined" if self.on_error == "quarantine" else "skipped",
+                exc, self._modules[name]._update_count,
+            )
         if self.on_error == "quarantine":
             self._quarantined[name] = (stage, exc)
             rank_zero_warn(
@@ -528,6 +543,12 @@ class MetricCollection:
         for m in metrics:
             holders.setdefault(id(m._state), []).append(m)
 
+        rec = _observability._ACTIVE
+        t0 = _tracing.monotonic() if rec is not None else 0.0
+        bytes_total = sum(_par_sync._payload_bytes(ms[0]._state) for ms in holders.values())
+        coll0 = rec.counters.value("sync_collectives") if rec is not None else 0
+        coal0 = rec.counters.value("gathers_coalesced") if rec is not None else 0
+
         def attempt() -> List[Dict[str, Any]]:
             return _coalesce.coalesced_process_sync(
                 [ms[0]._state for ms in holders.values()], [ms[0]._reductions for ms in holders.values()],
@@ -535,13 +556,24 @@ class MetricCollection:
                 dist_sync_fn=dist_sync_fn or metrics[0].dist_sync_fn,
             )
 
+        def count_attempt(exc: BaseException, attempt_no: int) -> None:
+            # a failed attempt still entered the sync plane: counted as process_sync counts
+            if rec is not None:
+                rec.counters.record_sync(bytes_total)
+
         # the first member's policy that has one retries the whole coalesced sync
         retry = next((m._reliability.retry for m in metrics
                       if m._reliability is not None and m._reliability.retry is not None), None)
-        try:
-            synced = attempt() if retry is None else retry.call(attempt, describe="MetricCollection.sync")
-        except _coalesce.CoalesceFallback:
-            return False  # nothing committed; the per-member path syncs from scratch
+        with _tracing.trace_span("MetricCollection.sync"):
+            try:
+                synced = attempt() if retry is None else retry.call(
+                    attempt, on_retry=count_attempt, describe="MetricCollection.sync")
+            except _coalesce.CoalesceFallback:
+                # nothing committed and nothing recorded: the per-member path records
+                # its own syncs
+                return False
+        if rec is not None:  # the successful attempt is one sync entry
+            rec.counters.record_sync(bytes_total)
         # validate every distinct dict before committing any: a corrupt contribution must
         # not become any member's state, and a partial commit must never happen. Fused
         # members share one dict and one validation (fusion requires equal defaults and
@@ -558,6 +590,12 @@ class MetricCollection:
             holder._commit_synced(state)
             for m in aliased:
                 m._cache, m._state, m._is_synced = holder._cache, holder._state, True
+        if rec is not None:
+            rec.record_sync(
+                self, rec.finish(synced, t0, self.device), bytes_total,
+                collectives=rec.counters.value("sync_collectives") - coll0,
+                coalesced_leaves=rec.counters.value("gathers_coalesced") - coal0,
+            )
         return True
 
     def unsync(self, **kwargs: Any) -> None:
@@ -603,6 +641,66 @@ class MetricCollection:
         for name, metric in mine.items():
             if name not in grouped and name not in frozen:
                 metric.merge_state(theirs[name])
+
+    # ------------------------------------------------------------ observability
+
+    def state_memory(self) -> Dict[str, Any]:
+        """Per-member state-memory footprint (tensor metadata only, no device read).
+
+        Fused compute-group members alias their leader's state dict, so a per-member sum
+        would charge one buffer once per member: aliased members report their bytes but
+        carry an ``aliased_to`` pointer, and only the first holder of each distinct
+        state dict counts toward ``total_bytes``, the bytes that live on the device.
+        """
+        members: Dict[str, Any] = {}
+        seen: Dict[int, str] = {}
+        total = 0
+        for name, metric in self._modules.items():
+            report = _obs_memory.state_memory(metric._state)
+            holder = seen.get(id(metric._state))
+            if holder is not None:
+                report["aliased_to"] = holder
+            else:
+                seen[id(metric._state)] = name
+                total += report["total_bytes"]
+            members[name] = report
+        return {"members": members, "total_bytes": total}
+
+    def telemetry_summary(self) -> Dict[str, Any]:
+        """Per-member dispatch attribution from the active telemetry session.
+
+        A fused compute group dispatches once, through its leader: the other members
+        show no dispatches of their own after the fusion and a ``fused_into`` pointer to
+        the leader. Quarantined members carry their status. ``{"enabled": False}`` when
+        no session is active.
+        """
+        rec = _observability.active()
+        if rec is None:
+            return {"enabled": False}
+        groups = {gid: list(m) for gid, m in self._groups.items()} if self._groups_checked else {}
+        leader_of = {name: members[0] for members in groups.values() for name in members[1:]}
+        mem = self.state_memory()
+        members_out: Dict[str, Any] = {}
+        for name, metric in self._modules.items():
+            info = rec.metric_summary(metric)
+            latency = rec.metric_latency(metric)
+            if latency:  # per-stage p50/p99 from the session's histograms
+                info["latency_us"] = latency
+            if name in leader_of:
+                info["fused_into"] = leader_of[name]
+            if name in self._quarantined:
+                stage, _ = self._quarantined[name]
+                info["status"] = "quarantined"
+                info["quarantine_stage"] = stage
+            info["state_bytes"] = mem["members"][name]["total_bytes"]
+            members_out[name] = info
+        return {
+            "enabled": True,
+            "members": members_out,
+            "compute_groups": groups,
+            "counters": rec.counters.snapshot().summary(brief=True),
+            "state_memory_bytes": mem["total_bytes"],
+        }
 
     # ------------------------------------------------------ copies and checkpoints
 

@@ -13,6 +13,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..observability import costs as _obs_costs
 from ._build import NativeKernel
 
 TAPS = 7
@@ -74,7 +75,8 @@ def sepconv7(x: torch.Tensor, w: torch.Tensor, axis: str) -> torch.Tensor:
     CUDA tensors (float32 or bfloat16, contiguous) launch the kernel on the tensor cores
     (``wgmma``) and count one in ``sepconv7.launches``: bfloat16 directly, float32 as three
     TF32 products of split operands (hi and lo), to f32 accuracy. CPU tensors take
-    ``sepconv7_reference``.
+    ``sepconv7_reference``. A launch adds its ``2·B·C·O·H·W·7`` flops to every open
+    telemetry cost harvest: the ctypes launch is invisible to ``FlopCounterMode``.
     """
     dim = _axis_dim(axis)
     _check_shapes(x, w)
@@ -102,6 +104,7 @@ def sepconv7(x: torch.Tensor, w: torch.Tensor, axis: str) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"sepconv7: kernel launch failed with CUDA error {rc}")
     sepconv7.launches += 1
+    _obs_costs.add_flops(2 * batch * channels * out_channels * height * width * TAPS)
     return out
 
 

@@ -30,8 +30,18 @@ attempt may change the states (an in-place ``index_add_``, a fold, a cat append)
 under a policy ``update`` and ``forward`` clone every tensor state before the first
 attempt and roll the states, the cat lists' lengths and the update count back before a
 retry and when the budget runs out. Without a policy nothing is copied and nothing more
-is launched. Not here yet: the telemetry and AOT hooks of those boundaries, and the
-serving and streaming planes.
+is launched.
+
+The observability plane (``observability/``) records at the same boundaries as in the
+JAX package when a telemetry session is active: one ``dispatch`` per tensor-path
+``update``/``forward`` with its input signature (the first signature of a key counts in
+``jit_compiles``, a repeated one in ``jit_cache_hits``: in eager PyTorch a first-seen
+and a repeated signature), a host dispatch per ``HostMetric`` update, ``compute``,
+``sync`` with its bytes and collectives, the state memory after each fold, and a
+``d2h`` at ``state_dict`` and at each ``compute_on_cpu`` append. With no session each
+boundary reads ``observability._ACTIVE`` once and opens only the ``torch.profiler``
+range the JAX package opens there. Not here yet: the AOT hooks of those boundaries,
+and the serving and streaming planes.
 ``HostMetric`` is the base of the metrics whose batch contribution is built on the host
 (detection's ragged per-image inputs).
 
@@ -43,6 +53,7 @@ identity (``is``, ``id()``).
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 from copy import deepcopy
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -50,6 +61,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from . import observability as _observability
+from .observability import costs as _obs_costs
+from .observability import memory as _obs_memory
+from .observability import tracing as _tracing
 from .parallel import sync as _sync
 from .reliability.guards import validate_restored, validate_state
 from .reliability.retry import ReliabilityConfig
@@ -284,8 +299,21 @@ class Metric:
         self._computed = None
 
     def _append_list_state(self, name: str, value: Any) -> None:
-        """Append one batch to a concat state; under ``compute_on_cpu`` on the host."""
-        self._state[name].append(value.cpu() if self.compute_on_cpu and isinstance(value, torch.Tensor) else value)
+        """Append one batch to a concat state; under ``compute_on_cpu`` on the host. The
+        offload is a deliberate device-to-host copy: a telemetry session counts it (after
+        the dispatch's own record, as the JAX package orders them)."""
+        if not (self.compute_on_cpu and isinstance(value, torch.Tensor)):
+            self._state[name].append(value)
+            return
+        rec = _observability._ACTIVE
+        if rec is not None:
+            nbytes = value.numel() * value.element_size()
+            pending = self.__dict__.get("_d2h_pending")
+            if pending is None:
+                rec.record_d2h("compute_on_cpu_append", nbytes, metric=self)
+            else:
+                pending.append(nbytes)
+        self._state[name].append(value.cpu())
 
     # --------------------------------------------------------- reliability seam
 
@@ -297,15 +325,28 @@ class Metric:
             hook(tag)
         return thunk()
 
-    def _reliable_call(self, tag: str, thunk: Callable[[], Any], restore: Optional[Callable] = None) -> Any:
-        """A boundary that retries transient failures when a ``RetryPolicy`` is
-        configured; otherwise one attempt. ``restore(exc, attempt)`` runs before a retry."""
+    def _retrying(self, tag: str, thunk: Callable[[], Any], restore: Optional[Callable] = None) -> Any:
+        """Retries transient failures when a ``RetryPolicy`` is configured; otherwise one
+        attempt. ``restore(exc, attempt)`` runs before a retry."""
         rel = self._reliability
         if rel is None or rel.retry is None:
             return self._attempt(tag, thunk)
         return rel.retry.call(
             lambda: self._attempt(tag, thunk), on_retry=restore, describe=f"{type(self).__name__}.{tag}"
         )
+
+    def _reliable_call(self, tag: str, thunk: Callable[[], Any], restore: Optional[Callable] = None) -> Any:
+        """A boundary under :meth:`_retrying`. Telemetry: ``HostMetric`` routes its
+        ``update``/``forward`` contribution through here (the tensor path records in
+        :meth:`_dispatch`), so those tags record as host dispatches in a session."""
+        rec = _observability._ACTIVE
+        if rec is None or tag not in ("update", "forward"):
+            return self._retrying(tag, thunk, restore)
+        t0 = _tracing.monotonic()
+        with _tracing.trace_span(f"{type(self).__name__}.{tag}"):
+            out = self._retrying(tag, thunk, restore)
+        rec.record_host_dispatch(self, tag, rec.finish(out, t0, self._device))
+        return out
 
     def _fold_reliably(self, tag: str, args: tuple, kwargs: dict) -> StateDict:
         """``update``'s and ``forward``'s boundary: this batch's state, folded into the
@@ -336,10 +377,38 @@ class Metric:
             self._update_count, self._computed = count, computed
 
         try:
-            return self._reliable_call(tag, fold_batch, restore=lambda exc, attempt: roll_back(copy=True))
+            return self._retrying(tag, fold_batch, restore=lambda exc, attempt: roll_back(copy=True))
         except Exception:
             roll_back(copy=False)
             raise
+
+    def _dispatch(self, tag: str, args: tuple, kwargs: dict, run: Callable[[], Any]) -> Any:
+        """The tensor path's ``update``/``forward`` boundary: ``run()`` inside the
+        metric's profiler range. In a telemetry session the dispatch is recorded with its
+        input signature and duration, a fresh signature's cost is harvested around this
+        one call (``observability/costs.py``), and the state memory is refreshed."""
+        label = f"{type(self).__name__}.{tag}"
+        rec = _observability._ACTIVE
+        if rec is None:
+            with _tracing.trace_span(label):
+                return run()
+        inputs = (args, kwargs)
+        sig = rec._signature(inputs)
+        harvest = None
+        if rec.config.cost_accounting and rec._fresh_signature(self, tag, sig):
+            harvest = _obs_costs.DispatchHarvest(self._state, inputs)
+        object.__setattr__(self, "_d2h_pending", [])
+        try:
+            t0 = _tracing.monotonic()
+            with _tracing.trace_span(label), harvest if harvest is not None else contextlib.nullcontext():
+                out = run()
+            rec.record_dispatch(self, tag, inputs, rec.finish(out, t0, self._device), lower=harvest, signature=sig)
+        finally:
+            pending = self.__dict__.pop("_d2h_pending")
+        for nbytes in pending:  # compute_on_cpu appends, after the dispatch's own record
+            rec.record_d2h("compute_on_cpu_append", nbytes, metric=self)
+        rec.record_state_memory(self)
+        return out
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Accumulate this batch into the global state."""
@@ -350,7 +419,7 @@ class Metric:
             )
         args, kwargs = self._on_device(args, kwargs)
         args, kwargs = self._prepare_inputs(*args, **kwargs)
-        self._fold_reliably("update", args, kwargs)
+        self._dispatch("update", args, kwargs, lambda: self._fold_reliably("update", args, kwargs))
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Batch value AND global accumulation in one pass: the batch state is computed
@@ -366,6 +435,9 @@ class Metric:
             return value
         args, kwargs = self._on_device(args, kwargs)
         args, kwargs = self._prepare_inputs(*args, **kwargs)
+        return self._dispatch("forward", args, kwargs, lambda: self._forward_value(args, kwargs))
+
+    def _forward_value(self, args: tuple, kwargs: dict) -> Any:
         batch = self._fold_reliably("forward", args, kwargs)
         for k, default in self._defaults.items():  # states the batch does not touch
             if k not in batch:
@@ -407,7 +479,12 @@ class Metric:
             did_sync = True
         try:
             state = self._concat_state()
-            value = self._reliable_call("compute", lambda: self._compute(state))
+            rec = _observability._ACTIVE
+            t0 = _tracing.monotonic() if rec is not None else 0.0
+            with _tracing.trace_span(f"{type(self).__name__}.compute"):
+                value = self._reliable_call("compute", lambda: self._compute(state))
+            if rec is not None:
+                rec.record_compute(self, rec.finish(value, t0, self._device))
         finally:
             if did_sync:
                 self.unsync()
@@ -439,15 +516,30 @@ class Metric:
             raise TorchMetricsUserError("The Metric has already been synced.")
         if not should_sync or not (distributed_available or self.distributed_available_fn)():
             return
-        synced = self._reliable_call(
-            "sync",
-            lambda: _sync.process_sync(
-                self._state,
-                self._reductions,
-                process_group=process_group or self.process_group,
-                dist_sync_fn=dist_sync_fn or self.dist_sync_fn,
-            ),
-        )
+        rec = _observability._ACTIVE
+        t0 = _tracing.monotonic() if rec is not None else 0.0
+        bytes0 = rec.counters.value("sync_payload_bytes") if rec is not None else 0
+        coll0 = rec.counters.value("sync_collectives") if rec is not None else 0
+        coal0 = rec.counters.value("gathers_coalesced") if rec is not None else 0
+        with _tracing.trace_span(f"{type(self).__name__}.sync"):
+            synced = self._reliable_call(
+                "sync",
+                lambda: _sync.process_sync(
+                    self._state,
+                    self._reductions,
+                    process_group=process_group or self.process_group,
+                    dist_sync_fn=dist_sync_fn or self.dist_sync_fn,
+                ),
+            )
+        if rec is not None:
+            # bytes and collectives were counted inside process_sync: the deltas are
+            # this sync's
+            rec.record_sync(
+                self, rec.finish(synced, t0, self._device),
+                rec.counters.value("sync_payload_bytes") - bytes0,
+                collectives=rec.counters.value("sync_collectives") - coll0,
+                coalesced_leaves=rec.counters.value("gathers_coalesced") - coal0,
+            )
         rel = self._reliability
         if rel is not None and rel.validate_on_sync:
             # a corrupt contribution from any participant must not silently become this
@@ -541,8 +633,16 @@ class Metric:
         """States flagged persistent, as tensors, plus the update count."""
         destination = {} if destination is None else destination
         saved = [name for name in self._defaults if self._persistent[name]]
+        rec = _observability._ACTIVE
         for name in saved:
             current = self._state[name]
+            if rec is not None:
+                # the checkpoint boundary, where states leave the metric for a writer
+                # that reads them back: counted per leaf (bytes from metadata), as in
+                # the JAX package, whose state_dict converts them to numpy here
+                for leaf in current if isinstance(current, list) else (current,):
+                    if isinstance(leaf, torch.Tensor):
+                        rec.record_d2h("state_dict", leaf.numel() * leaf.element_size(), metric=self)
             destination[prefix + name] = [t.clone() for t in current] if isinstance(current, list) else current.clone()
         if saved:
             # metadata, not states: the update count restores the updated/fresh
@@ -587,6 +687,24 @@ class Metric:
                     for n in self._defaults
                 ))
             self._computed = None
+
+    def state_memory(self) -> Dict[str, Any]:
+        """Per-state device-memory footprint from tensor metadata, with no device read
+        (safe under ``torch.cuda.set_sync_debug_mode("error")`` and in a hot loop).
+        Tensor states report shape and dtype; list ("cat") states report element
+        counts, the one axis that grows without bound between resets.
+
+        Example:
+            >>> import torch
+            >>> from torchmetrics_tpu_torch import CatMetric
+            >>> metric = CatMetric(device="cpu")
+            >>> metric.update(torch.tensor([1.0, 2.0, 3.0]))
+            >>> metric.state_memory()["total_bytes"]
+            12
+            >>> metric.state_memory()["states"]["value"]["elements"]
+            1
+        """
+        return _obs_memory.state_memory(self._state)
 
     # ------------------------------------------------------------- copies
 
@@ -766,6 +884,15 @@ class HostMetric(Metric):
         batch = self._reliable_call(tag, lambda: self._host_batch_state(*args, **kwargs))
         self._fold(batch)
         return batch
+
+    def _dispatch(self, tag: str, args: tuple, kwargs: dict, run: Callable[[], Any]) -> Any:
+        """No tensor-path record: the host contribution records as a host dispatch in
+        :meth:`_reliable_call`, and the state memory is refreshed after the fold."""
+        out = run()
+        rec = _observability._ACTIVE
+        if rec is not None:
+            rec.record_state_memory(self)
+        return out
 
     def _commit_synced(self, synced: StateDict) -> None:
         super()._commit_synced(synced)

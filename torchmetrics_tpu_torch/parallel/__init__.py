@@ -7,6 +7,7 @@ from .coalesce import CoalesceFallback, coalesced_process_sync, collective_count
 from .sync import (
     distributed_available,
     gather_all_arrays,
+    gather_metadata_vector,
     merge_states,
     pairwise_merge,
     process_sync,
@@ -22,6 +23,7 @@ __all__ = [
     "collective_counts",
     "distributed_available",
     "gather_all_arrays",
+    "gather_metadata_vector",
     "merge_states",
     "pairwise_merge",
     "process_sync",

@@ -39,15 +39,22 @@ and fold there. Gathers use the list form ``dist.all_gather``, which every torch
 version has (``all_gather_into_tensor`` is deprecated in newer ones).
 
 **The metadata row.** ``[magic, version, n_leaves, n_counter_fields, alive, epoch]``,
-then per leaf ``[dtype_code, ndim, d0..d7, kind]``. An all-zero row is a tombstone,
-the row a rank that died mid-collective leaves behind: the plan marks that rank dead
-and the bucket folds cover the survivors only.
+then per leaf ``[dtype_code, ndim, d0..d7, kind]``, then the telemetry tails: the
+active session's counter vector (``len(COUNTER_FIELDS)`` values) and its fleet
+histogram vector, each value as two 31-bit int32 halves, zeros when no session is on.
+The row equals the JAX package's int for int. An all-zero row is a tombstone, the row
+a rank that died mid-collective leaves behind: the plan marks that rank dead and the
+bucket folds cover the survivors only.
 
-Left out here, to come with their planes: the telemetry counter and histogram tails of
-the metadata row and the fleet mailbox they feed (observability), the quantized buckets
-(``quantize``, a codec in the kind slot), and the dead-rank and rejoin bookkeeping
-(durability). The header keeps their slots: ``n_counter_fields`` is 0, and every live
-rank announces alive 1 and epoch 1, so that an all-zero row still reads as a tombstone.
+**The fleet mailbox.** A sync over the real transport leaves every rank's counter and
+histogram rows in a mailbox keyed to the telemetry session's epoch, so that
+``observability.gather_counters``/``gather_histograms`` right after a sync launch no
+collective of their own.
+
+Left out here, to come with their planes: the quantized buckets (``quantize``, a codec
+in the kind slot, and the quant section after the tails) and the dead-rank and rejoin
+bookkeeping (durability). Every live rank announces alive 1 and epoch 1, so that an
+all-zero row still reads as a tombstone.
 """
 
 from __future__ import annotations
@@ -59,6 +66,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import observability as _observability
+from ..observability.counters import COUNTER_FIELDS
+from ..observability.histograms import FLEET_VECTOR_LEN as _HIST_VEC_LEN
 from ..reliability.retry import TRANSIENT, classify_exception
 
 Reduction = Union[str, Callable, None]
@@ -140,9 +150,27 @@ def build_local_metadata(
     return _encode_metadata(_prepare_leaves(states, reductions_list))
 
 
-def _encode_metadata(leaves: Sequence[_Leaf]) -> np.ndarray:
-    vec = np.zeros(_HEADER_LEN + len(leaves) * _LEAF_REC_LEN, np.int32)
-    vec[0], vec[1], vec[2], vec[3] = _MAGIC, _VERSION, len(leaves), 0
+def _pack_halves(dest: np.ndarray, values: Sequence[int]) -> None:
+    """31-bit ``(hi, lo)`` int32 halves, the JAX package's encoding of a value below
+    2**62 in an int32 row."""
+    vals = [int(v) for v in values]
+    dest[0::2] = [v >> 31 for v in vals]
+    dest[1::2] = [v & 0x7FFFFFFF for v in vals]
+
+
+def unpack_halves(halves: Sequence[int]) -> List[int]:
+    """Inverse of :func:`_pack_halves`."""
+    return [(int(hi) << 31) | int(lo) for hi, lo in zip(halves[0::2], halves[1::2])]
+
+
+def _encode_metadata(
+    leaves: Sequence[_Leaf],
+    counters_vector: Optional[Sequence[int]] = None,
+    hist_vector: Optional[Sequence[int]] = None,
+) -> np.ndarray:
+    n_fields = len(COUNTER_FIELDS)
+    vec = np.zeros(_HEADER_LEN + len(leaves) * _LEAF_REC_LEN + 2 * n_fields + 2 * _HIST_VEC_LEN, np.int32)
+    vec[0], vec[1], vec[2], vec[3] = _MAGIC, _VERSION, len(leaves), n_fields
     # a live rank always announces alive=1 and its epoch, so an all-zero row can only
     # be a dead rank's tombstone
     vec[4], vec[5] = 1, _EPOCH
@@ -164,6 +192,17 @@ def _encode_metadata(leaves: Sequence[_Leaf]) -> np.ndarray:
                 for d, s in enumerate(arr.shape):
                     rec[2 + d] = s
         rec[2 + _MAX_RANK] = _KIND_LIST if leaf.is_list else _KIND_TENSOR
+    tail_at = _HEADER_LEN + len(leaves) * _LEAF_REC_LEN
+    if counters_vector is not None:
+        vals = [int(v) for v in counters_vector]
+        if len(vals) != n_fields:
+            raise ValueError(f"counters vector must have {n_fields} entries, got {len(vals)}")
+        _pack_halves(vec[tail_at : tail_at + 2 * n_fields], vals)
+    if hist_vector is not None:
+        vals = [int(v) for v in hist_vector]
+        if len(vals) != _HIST_VEC_LEN:
+            raise ValueError(f"histogram vector must have {_HIST_VEC_LEN} entries, got {len(vals)}")
+        _pack_halves(vec[tail_at + 2 * n_fields : tail_at + 2 * n_fields + 2 * _HIST_VEC_LEN], vals)
     return vec
 
 
@@ -187,11 +226,13 @@ class _WorldPlan:
     # False = the rank sent an all-zero tombstone row; the folds skip its segments
     alive: List[bool]
     epochs: List[int]  # 0 for dead ranks
+    counter_rows: List[List[int]]  # per-rank counter vectors from the row tails
+    hist_rows: List[List[int]]  # per-rank fleet histogram vectors, same tails
 
 
 def _decode_rows(rows: Sequence[Any], n_leaves: int) -> List[Optional[np.ndarray]]:
     decoded: List[Optional[np.ndarray]] = []
-    expect_len = _HEADER_LEN + n_leaves * _LEAF_REC_LEN
+    expect_len = _HEADER_LEN + n_leaves * _LEAF_REC_LEN + 2 * len(COUNTER_FIELDS) + 2 * _HIST_VEC_LEN
     for row in rows:
         arr = np.asarray(row).ravel()
         if arr.size != expect_len or not np.issubdtype(arr.dtype, np.integer):
@@ -278,7 +319,15 @@ def _plan_from_rows(rows: Sequence[Any], leaves: Sequence[_Leaf]) -> _WorldPlan:
         buckets.setdefault(dtype, []).append(i)
     alive = [row is not None for row in decoded]
     epochs = [0 if row is None else int(row[5]) for row in decoded]
-    return _WorldPlan(world=world, leaf_plans=leaf_plans, buckets=buckets, alive=alive, epochs=epochs)
+    tail_at = _HEADER_LEN + len(leaves) * _LEAF_REC_LEN
+    hist_at = tail_at + 2 * len(COUNTER_FIELDS)
+    end = hist_at + 2 * _HIST_VEC_LEN
+    # a dead rank contributes zero telemetry, like a rank without a session
+    counter_rows = [[0] * len(COUNTER_FIELDS) if row is None else unpack_halves(row[tail_at:hist_at])
+                    for row in decoded]
+    hist_rows = [[0] * _HIST_VEC_LEN if row is None else unpack_halves(row[hist_at:end]) for row in decoded]
+    return _WorldPlan(world=world, leaf_plans=leaf_plans, buckets=buckets, alive=alive, epochs=epochs,
+                      counter_rows=counter_rows, hist_rows=hist_rows)
 
 
 def build_bucket_payload(
@@ -373,7 +422,12 @@ def coalesced_process_sync(
     from . import sync as _sync  # sync.py imports this module at its top
 
     leaves = _prepare_leaves(states, reductions_list)
-    meta = _encode_metadata(leaves)
+    rec = _observability._ACTIVE
+    counters_vec = hist_vec = None
+    if rec is not None and dist_sync_fn is None:
+        counters_vec = rec.counters.counts_vector()
+        hist_vec = rec.histograms.fleet_vector()
+    meta = _encode_metadata(leaves, counters_vec, hist_vec)
     gather = _make_gather(process_group, dist_sync_fn)
     try:
         rows = _gather_metadata(gather, meta, process_group, real=dist_sync_fn is None)
@@ -386,10 +440,19 @@ def coalesced_process_sync(
         if dist_sync_fn is not None and classify_exception(err) != TRANSIENT:
             raise CoalesceFallback(f"injected gather rejected the metadata vector: {err!r}") from err
         raise
+    if rec is not None:  # counted at launch: a fallback keeps its collectives
+        rec.counters.record_sync_collectives(1)
     plan = _plan_from_rows(rows, leaves)
+    if dist_sync_fn is None:
+        _deposit_fleet_rows(plan, rec)
     per_leaf_gathered: List[Optional[List[torch.Tensor]]] = [None] * len(leaves)
     for dtype, leaf_idxs in plan.buckets.items():
-        rows_b = gather(_local_bucket_flat(leaves, plan, dtype))  # one collective serves every leaf of this dtype
+        flat = _local_bucket_flat(leaves, plan, dtype)
+        rows_b = gather(flat)  # one collective serves every leaf of this dtype
+        if rec is not None:
+            rec.counters.record_sync_collectives(1)
+            # the bucketed collective's payload size, from metadata
+            rec.record_gather_payload("coalesced", flat.numel() * flat.element_size())
         if len(rows_b) != plan.world:
             raise CoalesceFallback("bucket gather returned a different world size than the metadata")
         for r in range(plan.world):
@@ -414,7 +477,72 @@ def coalesced_process_sync(
             outs[leaf.state_idx][leaf.name] = vals or leaf.original
         else:
             outs[leaf.state_idx][leaf.name] = _sync._fold_gathered(gathered, leaf.fx)
+    if rec is not None:
+        rec.counters.record_coalesced(sum(1 for g in per_leaf_gathered if g is not None))
     return outs
+
+
+# ---------------------------------------------------------------------------
+# fleet-counter piggyback mailbox
+# ---------------------------------------------------------------------------
+
+_FLEET_MAILBOX: Dict[str, Any] = {"session_epoch": None, "rows": None, "hist_rows": None, "local_index": None}
+
+
+def _deposit_fleet_rows(plan: _WorldPlan, rec: Any) -> None:
+    if rec is None:
+        return
+    # keyed on the session epoch, not id(rec): a dead recorder's id can be reused by the
+    # next allocation, which would leak stale rows across sessions
+    _FLEET_MAILBOX["session_epoch"] = getattr(rec, "_epoch", None)
+    _FLEET_MAILBOX["rows"] = [list(r) for r in plan.counter_rows]
+    _FLEET_MAILBOX["hist_rows"] = [list(r) for r in plan.hist_rows]
+    _FLEET_MAILBOX["local_index"] = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _fleet_rows(field: str, row_len: int) -> Optional[Tuple[List[List[int]], int]]:
+    """The mailbox's rows of one kind, if they belong to the active session's epoch and
+    have the expected length; else None (the caller launches a fresh collective)."""
+    rec = _observability._ACTIVE
+    if (
+        rec is None
+        or _FLEET_MAILBOX[field] is None
+        or _FLEET_MAILBOX["session_epoch"] is None
+        or _FLEET_MAILBOX["session_epoch"] != getattr(rec, "_epoch", None)
+    ):
+        return None
+    rows = _FLEET_MAILBOX[field]
+    if any(len(r) != row_len for r in rows):
+        return None
+    return [list(r) for r in rows], int(_FLEET_MAILBOX["local_index"])
+
+
+def fleet_counter_rows() -> Optional[Tuple[List[List[int]], int]]:
+    """Per-rank counter rows captured by the last coalesced sync's metadata collective,
+    plus this process's index, or None when no coalesced sync ran under the active
+    telemetry session. Remote rows are as of each rank's last sync (a rank without a
+    session contributes zeros); the consumer replaces the local row with a fresh
+    snapshot."""
+    return _fleet_rows("rows", len(COUNTER_FIELDS))
+
+
+def fleet_histogram_rows() -> Optional[Tuple[List[List[int]], int]]:
+    """Per-rank fleet histogram vectors captured by the last coalesced sync's metadata
+    collective (the discipline of :func:`fleet_counter_rows`), or None."""
+    return _fleet_rows("hist_rows", _HIST_VEC_LEN)
+
+
+def clear_fleet_mailbox() -> None:
+    _FLEET_MAILBOX.update({"session_epoch": None, "rows": None, "hist_rows": None, "local_index": None})
+
+
+def gather_host_rows(
+    vector: Any, process_group: Any = None, dist_sync_fn: Optional[Callable] = None
+) -> List[np.ndarray]:
+    """One-collective gather of a fixed-length host metadata vector (equal length on
+    every rank by contract, so no shape exchange). The rows come back on the host."""
+    gather = _make_gather(process_group, dist_sync_fn)
+    return [np.asarray(torch.as_tensor(r).cpu()) for r in gather(torch.as_tensor(np.asarray(vector)))]
 
 
 # ---------------------------------------------------------------------------

@@ -20,16 +20,22 @@ and as plane 2's fallback (``reduce_states_per_leaf``, ``_process_sync_per_leaf`
 The group's backend decides where a collective's tensors live: NCCL keeps them on the
 card; gloo takes each payload to the CPU for the collective and brings the result back
 to the device it came from.
+
+In a telemetry session (``observability/``) ``process_sync`` counts each call with its
+payload bytes and the per-leaf plane each gather, its collectives and its payload;
+``gather_metadata_vector`` is the fleet-telemetry rollup's one collective.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Mapping, Optional, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import observability as _observability
+from ..observability import tracing as _tracing
 from . import coalesce as _coalesce
 
 Reduction = Union[str, Callable, None]
@@ -203,12 +209,16 @@ def process_sync(
     injected gather that rewrites values), every rank sees the same rows and falls
     back to the per-leaf plane together.
     """
-    try:
-        return _coalesce.coalesced_process_sync(
-            [state], [reductions], process_group=process_group, dist_sync_fn=dist_sync_fn
-        )[0]
-    except _coalesce.CoalesceFallback:
-        return _process_sync_per_leaf(state, reductions, process_group, dist_sync_fn)
+    rec = _observability._ACTIVE
+    if rec is not None:
+        rec.counters.record_sync(_payload_bytes(state))
+    with _tracing.trace_span("process_sync"):
+        try:
+            return _coalesce.coalesced_process_sync(
+                [state], [reductions], process_group=process_group, dist_sync_fn=dist_sync_fn
+            )[0]
+        except _coalesce.CoalesceFallback:
+            return _process_sync_per_leaf(state, reductions, process_group, dist_sync_fn)
 
 
 def _process_sync_per_leaf(
@@ -219,8 +229,15 @@ def _process_sync_per_leaf(
 ) -> Dict[str, Any]:
     """The per-leaf plane: one ``gather_all_arrays`` per state leaf."""
     gather = dist_sync_fn or gather_all_arrays
+    rec = _observability._ACTIVE
     out: Dict[str, Any] = {}
     for name, value in state.items():
+        if rec is not None:
+            rec.counters.record_gather()
+            # the real gather_all_arrays launches two collectives per leaf (shape
+            # exchange and payload); an injected fn is one call
+            rec.counters.record_sync_collectives(1 if dist_sync_fn is not None else 2)
+            rec.record_gather_payload("per_leaf", _payload_bytes({name: value}))
         if isinstance(value, list):  # concat list state: concatenate, then gather
             local = torch.cat([torch.atleast_1d(torch.as_tensor(v)) for v in value]) if value else None
             if local is None and dist_sync_fn is not None:
@@ -232,6 +249,35 @@ def _process_sync_per_leaf(
         gathered = [torch.as_tensor(g) for g in gather(value, process_group)]
         out[name] = _fold_gathered(gathered, reductions.get(name))
     return out
+
+
+def gather_metadata_vector(
+    values: Sequence[int],
+    process_group: Any = None,
+    dist_sync_fn: Optional[Callable] = None,
+) -> List[List[int]]:
+    """All-gather one small per-process int metadata vector: a list of per-rank vectors,
+    indexed by rank.
+
+    The fleet-telemetry rollup plane: counter snapshots ride the coalesced gather plane
+    (``dist_sync_fn`` stays the injection seam) as one collective of a fixed-length
+    vector, with no shape exchange. Values ship as 31-bit ``(hi, lo)`` int32 halves, the
+    JAX package's wire form, exact below 2**62. Over NCCL the vector goes to the current
+    CUDA device (NCCL takes no CPU tensor); over gloo it stays on the CPU. Without a
+    process group (and without an injected gather) the local vector comes straight
+    back; with one, the collective runs, a world of one included, as every collective
+    of this package does. A coalesced sync in a telemetry session already ships the
+    counter vector inside its metadata collective, so ``observability.gather_counters``
+    right after a sync calls this function not at all.
+    """
+    vals = [int(v) for v in values]
+    if any(not 0 <= v < 1 << 62 for v in vals):
+        raise ValueError(f"gather_metadata_vector values must be in [0, 2**62), got {vals}")
+    if dist_sync_fn is None and not (dist.is_available() and dist.is_initialized()):
+        return [vals]
+    halves = np.empty(2 * len(vals), np.int32)
+    _coalesce._pack_halves(halves, vals)
+    return [_coalesce.unpack_halves(row) for row in _coalesce.gather_host_rows(halves, process_group, dist_sync_fn)]
 
 
 def _payload_bytes(state: Dict[str, Any]) -> int:
@@ -310,6 +356,7 @@ def merge_states(
 __all__ = [
     "distributed_available",
     "gather_all_arrays",
+    "gather_metadata_vector",
     "merge_states",
     "pairwise_merge",
     "process_sync",

@@ -10,7 +10,7 @@ offending leaf.
 
 Guards run at the boundaries where a state crosses a trust domain (checkpoint restore,
 sync, merge), never per update: each finiteness scan reads one bool back from the
-device.
+device, and a telemetry session counts it as a ``finiteness_guard`` readback.
 """
 
 from __future__ import annotations
@@ -20,7 +20,16 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from .. import observability as _observability
 from ..utilities.exceptions import StateCorruptionError
+
+
+def _mark_finite_scan() -> None:
+    """Each finiteness scan reads one bool back from the device: counted, so that a
+    telemetry trace shows where the readbacks go."""
+    rec = _observability._ACTIVE
+    if rec is not None:
+        rec.record_d2h("finiteness_guard", 1)
 
 # reduction tags under which a tensor leaf keeps its default shape forever
 _SHAPE_PRESERVING = ("sum", "mean", "min", "max")
@@ -54,8 +63,10 @@ def _check_tensor_leaf(name: str, value: Any, default: Any, fx: Any, context: st
             )
         # finiteness is an invariant of aggregate leaves only: raw-data leaves (cat
         # lists, None-tagged gathers) may carry NaN by construction
-        if check_finite and value.is_floating_point() and not bool(torch.isfinite(value).all()):
-            raise StateCorruptionError(f"{context}: state '{name}' contains non-finite values (NaN/Inf).")
+        if check_finite and value.is_floating_point():
+            _mark_finite_scan()
+            if not bool(torch.isfinite(value).all()):
+                raise StateCorruptionError(f"{context}: state '{name}' contains non-finite values (NaN/Inf).")
 
 
 def validate_state(
@@ -128,8 +139,12 @@ def validate_restored(metric: Any, state_dict: Mapping[str, Any], prefix: str = 
             if check_finite:
                 for i, elem in enumerate(value):
                     elem = torch.as_tensor(elem)
-                    if elem.is_floating_point() and not bool(torch.isfinite(elem).all()):
-                        raise StateCorruptionError(f"Checkpoint state '{prefix}{name}[{i}]' contains non-finite values.")
+                    if elem.is_floating_point():
+                        _mark_finite_scan()
+                        if not bool(torch.isfinite(elem).all()):
+                            raise StateCorruptionError(
+                                f"Checkpoint state '{prefix}{name}[{i}]' contains non-finite values."
+                            )
         else:
             _check_tensor_leaf(
                 name, value, default, metric._reductions.get(name), f"checkpoint restore ('{prefix}{name}')", check_finite

@@ -22,8 +22,9 @@ Two pieces:
 
 Both are wired behind the opt-in :class:`ReliabilityConfig` (``Metric(...,
 reliability=...)``), so the default path is unchanged. The marker tables and the
-schedule are the JAX package's, float for float; the telemetry records of a retry
-belong to the observability plane, which is not ported yet.
+schedule are the JAX package's, float for float. In a telemetry session every retry
+records a ``retry`` event with its backoff delay, and an exhausted budget a
+``retry_exhausted`` event (``observability/``).
 """
 
 from __future__ import annotations
@@ -228,6 +229,8 @@ class RetryPolicy:
             pass
 
     def _call(self, thunk, on_retry, describe, outcome: "_RetryOutcome") -> Any:
+        from ..observability import active as _telemetry_active
+
         while True:
             outcome.attempts += 1
             try:
@@ -244,6 +247,9 @@ class RetryPolicy:
                             f"after {outcome.attempts} attempts; giving up on transient "
                             f"failure: {exc!r}"
                         )
+                        rec = _telemetry_active()
+                        if rec is not None:
+                            rec.record_retry_exhausted(describe or "metric dispatch", outcome.attempts, exc)
                     raise
                 outcome.recovered_from.append(f"{type(exc).__name__}: {exc}"[:240])
                 delay = self.delay_for(outcome.attempts)
@@ -252,6 +258,10 @@ class RetryPolicy:
                     f"(attempt {outcome.attempts}/{self.max_attempts}): {exc!r}. "
                     f"Retrying in {delay:.3f}s."
                 )
+                rec = _telemetry_active()
+                if rec is not None:
+                    # the accepted backoff delay feeds the retry_backoff histogram
+                    rec.record_retry(describe or "metric dispatch", outcome.attempts, exc, delay_s=delay)
                 if delay > 0:
                     self.sleep_fn(delay)
                 if on_retry is not None:
