@@ -417,6 +417,24 @@ Phases, one JSON line each, in order:
    launch no collective, ``gather_counters(prefer_sync_rows=False)`` exactly one. The
    phase's JSONL trace goes through ``tools/trace_report.py --json``.
 
+54. aot (run right after phase 53): the AOT warm-start plane. ``{acc, f1, confmat}``
+   (phase 53's collection) precompiled at batch 65,536 x 5 for ``update`` and
+   ``forward`` into a fresh cache: every member written with both codecs (a missing
+   ``"aoti"`` section fails the phase), compile seconds and entry bytes each. Then fresh
+   interpreters (``--aot-child``) under a telemetry session: a warm boot whose first
+   collection update loads every member's package (``aot_cache_hits`` 3, ``jit_compiles``
+   0, the counters reconciled, each load's codec ``"aoti"``), a cold boot with no plane,
+   and a boot after one byte of the confusion matrix's entry was flipped (one miss, plane
+   stat ``corrupt`` 1, served eagerly without an exception). Each child's states after 16
+   seeded batches equal the eager states bit for bit; time to the first update, each
+   load's ms, steady update ms and launch calls, loaded against eager. Then FID (bf16
+   trunk, batch 128) with the plane active: ``precompile`` reports it uncacheable (a
+   module with weights in its config), its 4 updates run eagerly with all 104 sepconv7
+   launches (the path's count), each inside its update's profiler range, states equal to
+   a run without the plane and the counters reconciled on the eager side. Last the
+   ``"mapeval"`` program of ``DeviceMeanAveragePrecision(capacity=524288)``: its
+   precompile row, with the exporter's first error line where it does not export.
+
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
 lines carry ``step_ms`` (host clock around synchronised steps) and the card.
@@ -2762,6 +2780,291 @@ def observability_phase(card: str) -> int:
           "trace_report": {"rows": len(report.get("rows", [])), "keys": sorted(report)},
           "seconds": time.perf_counter() - started, "card": card})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the AOT warm-start plane
+
+AOT_CHILD_FLAG = "--aot-child"
+AOT_BATCH = 65536
+AOT_UPDATES = 16
+AOT_MEMBERS = ("acc", "f1", "confmat")
+AOT_TAGS = ("update", "forward")
+AOT_CODECS = ["aoti", "torch_export"]
+AOT_CORRUPT_MEMBER = "confmat"
+AOT_CHILD_WALL_S = 240
+# "warm" and "corrupt" boot with the plane on the cache ("corrupt" takes no timings:
+# it runs beside the parent's FID work), "cold" with none
+AOT_CHILD_MODES = ("warm", "cold", "corrupt")
+AOT_SEED = 53
+AOT_MAP_CAPACITY = 524288
+# the phase's budget, its compiles included: reported beside its seconds (a slower host
+# compiles slower; the checks, not the clock, decide the phase)
+AOT_PHASE_LIMIT_S = 180
+
+
+def aot_rows(updates: int = AOT_UPDATES, batch: int = AOT_BATCH, device: str = "cuda") -> list:
+    """The phase's seeded batches of the main path: (logits, labels) at 5 classes."""
+    gen = torch.Generator(device=device).manual_seed(AOT_SEED)
+    return [(torch.randn((batch, 5), generator=gen, device=device),
+             torch.randint(0, 5, (batch,), generator=gen, device=device)) for _ in range(updates)]
+
+
+def aot_states(coll) -> dict:
+    """Every member's tensor states as lists (a child prints them, the parent compares)."""
+    return {name: {k: v.cpu().tolist() for k, v in metric._state.items()} for name, metric in coll.items()}
+
+
+def parse_aot_child(argv: list):
+    """``--aot-child CACHE_DIR MODE`` → ``(cache_dir, mode)``; None for other argv."""
+    if argv[1:2] != [AOT_CHILD_FLAG]:
+        return None
+    if len(argv) != 4 or argv[3] not in AOT_CHILD_MODES:
+        raise SystemExit(f"usage: chip_smoke.py {AOT_CHILD_FLAG} CACHE_DIR {'|'.join(AOT_CHILD_MODES)}")
+    return argv[2], argv[3]
+
+
+def aot_child(cache_dir: str, mode: str) -> int:
+    """A fresh interpreter's boot: the main path's collection, with the plane on
+    ``cache_dir`` ("warm", "corrupt") or none ("cold"), takes the phase's 16 batches
+    under a telemetry session; prints a RESULT line with the counters, the loads, the
+    time to the first update, steady update ms and launch calls, and the states. The
+    modules a first load and a first cost harvest import (Inductor's, the flop counter)
+    are imported first and timed apart: about 9 s of Python, the same for every boot."""
+    clock = time.perf_counter()
+    import torch._inductor.package  # noqa: F401
+    import torch.utils.flop_counter  # noqa: F401
+
+    from torchmetrics_tpu_torch import aot
+    from torchmetrics_tpu_torch import observability as obs
+    from torchmetrics_tpu_torch.parallel.mesh import runtime_fingerprint
+
+    imports_s = time.perf_counter() - clock
+    plane = aot.enable(cache_dir) if mode != "cold" else None
+    rows = aot_rows()
+    coll = obs_collection()
+    torch.cuda.synchronize()
+    with obs.telemetry_session() as rec:
+        start = time.perf_counter()
+        coll.update(*rows[0])
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - start) * 1e3
+        first_done_unix = time.time()
+        for preds, target in rows[1:]:
+            coll.update(preds, target)
+        torch.cuda.synchronize()
+        snap = rec.counters.snapshot()
+        loads = [{**e.payload, "metric": e.metric, "ms": e.duration_s * 1e3} for e in rec.events_of("aot_load")]
+    states = aot_states(coll)
+    steady_ms = calls = None
+    if mode != "corrupt":
+        steady_ms = median(timed_updates(coll, rows[1:9]))
+        calls = launch_calls(profile_step(f"aot_update_{mode}", lambda: coll.update(*rows[1])))
+    print("RESULT" + json.dumps({
+        "mode": mode, "imports_s": imports_s, "first_update_ms": first_ms, "first_update_done_unix": first_done_unix,
+        "runtime": runtime_fingerprint(),
+        "counters": {k: snap[k] for k in ("dispatches", "jit_compiles", "jit_cache_hits", "aot_cache_hits",
+                                          "aot_cache_misses", "aot_deserialize_us")},
+        "plane": dict(plane.stats) if plane is not None else None, "loads": loads,
+        "steady_update_ms": steady_ms, "launch_calls_per_update": calls, "states": states}), flush=True)
+    return 0
+
+
+def start_aot_child(cache_dir: str, mode: str):
+    """Start this script with ``--aot-child``; :func:`finish_aot_child` takes its result."""
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), AOT_CHILD_FLAG, cache_dir, mode],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, mode, time.time()
+
+
+def run_aot_child(cache_dir: str, mode: str) -> dict:
+    return finish_aot_child(start_aot_child(cache_dir, mode))
+
+
+def finish_aot_child(started) -> dict:
+    """The RESULT of a child from :func:`start_aot_child`; a child that fails or outlives
+    ``AOT_CHILD_WALL_S`` fails the phase."""
+    proc, mode, started_unix = started
+    try:
+        text, _ = proc.communicate(timeout=AOT_CHILD_WALL_S)
+    finally:
+        proc.kill()
+        proc.wait()
+    lines = [line for line in text.splitlines() if line.startswith("RESULT")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"aot: the {mode} child failed (exit {proc.returncode}): {text[-3000:]}")
+    result = json.loads(lines[-1][len("RESULT"):])
+    # from the interpreter's start (imports, the card's context, the batches) to the
+    # first update's end: what a freshly booted process waits for
+    result["boot_to_first_update_s"] = result.pop("first_update_done_unix") - started_unix
+    return result
+
+
+def state_differences(got: dict, want: dict) -> dict:
+    """``member.state`` → (got, want) for each state of ``aot_states`` that differs."""
+    return {f"{name}.{key}": (got.get(name, {}).get(key), value)
+            for name, states in want.items() for key, value in states.items()
+            if got.get(name, {}).get(key) != value}
+
+
+def reconciled(counters: dict) -> bool:
+    return counters["jit_compiles"] + counters["jit_cache_hits"] + counters["aot_cache_hits"] \
+        == counters["dispatches"]
+
+
+def flip_byte(path: str) -> None:
+    """One byte in the middle of a cache entry, inverted."""
+    with open(path, "r+b") as fh:
+        fh.seek(os.path.getsize(path) // 2)
+        byte = fh.read(1)
+        fh.seek(-1, os.SEEK_CUR)
+        fh.write(bytes([byte[0] ^ 0xFF]))
+
+
+def aot_fid(cache_dir: str) -> dict:
+    """FID (bf16 trunk, He-scaled seeded weights, batch 128, 4 updates) with the plane
+    on ``cache_dir``: uncacheable at ``precompile``, every update eager with its 26
+    sepconv7 launches inside its profiler range, the counters reconciled on the eager
+    side, the states those of a run without the plane."""
+    from torchmetrics_tpu_torch import aot
+    from torchmetrics_tpu_torch import observability as obs
+    from torchmetrics_tpu_torch.image import InceptionV3Features
+    from torchmetrics_tpu_torch.kernels.sepconv import sepconv7
+
+    extractor = InceptionV3Features.from_numpy_params(he_scaled(InceptionV3Features._random_params(0)),
+                                                      compute_dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(AOT_SEED)
+    batches = [torch.rand((OBS_BATCH, 3, 299, 299), generator=gen, device="cuda") ** (1 + i % 2)
+               for i in range(OBS_UPDATES)]
+    plain = reliability_fid(extractor)
+    fid_updates(plain, batches)
+    aot.enable(cache_dir)
+    try:
+        fid = reliability_fid(extractor)
+        fid_report = fid.precompile(batches[0], real=True)["update"]
+        if fid_report["status"] != "skipped" or "uncacheable" not in fid_report["reason"]:
+            raise AssertionError(f"aot: FID's precompile row is {fid_report}")
+        torch.cuda.synchronize()
+        sepconv7.launches = 0
+        with obs.telemetry_session() as rec:
+            fid_updates(fid, batches)
+            torch.cuda.synchronize()
+            fid_counters = {k: rec.counters.snapshot()[k] for k in ("dispatches", "jit_compiles", "jit_cache_hits",
+                                                                    "aot_cache_hits", "aot_cache_misses")}
+        launches = sepconv7.launches
+        span_fid = reliability_fid(extractor)
+        events = traced(lambda: fid_updates(span_fid, batches),
+                        want=lambda ev: launches_inside_spans(ev, FID_UPDATE_SPAN, "sepconv7")["kernels"]
+                        == SEPCONV_PER_FORWARD * OBS_UPDATES)
+    finally:
+        aot.disable()
+    if launches != SEPCONV_PER_FORWARD * OBS_UPDATES:
+        raise AssertionError(f"aot: {launches} sepconv7 launches over {OBS_UPDATES} FID updates under the plane")
+    if fid_counters != {"dispatches": OBS_UPDATES, "jit_compiles": 1, "jit_cache_hits": OBS_UPDATES - 1,
+                        "aot_cache_hits": 0, "aot_cache_misses": 0}:
+        raise AssertionError(f"aot: FID's counters under the plane are {fid_counters}")
+    spans = launches_inside_spans(events, FID_UPDATE_SPAN, "sepconv7")
+    if spans["kernels"] != SEPCONV_PER_FORWARD * OBS_UPDATES or spans["inside"] != spans["kernels"] \
+            or spans["per_span"] != [SEPCONV_PER_FORWARD] * OBS_UPDATES:
+        raise AssertionError(f"aot: sepconv7 launches against the update spans: {spans}")
+    bitwise = all(torch.equal(v, plain._state[k]) for k, v in tensor_states(fid).items())
+    repeats = None
+    if not bitwise:  # is the card itself repeating? (see the reliability phase)
+        again = reliability_fid(extractor)
+        fid_updates(again, batches)
+        repeats = all(torch.equal(v, plain._state[k]) for k, v in tensor_states(again).items())
+        if repeats:
+            raise AssertionError("aot: the plane changed FID's states")
+
+    return {"precompile": fid_report, "counters": fid_counters, "sepconv7_launches": launches, "spans": spans,
+            "states_bitwise": bitwise, "card_repeats_bitwise": repeats}
+
+
+def aot_phase(card: str) -> int:
+    """The AOT warm-start plane on the main path and under FID (see phase 54 above).
+    Returns the sepconv7 launches of FID's updates under the plane, the path's count."""
+    import tempfile
+
+    from torchmetrics_tpu_torch import aot
+    from torchmetrics_tpu_torch.detection import DeviceMeanAveragePrecision
+    from torchmetrics_tpu_torch.parallel.mesh import runtime_fingerprint
+
+    started = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_aot_")
+    cache_dir = os.path.join(workdir, "cache")
+    rows = aot_rows()
+    eager = obs_collection()
+    for preds, target in rows:
+        eager.update(preds, target)
+    want = aot_states(eager)
+
+    # cold: every member, both tags, both codecs
+    plane = aot.enable(cache_dir)
+    try:
+        clock = time.perf_counter()
+        report = obs_collection().precompile(*rows[0], tags=AOT_TAGS)
+        precompile_s = time.perf_counter() - clock
+    finally:
+        aot.disable()
+    written = {name: {tag: {k: report[name][tag].get(k) for k in ("status", "codecs", "compile_s", "export_s", "bytes",
+                                                                  "error")}
+                      for tag in AOT_TAGS} for name in AOT_MEMBERS}
+    if any(row["status"] != "written" or row["codecs"] != AOT_CODECS for member in written.values()
+           for row in member.values()):
+        raise AssertionError(f"aot: the precompile did not write both codecs of every program: {written}")
+    if plane.stats["writes"] != len(AOT_MEMBERS) * len(AOT_TAGS):
+        raise AssertionError(f"aot: the plane wrote {plane.stats}")
+
+    # warm and cold boots in fresh interpreters
+    boots = {mode: run_aot_child(cache_dir, mode) for mode in ("warm", "cold")}
+    warm, cold = boots["warm"], boots["cold"]
+    members = len(AOT_MEMBERS)
+    if warm["counters"]["aot_cache_hits"] != members or warm["counters"]["jit_compiles"] != 0 \
+            or warm["counters"]["aot_cache_misses"] != 0 or not reconciled(warm["counters"]):
+        raise AssertionError(f"aot: the warm boot's counters are {warm['counters']} (its runtime "
+                             f"{warm['runtime']}, this process's {runtime_fingerprint()})")
+    if len(warm["loads"]) != members or any(load["codec"] != "aoti" for load in warm["loads"]):
+        raise AssertionError(f"aot: the warm boot's loads are {warm['loads']}")
+    differ = {mode: state_differences(boot["states"], want) for mode, boot in boots.items()}
+    if any(differ.values()):
+        raise AssertionError(f"aot: boots whose states differ from the eager states: {differ}")
+
+    # one flipped byte: that member misses and runs eagerly, the rest load (this boot runs
+    # beside the FID part below and takes no timings)
+    flip_byte(os.path.join(cache_dir, report[AOT_CORRUPT_MEMBER]["update"]["entry"] + ".aot"))
+    corrupt_boot = start_aot_child(cache_dir, "corrupt")
+
+    # the kernel under the plane: FID is uncacheable and runs eagerly, every launch counted
+    try:
+        fid = aot_fid(cache_dir)
+    except BaseException:
+        corrupt_boot[0].kill()
+        corrupt_boot[0].wait()
+        raise
+    corrupt = finish_aot_child(corrupt_boot)
+    counters = corrupt["counters"]
+    if counters["aot_cache_misses"] != 1 or corrupt["plane"]["corrupt"] != 1 or counters["jit_compiles"] != 1 \
+            or counters["aot_cache_hits"] != members - 1 or not reconciled(counters) or corrupt["states"] != want:
+        raise AssertionError(f"aot: the corrupt boot gave {counters}, plane {corrupt['plane']}, state differences "
+                             f"{state_differences(corrupt['states'], want)}")
+
+    # the device mAP evaluator's program
+    clock = time.perf_counter()
+    mapeval = DeviceMeanAveragePrecision(capacity=AOT_MAP_CAPACITY).precompile(cache_dir=cache_dir)["mapeval"]
+    mapeval["seconds"] = time.perf_counter() - clock
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.perf_counter() - started
+    boot_line = lambda b: {k: b[k] for k in ("imports_s", "first_update_ms", "boot_to_first_update_s",  # noqa: E731
+                                             "counters", "plane", "loads", "steady_update_ms",
+                                             "launch_calls_per_update")}
+    emit({"phase": "aot", "batch": AOT_BATCH, "updates": AOT_UPDATES, "precompile_s": precompile_s,
+          "programs": written, "warm": boot_line(warm), "cold": boot_line(cold), "corrupt": boot_line(corrupt),
+          "states_bitwise": True,
+          "fid": fid,
+          "mapeval": mapeval, "seconds": seconds, "limit_s": AOT_PHASE_LIMIT_S,
+          "within_limit": seconds <= AOT_PHASE_LIMIT_S, "card": card})
+    return fid["sepconv7_launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -7580,6 +7883,9 @@ def flagship_forward(cases: dict) -> dict:
 def main() -> int:
     if sys.argv[1:2] == [SYNC_CHILD_FLAG]:
         return sync_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    aot_child_args = parse_aot_child(sys.argv)
+    if aot_child_args is not None:
+        return aot_child(*aot_child_args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -7608,6 +7914,7 @@ def main() -> int:
     collection_groups_phase(card)
     launches_by_path["reliability"] = reliability_phase(card)
     launches_by_path["observability"] = observability_phase(card)
+    launches_by_path["aot"] = aot_phase(card)
     classification_tower_phase(card)
     curve_data = curves_phase(card)
     tower_tail_phase(card, curve_data)

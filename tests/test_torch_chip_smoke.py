@@ -1680,3 +1680,75 @@ def test_observability_rehearsal_counts_costs_and_keeps_the_states(chip_smoke, t
     report = chip_smoke.trace_report(str(trace))
     assert [(r["metric"], r["phase"], r["events"], r["compiles"], r["cache_hits"]) for r in report["rows"]] == [
         ("FrechetInceptionDistance#0", "update", 4, 1, 3)]
+
+
+# ------------------------------------------------------------------------ aot phase
+
+
+def test_aot_child_arguments_parse(chip_smoke):
+    flag = chip_smoke.AOT_CHILD_FLAG
+    assert flag == "--aot-child"
+    for mode in ("warm", "cold", "corrupt"):
+        assert chip_smoke.parse_aot_child(["chip_smoke.py", flag, "/tmp/cache", mode]) == ("/tmp/cache", mode)
+    assert chip_smoke.parse_aot_child(["chip_smoke.py"]) is None
+    assert chip_smoke.parse_aot_child(["chip_smoke.py", chip_smoke.SYNC_CHILD_FLAG, "0", "2", "x", "sync"]) is None
+    for bad in (["chip_smoke.py", flag, "/tmp/cache"], ["chip_smoke.py", flag, "/tmp/cache", "hot"]):
+        with pytest.raises(SystemExit):
+            chip_smoke.parse_aot_child(bad)
+
+
+def test_aot_phase_expects_every_member_both_codecs_and_104_launches(chip_smoke):
+    from torchmetrics_tpu_torch.aot import codecs
+
+    assert sorted(chip_smoke.AOT_MEMBERS) == sorted(chip_smoke.obs_collection("cpu").keys())
+    assert chip_smoke.AOT_TAGS == ("update", "forward")
+    assert chip_smoke.AOT_CODECS == [codecs.CODEC_EXEC, codecs.CODEC_HLO] == ["aoti", "torch_export"]
+    assert chip_smoke.AOT_CORRUPT_MEMBER in chip_smoke.AOT_MEMBERS
+    assert chip_smoke.SEPCONV_PER_FORWARD * chip_smoke.OBS_UPDATES == 104
+    rows = chip_smoke.aot_rows(updates=2, batch=64, device="cpu")
+    assert [tuple(t.shape) for t in rows[0]] == [(64, 5), (64,)]
+    assert all(torch.equal(a, b) for r, s in zip(rows, chip_smoke.aot_rows(updates=2, batch=64, device="cpu"))
+               for a, b in zip(r, s))
+
+
+def test_aot_rehearsal_boots_warm_from_the_cache_bit_for_bit(chip_smoke, tmp_path, monkeypatch):
+    """The phase's warm-boot checks on the CPU through the portable codec, in-process:
+    every member written, the first update of each served by a load, the counters
+    reconciled, the states equal to the eager ones; a flipped byte misses that member."""
+    from torchmetrics_tpu_torch import aot
+    from torchmetrics_tpu_torch import observability as obs
+    from torchmetrics_tpu_torch.aot import codecs
+
+    def refuse(exported):
+        raise codecs.CodecError("AOTInductor packaging left out of this test")
+
+    monkeypatch.setattr(codecs, "encode_executable", refuse)
+    rows = chip_smoke.aot_rows(updates=3, batch=64, device="cpu")
+    eager = chip_smoke.obs_collection("cpu")
+    for preds, target in rows:
+        eager.update(preds, target)
+    want = chip_smoke.aot_states(eager)
+    cache = str(tmp_path / "cache")
+
+    def boot():
+        coll = chip_smoke.obs_collection("cpu")
+        with aot.aot_session(cache) as plane, obs.telemetry_session() as rec:
+            for preds, target in rows:
+                coll.update(preds, target)
+            counters = rec.counters.snapshot()
+        return counters, plane, chip_smoke.aot_states(coll)
+
+    with aot.aot_session(cache):
+        report = chip_smoke.obs_collection("cpu").precompile(*rows[0], tags=chip_smoke.AOT_TAGS)
+    assert all(report[m][t]["status"] == "written" for m in chip_smoke.AOT_MEMBERS for t in chip_smoke.AOT_TAGS)
+    counters, plane, states = boot()
+    members = len(chip_smoke.AOT_MEMBERS)
+    assert counters["aot_cache_hits"] == members and counters["jit_compiles"] == 0
+    assert chip_smoke.reconciled(counters) and chip_smoke.state_differences(states, want) == {}
+    chip_smoke.flip_byte(str(tmp_path / "cache" / (report[chip_smoke.AOT_CORRUPT_MEMBER]["update"]["entry"] + ".aot")))
+    counters, plane, states = boot()
+    assert counters["aot_cache_misses"] == 1 and plane.stats["corrupt"] == 1 and counters["jit_compiles"] == 1
+    assert counters["aot_cache_hits"] == members - 1 and chip_smoke.reconciled(counters) and states == want
+    planted = {name: dict(values) for name, values in want.items()}
+    planted["confmat"]["confmat"] = [[0]]
+    assert list(chip_smoke.state_differences(planted, want)) == ["confmat.confmat"]

@@ -503,12 +503,15 @@ def test_only_the_planes_are_still_missing():
     out = subprocess.run([sys.executable, "-c", _MISSING_NAMES], capture_output=True, text=True, check=True,
                          env={**os.environ, "JAX_PLATFORMS": "cpu"}, timeout=300)
     missing = set(json.loads(out.stdout.strip().splitlines()[-1]))
-    assert missing == {"aot", "serving", "streaming"}
+    assert missing == {"serving", "streaming"}
+    from torchmetrics_tpu import aot as jax_aot
     from torchmetrics_tpu import observability as jax_obs
 
+    from torchmetrics_tpu_torch import aot as port_aot
     from torchmetrics_tpu_torch import observability as port_obs
 
     assert port_obs.__all__ == jax_obs.__all__
+    assert port_aot.__all__ == jax_aot.__all__
     assert ttm.multimodal.__all__ == jtm.multimodal.__all__
     assert port_fn.multimodal.__all__ == jax_fn.multimodal.__all__
     assert {"text", "multimodal", "utilities"} <= _public(ttm)

@@ -5,8 +5,8 @@ paths and imports neither JAX nor anything of the JAX package. Entry points run 
 unless the caller passes ``device="cpu"``.
 """
 
-from . import (aggregation, audio, classification, clustering, detection, image, multimodal, nominal, observability,
-               parallel, regression, retrieval, segmentation, shape, text, utilities, video, wrappers)
+from . import (aggregation, aot, audio, classification, clustering, detection, image, multimodal, nominal,
+               observability, parallel, regression, retrieval, segmentation, shape, text, utilities, video, wrappers)
 from .aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, RunningMean, RunningSum, SumMetric
 from .audio import *  # noqa: F401,F403
 from .classification import *  # noqa: F401,F403
@@ -36,6 +36,9 @@ from .wrappers import (
     MultitaskWrapper,
     Running,
 )
+
+# folded into every AOT cache key: a new version of the package misses every old entry
+__version__ = "0.1.0"
 
 __all__ = [
     "CatMetric", "CompositionalMetric", "HostMetric", "MaxMetric", "MeanMetric", "Metric", "MetricCollection",

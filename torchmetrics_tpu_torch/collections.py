@@ -25,6 +25,7 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from . import aot as _aot
 from . import observability as _observability
 from .metric import Metric
 from .observability import memory as _obs_memory
@@ -643,6 +644,98 @@ class MetricCollection:
                 metric.merge_state(theirs[name])
 
     # ------------------------------------------------------------ observability
+
+    # ------------------------------------------------------- warm start (aot/)
+
+    def precompile(
+        self,
+        *example_inputs: Any,
+        tags: Sequence[str] = ("update",),
+        cache_dir: Optional[str] = None,
+        force: bool = False,
+        prefetch_workers: int = 8,
+        **example_kwargs: Any,
+    ) -> Dict[str, Any]:
+        """Warm-start the whole collection: export and compile every member's dispatch
+        program(s) for the example input shapes and publish them into the AOT cache
+        (``torchmetrics_tpu_torch.aot``).
+
+        Every member precompiles individually — on a fresh boot the first real batch
+        dispatches each member once before compute groups derive, so per-member entries
+        are exactly what that first batch loads. Heterogeneous collections reuse the
+        update path's kwarg filtering; quarantined members are skipped. Returns
+        ``{member: {tag: row}}``.
+
+        Members whose entries were already cached (status ``"cached"``) are also
+        **prefetched**: their programs load NOW, on a ``prefetch_workers``-wide thread
+        pool, into each member's dispatch memo. The ``"_prefetch"`` report row carries
+        the overlap: ``serial_load_s`` (sum of individual loads) against ``wall_s``
+        (what the pool took). ``prefetch_workers=0`` disables it; an explicit
+        ``cache_dir`` skips it too (the one-off plane is not the one traffic will
+        dispatch against).
+        """
+        report: Dict[str, Any] = {}
+        for name, metric in self._modules.items():
+            if name in self._quarantined:
+                report[name] = {"status": "skipped", "reason": "quarantined"}
+                continue
+            report[name] = metric.precompile(
+                *example_inputs, tags=tags, cache_dir=cache_dir, force=force,
+                **metric._filter_kwargs(**example_kwargs),
+            )
+        if prefetch_workers and cache_dir is None and _aot._ACTIVE is not None:
+            prefetch = self._prefetch_members(report, example_inputs, example_kwargs, tags, prefetch_workers)
+            if prefetch is not None:  # only when cached entries actually loaded
+                report["_prefetch"] = prefetch
+        return report
+
+    def _prefetch_members(
+        self,
+        report: Dict[str, Any],
+        example_inputs: tuple,
+        example_kwargs: Dict[str, Any],
+        tags: Sequence[str],
+        workers: int,
+    ) -> Optional[Dict[str, Any]]:
+        """Load the members' already-cached entries concurrently (each thread touches
+        only its own member's memo; the plane's stats are lock-guarded). Freshly
+        ``"written"`` members are already primed by the precompile and skip the pool."""
+        import concurrent.futures
+
+        def cached_tags(row: Any) -> List[str]:
+            if not isinstance(row, dict):
+                return []
+            return [tag for tag in tags if isinstance(row.get(tag), dict) and row[tag].get("status") == "cached"]
+
+        todo = [(name, self._modules[name], cached_tags(row)) for name, row in report.items()
+                if name in self._modules and cached_tags(row)]
+        if not todo:
+            return None
+
+        def one(item):
+            name, metric, member_tags = item
+            try:
+                return name, metric.prefetch_compiled(
+                    *example_inputs, tags=tuple(member_tags), **metric._filter_kwargs(**example_kwargs),
+                )
+            except Exception as err:  # noqa: BLE001 — prefetch must never fail a boot
+                return name, {"error": f"{type(err).__name__}: {err}"[:200]}
+
+        t0 = _tracing.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=min(workers, len(todo))) as pool:
+            rows = dict(pool.map(one, todo))
+        wall = _tracing.monotonic() - t0
+        loaded = [r for row in rows.values() if isinstance(row, dict)
+                  for r in row.values() if isinstance(r, dict) and r.get("status") == "loaded"]
+        serial = sum(r.get("load_s", 0.0) for r in loaded)
+        return {
+            "workers": min(workers, len(todo)),
+            "loaded": len(loaded),
+            "wall_s": round(wall, 6),
+            "serial_load_s": round(serial, 6),
+            "overlap_x": round(serial / wall, 2) if wall > 0 and serial > 0 else None,
+            "members": rows,
+        }
 
     def state_memory(self) -> Dict[str, Any]:
         """Per-member state-memory footprint (tensor metadata only, no device read).

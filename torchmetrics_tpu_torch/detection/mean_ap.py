@@ -444,6 +444,17 @@ class MeanAveragePrecision(HostMetric):
         return preds_out, target_out
 
 
+class _MapevalProgram(torch.nn.Module):
+    """The device evaluator in the AOT plane's calling convention."""
+
+    def __init__(self, mapeval) -> None:
+        super().__init__()
+        self.mapeval = mapeval
+
+    def forward(self, tensors: Dict[str, torch.Tensor], n: torch.Tensor, args: tuple, kwargs: dict):
+        return self.mapeval(tensors)
+
+
 class DeviceMeanAveragePrecision(Metric):
     """COCO mAP as one torch function over a fixed-capacity padded row state on the
     device (``MeanAveragePrecision(backend="device")``).
@@ -601,6 +612,42 @@ class DeviceMeanAveragePrecision(Metric):
 
     # ----------------------------------------------------------------- compute
 
+    # -------------------------------------------------------------- warm start
+
+    def _aot_program(self, tag: str) -> torch.nn.Module:
+        """``"mapeval"``: the evaluator over the padded state (no inputs); other tags are
+        the base class's."""
+        if tag == "mapeval":
+            return _MapevalProgram(self._mapeval)
+        return super()._aot_program(tag)
+
+    def precompile(
+        self,
+        *example_inputs: Any,
+        tags: Sequence[str] = ("mapeval",),
+        cache_dir: Optional[str] = None,
+        force: bool = False,
+        **example_kwargs: Any,
+    ) -> Dict[str, Any]:
+        """Like :meth:`Metric.precompile`, plus the ``"mapeval"`` evaluator program.
+
+        The evaluator's dispatch signature is empty (it reads only the padded state), so
+        ``"mapeval"`` needs no example inputs; other tags go to the base implementation
+        with whatever examples are given. The evaluator reads the card on the host in
+        the middle (its per-cell counts size what follows), which ``torch.export``
+        cannot trace: its row reports ``"failed"`` with the exporter's first line, and
+        ``compute()`` keeps running it eagerly.
+        """
+        tags = tuple(tags)
+        rest = tuple(t for t in tags if t != "mapeval")
+        report = super().precompile(*example_inputs, tags=rest, cache_dir=cache_dir, force=force,
+                                    **example_kwargs) if rest else {}
+        if "mapeval" in tags:
+            tensors = {k: self._state[k] for k in ("det_rows", "gt_rows", "det_n", "gt_n", "img_n")}
+            report["mapeval"] = self._aot_plane(cache_dir).precompile_program(
+                self, "mapeval", self._aot_program("mapeval"), tensors, (), {}, force=force)
+        return report
+
     def _empty_result(self) -> Dict[str, torch.Tensor]:
         # no images seen: the host evaluator's sentinel dict, key for key
         result = {key: _f32(-1.0, self.device) for key in _summary_keys(self.max_detection_thresholds)}
@@ -612,7 +659,8 @@ class DeviceMeanAveragePrecision(Metric):
     def _compute(self, state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         if int(state["img_n"]) == 0:
             return self._empty_result()
-        out = self._mapeval({k: state[k] for k in ("det_rows", "gt_rows", "det_n", "gt_n", "img_n")})
+        tensors = {k: state[k] for k in ("det_rows", "gt_rows", "det_n", "gt_n", "img_n")}
+        out = self._program_dispatch("mapeval", tensors, ((), {}), lambda: self._mapeval(tensors))
         last = self.max_detection_thresholds[-1]
         result = {key: out[key].to(torch.float32) for key in _summary_keys(self.max_detection_thresholds)}
         present = out["present"]

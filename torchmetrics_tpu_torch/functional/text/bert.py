@@ -192,13 +192,16 @@ def bert_score(
     baseline_path: Optional[str] = None,
     baseline_url: Optional[str] = None,
     truncation: bool = False,
+    score_fn: Optional[Callable] = None,
     _forward: Optional[Callable] = None,
 ) -> Dict[str, torch.Tensor]:
     """BERTScore precision/recall/F1 via greedy cosine matching of contextual
     embeddings, on ``device`` (the card when None). Multiple references per prediction
     score as the best F1. A user ``model`` is called as ``model(input_ids,
     attention_mask)`` on int64 tensors on ``device`` and returns ``(batch, tokens,
-    dim)`` embeddings.
+    dim)`` embeddings. ``score_fn(p_emb, p_scale, t_emb, t_scale) -> (precision, recall,
+    f1)`` replaces the matching (:func:`_score_pairs`): the seam through which the
+    ``BERTScore`` class runs its AOT-cacheable ``"escore"`` program.
 
     Example:
         >>> import torch
@@ -238,7 +241,7 @@ def bert_score(
             flat_refs = [t[min(ref_idx, len(t) - 1)] for t in target]
             results.append(bert_score(preds, flat_refs, user_tokenizer=tokenizer, idf=idf, device=device,
                                       max_length=max_length, batch_size=batch_size, truncation=truncation,
-                                      _forward=forward))
+                                      score_fn=score_fn, _forward=forward))
         f1s = torch.stack([r["f1"] for r in results])
         best = torch.argmax(f1s, dim=0)
         pick = lambda key: torch.stack([r[key] for r in results]).gather(0, best[None])[0]
@@ -262,7 +265,7 @@ def bert_score(
                             batch_size, device)
     t_emb, t_scale = _embed(forward, target_tok["input_ids"], target_tok["attention_mask"], idf, idf_lookup,
                             batch_size, device)
-    precision, recall, f1 = _score_pairs(p_emb, p_scale, t_emb, t_scale)
+    precision, recall, f1 = (score_fn or _score_pairs)(p_emb, p_scale, t_emb, t_scale)
     out = {"precision": precision, "recall": recall, "f1": f1}
     if return_hash:
         out["hash"] = f"{model_name_or_path}_L{num_layers}_idf={idf}"

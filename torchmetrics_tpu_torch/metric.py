@@ -40,8 +40,15 @@ and a repeated signature), a host dispatch per ``HostMetric`` update, ``compute`
 ``sync`` with its bytes and collectives, the state memory after each fold, and a
 ``d2h`` at ``state_dict`` and at each ``compute_on_cpu`` append. With no session each
 boundary reads ``observability._ACTIVE`` once and opens only the ``torch.profiler``
-range the JAX package opens there. Not here yet: the AOT hooks of those boundaries,
-and the serving and streaming planes.
+range the JAX package opens there.
+
+The AOT warm-start plane (``aot/``) hooks the same tensor-path boundary: with a plane
+active, ``_dispatch`` looks a first-seen ``(tag, signature)`` up in the on-disk cache
+and, on a hit, runs the loaded program (the metric's fold, exported and compiled by
+AOTInductor) in place of the eager fold; a miss is remembered and the eager path serves
+it. ``precompile`` writes those programs ahead of traffic and ``prefetch_compiled``
+loads them into the in-process memo. With no plane the boundary reads ``aot._ACTIVE``
+once. Not here yet: the serving and streaming planes.
 ``HostMetric`` is the base of the metrics whose batch contribution is built on the host
 (detection's ragged per-image inputs).
 
@@ -61,6 +68,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from . import aot as _aot
 from . import observability as _observability
 from .observability import costs as _obs_costs
 from .observability import memory as _obs_memory
@@ -191,6 +199,7 @@ class Metric:
         self._reductions[name] = dist_reduce_fx
         self._persistent[name] = persistent
         self._state[name] = [] if isinstance(default, list) else default.clone()
+        self._drop_aot_memo()  # the state layout changed: loaded programs are stale
 
     @property
     def _list_state_names(self) -> Tuple[str, ...]:
@@ -223,6 +232,7 @@ class Metric:
         self._defaults = {k: move(v) for k, v in self._defaults.items()}
         self._state = {k: move(v) for k, v in self._state.items()}
         self._computed = None
+        self._drop_aot_memo()  # loaded programs are bound to the old device
         return self
 
     # ------------------------------------------------------------- pure core
@@ -348,20 +358,22 @@ class Metric:
         rec.record_host_dispatch(self, tag, rec.finish(out, t0, self._device))
         return out
 
-    def _fold_reliably(self, tag: str, args: tuple, kwargs: dict) -> StateDict:
+    def _fold_batch(self, args: tuple, kwargs: dict) -> StateDict:
+        """The eager fold: this batch's state, merged into the live states."""
+        batch = self._batch_state(*args, **kwargs)
+        self._fold(batch)
+        return batch
+
+    def _fold_reliably(self, tag: str, args: tuple, kwargs: dict, fold: Optional[Callable] = None) -> Any:
         """``update``'s and ``forward``'s boundary: this batch's state, folded into the
-        live states; returns the batch state. Without a retry policy it runs once and
-        nothing is copied. With one, every tensor state is cloned before the first
+        live states; returns the batch state (or what ``fold``, the AOT plane's loaded
+        program in place of the eager fold, returns). Without a retry policy it runs once
+        and nothing is copied. With one, every tensor state is cloned before the first
         attempt; before a retry the states take a fresh copy of the backup, the cat lists
         their old lengths and the update count its old value, and when the budget runs out
         the backup itself goes back into the states before the error re-raises, so the
         metric stays usable at its last good state."""
-
-        def fold_batch() -> StateDict:
-            batch = self._batch_state(*args, **kwargs)
-            self._fold(batch)
-            return batch
-
+        fold_batch = fold if fold is not None else (lambda: self._fold_batch(args, kwargs))
         rel = self._reliability
         if rel is None or rel.retry is None:
             return self._attempt(tag, fold_batch)
@@ -382,33 +394,112 @@ class Metric:
             roll_back(copy=False)
             raise
 
-    def _dispatch(self, tag: str, args: tuple, kwargs: dict, run: Callable[[], Any]) -> Any:
-        """The tensor path's ``update``/``forward`` boundary: ``run()`` inside the
-        metric's profiler range. In a telemetry session the dispatch is recorded with its
-        input signature and duration, a fresh signature's cost is harvested around this
-        one call (``observability/costs.py``), and the state memory is refreshed."""
+    def _dispatch(self, tag: str, args: tuple, kwargs: dict, run: Callable[[Optional[Callable]], Any]) -> Any:
+        """The tensor path's ``update``/``forward`` boundary: ``run(fold)`` inside the
+        metric's profiler range, where ``fold`` is None (the eager fold) or the AOT
+        plane's loaded program for this signature. In a telemetry session the dispatch is
+        recorded with its input signature and duration, a fresh signature's cost is
+        harvested around this one call (``observability/costs.py``; a loaded program's
+        from its entry), and the state memory is refreshed.
+
+        With the AOT plane active (``aot.enable``), a first-seen signature consults the
+        on-disk cache first: a hit runs the loaded program, a miss is remembered so the
+        eager path owns that signature for the rest of the process, and a corrupt entry
+        is just a miss. Counters keep ``jit_compiles + jit_cache_hits + aot_cache_hits
+        == dispatches`` exact. With no plane this reads ``aot._ACTIVE`` once."""
         label = f"{type(self).__name__}.{tag}"
+        plane = _aot._ACTIVE
+        slot = fold = None
+        if plane is not None:
+            slot = plane.lookup_dispatch(self, tag, self._tensor_states(), (args, kwargs))
+            if slot is not None and slot.compiled is not None:
+                fold = self._loaded_fold(tag, slot, args, kwargs)
         rec = _observability._ACTIVE
         if rec is None:
             with _tracing.trace_span(label):
-                return run()
+                out = run(fold)
+            if slot is not None and slot.store_pending:
+                plane.store_from_dispatch(self, tag, self._tensor_states(), (args, kwargs), slot)
+            return out
         inputs = (args, kwargs)
-        sig = rec._signature(inputs)
+        sig = slot.signature if slot is not None else rec._signature(inputs)
         harvest = None
         if rec.config.cost_accounting and rec._fresh_signature(self, tag, sig):
             harvest = _obs_costs.DispatchHarvest(self._state, inputs)
+        # a loaded program is opaque to FlopCounterMode: its harvest takes the bytes and
+        # the entry's flops, and is not entered around the call
+        counting = harvest if harvest is not None and fold is None else contextlib.nullcontext()
         object.__setattr__(self, "_d2h_pending", [])
         try:
             t0 = _tracing.monotonic()
-            with _tracing.trace_span(label), harvest if harvest is not None else contextlib.nullcontext():
-                out = run()
-            rec.record_dispatch(self, tag, inputs, rec.finish(out, t0, self._device), lower=harvest, signature=sig)
+            with _tracing.trace_span(label), counting:
+                out = run(fold)
+            duration = rec.finish(out, t0, self._device)
+            # decided AFTER the dispatch: a demotion means the eager path served it
+            aot_hit = slot is not None and slot.compiled is not None
+            if aot_hit and harvest is not None and fold is not None:
+                harvest.extra_flops += slot.flops
+            if aot_hit and slot.event_pending:
+                slot.event_pending = False  # one aot_load event per cache load
+                rec.record_aot_load(self, tag, slot.load_s, slot.nbytes, slot.key, slot.codec)
+            if slot is not None and slot.compiled is None and slot.miss_pending:
+                slot.miss_pending = False
+                rec.record_aot_miss()
+            rec.record_dispatch(self, tag, inputs, duration, lower=harvest, aot_loaded=aot_hit, signature=sig)
         finally:
             pending = self.__dict__.pop("_d2h_pending")
         for nbytes in pending:  # compute_on_cpu appends, after the dispatch's own record
             rec.record_d2h("compute_on_cpu_append", nbytes, metric=self)
         rec.record_state_memory(self)
+        if slot is not None and slot.store_pending:
+            plane.store_from_dispatch(self, tag, self._tensor_states(), inputs, slot)
         return out
+
+    def _tensor_states(self) -> StateDict:
+        lists = set(self._list_state_names)
+        return {k: v for k, v in self._state.items() if k not in lists}
+
+    def _aot_counter(self) -> torch.Tensor:
+        """The update count as the program's 0-d float32 ``n``: the tensor the last
+        loaded update returned while the count still matches, else a new one."""
+        cached = self.__dict__.get("_aot_n")
+        if cached is not None and cached[0] == self._update_count:
+            return cached[1]
+        return torch.tensor(float(self._update_count), dtype=torch.float32, device=self._device)
+
+    def _loaded_fold(self, tag: str, slot: Any, args: tuple, kwargs: dict) -> Callable[[], Tuple[StateDict, Any]]:
+        """The fold that runs ``slot``'s loaded program: it adopts the program's states,
+        appends and count as :meth:`_fold` would, and returns ``(batch state, batch
+        value)`` (the value None where the eager path computes it). A call the program
+        refuses before it runs (calling convention, device, dtype) demotes the slot to a
+        remembered miss and folds eagerly; any other error propagates."""
+        program_args = _aot.program_inputs((args, kwargs), self._device)
+
+        def fold() -> Tuple[StateDict, Any]:
+            if slot.compiled is not None:  # None: demoted on an earlier attempt
+                try:
+                    out = slot.compiled(self._tensor_states(), self._aot_counter(), *program_args)
+                except (TypeError, ValueError):
+                    slot.demote()
+                else:
+                    self._state.update(out[0])
+                    for k, v in out[1].items():
+                        self._append_list_state(k, v)
+                    self._update_count += 1
+                    self._computed = None
+                    if tag == "update":
+                        self.__dict__["_aot_n"] = (self._update_count, out[2])
+                        return out[1], None
+                    return dict(out[3]), out[2]
+            return self._fold_batch(args, kwargs), None
+
+        return fold
+
+    def _drop_aot_memo(self) -> None:
+        """Forget the loaded programs and the cached counter (a new device, dtype or
+        state layout, or a copy: loaded programs are process-local)."""
+        self.__dict__.pop("_aot_memo", None)
+        self.__dict__.pop("_aot_n", None)
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Accumulate this batch into the global state."""
@@ -419,7 +510,7 @@ class Metric:
             )
         args, kwargs = self._on_device(args, kwargs)
         args, kwargs = self._prepare_inputs(*args, **kwargs)
-        self._dispatch("update", args, kwargs, lambda: self._fold_reliably("update", args, kwargs))
+        self._dispatch("update", args, kwargs, lambda fold: self._fold_reliably("update", args, kwargs, fold))
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Batch value AND global accumulation in one pass: the batch state is computed
@@ -435,17 +526,18 @@ class Metric:
             return value
         args, kwargs = self._on_device(args, kwargs)
         args, kwargs = self._prepare_inputs(*args, **kwargs)
-        return self._dispatch("forward", args, kwargs, lambda: self._forward_value(args, kwargs))
+        return self._dispatch("forward", args, kwargs, lambda fold: self._forward_value(args, kwargs, fold))
 
-    def _forward_value(self, args: tuple, kwargs: dict) -> Any:
-        batch = self._fold_reliably("forward", args, kwargs)
+    def _forward_value(self, args: tuple, kwargs: dict, fold: Optional[Callable] = None) -> Any:
+        out = self._fold_reliably("forward", args, kwargs, fold)
+        batch, value = out if fold is not None else (out, None)
         for k, default in self._defaults.items():  # states the batch does not touch
             if k not in batch:
                 batch[k] = torch.zeros((0,), device=self._device) if isinstance(default, list) else default
         # the batch's whole state: compute-group members of a collection take their
         # batch value from it
         self._last_batch_state = batch
-        return self._compute(batch)
+        return self._compute(batch) if value is None else value
 
     __call__ = forward
 
@@ -677,6 +769,7 @@ class Metric:
                 )
                 loaded = True
         if loaded:
+            self._drop_aot_memo()  # the checkpoint's dtypes may not be the programs'
             meta_key = prefix + "_update_count"
             if meta_key in state_dict:
                 self._update_count = int(state_dict[meta_key])
@@ -706,6 +799,144 @@ class Metric:
         """
         return _obs_memory.state_memory(self._state)
 
+    # ------------------------------------------------------- warm start (aot/)
+
+    def _aot_program(self, tag: str) -> torch.nn.Module:
+        """The program behind one dispatch tag, as the AOT plane exports it: the
+        metric's fold for ``update``/``forward`` (:class:`_FoldProgram`). Owner-built
+        programs (``"mapeval"``, ``"escore"``) come from the metrics that own them."""
+        if tag in ("update", "forward"):
+            return _FoldProgram(self, tag)
+        raise ValueError(
+            f"Unknown dispatch tag {tag!r} for {type(self).__name__}; expected 'update' or 'forward' "
+            "(the 'mapeval' and 'escore' programs belong to DeviceMeanAveragePrecision and BERTScore)"
+        )
+
+    def _aot_plane(self, cache_dir: Optional[str]) -> Any:
+        if cache_dir is not None:
+            # an explicit cache_dir always wins — a deploy hook populating a bake-time
+            # cache must not write into whatever plane the process has active
+            return _aot.AotPlane(_aot.AotConfig(cache_dir=cache_dir))
+        if _aot._ACTIVE is None:
+            raise TorchMetricsUserError(
+                "precompile needs an active AOT plane — call "
+                "torchmetrics_tpu_torch.aot.enable(cache_dir) first, or pass cache_dir=."
+            )
+        return _aot._ACTIVE
+
+    def _aot_examples(self, example_inputs: tuple, example_kwargs: Dict[str, Any]) -> Tuple[tuple, dict]:
+        """The examples as the dispatch sees them: moved to the device and through
+        ``_prepare_inputs``. ``device="meta"`` placeholders carry no values, so value-level
+        validation cannot run on them: calls with placeholders skip ``_prepare_inputs``
+        and must be given its output shapes (for most metrics prepare is identity or
+        validation only)."""
+        if _aot.has_placeholder((example_inputs, example_kwargs)):
+            return example_inputs, example_kwargs
+        args, kwargs = self._on_device(example_inputs, example_kwargs)
+        return self._prepare_inputs(*args, **kwargs)
+
+    def precompile(
+        self,
+        *example_inputs: Any,
+        tags: Sequence[str] = ("update",),
+        cache_dir: Optional[str] = None,
+        force: bool = False,
+        **example_kwargs: Any,
+    ) -> Dict[str, Any]:
+        """Export and compile this metric's dispatch program(s) for the given example
+        input shapes AHEAD of traffic and publish them into the AOT cache, so a freshly
+        booted process serves its first update from a cache load.
+
+        Example inputs may be tensors, numpy arrays, ``device="meta"`` placeholders or
+        Python scalars — only shape/dtype metadata shapes the program and the key.
+        Uses the active plane (:func:`torchmetrics_tpu_torch.aot.enable`) or, for
+        one-off population, an explicit ``cache_dir``. Returns ``{tag: report_row}``: a
+        program whose entry exists reports ``"cached"`` (``force=True`` rewrites), one
+        that does not export ``"failed"`` with the exporter's first error line, and a
+        metric whose config holds tensors or a weighted module ``"skipped"``
+        (uncacheable).
+        """
+        plane = self._aot_plane(cache_dir)
+        args, kwargs = self._aot_examples(example_inputs, example_kwargs)
+        tensors = self._tensor_states()
+        report: Dict[str, Any] = {}
+        for tag in tags:
+            try:
+                report[tag] = plane.precompile_program(
+                    self, tag, self._aot_program(tag), tensors, args, kwargs, force=force
+                )
+            except _aot.keys.UnfingerprintableConfig as err:
+                report[tag] = {"status": "skipped", "reason": f"uncacheable: {err}"}
+        return report
+
+    def prefetch_compiled(
+        self,
+        *example_inputs: Any,
+        tags: Sequence[str] = ("update",),
+        **example_kwargs: Any,
+    ) -> Dict[str, Any]:
+        """Load this metric's cached programs for the example signature into the
+        in-process dispatch memo WITHOUT compiling on a miss.
+
+        The read-only sibling of :meth:`precompile`: a hit loads the program and primes
+        the memo so the first real dispatch is served from memory (no disk probe on the
+        traffic path); a miss is remembered exactly like a dispatch-time miss.
+        Thread-safe against OTHER metrics prefetching concurrently —
+        ``MetricCollection.precompile`` overlaps its members' loads on a thread pool.
+        Returns ``{tag: row}``."""
+        plane = _aot._ACTIVE
+        if plane is None:
+            raise TorchMetricsUserError(
+                "prefetch_compiled needs an active AOT plane — call "
+                "torchmetrics_tpu_torch.aot.enable(cache_dir) first."
+            )
+        args, kwargs = self._aot_examples(example_inputs, example_kwargs)
+        tensors = self._tensor_states()
+        report: Dict[str, Any] = {}
+        for tag in tags:
+            slot = plane.lookup_dispatch(self, tag, tensors, (args, kwargs))
+            if slot is not None and slot.compiled is not None:
+                report[tag] = {
+                    "status": "loaded", "codec": slot.codec,
+                    "load_s": round(slot.load_s, 6), "bytes": slot.nbytes,
+                }
+            else:
+                report[tag] = {"status": "miss"}
+        return report
+
+    def _program_dispatch(self, tag: str, tensors: StateDict, inputs: tuple, eager: Callable[[], Any]) -> Any:
+        """An owner-built program (``"mapeval"``, ``"escore"``) through the AOT plane:
+        the loaded program serves a hit, ``eager()`` a miss. In a telemetry session the
+        call is recorded as a dispatch with its load or miss, as ``update`` is. With no
+        plane this reads ``aot._ACTIVE`` once and calls ``eager()``."""
+        plane = _aot._ACTIVE
+        if plane is None:
+            return eager()
+        slot = plane.lookup_dispatch(self, tag, tensors, inputs)
+        rec = _observability._ACTIVE
+        t0 = _tracing.monotonic()
+        out = None
+        if slot.compiled is not None:
+            try:
+                out = slot.compiled(tensors, self._aot_counter(), *_aot.program_inputs(inputs, self._device))
+            except (TypeError, ValueError):
+                slot.demote()
+        if slot.compiled is None:
+            out = eager()
+        if rec is not None:
+            hit = slot.compiled is not None
+            duration = rec.finish(out, t0, self._device)
+            if hit and slot.event_pending:
+                slot.event_pending = False
+                rec.record_aot_load(self, tag, slot.load_s, slot.nbytes, slot.key, slot.codec)
+            if not hit and slot.miss_pending:
+                slot.miss_pending = False
+                rec.record_aot_miss()
+            rec.record_dispatch(self, tag, inputs, duration, aot_loaded=hit, signature=slot.signature)
+        if slot.store_pending:
+            plane.store_from_dispatch(self, tag, tensors, inputs, slot)
+        return out
+
     # ------------------------------------------------------------- copies
 
     def clone(self) -> "Metric":
@@ -718,6 +949,8 @@ class Metric:
         new = type(self).__new__(type(self))
         memo[id(self)] = new
         for k, v in self.__dict__.items():
+            if k in ("_aot_memo", "_aot_n"):  # loaded programs are process-local
+                continue
             if k in ("_state", "_cache"):
                 value = None if v is None else {
                     n: [t.clone() for t in s] if isinstance(s, list) else s.clone() for n, s in v.items()
@@ -738,6 +971,8 @@ class Metric:
         state.update(_cache=None, _computed=None, dist_sync_fn=None, _fault_hook=None)
         state.pop("_last_batch_state", None)
         state.pop("distributed_available_fn", None)
+        state.pop("_aot_memo", None)  # loaded programs are process-local
+        state.pop("_aot_n", None)
         return state
 
     def __setstate__(self, state: dict) -> None:
@@ -762,6 +997,7 @@ class Metric:
         self._defaults = {k: cast_leaf(v) for k, v in self._defaults.items()}
         self._dtype = dst_type
         self._computed = None
+        self._drop_aot_memo()  # dtypes changed — loaded programs are stale
         return self
 
     @property
@@ -859,6 +1095,53 @@ class Metric:
         )
 
 
+class _FoldProgram(torch.nn.Module):
+    """A metric's pure fold as one module: what the AOT plane exports and compiles.
+
+    ``forward(tensors, n, args, kwargs)`` runs ``_batch_state`` and merges it into the
+    tensor states as :meth:`Metric._fold` does (``n``, the update count as a 0-d float32
+    tensor, weighs the running-mean fold). ``update`` returns ``(new tensor states,
+    cat appends, n + 1)``; ``forward`` returns ``(new tensor states, cat appends, batch
+    value, batch state)``, the value None where the metric's compute is not traceable
+    (``_jittable_compute``). The metric is held as a plain attribute, not a submodule:
+    nothing of it is a parameter of the program.
+    """
+
+    def __init__(self, metric: Metric, tag: str) -> None:
+        super().__init__()
+        self.metric = metric
+        self.tag = tag
+
+    def forward(self, tensors: StateDict, n: torch.Tensor, args: tuple, kwargs: dict):
+        m = self.metric
+        lists = set(m._list_state_names)
+        batch = m._batch_state(*args, **kwargs)
+        appends = {k: v for k, v in batch.items() if k in lists}
+        batch_t = {k: v for k, v in batch.items() if k not in lists}
+        if m._has_custom_merge():
+            merged = m._merge(dict(tensors), batch_t)
+        else:
+            merged = {k: _fold_leaf(m._reductions[k], tensors[k], v, n) for k, v in batch_t.items()}
+        new = dict(tensors)
+        new.update({k: v.to(tensors[k].dtype) if k in tensors else v for k, v in merged.items()})
+        if self.tag == "update":
+            return new, appends, n + 1.0
+        for k, default in m._defaults.items():
+            if k not in batch:
+                batch[k] = torch.zeros((0,), device=n.device) if isinstance(default, list) else default
+        value = m._compute(batch) if m._jittable_compute else None
+        return new, appends, value, batch
+
+
+def _fold_leaf(fx: Any, a: torch.Tensor, b: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """:func:`~.parallel.sync.pairwise_merge` with the update count as a tensor: the
+    ``"mean"`` fold is the eager ``weighted_mean(a, b, count, 1.0)`` (whose total is
+    never 0 there) without a branch on a traced value."""
+    if fx == "mean":
+        return (n * a + b) / (n + 1.0)
+    return _sync.pairwise_merge(fx, a, b)
+
+
 class HostMetric(Metric):
     """Base for metrics whose batch contribution is built on the host: ragged per-image
     inputs (detection), where ``_host_batch_state(*inputs) -> dict`` returns, per state,
@@ -880,15 +1163,26 @@ class HostMetric(Metric):
     def _batch_state(self, *args: Any, **kwargs: Any) -> StateDict:
         return self._host_batch_state(*args, **kwargs)
 
-    def _fold_reliably(self, tag: str, args: tuple, kwargs: dict) -> StateDict:
+    def precompile(self, *example_inputs: Any, tags: Sequence[str] = ("update",), **kwargs: Any) -> Dict[str, Any]:
+        """Host metrics dispatch on the host — there is no program to cache. A no-op
+        report keeps ``MetricCollection.precompile`` total over heterogeneous
+        collections."""
+        return {tag: {"status": "skipped", "reason": "host-side metric — no jitted dispatch program"} for tag in tags}
+
+    def prefetch_compiled(self, *example_inputs: Any, tags: Sequence[str] = ("update",), **kwargs: Any) -> Dict[str, Any]:
+        """No program — nothing to load (see :meth:`precompile`)."""
+        return {tag: {"status": "skipped", "reason": "host-side metric — no jitted dispatch program"} for tag in tags}
+
+    def _fold_reliably(self, tag: str, args: tuple, kwargs: dict, fold: Optional[Callable] = None) -> StateDict:
         batch = self._reliable_call(tag, lambda: self._host_batch_state(*args, **kwargs))
         self._fold(batch)
         return batch
 
-    def _dispatch(self, tag: str, args: tuple, kwargs: dict, run: Callable[[], Any]) -> Any:
-        """No tensor-path record: the host contribution records as a host dispatch in
-        :meth:`_reliable_call`, and the state memory is refreshed after the fold."""
-        out = run()
+    def _dispatch(self, tag: str, args: tuple, kwargs: dict, run: Callable[[Optional[Callable]], Any]) -> Any:
+        """No tensor-path record and no AOT program: the host contribution records as a
+        host dispatch in :meth:`_reliable_call`, and the state memory is refreshed after
+        the fold."""
+        out = run(None)
         rec = _observability._ACTIVE
         if rec is not None:
             rec.record_state_memory(self)
@@ -934,6 +1228,34 @@ class CompositionalMetric(Metric):
 
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
         return kwargs
+
+    def precompile(
+        self,
+        *example_inputs: Any,
+        tags: Sequence[str] = ("update",),
+        cache_dir: Optional[str] = None,
+        force: bool = False,
+        **example_kwargs: Any,
+    ) -> Dict[str, Any]:
+        """Warm both operands — the composition itself has no program. Example kwargs
+        route through each operand's kwarg filter, as the composed ``update`` does, so
+        the cached signatures match what real traffic dispatches."""
+        return {
+            side: operand.precompile(*example_inputs, tags=tags, cache_dir=cache_dir, force=force,
+                                     **operand._filter_kwargs(**example_kwargs))
+            for side, operand in (("metric_a", self.metric_a), ("metric_b", self.metric_b))
+            if isinstance(operand, Metric)
+        }
+
+    def prefetch_compiled(
+        self, *example_inputs: Any, tags: Sequence[str] = ("update",), **example_kwargs: Any
+    ) -> Dict[str, Any]:
+        """Prefetch both operands' cached programs (the composition has none)."""
+        return {
+            side: operand.prefetch_compiled(*example_inputs, tags=tags, **operand._filter_kwargs(**example_kwargs))
+            for side, operand in (("metric_a", self.metric_a), ("metric_b", self.metric_b))
+            if isinstance(operand, Metric)
+        }
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         for metric in self._metrics():

@@ -137,6 +137,14 @@ class DispatchHarvest:
         if self._counter is not None:
             self._counter.__exit__(*exc)
 
+    @property
+    def total_flops(self) -> float:
+        """The flops counted so far: the dispatch mode's, if it was entered, plus those
+        added by kernels no mode sees (or by the AOT plane for a loaded program, whose
+        entry carries the count taken when it was precompiled)."""
+        counted = float(self._counter.get_total_flops()) if self._counter is not None else 0.0
+        return counted + self.extra_flops
+
     def record(self, key: str, signature: str) -> CostRecord:
         """The dispatch's :class:`CostRecord`, from the states as the call left them."""
         if self.error is not None:
@@ -151,7 +159,7 @@ class DispatchHarvest:
                     alias += _nbytes(value)
         return CostRecord(
             key=key, signature=signature, available=True,
-            flops=float(self._counter.get_total_flops()) + self.extra_flops,
+            flops=self.total_flops,
             argument_bytes=self.argument_bytes, output_bytes=output, alias_bytes=alias,
         )
 

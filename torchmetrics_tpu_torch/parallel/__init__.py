@@ -1,6 +1,7 @@
 """Sync planes over ``torch.distributed`` (counterpart of ``torchmetrics_tpu/parallel``:
-the coalesced core of ``coalesce.py`` and ``sync.py``; the quantized, asynchronous and
-mesh helpers are not ported yet)."""
+the coalesced core of ``coalesce.py`` and ``sync.py``, and ``mesh.py``'s
+``runtime_fingerprint`` for the AOT plane's keys; the quantized, asynchronous and mesh
+helpers are not ported yet)."""
 
 from . import coalesce
 from .coalesce import CoalesceFallback, coalesced_process_sync, collective_counts, reduce_many

@@ -10,11 +10,12 @@ run their model on the metric's device at ``compute``.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import aot as _aot
 from ..functional.text.asr import (
     _asr_counts,
     _cer_compute,
@@ -23,7 +24,8 @@ from ..functional.text.asr import (
     _wil_compute,
     _wip_compute,
 )
-from ..functional.text.bert import _load_hf, _tokenize, _user_forward, bert_score
+from ..functional.text.bert import (_attended_width, _cut, _embed, _idf_weights, _load_hf, _score_pairs, _tokenize,
+                                    _user_forward, bert_score)
 from ..functional.text.bleu import _bleu_score_compute, _bleu_score_update, _resolve_weights, _tokenize_fn
 from ..functional.text.chrf import _chrf_score_compute, _chrf_score_update, _validate_chrf_args
 from ..functional.text.edit import _edit_distance_compute, _edit_distance_update
@@ -621,12 +623,29 @@ def _host_rows(state, prefix: str) -> dict:
     return {key: state[f"{prefix}_{key}"].cpu().numpy() for key in ("input_ids", "attention_mask")}
 
 
+class _EscoreProgram(torch.nn.Module):
+    """BERTScore's matching in the AOT plane's calling convention (no states)."""
+
+    def forward(self, tensors: dict, n: torch.Tensor, args: tuple, kwargs: dict):
+        return _score_pairs(*args)
+
+
+def _bucket(n: int, floor: int = 4) -> int:
+    """Round up to the next power of two (compile-cache friendliness)."""
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
 class BERTScore(_TextMetric):
     """BERTScore (reference ``text/bert.py:59``): the tokenized sentences, padded to
     ``max_length``, as int32 cat states on the metric's device (reference
     ``text/bert.py:220``); the embedder and the matching run there at ``compute``. The
     HF model, or a user ``model`` that is an ``nn.Module``, moves to the metric's device.
-    The JAX package's AOT bucketing of the matching ("escore") is not ported.
+    With the AOT plane active the matching runs as the ``"escore"`` program: each scoring
+    batch zero-padded to power-of-two (batch, token) buckets, so a few cached programs
+    serve every size, and ``precompile`` writes it ahead of traffic.
 
     Example:
         >>> import torch
@@ -718,7 +737,71 @@ class BERTScore(_TextMetric):
             device=self.device, max_length=self.max_length, batch_size=self.batch_size,
             return_hash=self.return_hash, lang=self.lang, rescale_with_baseline=self.rescale_with_baseline,
             baseline_path=self.baseline_path, truncation=self.truncation, _forward=self._forward,
+            score_fn=self._dispatch_escore if _aot._ACTIVE is not None else None,
         )
+
+    # --------------------------------------------------- the matching ("escore")
+
+    def _aot_program(self, tag: str) -> torch.nn.Module:
+        if tag == "escore":
+            return _EscoreProgram()
+        return super()._aot_program(tag)
+
+    @staticmethod
+    def _pad_escore(p_emb, p_scale, t_emb, t_scale) -> Tuple[tuple, int]:
+        """Zero-pad one scoring batch to power-of-two (batch, token) buckets. A padded
+        token scores 0 against every token, as the masked special tokens already do, so
+        no maximum moves; padded rows are cut off."""
+        batch, length = p_emb.shape[0], max(p_emb.shape[1], t_emb.shape[1])
+        b_cap, l_cap = _bucket(max(batch, 1), floor=4), _bucket(max(length, 1), floor=8)
+        pad3 = lambda a: torch.nn.functional.pad(a, (0, 0, 0, l_cap - a.shape[1], 0, b_cap - a.shape[0]))  # noqa: E731
+        pad2 = lambda a: torch.nn.functional.pad(a, (0, l_cap - a.shape[1], 0, b_cap - a.shape[0]))  # noqa: E731
+        return (pad3(p_emb), pad2(p_scale), pad3(t_emb), pad2(t_scale)), batch
+
+    def _dispatch_escore(self, p_emb, p_scale, t_emb, t_scale):
+        """``score_fn`` seam of :func:`bert_score`: pad to buckets, run the matching
+        through the AOT plane (a cached program, or the eager matching), cut the real
+        rows back."""
+        padded, batch = self._pad_escore(p_emb, p_scale, t_emb, t_scale)
+        precision, recall, f1 = self._program_dispatch("escore", {}, (padded, {}), lambda: _score_pairs(*padded))
+        return precision[:batch], recall[:batch], f1[:batch]
+
+    def precompile(
+        self,
+        *example_inputs: Any,
+        tags: Sequence[str] = ("escore",),
+        cache_dir: Optional[str] = None,
+        force: bool = False,
+        **example_kwargs: Any,
+    ) -> Dict[str, Any]:
+        """Ahead-of-traffic export and compile of the ``"escore"`` matching program.
+
+        ``example_inputs`` is one ``(preds, target)`` sentence batch: it is tokenized and
+        embedded as ``compute`` would (the model runs), and the bucketed signature is
+        compiled into the active (or ``cache_dir``) AOT cache. Other tags get the host
+        metric's no-op rows."""
+        tags = tuple(tags)
+        rest = tuple(t for t in tags if t != "escore")
+        report = super().precompile(*example_inputs, tags=rest, **example_kwargs) if rest else {}
+        if "escore" not in tags:
+            return report
+        plane = self._aot_plane(cache_dir)
+        preds, target = example_inputs
+        preds = [preds] if isinstance(preds, str) else list(preds)
+        target = [target] if isinstance(target, str) else list(target)
+        p = _tokenize(self.tokenizer, preds, self.max_length, self.truncation)
+        t = _tokenize(self.tokenizer, target, self.max_length, self.truncation)
+        width = max(_attended_width(p["attention_mask"]), _attended_width(t["attention_mask"]), 1)
+        p, t = _cut(p, width), _cut(t, width)
+        idf_lookup = _idf_weights(t["input_ids"], t["attention_mask"]) if self.idf else None
+        p_emb, p_scale = _embed(self._forward, p["input_ids"], p["attention_mask"], self.idf, idf_lookup,
+                                self.batch_size, self.device)
+        t_emb, t_scale = _embed(self._forward, t["input_ids"], t["attention_mask"], self.idf, idf_lookup,
+                                self.batch_size, self.device)
+        padded, _ = self._pad_escore(p_emb, p_scale, t_emb, t_scale)
+        report["escore"] = plane.precompile_program(self, "escore", self._aot_program("escore"), {}, padded, {},
+                                                    force=force)
+        return report
 
 
 class InfoLM(_TextMetric):

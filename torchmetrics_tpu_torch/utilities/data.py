@@ -120,11 +120,25 @@ def _bincount_2d(
     y = y.reshape(-1).long()
     keep = (x >= 0) & (x < nx) & (y >= 0) & (y < ny)
     fused = torch.where(keep, x * ny + y, nx * ny)
+    bincount = _static_bincount if torch.compiler.is_exporting() else torch.bincount
     if weights is None:
-        counts = torch.bincount(fused, minlength=nx * ny + 1)[: nx * ny]
+        counts = bincount(fused, minlength=nx * ny + 1)[: nx * ny]
         return counts.reshape(nx, ny).to(torch.int32)
-    counts = torch.bincount(fused, weights=weights.reshape(-1).float(), minlength=nx * ny + 1)[: nx * ny]
+    counts = bincount(fused, weights=weights.reshape(-1).float(), minlength=nx * ny + 1)[: nx * ny]
     return counts.reshape(nx, ny)
+
+
+def _static_bincount(fused: torch.Tensor, weights: Optional[torch.Tensor] = None, minlength: int = 0) -> torch.Tensor:
+    """``torch.bincount`` of indices known to lie in ``[0, minlength)``, as the exported
+    (AOT) program computes it: an ``index_add_`` into zeros of length ``minlength``.
+    ``bincount``'s length depends on the data, which ``torch.export`` carries only as an
+    unbacked size (and torch 2.11 types its weighted form as int64, so a compiled program
+    reads its float counts as integers). The same counts: integers in int64, and float32
+    sums of integer weights, exact in any order below 2**24 a bin."""
+    if weights is None:
+        return torch.zeros(minlength, dtype=torch.int64, device=fused.device).index_add_(
+            0, fused, torch.ones_like(fused))
+    return torch.zeros(minlength, dtype=weights.dtype, device=fused.device).index_add_(0, fused, weights)
 
 
 _JAX_DTYPES = {torch.int64: torch.int32, torch.float64: torch.float32, torch.complex128: torch.complex64}
