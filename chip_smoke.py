@@ -432,8 +432,41 @@ Phases, one JSON line each, in order:
    module with weights in its config), its 4 updates run eagerly with all 104 sepconv7
    launches (the path's count), each inside its update's profiler range, states equal to
    a run without the plane and the counters reconciled on the eager side. Last the
-   ``"mapeval"`` program of ``DeviceMeanAveragePrecision(capacity=524288)``: its
-   precompile row, with the exporter's first error line where it does not export.
+   ``"mapeval"`` program of the map_device phase's ``DeviceMeanAveragePrecision
+   (capacity=524288)``, precompiled by a ``--mapeval-child`` the map_device phase starts
+   (its compile overlaps phases 11-53): ``"written"`` with both codecs, and the loaded
+   (``"aoti"``) ``compute()`` over the 5000 images within ``MAPEVAL_ATOL`` (1e-6) of the
+   eager one, both timed.
+
+55. streaming (run right after phase 54): the streaming plane. (1) ``{acc, f1,
+   confmat}`` (5 classes, batch 65,536), each in ``SlidingWindow(window=64)`` (the dual
+   tier), 200 updates: the window-parity oracle on the card (the window's states equal
+   a fresh metric's fed the trailing ``covered_updates()`` batches bit for bit, values
+   within 1e-6), a 12-update prefix at window 4 held against the CPU port (states bit
+   for bit, values within 1e-6), update ms and launch calls windowed against plain, the
+   host reads of a windowed update equal to the plain one's, and ``{acc, f1}`` windowed
+   under ``torch.cuda.set_sync_debug_mode("error")``. (2) FID behind the bf16 trunk
+   (He-scaled seeded weights, batch 128) in ``SlidingWindow(window=4)`` over 10 updates
+   (two rotations): 260 sepconv7 launches (the path's count), 26 inside each windowed
+   update's ``FrechetInceptionDistance.wdual`` range; the oracle within the JAX
+   package's ``rtol=1e-5, atol=1e-6``; ``ExponentialDecay(FID, halflife=4)`` over the
+   same batches against its closed form in float64 on the host (within 1e-5 of each
+   sum's largest magnitude). (3) The two-stack tier on per-batch latencies (``MaxMetric``
+   and ``MinMetric``, 3,000 updates of 1,024 values at window 1,000: depth 16, pane 63,
+   past several flips; and at ``pane=1``, exact, for 2,500 updates), the ring on
+   ``PearsonCorrCoef`` (a custom merge) over phase 21's weather batches at window 8 and
+   on ``CatMetric`` (list states), each held to the oracle, with its state bytes. (4)
+   ``DriftMonitor`` on windowed accuracy over a stream whose label noise steps up after
+   update 100 of 200: no breach before, a breach after, in the session's ``drift(acc)``
+   SLO and an ``alert`` event. (5) In an NCCL group of one, ``{acc, f1, confmat}`` and
+   FID's states synced with ``sync(async_=True)`` while 8 updates run: the commit equal
+   to a blocking sync bit for bit, ``unsync()`` giving back the overlap's states, the
+   traced ``nccl:all_gather`` (all threads) as ``collective_counts`` predicts,
+   ``overlap_pct``/``gather_s``/``wait_s``; a ``FlakyGather`` whose first call fails
+   commits nothing without a policy and recovers under ``RetryPolicy``. (6)
+   ``precompile(tags=("wdual",))`` of windowed accuracy writes both codecs; a fresh
+   interpreter (``--aot-child ... window``) loads it (one ``"aoti"`` load, no compile),
+   its window states after 16 batches equal the eager ones bit for bit. Budget 90 s.
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -1472,7 +1505,9 @@ def map_host_phase(card: str, preds, target) -> dict:
     return values
 
 
-def map_device_phase(card: str, preds, target, host_values: dict) -> None:
+def device_map_metric(preds, target):
+    """``DeviceMeanAveragePrecision`` at the phase's geometry over ``preds``/``target``
+    in steps of ``IMAGES_PER_STEP`` images, and each update's ms."""
     from torchmetrics_tpu_torch.detection import DeviceMeanAveragePrecision
 
     metric = DeviceMeanAveragePrecision(capacity=DEVICE_MAP_CAPACITY, num_classes=COCO_CLASSES,
@@ -1484,6 +1519,12 @@ def map_device_phase(card: str, preds, target, host_values: dict) -> None:
         metric.update(p, t)
         torch.cuda.synchronize()
         update_ms.append((time.perf_counter() - start) * 1e3)
+    return metric, update_ms
+
+
+def map_device_phase(card: str, preds, target, host_values: dict):
+    """Returns the metric and its result, which the aot phase's ``"mapeval"`` step takes."""
+    metric, update_ms = device_map_metric(preds, target)
 
     def compute_once():
         metric._computed = None
@@ -1507,6 +1548,7 @@ def map_device_phase(card: str, preds, target, host_values: dict) -> None:
           "state_mb": state_bytes(metric._state) / 1e6, "update_ms": median(update_ms), "compute_ms": compute_ms,
           "compute_device_ms": device_ms, "worst_diff_vs_host": worst, "limit": MAP_ATOL,
           "map": float(result["map"]), "card": card})
+    return metric, result
 
 
 def flagship_classification(num_classes: int = 5, device=None):
@@ -2500,17 +2542,23 @@ def launches_inside_spans(events, span: str, kernel: str) -> dict:
     return {"kernels": len(kernels), "inside": inside, "spans": len(ranges), "per_span": per_span}
 
 
-def traced(step, tries: int = 4, want=None) -> list:
+def traced(step, tries: int = 4, want=None, all_threads: bool = False) -> list:
     """``step`` once under ``torch.profiler`` after ``PROFILE_LEAD_LAUNCHES`` lead
     launches and a pause (a trace can lose the device events of its first launches);
     taken again, up to ``tries`` times, until ``want(events)`` holds. Returns the
-    trace's events."""
+    trace's events. ``all_threads`` records the host events of every thread (a
+    background sync's collectives), not only the caller's."""
     from torch.profiler import ProfilerActivity, profile
 
+    extra = {}
+    if all_threads:
+        from torch._C._profiler import _ExperimentalConfig
+
+        extra["experimental_config"] = _ExperimentalConfig(profile_all_threads=True)
     lead = torch.zeros(1, device="cuda")
     for _ in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **extra) as prof:
             for _ in range(PROFILE_LEAD_LAUNCHES):
                 lead.add_(1)
             torch.cuda.synchronize()
@@ -2794,10 +2842,14 @@ AOT_CODECS = ["aoti", "torch_export"]
 AOT_CORRUPT_MEMBER = "confmat"
 AOT_CHILD_WALL_S = 240
 # "warm" and "corrupt" boot with the plane on the cache ("corrupt" takes no timings:
-# it runs beside the parent's FID work), "cold" with none
-AOT_CHILD_MODES = ("warm", "cold", "corrupt")
+# it runs beside the parent's FID work), "cold" with none; "window" boots the streaming
+# phase's windowed accuracy on the cache
+AOT_CHILD_MODES = ("warm", "cold", "corrupt", "window")
 AOT_SEED = 53
-AOT_MAP_CAPACITY = 524288
+MAPEVAL_ATOL = 1e-6  # the loaded evaluator against the eager one
+MAPEVAL_CHILD_FLAG = "--mapeval-child"
+MAPEVAL_STATES = ("det_rows", "gt_rows", "det_n", "gt_n", "img_n")
+MAPEVAL_CHILD_WALL_S = 600
 # the phase's budget, its compiles included: reported beside its seconds (a slower host
 # compiles slower; the checks, not the clock, decide the phase)
 AOT_PHASE_LIMIT_S = 180
@@ -2842,7 +2894,12 @@ def aot_child(cache_dir: str, mode: str) -> int:
     imports_s = time.perf_counter() - clock
     plane = aot.enable(cache_dir) if mode != "cold" else None
     rows = aot_rows()
-    coll = obs_collection()
+    if mode == "window":
+        from torchmetrics_tpu_torch.streaming import SlidingWindow
+
+        coll = SlidingWindow(obs_collection(members=("acc",))["acc"], STREAM_WINDOW)
+    else:
+        coll = obs_collection()
     torch.cuda.synchronize()
     with obs.telemetry_session() as rec:
         start = time.perf_counter()
@@ -2855,9 +2912,9 @@ def aot_child(cache_dir: str, mode: str) -> int:
         torch.cuda.synchronize()
         snap = rec.counters.snapshot()
         loads = [{**e.payload, "metric": e.metric, "ms": e.duration_s * 1e3} for e in rec.events_of("aot_load")]
-    states = aot_states(coll)
+    states = {k: v.cpu().tolist() for k, v in coll._wstate.items()} if mode == "window" else aot_states(coll)
     steady_ms = calls = None
-    if mode != "corrupt":
+    if mode in ("warm", "cold"):
         steady_ms = median(timed_updates(coll, rows[1:9]))
         calls = launch_calls(profile_step(f"aot_update_{mode}", lambda: coll.update(*rows[1])))
     print("RESULT" + json.dumps({
@@ -2980,13 +3037,102 @@ def aot_fid(cache_dir: str) -> dict:
             "states_bitwise": bitwise, "card_repeats_bitwise": repeats}
 
 
-def aot_phase(card: str) -> int:
-    """The AOT warm-start plane on the main path and under FID (see phase 54 above).
-    Returns the sepconv7 launches of FID's updates under the plane, the path's count."""
+def mapeval_child(cache_dir: str) -> int:
+    """A fresh interpreter that precompiles the device mAP evaluator at the map_device
+    phase's geometry into ``cache_dir`` (the program reads only the state's shapes, so
+    an empty metric will do) and prints its report row: the compile (about 90-160 s,
+    most of it AOTInductor's) overlaps the phases that run meanwhile."""
+    from torchmetrics_tpu_torch.detection import DeviceMeanAveragePrecision
+
+    clock = time.perf_counter()
+    metric = DeviceMeanAveragePrecision(capacity=DEVICE_MAP_CAPACITY, num_classes=COCO_CLASSES,
+                                        gt_group_cap=GT_GROUP_CAP)
+    row = metric.precompile(cache_dir=cache_dir)["mapeval"]
+    row["seconds"] = time.perf_counter() - clock
+    from torchmetrics_tpu_torch.parallel.mesh import runtime_fingerprint
+
+    row["runtime"] = runtime_fingerprint()
+    from torchmetrics_tpu_torch.aot import keys
+
+    row["key"] = keys.cache_key(metric, "mapeval", {k: metric._state[k] for k in MAPEVAL_STATES}, ((), {}))
+    print("RESULT" + json.dumps(row), flush=True)
+    return 0
+
+
+def start_mapeval(metric, result) -> dict:
+    """The map_device phase's metric and eager result, with a ``--mapeval-child``
+    precompiling its program into a fresh cache; :func:`aot_mapeval` takes both."""
+    import tempfile
+
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_mapeval_")
+    import atexit
+
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), MAPEVAL_CHILD_FLAG, cache_dir],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(proc.kill)  # a phase that fails before the aot phase must not leave it running
+    return {"metric": metric, "result": result, "cache_dir": cache_dir, "child": proc}
+
+
+def aot_mapeval(device_map: dict) -> dict:
+    """The device mAP evaluator's program for the map_device phase's metric (COCO scale,
+    capacity 524,288): written with both codecs by the child, and the loaded
+    (``"aoti"``) ``compute()`` within ``MAPEVAL_ATOL`` of the eager one, timed beside
+    it."""
+    from torchmetrics_tpu_torch import aot
+
+    metric, eager, cache_dir, proc = (device_map[k] for k in ("metric", "result", "cache_dir", "child"))
+    try:
+        text, _ = proc.communicate(timeout=MAPEVAL_CHILD_WALL_S)
+    finally:
+        proc.kill()
+        proc.wait()
+    lines = [line for line in text.splitlines() if line.startswith("RESULT")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"aot: the mapeval child failed (exit {proc.returncode}): {text[-3000:]}")
+    row = json.loads(lines[-1][len("RESULT"):])
+    if row["status"] != "written" or row["codecs"] != AOT_CODECS:
+        raise AssertionError(f"aot: the mapeval row is {row}")
+
+    def compute_once():
+        metric._computed = None
+        out = metric.compute()
+        torch.cuda.synchronize()
+        return out
+
+    eager_ms = median_ms(compute_once, iters=3)
+    plane = aot.enable(cache_dir)
+    try:
+        loaded = compute_once()
+        slot = metric.__dict__["_aot_memo"]
+        codecs = [entry.codec for key, entry in slot.items() if key[0] == "mapeval" and entry.compiled is not None]
+        loaded_ms = median_ms(compute_once, iters=3)
+    finally:
+        aot.disable()
+    diff = max(float((loaded[k].double() - eager[k].double()).abs().max()) for k in eager if eager[k].numel())
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    if codecs != ["aoti"] or diff > MAPEVAL_ATOL or set(loaded) != set(eager):
+        from torchmetrics_tpu_torch.aot import keys
+        from torchmetrics_tpu_torch.parallel.mesh import runtime_fingerprint
+
+        key = keys.cache_key(metric, "mapeval", {k: metric._state[k] for k in MAPEVAL_STATES}, ((), {}))
+        raise AssertionError(f"aot: the loaded mapeval ({codecs}) is {diff} from the eager compute; plane "
+                             f"{plane.stats}, key {key} against the child's {row['key']}")
+    return {**{k: row.get(k) for k in ("status", "codecs", "compile_s", "export_s", "bytes", "seconds")},
+            "loaded_codec": codecs[0], "max_diff": diff, "limit": MAPEVAL_ATOL,
+            "compute_ms_eager": eager_ms, "compute_ms_loaded": loaded_ms}
+
+
+def aot_phase(card: str, device_map=None) -> int:
+    """The AOT warm-start plane on the main path and under FID (see phase 54 above);
+    ``device_map`` is the map_device phase's metric and its eager result (made here from
+    the phase's dataset when None). Returns the sepconv7 launches of FID's updates under
+    the plane, the path's count."""
+    if device_map is None:
+        metric, _ = device_map_metric(*coco_scale_dataset(np.random.default_rng(6), COCO_IMAGES))
+        device_map = start_mapeval(metric, metric.compute())
     import tempfile
 
     from torchmetrics_tpu_torch import aot
-    from torchmetrics_tpu_torch.detection import DeviceMeanAveragePrecision
     from torchmetrics_tpu_torch.parallel.mesh import runtime_fingerprint
 
     started = time.perf_counter()
@@ -3048,10 +3194,8 @@ def aot_phase(card: str) -> int:
         raise AssertionError(f"aot: the corrupt boot gave {counters}, plane {corrupt['plane']}, state differences "
                              f"{state_differences(corrupt['states'], want)}")
 
-    # the device mAP evaluator's program
-    clock = time.perf_counter()
-    mapeval = DeviceMeanAveragePrecision(capacity=AOT_MAP_CAPACITY).precompile(cache_dir=cache_dir)["mapeval"]
-    mapeval["seconds"] = time.perf_counter() - clock
+    # the device mAP evaluator's program (compiled by the child the map_device phase started)
+    mapeval = aot_mapeval(device_map)
 
     shutil.rmtree(workdir, ignore_errors=True)
     seconds = time.perf_counter() - started
@@ -3064,6 +3208,459 @@ def aot_phase(card: str) -> int:
           "fid": fid,
           "mapeval": mapeval, "seconds": seconds, "limit_s": AOT_PHASE_LIMIT_S,
           "within_limit": seconds <= AOT_PHASE_LIMIT_S, "card": card})
+    return fid["sepconv7_launches"]
+
+
+STREAM_CLASSES = 5
+STREAM_BATCH = 65536
+STREAM_WINDOW = 64
+STREAM_UPDATES = 200
+STREAM_CPU_WINDOW = 4
+STREAM_CPU_UPDATES = 12
+STREAM_FID_WINDOW = 4
+STREAM_FID_UPDATES = 10  # two rotations of the dual pair
+STREAM_FID_HALFLIFE = 4
+STREAM_RTOL, STREAM_ATOL = 1e-5, 1e-6  # the JAX package's window oracle (tests/test_streaming.py)
+STREAM_RATIO_ATOL = 1e-6  # counts are held bit for bit, ratios within this
+STREAM_LATENCY = (3000, 1024, 1000)  # updates, values an update, window: depth 16 of panes of 63
+STREAM_EXACT_UPDATES = 2500  # the same at pane=1: exact per-update sliding
+STREAM_RING_WINDOW = 8
+STREAM_RING_UPDATES = 20
+STREAM_DRIFT = (200, 100, 4096)  # updates, the update after which the label noise steps up, batch
+STREAM_DRIFT_WINDOWS = (50, 10)  # reference block, test window (and evaluation cadence)
+STREAM_DRIFT_THRESHOLD = 0.1
+STREAM_DRIFT_ACCURACY = (0.9, 0.6)  # the share of clean labels before and after the step
+STREAM_OVERLAP_UPDATES = 8
+STREAM_PHASE_LIMIT_S = 90
+STREAM_SEED = 55
+STREAM_FID_SPAN = "FrechetInceptionDistance.wdual"
+
+
+def stream_rows(n: int, batch: int = STREAM_BATCH, seed: int = STREAM_SEED, device: str = "cuda") -> list:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [(torch.randn((batch, STREAM_CLASSES), generator=gen, device=device),
+             torch.randint(0, STREAM_CLASSES, (batch,), generator=gen, device=device)) for _ in range(n)]
+
+
+def stream_members(device=None) -> dict:
+    """The main path's three members, each alone (a window wraps one metric)."""
+    return {name: metric for name, metric in obs_collection(device=device).items(keep_base=True)}
+
+
+def hold_window(label: str, window, factory, batches, bitwise_states: bool = True) -> dict:
+    """The window-parity oracle: the window's value equals a fresh metric's fed the
+    trailing ``covered_updates()`` batches; its folded states equal that metric's, bit
+    for bit (counts) or within the oracle's tolerance (float sums)."""
+    covered = window.covered_updates()
+    fresh = factory()
+    for args in batches[len(batches) - covered:] if covered else []:
+        fresh.update(*args) if isinstance(args, tuple) else fresh.update(args)
+    got, want = window.window_state(), fresh._state
+    worst = 0.0
+    for key, value in want.items():
+        a, b = got[key], value
+        if isinstance(b, list):
+            a, b = torch.cat([t.reshape(-1) for t in a]), torch.cat([t.reshape(-1) for t in b])
+        if bitwise_states:
+            if not torch.equal(a.to(b.dtype), b):
+                raise AssertionError(f"streaming: {label}'s window state {key} differs from the trailing batches'")
+        else:
+            spread = (a.double() - b.double()).abs()
+            bound = STREAM_ATOL + STREAM_RTOL * b.double().abs()
+            if bool((spread > bound).any()):
+                raise AssertionError(f"streaming: {label}'s window state {key} is {float(spread.max())} off")
+            worst = max(worst, float(spread.max()))
+    value_diff = max((float((x.double() - y.double()).abs().max()) for x, y in
+                      zip(tree_leaves(window.compute()).values(), tree_leaves(fresh.compute()).values())), default=0.0)
+    if value_diff > (STREAM_RATIO_ATOL if bitwise_states else STREAM_ATOL + STREAM_RTOL):
+        raise AssertionError(f"streaming: {label}'s value is {value_diff} from the trailing batches'")
+    return {"covered": covered, "states_bitwise": bitwise_states, "state_max_diff": worst, "value_max_diff": value_diff}
+
+
+def stream_updates(window, batches) -> list:
+    times = []
+    for args in batches:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        window.update(*args) if isinstance(args, tuple) else window.update(args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return times
+
+
+def stream_main_path(card: str) -> dict:
+    """{acc, f1, confmat}, each in SlidingWindow(window=64) (the dual tier), 200 updates
+    at 65,536 x 5: the oracle on the card, a 12-update prefix at window 4 against the
+    CPU port, update ms, launch calls and host reads windowed against plain."""
+    from torchmetrics_tpu_torch.streaming import SlidingWindow
+
+    rows = stream_rows(STREAM_UPDATES)
+    out = {}
+    for name in ("acc", "f1", "confmat"):
+        window = SlidingWindow(stream_members()[name], STREAM_WINDOW)
+        if window.tier != "dual":
+            raise AssertionError(f"streaming: {name} took the {window.tier} tier")
+        times = stream_updates(window, rows)
+        out[name] = {"oracle": hold_window(name, window, lambda n=name: stream_members()[n], rows),
+                     "update_ms": median(times[1:]), "state_bytes": window.state_memory()["total_bytes"]}
+        plain = stream_members()[name]
+        plain.update(*rows[0])
+        out[name]["plain_update_ms"] = median_ms(lambda: plain.update(*rows[1]), iters=20)
+        out[name]["launch_calls"] = launch_calls(profile_step(f"streaming_{name}_wdual", lambda: window.update(*rows[2])))
+        out[name]["plain_launch_calls"] = launch_calls(profile_step(f"streaming_{name}_update",
+                                                                    lambda: plain.update(*rows[2])))
+        reads = {"windowed": host_reads(lambda: window.update(*rows[3])), "plain": host_reads(lambda: plain.update(*rows[3]))}
+        if reads["windowed"] != reads["plain"]:
+            raise AssertionError(f"streaming: {name}'s windowed update reads the host {reads}")
+        out[name]["host_reads"] = reads
+        # the CPU port on a prefix: the same batches, window 4
+        cpu, card_w = (SlidingWindow(stream_members(device=d)[name], STREAM_CPU_WINDOW) for d in ("cpu", None))
+        for preds, target in rows[:STREAM_CPU_UPDATES]:
+            cpu.update(preds.cpu(), target.cpu())
+            card_w.update(preds, target)
+        for key, value in cpu.window_state().items():
+            if not torch.equal(card_w.window_state()[key].cpu(), value):
+                raise AssertionError(f"streaming: {name}'s window state {key} differs from the CPU port's")
+        diff = max(float((a.double().cpu() - b.double()).abs().max()) for a, b in
+                   zip(tree_leaves(card_w.compute()).values(), tree_leaves(cpu.compute()).values()))
+        if diff > STREAM_RATIO_ATOL:
+            raise AssertionError(f"streaming: {name}'s value is {diff} from the CPU port's")
+        out[name]["cpu_prefix"] = {"updates": STREAM_CPU_UPDATES, "window": STREAM_CPU_WINDOW,
+                                   "states_bitwise": True, "value_diff": diff}
+    # {acc, f1}: windowed updates read nothing at all
+    stat_scores = [SlidingWindow(stream_members()[n], STREAM_WINDOW) for n in ("acc", "f1")]
+    for w in stat_scores:
+        w.update(*rows[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for preds, target in rows[1:4]:
+            for w in stat_scores:
+                w.update(preds, target)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out["acc_f1_sync_debug_error"] = "passed"
+    return out
+
+
+def stream_fid(extractor) -> dict:
+    """FID in SlidingWindow(window=4) over 10 updates at batch 128 (two rotations): 26
+    sepconv7 launches inside each windowed update's range, the oracle within the JAX
+    package's tolerance; ExponentialDecay(FID, halflife=4) on the same batches against
+    the closed form in float64 on the host."""
+    from torchmetrics_tpu_torch.kernels.sepconv import sepconv7
+    from torchmetrics_tpu_torch.streaming import ExponentialDecay, SlidingWindow
+
+    gen = torch.Generator(device="cuda").manual_seed(STREAM_SEED)
+    batches = [(torch.rand((OBS_BATCH, 3, 299, 299), generator=gen, device="cuda") ** (1 + i % 2),)
+               for i in range(STREAM_FID_UPDATES)]
+    reals = [i % 2 == 0 for i in range(STREAM_FID_UPDATES)]
+
+    def feed(metric, items=None):
+        for i, (imgs,) in enumerate(items if items is not None else batches):
+            metric.update(imgs, real=reals[i] if items is None else i % 2 == 0)
+
+    window = SlidingWindow(reliability_fid(extractor), STREAM_FID_WINDOW)
+    torch.cuda.synchronize()
+    sepconv7.launches = 0
+    start = time.perf_counter()
+    feed(window)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = sepconv7.launches
+    if launches != SEPCONV_PER_FORWARD * STREAM_FID_UPDATES:
+        raise AssertionError(f"streaming: {launches} sepconv7 launches over {STREAM_FID_UPDATES} windowed FID updates")
+    covered = window.covered_updates()
+    fresh = reliability_fid(extractor)
+    first = STREAM_FID_UPDATES - covered
+    for i in range(first, STREAM_FID_UPDATES):
+        fresh.update(batches[i][0], real=reals[i])
+    worst = 0.0
+    for key, want in fresh._state.items():
+        got = window.window_state()[key]
+        spread = (got.double() - want.double()).abs()
+        if bool((spread > STREAM_ATOL + STREAM_RTOL * want.double().abs()).any()):
+            raise AssertionError(f"streaming: windowed FID's {key} is {float(spread.max())} off the trailing batches'")
+        worst = max(worst, float(spread.max()))
+    span_window = SlidingWindow(reliability_fid(extractor), STREAM_FID_WINDOW)
+    events = traced(lambda: feed(span_window),
+                    want=lambda ev: launches_inside_spans(ev, STREAM_FID_SPAN, "sepconv7")["kernels"] == launches)
+    spans = launches_inside_spans(events, STREAM_FID_SPAN, "sepconv7")
+    if spans["inside"] != launches or spans["per_span"] != [SEPCONV_PER_FORWARD] * STREAM_FID_UPDATES:
+        raise AssertionError(f"streaming: sepconv7 launches against the windowed update spans: {spans}")
+    # the decay's closed form: s_n = sum_i d^(n-1-i) x_i over each side's batch states
+    decayed = ExponentialDecay(reliability_fid(extractor), halflife=STREAM_FID_HALFLIFE)
+    feed(decayed)
+    base = decayed.base_metric
+    closed = {k: np.zeros(tuple(v.shape), np.float64) for k, v in decayed._dstate.items()}
+    weight = 0.0
+    for i, (imgs,) in enumerate(batches):
+        for k in closed:
+            closed[k] *= decayed.decay
+        weight = weight * decayed.decay + 1.0
+        for k, v in base._batch_state(imgs, real=reals[i]).items():
+            closed[k] += v.double().cpu().numpy()
+    decay_worst = 0.0
+    for k, want in closed.items():
+        if k.startswith("__"):
+            want = np.float64(weight)
+        got = decayed._dstate[k].double().cpu().numpy()
+        rel = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+        if rel > STREAM_RTOL:
+            raise AssertionError(f"streaming: ExponentialDecay(FID)'s {k} is {rel} relative off its closed form")
+        decay_worst = max(decay_worst, rel)
+    return {"updates": STREAM_FID_UPDATES, "window": STREAM_FID_WINDOW, "covered": covered,
+            "sepconv7_launches": launches, "spans": spans, "seconds": seconds, "state_max_diff": worst,
+            "decay": {"halflife": STREAM_FID_HALFLIFE, "max_relative_diff": decay_worst, "limit": STREAM_RTOL},
+            "state_bytes": window.state_memory()["total_bytes"]}
+
+
+def stream_tiers() -> dict:
+    """The two-stack tier on per-batch latencies (Max and Min, window 1000 of 16 panes of
+    63, and exact at pane 1), the ring on Pearson (a custom merge) over the weather
+    batches and on CatMetric (list states), each held to the oracle."""
+    from torchmetrics_tpu_torch.aggregation import CatMetric, MaxMetric, MinMetric
+    from torchmetrics_tpu_torch.regression import PearsonCorrCoef
+    from torchmetrics_tpu_torch.streaming import SlidingWindow
+
+    updates, width, window_len = STREAM_LATENCY
+    gen = torch.Generator(device="cuda").manual_seed(STREAM_SEED + 1)
+    latencies = [torch.rand((width,), generator=gen, device="cuda").exp_() for _ in range(updates)]
+    out = {}
+    for label, cls, pane, n in (("max", MaxMetric, None, updates), ("min", MinMetric, None, updates),
+                                ("max_exact", MaxMetric, 1, STREAM_EXACT_UPDATES),
+                                ("min_exact", MinMetric, 1, STREAM_EXACT_UPDATES)):
+        window = SlidingWindow(cls(), window_len, pane=pane)
+        times = stream_updates(window, latencies[:n])
+        out[label] = {"tier": window.tier, "pane": window.pane, "depth": window.depth, "updates": n,
+                      "flips": max(0, (n // window.pane - 1) // window.depth),
+                      "update_ms": median(times), "oracle": hold_window(label, window, cls, latencies[:n]),
+                      "state_bytes": window.state_memory()["total_bytes"]}
+    forecast, truth = weather_inputs()
+    weather = [(forecast[i], truth[i]) for i in range(STREAM_RING_UPDATES)]
+    pearson = lambda: PearsonCorrCoef(num_outputs=4)  # noqa: E731
+    window = SlidingWindow(pearson(), STREAM_RING_WINDOW)
+    times = stream_updates(window, weather)
+    out["pearson"] = {"tier": window.tier, "update_ms": median(times),
+                      "oracle": hold_window("pearson", window, pearson, weather),
+                      "state_bytes": window.state_memory()["total_bytes"]}
+    values = [(torch.arange(16, device="cuda", dtype=torch.float32) + 100 * i,) for i in range(STREAM_RING_UPDATES)]
+    window = SlidingWindow(CatMetric(), STREAM_RING_WINDOW)
+    stream_updates(window, values)
+    out["cat"] = {"tier": window.tier, "oracle": hold_window("cat", window, CatMetric, values),
+                  "live_buckets": sum(b is not None for b in window._append_ring),
+                  "state_bytes": window.state_memory()["total_bytes"]}
+    if out["cat"]["live_buckets"] != STREAM_RING_WINDOW:
+        raise AssertionError(f"streaming: the cat ring holds {out['cat']['live_buckets']} buckets")
+    return out
+
+
+def stream_drift() -> dict:
+    """DriftMonitor on windowed accuracy over a stream whose label noise steps up after
+    update 100 of 200: no breach before the step, a breach after it, in the session's
+    ``drift(acc)`` SLO and in an ``alert`` event."""
+    from torchmetrics_tpu_torch import observability as obs
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+    from torchmetrics_tpu_torch.streaming import DriftMonitor
+
+    updates, step_at, batch = STREAM_DRIFT
+    reference, test = STREAM_DRIFT_WINDOWS
+    gen = torch.Generator(device="cuda").manual_seed(STREAM_SEED + 2)
+    rules = (obs.SloRule(name="acc_drift", expr=f"drift('acc') > {STREAM_DRIFT_THRESHOLD}", window=60.0,
+                         cooldown=0.0, severity="critical"),)
+    breaches = {"before": 0, "after": 0}
+    with obs.telemetry_session(obs.TelemetryConfig(slo_rules=rules, slo_eval_on_sync=False)) as rec:
+        monitor = DriftMonitor(MulticlassAccuracy(STREAM_CLASSES, average="micro", validate_args=False),
+                               reference_window=reference, test_window=test, threshold=STREAM_DRIFT_THRESHOLD,
+                               name="acc", eval_every=test)
+        slo_breach = False
+        for i in range(updates):
+            target = torch.randint(0, STREAM_CLASSES, (batch,), generator=gen, device="cuda")
+            clean = torch.rand((batch,), generator=gen, device="cuda") < STREAM_DRIFT_ACCURACY[i >= step_at]
+            noisy = torch.randint(0, STREAM_CLASSES, (batch,), generator=gen, device="cuda")
+            preds = torch.where(clean, target, noisy)
+            before = len(monitor.history)
+            monitor.update(preds, target)
+            if len(monitor.history) > before and monitor.breached:
+                breaches["before" if i < step_at else "after"] += 1
+                if any(a["rule"] == "acc_drift" and a["kind"] == "breach" for a in rec.evaluate_slos()):
+                    slo_breach = True
+        alerts = [e for e in rec.events_of("alert") if e.tag == "drift"]
+        snap = rec.counters.snapshot()
+    if breaches["before"] or not breaches["after"] or not slo_breach or not alerts:
+        raise AssertionError(f"streaming: drift breaches {breaches}, SLO breach {slo_breach}, {len(alerts)} alerts")
+    return {"breaches": breaches, "evaluations": snap["drift_evals"], "slo_breach": slo_breach,
+            "alerts": len(alerts), "scores": [round(h["score"], 6) for h in monitor.history]}
+
+
+def stream_collection(extractor, fid_batches, rows, gather=None):
+    """``{acc, f1, confmat}`` and FID without compute groups (each member updated alone
+    during the overlap), fed the same batches."""
+    from torchmetrics_tpu_torch import MetricCollection
+
+    members = stream_members()
+    members["fid"] = reliability_fid(extractor)
+    coll = MetricCollection(members, compute_groups=False)
+    for preds, target in rows[:4]:
+        for name in ("acc", "f1", "confmat"):
+            coll[name].update(preds, target)
+    for i, imgs in enumerate(fid_batches):
+        coll["fid"].update(imgs, real=i % 2 == 0)
+    return coll
+
+
+def stream_async(extractor) -> dict:
+    """``MetricCollection.sync(async_=True)`` over ``{acc, f1, confmat}`` and FID's states
+    in an NCCL group of one, 8 updates during the overlap: commit equal to a blocking
+    sync bit for bit, unsync the live states with the overlap's updates, the traced
+    ``nccl:all_gather`` count as ``collective_counts`` predicts; a ``FlakyGather`` whose
+    first call fails commits nothing without a policy and recovers under one."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.parallel.sync import gather_all_arrays
+    from torchmetrics_tpu_torch.reliability import FlakyGather, ReliabilityConfig, RetryPolicy
+    from torchmetrics_tpu_torch.utilities.exceptions import TransientRuntimeError
+
+    gen = torch.Generator(device="cuda").manual_seed(STREAM_SEED + 3)
+    fid_batches = [torch.rand((OBS_BATCH, 3, 299, 299), generator=gen, device="cuda") ** (1 + i % 2) for i in range(2)]
+    rows = stream_rows(4 + STREAM_OVERLAP_UPDATES, seed=STREAM_SEED + 4)
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_streaming_nccl_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}/store", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        blocking = stream_collection(extractor, fid_batches, rows)
+        blocking.sync(distributed_available=lambda: True)
+        want = {name: dict(m._state) for name, m in blocking.items(keep_base=True)}
+        live = stream_collection(extractor, fid_batches, rows)
+        for preds, target in rows[4:]:
+            for name in ("acc", "f1", "confmat"):
+                live[name].update(preds, target)
+        coll = stream_collection(extractor, fid_batches, rows)
+        states, reductions = distinct_states(coll)
+        predicted = expected_collectives(states, reductions)["sync_coalesced"]
+        holder = {}
+
+        def overlapped():
+            handle = coll.sync(async_=True, distributed_available=lambda: True)
+            for preds, target in rows[4:]:
+                for name in ("acc", "f1", "confmat"):
+                    coll[name].update(preds, target)
+            handle.commit()
+            holder["handle"] = handle
+
+        traced_sync = collectives_of(traced(overlapped, all_threads=True))
+        handle = holder["handle"]
+        committed = all(states_equal(m._state, want[name]) for name, m in coll.items(keep_base=True))
+        coll.unsync()
+        restored = all(states_equal(m._state, live[name]._state) for name, m in coll.items(keep_base=True))
+        if not (handle.committed and committed and restored):
+            raise AssertionError(f"streaming: async commit equal {committed}, unsync restored {restored}")
+        if traced_sync.get("by_name", {}).get("nccl:all_gather", 0) != predicted:
+            raise AssertionError(f"streaming: the async sync traced {traced_sync}, {predicted} predicted")
+        # a gather whose first call fails: nothing commits without a policy, a retry recovers
+        flaky_coll = stream_collection(extractor, fid_batches, rows)
+        before = {name: dict(m._state) for name, m in flaky_coll.items(keep_base=True)}
+        failing = flaky_coll.sync(async_=True, distributed_available=lambda: True,
+                                  dist_sync_fn=FlakyGather(inner=gather_all_arrays, fail_times=1))
+        try:
+            failing.commit()
+        except TransientRuntimeError:
+            pass
+        else:
+            raise AssertionError("streaming: a failed async gather committed")
+        kept = all(not m._is_synced and states_equal(m._state, before[name])
+                   for name, m in flaky_coll.items(keep_base=True))
+        for m in flaky_coll.values():
+            m._reliability = ReliabilityConfig(retry=RetryPolicy(max_attempts=3, backoff_base=0.001))
+        flaky = FlakyGather(inner=gather_all_arrays, fail_times=1)
+        flaky_coll.sync(async_=True, distributed_available=lambda: True, dist_sync_fn=flaky).commit()
+        recovered = all(states_equal(m._state, want[name]) for name, m in flaky_coll.items(keep_base=True))
+        if not kept or not recovered or flaky.failures != 1:
+            raise AssertionError(f"streaming: flaky async sync kept {kept}, recovered {recovered}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    return {"overlap_pct": handle.overlap_pct, "gather_s": handle.gather_s, "wait_s": handle.wait_s,
+            "overlap_updates": STREAM_OVERLAP_UPDATES, "collectives_traced": traced_sync,
+            "collectives_predicted": predicted, "commit_bitwise": committed, "unsync_restored": restored,
+            "flaky": {"failed_commit_kept_states": kept, "retried_bitwise": recovered}}
+
+
+def start_window_boot() -> dict:
+    """``precompile(tags=("wdual",))`` of windowed accuracy writes both codecs, then a
+    fresh interpreter (``--aot-child ... window``) starts on the cache; it boots beside
+    the phase's later parts and :func:`finish_window_boot` takes its result."""
+    import tempfile
+
+    from torchmetrics_tpu_torch.streaming import SlidingWindow
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_streaming_aot_")
+    cache_dir = os.path.join(workdir, "cache")
+    rows = aot_rows()
+    eager = SlidingWindow(stream_members()["acc"], STREAM_WINDOW)
+    for preds, target in rows:
+        eager.update(preds, target)
+    clock = time.perf_counter()
+    row = SlidingWindow(stream_members()["acc"], STREAM_WINDOW).precompile(*rows[0], tags=("wdual",),
+                                                                           cache_dir=cache_dir)["wdual"]
+    precompile_s = time.perf_counter() - clock
+    if row["status"] != "written" or row["codecs"] != AOT_CODECS:
+        raise AssertionError(f"streaming: the wdual precompile row is {row}")
+    return {"workdir": workdir, "row": row, "precompile_s": precompile_s, "child": start_aot_child(cache_dir, "window"),
+            "want": {k: v.cpu().tolist() for k, v in eager._wstate.items()}}
+
+
+def finish_window_boot(boot: dict) -> dict:
+    """The window boot's result: one ``"aoti"`` load, no compile, and its window states
+    after 16 batches equal the eager ones bit for bit."""
+    child = finish_aot_child(boot["child"])
+    shutil.rmtree(boot["workdir"], ignore_errors=True)
+    want = boot["want"]
+    if child["counters"]["aot_cache_hits"] != 1 or child["counters"]["jit_compiles"] != 0 \
+            or [load["codec"] for load in child["loads"]] != ["aoti"] or child["states"] != want:
+        raise AssertionError(f"streaming: the window boot gave {child['counters']}, loads {child['loads']}, "
+                             f"states equal {child['states'] == want}")
+    return {"precompile_s": boot["precompile_s"], "row": {k: boot["row"].get(k) for k in ("status", "codecs", "bytes")},
+            "boot": {k: child[k] for k in ("imports_s", "first_update_ms", "boot_to_first_update_s", "counters")},
+            "states_bitwise": True}
+
+
+def streaming_phase(card: str) -> int:
+    """The streaming plane (phase 55). Returns the sepconv7 launches of FID's windowed
+    updates, the path's count."""
+    from torchmetrics_tpu_torch.image import InceptionV3Features
+
+    started = time.perf_counter()
+    clock = [("start", started)]
+    main_path = stream_main_path(card)
+    clock.append(("main_path", time.perf_counter()))
+    boot = start_window_boot()  # the window's fresh interpreter boots beside the parts below
+    clock.append(("warm_start_precompile", time.perf_counter()))
+    try:
+        extractor = InceptionV3Features.from_numpy_params(he_scaled(InceptionV3Features._random_params(0)),
+                                                          compute_dtype="bfloat16")
+        fid = stream_fid(extractor)
+        clock.append(("fid", time.perf_counter()))
+        tiers = stream_tiers()
+        clock.append(("tiers", time.perf_counter()))
+        drift = stream_drift()
+        clock.append(("drift", time.perf_counter()))
+        async_sync = stream_async(extractor)
+        clock.append(("async", time.perf_counter()))
+    except BaseException:
+        boot["child"][0].kill()
+        boot["child"][0].wait()
+        raise
+    warm = finish_window_boot(boot)
+    clock.append(("warm_start_boot", time.perf_counter()))
+    seconds = time.perf_counter() - started
+    emit({"phase": "streaming", "main_path": main_path, "fid": fid, "tiers": tiers, "drift": drift,
+          "async_sync": async_sync, "warm_start": warm, "parts_s": clock_seconds(clock), "seconds": seconds,
+          "limit_s": STREAM_PHASE_LIMIT_S, "within_limit": seconds <= STREAM_PHASE_LIMIT_S, "card": card})
     return fid["sepconv7_launches"]
 
 
@@ -4435,7 +5032,9 @@ def wrappers_phase(card: str) -> int:
 PANOPTIC_THINGS = tuple(range(1, 81))  # COCO panoptic: 80 thing and 53 stuff categories
 PANOPTIC_STUFFS = tuple(range(81, 134))
 PANOPTIC_SHAPE = (480, 640)
-PANOPTIC_IMAGES = 64  # of val2017's 5,000: the JAX algorithm takes ~0.3 s an image, read twice
+# of val2017's 5,000: the JAX algorithm takes ~0.3 s an image, read twice (64 before the
+# streaming phase brought the script near its time limit)
+PANOPTIC_IMAGES = 32
 PANOPTIC_BATCH = 16
 PANOPTIC_CELL = 16
 PANOPTIC_MAX_SEGMENTS = 30
@@ -7886,6 +8485,8 @@ def main() -> int:
     aot_child_args = parse_aot_child(sys.argv)
     if aot_child_args is not None:
         return aot_child(*aot_child_args)
+    if sys.argv[1:2] == [MAPEVAL_CHILD_FLAG]:
+        return mapeval_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -7907,14 +8508,16 @@ def main() -> int:
     preds, target = coco_scale_dataset(np.random.default_rng(6), COCO_IMAGES)
     detection_accumulate_phase(card, preds, target)
     host_values = map_host_phase(card, preds, target)
-    map_device_phase(card, preds, target, host_values)
+    device_map = start_mapeval(*map_device_phase(card, preds, target, host_values))
     launches_by_path = {"fid": launches["bfloat16"], "flagship": flagship_phase(card, preds, target, host_values["map"])}
     flagship_two_ranks_phase(card)
     launches_by_path["generative"] = generative_phase(card)
     collection_groups_phase(card)
     launches_by_path["reliability"] = reliability_phase(card)
     launches_by_path["observability"] = observability_phase(card)
-    launches_by_path["aot"] = aot_phase(card)
+    launches_by_path["aot"] = aot_phase(card, device_map)
+    del device_map
+    launches_by_path["streaming"] = streaming_phase(card)
     classification_tower_phase(card)
     curve_data = curves_phase(card)
     tower_tail_phase(card, curve_data)

@@ -734,12 +734,257 @@ def test_collection_precompile_writes_every_member_then_prefetches(tmp_path, por
 
 
 def test_mapeval_reports_the_exporters_first_line(tmp_path):
+    """An evaluator that reads the host mid-program does not export: its row is
+    ``"failed"`` with the exporter's first line (the port's own evaluator exports since
+    its matcher runs a traced loop; a host read is put in its place here)."""
     from torchmetrics_tpu_torch.detection import DeviceMeanAveragePrecision
 
-    row = DeviceMeanAveragePrecision(capacity=64, num_classes=3, device="cpu").precompile(
-        cache_dir=str(tmp_path))["mapeval"]
+    metric = DeviceMeanAveragePrecision(capacity=64, num_classes=3, device="cpu")
+    metric._mapeval = lambda tensors: {"map": tensors["det_rows"][: int(tensors["det_n"])].sum()}
+    row = metric.precompile(cache_dir=str(tmp_path))["mapeval"]
     assert row["status"] == "failed" and row["signature"] == "()"
     assert "data-dependent" in row["error"] and "\n" not in row["error"]
+
+
+def _detections(seed=31, n_imgs=9, n_cls=6, max_det=12, max_gt=8):
+    """COCO-shaped preds and targets as numpy dicts (a quarter of the images empty)."""
+    rng = np.random.default_rng(seed)
+    preds, target = [], []
+    for _ in range(n_imgs):
+        nd = 0 if rng.random() < 0.15 else int(rng.integers(1, max_det + 1))
+        ng = 0 if rng.random() < 0.15 else int(rng.integers(1, max_gt + 1))
+        xy, gxy = rng.uniform(0, 120, (nd, 2)), rng.uniform(0, 120, (ng, 2))
+        preds.append({"boxes": np.concatenate([xy, xy + rng.uniform(2, 60, (nd, 2))], -1).astype(np.float32),
+                      "scores": rng.uniform(0, 1, nd).astype(np.float32),
+                      "labels": rng.integers(0, n_cls, nd).astype(np.int32)})
+        target.append({"boxes": np.concatenate([gxy, gxy + rng.uniform(2, 60, (ng, 2))], -1).astype(np.float32),
+                       "labels": rng.integers(0, n_cls, ng).astype(np.int32)})
+    return preds, target
+
+
+def test_mapeval_is_written_in_both_packages_and_its_loaded_compute_is_the_eager_one(tmp_path, portable):
+    """The device mAP evaluator exports (its matcher a traced loop over fixed-width
+    chunks, as the JAX package's ``fori_loop``): ``"written"`` in both packages, and a
+    warm metric's first compute, served by the loaded program, equals the eager one."""
+    from torchmetrics_tpu.detection import DeviceMeanAveragePrecision as JDeviceMAP
+    from torchmetrics_tpu_torch.detection import DeviceMeanAveragePrecision
+
+    geometry = {"capacity": 128, "num_classes": 6}
+    preds, target = _detections()
+    as_torch = [[{k: torch.from_numpy(v) for k, v in item.items()} for item in side] for side in (preds, target)]
+    eager = DeviceMeanAveragePrecision(**geometry, device="cpu")
+    eager.update(*as_torch)
+    want = eager.compute()
+    row = DeviceMeanAveragePrecision(**geometry, device="cpu").precompile(cache_dir=str(tmp_path / "cache"))
+    jrow = JDeviceMAP(**geometry).precompile(cache_dir=str(tmp_path / "jax-cache"))
+    assert row["mapeval"]["status"] == jrow["mapeval"]["status"] == "written"
+    _plane(tmp_path)
+    warm = DeviceMeanAveragePrecision(**geometry, device="cpu")
+    warm.update(*as_torch)
+    with obs.telemetry_session() as rec:
+        got = warm.compute()
+    assert _counts(rec)["aot_cache_hits"] == 1
+    assert {k[0]: v.source for k, v in warm.__dict__["_aot_memo"].items()}.get("mapeval") == "disk"
+    assert set(got) == set(want)
+    for key, value in want.items():
+        assert torch.equal(got[key], value), key
+
+
+def _loaded_round_trip(tmp_path, build, jbuild, batch, tags=("update", "forward"), repaired=("update", "forward")):
+    """precompile in both packages: ``"written"`` in both for the ``repaired`` tags, and
+    in the port for every tag (where the JAX package reports its forward "program not
+    jitted", the kept divergence pinned below); then a warm metric's update, forward and
+    compute against an eager one's: states and values equal."""
+    _plane(tmp_path)
+    report = build().precompile(*batch, tags=tags)
+    aot.disable()
+    jreport = jbuild().precompile(*_j(*[b.numpy() for b in batch]), tags=tags, cache_dir=str(tmp_path / "jax"))
+    assert all(report[t]["status"] == "written" for t in tags), report
+    assert all(jreport[t]["status"] == "written" for t in repaired), jreport
+    assert all(jreport[t]["status"] == "written" or jreport[t]["reason"].startswith("program not jitted")
+               for t in tags), jreport
+    eager = build()
+    eager.update(*batch)
+    eager_fwd = eager.forward(*batch)
+    _plane(tmp_path)
+    warm = build()
+    with obs.telemetry_session() as rec:
+        warm.update(*batch)
+        warm_fwd = warm.forward(*batch)
+    assert _counts(rec)["aot_cache_hits"] == len(tags) and _counts(rec)["jit_compiles"] == 0
+    aot.disable()
+    for key, value in eager._state.items():
+        if isinstance(value, list):
+            assert all(torch.equal(a, b) for a, b in zip(warm._state[key], value)), key
+        else:
+            assert torch.equal(warm._state[key], value), key
+    for a, b in ((warm_fwd, eager_fwd), (warm.compute(), eager.compute())):
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        assert all(torch.allclose(x, y, rtol=0, atol=1e-6, equal_nan=True) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("name", ["PearsonCorrCoef", "ConcordanceCorrCoef", "KendallRankCorrCoef"])
+def test_correlation_forward_rows_are_written_and_serve_the_eager_values(tmp_path, portable, name):
+    """Pearson's and concordance's near-zero-variance warning is skipped under export (as
+    the JAX package skips it while tracing); Kendall's block counts fold on the device
+    under export, in the same float32 order."""
+    import torchmetrics_tpu_torch.regression as port_reg
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(257,)).astype(np.float32)
+    batch = (torch.from_numpy(x), torch.from_numpy((x + rng.normal(size=x.shape)).astype(np.float32)))
+    _loaded_round_trip(tmp_path, lambda: getattr(port_reg, name)(device="cpu"),
+                       getattr(jtm.regression, name), batch)
+
+
+BINNED = {
+    "BinaryAUROC": ({}, "binary"), "BinaryAveragePrecision": ({}, "binary"), "BinaryROC": ({}, "binary"),
+    "BinaryEER": ({}, "binary"), "BinarySpecificityAtSensitivity": ({"min_sensitivity": 0.5}, "binary"),
+    "MulticlassAUROC": ({"num_classes": 3}, "multiclass"), "MultilabelAUROC": ({"num_labels": 3}, "multilabel"),
+}
+
+
+def _curve_batch(kind, n=64, seed=2):
+    rng = np.random.default_rng(seed)
+    if kind == "binary":
+        return rng.uniform(size=n).astype(np.float32), rng.integers(0, 2, n).astype(np.int32)
+    if kind == "multiclass":
+        logits = rng.normal(size=(n, 3))
+        return (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)).astype(np.float32), \
+            rng.integers(0, 3, n).astype(np.int32)
+    return rng.uniform(size=(n, 3)).astype(np.float32), rng.integers(0, 2, (n, 3)).astype(np.int32)
+
+
+@pytest.mark.parametrize("name", sorted(BINNED))
+def test_binned_curve_rows_are_written_and_serve_the_eager_values(tmp_path, portable, name):
+    """The thresholds are numpy in ``thresholds`` (fingerprinted by content, as the JAX
+    package's) and on the device in ``_thresholds_dev``: the binned curves cache."""
+    import torchmetrics_tpu_torch.classification as port_cls
+
+    kwargs, kind = BINNED[name]
+    batch = _t(*_curve_batch(kind))
+    build = lambda: getattr(port_cls, name)(thresholds=5, device="cpu", **kwargs)  # noqa: E731
+    assert isinstance(build().thresholds, np.ndarray)
+    assert keys.metric_fingerprint(build()) != keys.metric_fingerprint(
+        getattr(port_cls, name)(thresholds=6, device="cpu", **kwargs))
+    _loaded_round_trip(tmp_path, build, lambda: getattr(jtm.classification, name)(thresholds=5, **kwargs), batch,
+                       repaired=("update",))
+
+
+def test_every_binned_curve_class_fingerprints_its_thresholds():
+    """Every class on the curve core holds the thresholds as numpy: none is uncacheable
+    by them."""
+    import inspect
+
+    import torchmetrics_tpu_torch.classification as port_cls
+    from torchmetrics_tpu_torch.classification.precision_recall_curve import _CurveStates
+
+    offer = {"thresholds": 5, "num_classes": 3, "num_labels": 3, "min_sensitivity": 0.5, "min_specificity": 0.5,
+             "min_precision": 0.5, "min_recall": 0.5, "device": "cpu"}
+    seen = 0
+    for name in port_cls.__all__:
+        cls = getattr(port_cls, name)
+        if not (inspect.isclass(cls) and issubclass(cls, _CurveStates)):
+            continue
+        params = inspect.signature(cls.__init__).parameters
+        metric = cls(**{k: v for k, v in offer.items() if k in params or k == "device"})
+        assert isinstance(metric.thresholds, np.ndarray) and metric._thresholds_dev.device.type == "cpu", name
+        keys.metric_fingerprint(metric)
+        seen += 1
+    assert seen >= 20
+
+
+def test_the_port_caches_an_exact_curve_where_jax_skips_it(tmp_path, portable):
+    """Kept on purpose: the JAX package disables jit on the exact (cat-state) curves; the
+    port exports their fold, and the loaded states equal the eager ones."""
+    import torchmetrics_tpu_torch.classification as port_cls
+
+    batch = _t(*_curve_batch("binary"))
+    _plane(tmp_path)
+    assert port_cls.BinaryAUROC(device="cpu").precompile(*batch)["update"]["status"] == "written"
+    jrow = jtm.classification.BinaryAUROC().precompile(*_j(*[b.numpy() for b in batch]),
+                                                         cache_dir=str(tmp_path / "jax"))["update"]
+    assert jrow == {"status": "skipped", "reason": "jit disabled on this metric"}
+    warm, eager = port_cls.BinaryAUROC(device="cpu"), port_cls.BinaryAUROC(device="cpu")
+    warm.update(*batch)
+    aot.disable()
+    eager.update(*batch)
+    assert torch.equal(warm.compute(), eager.compute())
+
+
+def test_the_port_caches_scc_where_jax_finds_a_device_array(tmp_path, portable):
+    """Kept on purpose: the JAX SpatialCorrelationCoefficient holds its kernel as a
+    device array, which its key refuses; the port's kernel is not a config tensor."""
+    from torchmetrics_tpu_torch.image import SpatialCorrelationCoefficient
+
+    rng = np.random.default_rng(4)
+    batch = _t(rng.uniform(size=(2, 1, 16, 16)).astype(np.float32), rng.uniform(size=(2, 1, 16, 16)).astype(np.float32))
+    _plane(tmp_path)
+    assert SpatialCorrelationCoefficient(device="cpu").precompile(*batch)["update"]["status"] == "written"
+    jrow = jtm.image.SpatialCorrelationCoefficient().precompile(*_j(*[b.numpy() for b in batch]),
+                                                                cache_dir=str(tmp_path / "jax"))["update"]
+    assert jrow["status"] == "skipped" and jrow["reason"].startswith("uncacheable: ")
+    warm = SpatialCorrelationCoefficient(device="cpu")
+    warm.update(*batch)
+    aot.disable()
+    eager = SpatialCorrelationCoefficient(device="cpu")
+    eager.update(*batch)
+    assert torch.equal(warm.compute(), eager.compute())
+
+
+def test_the_port_writes_a_forward_row_whose_value_is_computed_eagerly(tmp_path, portable):
+    """Kept on purpose: where the compute is not traceable (``_jittable_compute``) the JAX
+    package reports "program not jitted" for ``forward``; the port writes the fold, whose
+    value is None, and the forward's value comes from the eager compute."""
+    from torchmetrics_tpu_torch.classification import MulticlassMatthewsCorrCoef
+
+    batch = _t(*_batch(ncls=3, batch=64))
+    _plane(tmp_path)
+    assert MulticlassMatthewsCorrCoef(3, device="cpu").precompile(*batch, tags=("forward",))["forward"]["status"] \
+        == "written"
+    jrow = jtm.classification.MulticlassMatthewsCorrCoef(3).precompile(
+        *_j(*[b.numpy() for b in batch]), tags=("forward",), cache_dir=str(tmp_path / "jax"))["forward"]
+    assert jrow == {"status": "skipped", "reason": "program not jitted (eager/host compute path)"}
+    assert MulticlassMatthewsCorrCoef(3, device="cpu")._aot_program("forward")(
+        {k: v for k, v in MulticlassMatthewsCorrCoef(3, device="cpu")._state.items()}, torch.zeros(()), batch, {})[2] \
+        is None
+    warm = MulticlassMatthewsCorrCoef(3, device="cpu")
+    value = warm.forward(*batch)
+    aot.disable()
+    assert torch.equal(value, MulticlassMatthewsCorrCoef(3, device="cpu").forward(*batch))
+
+
+@pytest.mark.parametrize("tag", ["wdual", "wstack", "wupdate", "dupdate"])
+def test_window_program_rows_are_written_and_serve_the_eager_step(tmp_path, portable, tag):
+    """The stream transforms' steps as programs: written, and a warm window's first
+    update served by the loaded step with the eager states bit for bit."""
+    from torchmetrics_tpu_torch.aggregation import MaxMetric
+    from torchmetrics_tpu_torch.streaming import ExponentialDecay, SlidingWindow
+
+    def build():
+        if tag == "wstack":
+            return SlidingWindow(MaxMetric(device="cpu"), 6, pane=2)
+        if tag == "dupdate":
+            return ExponentialDecay(_acc(), halflife=4)
+        return SlidingWindow(_acc(), 4, tier="ring" if tag == "wupdate" else "auto")
+
+    batches = ([(torch.tensor([float(i), -float(i)]),) for i in range(9)] if tag == "wstack"
+               else [_t(*_batch(seed=i)) for i in range(6)])
+    row = build().precompile(*batches[0], tags=(tag,), cache_dir=str(tmp_path / "cache"))[tag]
+    assert row["status"] == "written", row
+    eager = build()
+    for b in batches:
+        eager.update(*b)
+    aot.enable(str(tmp_path / "cache"))
+    with obs.telemetry_session() as rec:
+        warm = build()
+        for b in batches:
+            warm.update(*b)
+    assert _counts(rec)["aot_cache_hits"] == 1 and _counts(rec)["jit_compiles"] == 0
+    state = {"wupdate": "_ring", "dupdate": "_dstate"}.get(tag, "_wstate")
+    for key, value in getattr(eager, state).items():
+        assert torch.equal(getattr(warm, state)[key], value), key
+    assert torch.equal(warm.compute(), eager.compute())
 
 
 class _Chars:
@@ -823,3 +1068,21 @@ def test_concurrent_prefetches_count_every_load(tmp_path, portable):
         sys.setswitchinterval(interval)
     assert [row["status"] for row in rows] == ["loaded"] * 24
     assert plane.stats["loads"] == 24 and plane.stats["corrupt"] == plane.stats["misses"] == 0
+
+
+def test_a_nested_function_does_not_put_an_address_in_the_key():
+    """A metric whose ``_compute`` holds a nested function (``DeviceMeanAveragePrecision``'s
+    does) keys alike in every process: the nested code object is digested by its
+    content, not by its ``repr``, which holds its address."""
+    import hashlib
+
+    def digest(src):
+        namespace = {}
+        exec(src, namespace)  # a fresh code object, at another address
+        h = hashlib.sha256()
+        keys._code_digest(h, namespace["f"])
+        return h.hexdigest()
+
+    src = "def f(x):\n    return (lambda: x + 1)()\n"
+    assert digest(src) == digest(src)
+    assert digest(src) != digest(src.replace("x + 1", "x + 2"))

@@ -1752,3 +1752,38 @@ def test_aot_rehearsal_boots_warm_from_the_cache_bit_for_bit(chip_smoke, tmp_pat
     planted = {name: dict(values) for name, values in want.items()}
     planted["confmat"]["confmat"] = [[0]]
     assert list(chip_smoke.state_differences(planted, want)) == ["confmat.confmat"]
+
+
+def test_streaming_phase_geometry_and_counts(chip_smoke):
+    """The streaming phase's cells: a two-stack window of 1,000 is 16 panes of 63, FID's
+    windowed path launches sepconv7 260 times, the window boot is a child mode, and the
+    phase's batches are seeded."""
+    from torchmetrics_tpu_torch.metric import window_stack_geometry
+
+    updates, _, window = chip_smoke.STREAM_LATENCY
+    assert window_stack_geometry(window) == (63, 16) and updates > 2 * window
+    assert chip_smoke.SEPCONV_PER_FORWARD * chip_smoke.STREAM_FID_UPDATES == 260
+    assert chip_smoke.STREAM_FID_UPDATES >= 2 * chip_smoke.STREAM_FID_WINDOW  # two rotations
+    assert chip_smoke.parse_aot_child(["chip_smoke.py", chip_smoke.AOT_CHILD_FLAG, "/tmp/c", "window"]) \
+        == ("/tmp/c", "window")
+    a, b = (chip_smoke.stream_rows(2, batch=32, device="cpu") for _ in range(2))
+    assert all(torch.equal(x, y) for r, s in zip(a, b) for x, y in zip(r, s))
+    assert chip_smoke.STREAM_FID_SPAN == "FrechetInceptionDistance.wdual"
+
+
+def test_streaming_window_oracle_rehearsal(chip_smoke, monkeypatch):
+    """``hold_window`` on the CPU: a dual window of the main path's accuracy passes the
+    oracle, and a window whose state was tampered with fails it."""
+    from torchmetrics_tpu_torch.streaming import SlidingWindow
+
+    monkeypatch.setattr(chip_smoke, "stream_members", lambda device=None: {
+        name: m for name, m in chip_smoke.obs_collection(device="cpu").items(keep_base=True)})
+    rows = chip_smoke.stream_rows(9, batch=64, device="cpu")
+    window = SlidingWindow(chip_smoke.stream_members()["acc"], 4)
+    for preds, target in rows:
+        window.update(preds, target)
+    held = chip_smoke.hold_window("acc", window, lambda: chip_smoke.stream_members()["acc"], rows)
+    assert held["covered"] == 5 and held["value_max_diff"] <= chip_smoke.STREAM_RATIO_ATOL
+    window._wstate["tp"] = window._wstate["tp"] + 1
+    with pytest.raises(AssertionError, match="window state tp"):
+        chip_smoke.hold_window("acc", window, lambda: chip_smoke.stream_members()["acc"], rows)

@@ -156,7 +156,7 @@ def test_kendall_pair_counts_equal_the_jax_package_bit_for_bit(monkeypatch, grou
     _assert_close(dis, want_dis, bitwise=True, ctx="discordant")
     assert float(con) > 2**24
     blocks_con, blocks_dis = port_kendall._block_pair_counts(torch.from_numpy(x), torch.from_numpy(y))
-    assert len(blocks_con) == 16 and blocks_con.dtype == np.int64
+    assert len(blocks_con) == 16 and blocks_con.dtype == torch.int64
     assert float(con) != float(blocks_con.sum())  # the float32 fold rounded: the exact total differs
 
 

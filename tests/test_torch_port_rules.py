@@ -429,6 +429,12 @@ def test_the_observability_modules_are_scanned_and_their_doctests_listed():
         assert ROOT / "torchmetrics_tpu_torch" / package / "__init__.py" in PORT_FILES
 
 
+def test_the_streaming_modules_are_scanned_and_their_doctests_listed():
+    for name in ("streaming.window", "streaming.drift", "parallel.async_sync"):
+        assert f"torchmetrics_tpu_torch.{name}" in PORT_MODULES
+        assert ROOT / "torchmetrics_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
+
+
 def test_explicit_cpu_device_runs_without_cuda(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     metric = MulticlassAccuracy(5, device="cpu")

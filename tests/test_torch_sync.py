@@ -592,8 +592,10 @@ def test_collection_double_sync_raises_and_async_names_the_streaming_plane():
     with pytest.raises(TorchMetricsUserError, match="already been synced"):
         port.sync(distributed_available=lambda: True)
     port.unsync()
-    with pytest.raises(NotImplementedError, match="streaming"):
-        port.sync(async_=True)
+    handle = port.sync(async_=True)  # nothing distributed: the streaming plane's no-op handle
+    assert type(handle).__module__ == "torchmetrics_tpu_torch.parallel.async_sync" and handle.commit() == []
+    with pytest.raises(NotImplementedError, match="parallel/quantize.py"):
+        port.sync(async_=True, sync_config=object())
 
 
 def test_collection_sync_over_a_simulated_world_like_jax():

@@ -503,15 +503,20 @@ def test_only_the_planes_are_still_missing():
     out = subprocess.run([sys.executable, "-c", _MISSING_NAMES], capture_output=True, text=True, check=True,
                          env={**os.environ, "JAX_PLATFORMS": "cpu"}, timeout=300)
     missing = set(json.loads(out.stdout.strip().splitlines()[-1]))
-    assert missing == {"serving", "streaming"}
+    assert missing == {"serving"}
     from torchmetrics_tpu import aot as jax_aot
     from torchmetrics_tpu import observability as jax_obs
+    from torchmetrics_tpu import streaming as jax_streaming
 
     from torchmetrics_tpu_torch import aot as port_aot
     from torchmetrics_tpu_torch import observability as port_obs
+    from torchmetrics_tpu_torch import parallel as port_parallel
+    from torchmetrics_tpu_torch import streaming as port_streaming
 
     assert port_obs.__all__ == jax_obs.__all__
     assert port_aot.__all__ == jax_aot.__all__
+    assert port_streaming.__all__ == jax_streaming.__all__
+    assert {"AsyncSyncHandle", "clear_dead_ranks"} <= set(port_parallel.__all__)
     assert ttm.multimodal.__all__ == jtm.multimodal.__all__
     assert port_fn.multimodal.__all__ == jax_fn.multimodal.__all__
     assert {"text", "multimodal", "utilities"} <= _public(ttm)

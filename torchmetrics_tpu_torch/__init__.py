@@ -6,7 +6,8 @@ unless the caller passes ``device="cpu"``.
 """
 
 from . import (aggregation, aot, audio, classification, clustering, detection, image, multimodal, nominal,
-               observability, parallel, regression, retrieval, segmentation, shape, text, utilities, video, wrappers)
+               observability, parallel, regression, retrieval, segmentation, shape, streaming, text, utilities, video,
+               wrappers)
 from .aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, RunningMean, RunningSum, SumMetric
 from .audio import *  # noqa: F401,F403
 from .classification import *  # noqa: F401,F403

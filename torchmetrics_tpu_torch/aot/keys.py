@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import enum
 import hashlib
+import types
 from typing import Any, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
@@ -208,8 +209,19 @@ def _code_digest(h: "hashlib._Hash", func: Any) -> None:
     if code is None:
         h.update(repr(func).encode())
         return
+    _digest_code(h, code)
+
+
+def _digest_code(h: "hashlib._Hash", code: types.CodeType) -> None:
+    """A code object's bytecode and constants; a nested function's code object by its
+    own digest, since its ``repr`` holds its address, which differs from process to
+    process (a key with it would never hit in a fresh process)."""
     h.update(code.co_code)
-    h.update(repr(code.co_consts).encode())
+    for const in code.co_consts:
+        if isinstance(const, types.CodeType):
+            _digest_code(h, const)
+        else:
+            h.update(repr(const).encode())
 
 
 def package_version() -> str:

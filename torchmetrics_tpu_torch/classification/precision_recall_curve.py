@@ -4,7 +4,7 @@
 ``thresholds=None`` keeps ``cat`` lists of the raw scores and targets (the exact curve,
 sorted at compute); with ``thresholds`` the state is one sum-reduced int32 confusion
 tensor, ``(T, 2, 2)`` or ``(T, C, 2, 2)``, updated without a per-threshold mask. The
-thresholds live on the metric's device as float32.
+thresholds are float32, held as numpy and on the metric's device.
 """
 
 from __future__ import annotations
@@ -41,7 +41,10 @@ Thresholds = Optional[Union[int, List[float], torch.Tensor]]
 
 
 class _CurveStates(Metric):
-    """The two state families, and the thresholds on the states' device."""
+    """The two state families. A binned metric's thresholds are held twice: as float32
+    numpy in ``thresholds`` (the JAX package's type, which the AOT key fingerprints by
+    content) and on the states' device in ``_thresholds_dev``, which the programs read,
+    so an update reads nothing back."""
 
     is_differentiable = False
     higher_is_better = None
@@ -49,7 +52,9 @@ class _CurveStates(Metric):
 
     def _create_state(self, thresholds: Thresholds, shape: tuple) -> None:
         """``shape``: the binned state's shape after its thresholds axis."""
-        self.thresholds = _adjust_threshold_arg(thresholds, self.device)
+        host = _adjust_threshold_arg(thresholds, torch.device("cpu"))
+        self.thresholds = None if host is None else host.numpy()
+        self._thresholds_dev = None if host is None else host.to(self.device)
         if self.thresholds is None:
             self._jittable_compute = False
             self.add_state("preds", default=[], dist_reduce_fx="cat")
@@ -57,6 +62,12 @@ class _CurveStates(Metric):
         else:
             self.add_state("confmat", default=torch.zeros((len(self.thresholds), *shape), dtype=torch.int32),
                            dist_reduce_fx="sum")
+
+    def to(self, device):
+        super().to(device)
+        if self._thresholds_dev is not None:
+            self._thresholds_dev = self._thresholds_dev.to(self.device)
+        return self
 
     _plot_axes = ("Recall", "Precision")
 
@@ -73,7 +84,7 @@ class _CurveStates(Metric):
         the binned confusion with the thresholds moved to its device."""
         if self.thresholds is None:
             return (state["preds"], state["target"]), None
-        return state["confmat"], self.thresholds.to(state["confmat"].device)
+        return state["confmat"], self._thresholds_dev.to(state["confmat"].device)
 
 
 class BinaryPrecisionRecallCurve(_CurveStates):
@@ -111,7 +122,7 @@ class BinaryPrecisionRecallCurve(_CurveStates):
     def _batch_state(self, preds, target):
         binned = self.thresholds is not None
         p, t, thresholds, w = _binary_precision_recall_curve_format(
-            preds, target, self.thresholds, self.ignore_index if binned else None
+            preds, target, self._thresholds_dev, self.ignore_index if binned else None
         )
         if not binned:
             return {"preds": p, "target": t}
@@ -163,7 +174,7 @@ class MulticlassPrecisionRecallCurve(_CurveStates):
 
     def _batch_state(self, preds, target):
         p, t, thresholds, w = _multiclass_precision_recall_curve_format(
-            preds, target, self.num_classes, self.thresholds, self.ignore_index, self.average
+            preds, target, self.num_classes, self._thresholds_dev, self.ignore_index, self.average
         )
         if thresholds is None:
             if self.ignore_index is not None:
@@ -219,7 +230,7 @@ class MultilabelPrecisionRecallCurve(_CurveStates):
 
     def _batch_state(self, preds, target):
         p, t, thresholds, w = _multilabel_precision_recall_curve_format(
-            preds, target, self.num_labels, self.thresholds, self.ignore_index
+            preds, target, self.num_labels, self._thresholds_dev, self.ignore_index
         )
         if thresholds is None:
             return {"preds": p, "target": t}

@@ -32,6 +32,7 @@ from .observability import memory as _obs_memory
 from .observability import tracing as _tracing
 from .parallel import coalesce as _coalesce
 from .parallel import sync as _par_sync
+from .parallel.async_sync import AsyncSyncHandle, _no_quantized_sync
 from .reliability.guards import validate_state
 from .utilities.checks import resolve_device
 from .utilities.data import _flatten_dict, allclose
@@ -494,21 +495,108 @@ class MetricCollection:
 
     # -------------------------------------------------------------------- sync
 
-    def sync(self, async_: bool = False, **kwargs: Any) -> None:
+    def sync(self, async_: bool = False, sync_config: Optional[Any] = None, **kwargs: Any) -> Any:
         """Sync every member across processes. Fast path: the states coalesce into one
         bucketed collective set (one metadata all-gather and one padded all-gather per
         dtype, in place of two collectives per leaf), and the members of a compute group,
         who share one state dict, ship it once. Members that disagree on the gather seam
         (``dist_sync_fn``, ``process_group``, availability) or override ``sync`` are
-        synced one by one with ``Metric.sync``. ``kwargs`` are ``Metric.sync``'s."""
+        synced one by one with ``Metric.sync``. ``kwargs`` are ``Metric.sync``'s.
+
+        ``async_=True`` returns an
+        :class:`~torchmetrics_tpu_torch.parallel.AsyncSyncHandle` instead of blocking:
+        the bucketed gather of the current states runs in the background while the
+        collection keeps updating; ``handle.commit()`` waits, validates and swaps every
+        member to the synced state, the live (since updated) state parks in the sync
+        cache and ``unsync()`` restores it. A failed gather commits nothing.
+
+        ``sync_config`` (the quantized sync, ``parallel/quantize.py``) is not ported
+        yet: anything but ``None`` raises ``NotImplementedError``."""
+        _no_quantized_sync(sync_config)
         if async_:
-            raise NotImplementedError(
-                "sync(async_=True) belongs to the streaming plane (parallel/async_sync.py), which is not ported yet"
-            )
+            return self._async_sync(**kwargs)
         if self._coalesced_sync(list(self._modules.values()), **kwargs):
-            return
+            return None
         for metric in self._modules.values():
             metric.sync(**kwargs)
+        return None
+
+    def _async_sync(
+        self,
+        dist_sync_fn: Optional[Any] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Any] = None,
+        rebuffer: bool = True,
+    ) -> AsyncSyncHandle:
+        """Launch the double-buffered background sync (``sync(async_=True)``).
+
+        The freeze is a shallow snapshot of each distinct state dict. Under
+        ``rebuffer=True`` (the default) the live entries are replaced by clones, so the
+        in-flight gather owns the frozen tensors alone and an update's in-place fold
+        cannot race it; a caller that rotates its state itself (``reset()`` right after
+        the launch) may pass ``rebuffer=False``. Mixed gather seams or a member that
+        overrides ``sync`` raise: a background per-member sync could not keep their
+        semantics.
+
+        ``commit()``: wait, validate every member's synced state (nothing installs on a
+        corrupt contribution or a failed gather), then swap atomically: each member's
+        live state becomes its sync cache, the synced state its ``_state``; compute
+        groups keep aliasing through the swap."""
+        metrics = list(self._modules.values())
+        if any(m._is_synced for m in metrics):
+            raise TorchMetricsUserError("The Metric has already been synced.")
+        fns = {id(dist_sync_fn or m.dist_sync_fn) for m in metrics}
+        groups = {id(process_group or m.process_group) for m in metrics}
+        if len(fns) > 1 or len(groups) > 1 or any(type(m).sync is not Metric.sync for m in metrics):
+            raise TorchMetricsUserError(
+                "sync(async_=True) requires uniform gather seams and the default Metric.sync "
+                "across members; use the blocking sync() for mixed collections."
+            )
+        avails = {bool((distributed_available or m.distributed_available_fn)()) for m in metrics}
+        if len(avails) > 1:
+            raise TorchMetricsUserError("sync(async_=True) requires members to agree on distributed availability.")
+        if not should_sync or not metrics or not avails.pop():
+            return AsyncSyncHandle.noop(label="MetricCollection.sync")
+        # compute-group members alias one state dict: freeze each distinct dict once
+        holders: "OrderedDict[int, List[Metric]]" = OrderedDict()
+        for m in metrics:
+            holders.setdefault(id(m._state), []).append(m)
+        frozen: List[Dict[str, Any]] = []
+        for members_of in holders.values():
+            live = members_of[0]._state
+            fro: Dict[str, Any] = {}
+            for name, v in list(live.items()):
+                if isinstance(v, list):
+                    fro[name] = list(v)  # appends to the live list must not reach the gather
+                else:
+                    fro[name] = v
+                    if rebuffer:
+                        live[name] = v.clone()  # the live side re-buffered; the frozen owns the original
+            frozen.append(fro)
+        retry = next((m._reliability.retry for m in metrics
+                      if m._reliability is not None and m._reliability.retry is not None), None)
+
+        def committer(synced: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+            # validate before committing anything, as the blocking coalesced sync does
+            for members_of, state in zip(holders.values(), synced):
+                validators = [m for m in members_of if m._reliability is not None and m._reliability.validate_on_sync]
+                if validators:
+                    validate_state(validators[0], state, context=f"{type(validators[0]).__name__}.sync",
+                                   check_finite=any(m._reliability.check_finite for m in validators))
+            # the current (overlap-updated) state parks in the cache; unsync restores it
+            for (holder, *aliased), state in zip(holders.values(), synced):
+                holder._commit_synced(state)
+                for m in aliased:
+                    m._cache, m._state, m._is_synced = holder._cache, holder._state, True
+            return synced
+
+        return AsyncSyncHandle(
+            frozen, [ms[0]._reductions for ms in holders.values()],
+            process_group=process_group or metrics[0].process_group,
+            dist_sync_fn=dist_sync_fn or metrics[0].dist_sync_fn,
+            retry=retry, committer=committer, label="MetricCollection.sync",
+        )
 
     def _coalesced_sync(
         self,

@@ -633,10 +633,10 @@ class DeviceMeanAveragePrecision(Metric):
 
         The evaluator's dispatch signature is empty (it reads only the padded state), so
         ``"mapeval"`` needs no example inputs; other tags go to the base implementation
-        with whatever examples are given. The evaluator reads the card on the host in
-        the middle (its per-cell counts size what follows), which ``torch.export``
-        cannot trace: its row reports ``"failed"`` with the exporter's first line, and
-        ``compute()`` keeps running it eagerly.
+        with whatever examples are given. Under ``torch.export`` the evaluator's matcher
+        is one traced loop over fixed-width chunks of each rank's detections (the JAX
+        package's ``fori_loop``), so the program exports; a loaded program then serves
+        ``compute()``.
         """
         tags = tuple(tags)
         rest = tuple(t for t in tags if t != "mapeval")

@@ -266,11 +266,12 @@ def _multilabel_exact_rows(preds: torch.Tensor, target: torch.Tensor, ignore_ind
 
 def _reduce_class_scores(res: torch.Tensor, average: Optional[str], weights: Optional[torch.Tensor] = None):
     """Per-class AUROC or AP -> ``average``: ``"macro"`` and ``"weighted"`` skip the NaN
-    classes (with a warning), ``"none"``/None return them all."""
+    classes (with a warning, whose host read is skipped under ``torch.export`` as the
+    JAX package skips it while tracing), ``"none"``/None return them all."""
     if average is None or average == "none":
         return res
     valid = ~res.isnan()
-    if not bool(valid.all()):
+    if not torch.compiler.is_exporting() and not bool(valid.all()):
         rank_zero_warn(
             f"Average precision score for one or more classes was `nan`. Ignoring these classes in {average}-average",
             UserWarning,

@@ -23,16 +23,25 @@ Algorithm, as in the JAX package except for the matcher's loop:
    are matched together, for ``r`` below the largest rank present (at most
    ``max_detection_thresholds[-1]`` steps): the same greedy matching. Windows of
    different cells overlap past each cell's end, so a step writes back only its
-   in-cell hits (a scatter), never the whole window. One host read, the number of
-   dets at each rank, sizes the loop,
+   in-cell hits (a scatter), never the whole window. Eagerly one host read, the number
+   of dets at each rank, sizes the loop. Under ``torch.export`` the loop is one traced
+   ``while_loop`` (the JAX package's ``fori_loop``) over a table of fixed-width chunks
+   of each rank's run, built on the device; its trip count, the number of chunks, is a
+   device scalar, and a chunk's padding writes to a spare row. The same matches, in at
+   most ``max_detection_thresholds[-1] + capacity / chunk`` steps,
 4. accumulation as segment ops: one global ``(class, -score, img, rank)`` lexsort,
    per-class TP/FP cumsums by subtracting class-start prefixes, the precision envelope
    as a segmented suffix maximum (one ``cummax`` over a flipped key that carries the
    class above the value's bits), the 101-point interpolation as a vectorized binary
    search, and masked means for the summary.
 
-IoU and recall thresholds resolve in float32 (the state's dtype), as in the JAX
-package, where the host evaluator compares in float64: the results differ where an IoU
+An exported and compiled evaluator gives the eager one's values: Triton's float32
+division is not correctly rounded, its multiply-adds may fuse, and Inductor drops a
+float32 round trip between two float64 steps, so every division is the float32 quotient
+rounded once from float64 (``_div``), the IoU is computed in float64 from the float32
+boxes (exact up to its division) and rounded once, and the summary means add in
+float64. IoU and recall thresholds resolve in float32 (the state's dtype), as in
+the JAX package, where the host evaluator compares in float64: the results differ where an IoU
 lies within float32 rounding of an IoU threshold, or a recall ``k / n`` rounds onto a
 recall threshold in float32 (3/5 onto float32 0.6, which lies above 0.6), and the
 precision is read one detection later. With few ground truths in a class that moves a
@@ -46,9 +55,14 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from torch._higher_order_ops.while_loop import while_loop
+
+from ...utilities.data import _static_bincount
 from ._map_eval import _AREA_RANGES
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
+# rows of one step of the exported matcher's loop
+_MATCH_CHUNK = 16384
 
 
 def _segment_sum(values: torch.Tensor, segments: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -64,6 +78,14 @@ def _lexsort(keys: List[torch.Tensor]) -> torch.Tensor:
     for key in keys[1:]:
         order = order[torch.argsort(key[order], stable=True)]
     return order
+
+
+def _div(a: torch.Tensor, b) -> torch.Tensor:
+    """``a / b`` as float32, divided in float64 and rounded once: the correctly rounded
+    float32 quotient (53 >= 2 * 24 + 2 bits), whatever a compiler makes of a float32
+    ``/`` (Triton's is not correctly rounded, and a recall ``k / n`` one unit off moves
+    the recall bin it lands in). A float64 ``a`` (a mean's sum) rounds once at the end."""
+    return (a.double() / torch.as_tensor(b, device=a.device).double()).to(torch.float32)
 
 
 def _rows_last(values: torch.Tensor) -> torch.Tensor:
@@ -182,51 +204,52 @@ def build_mapeval_program(
         area_c = d_area[perm]
         rank_c = rank_sorted[comp]
 
-        # ---- matchable dets by rank, then compacted order; the one host read
+        # ---- matchable dets by rank, then compacted order: rank r's dets are one run
+        # of ``by_rank``
         rank_m = torch.where(part_c, rank_c, mdet_last)
         by_rank = torch.argsort(rank_m, stable=True)
-        per_rank = torch.bincount(rank_m, minlength=mdet_last + 1)[:mdet_last].tolist()
-        n_match = sum(per_rank)
-
-        # ---- windowed gt views + crowd-adjusted pairwise IoU of the matchable dets
-        glo_m, ghi_m = glo_sorted[comp][:n_match], ghi_sorted[comp][:n_match]
-        box_m, area_m = d_box[perm][:n_match], area_c[:n_match]
-        widx = glo_m[:, None] + torch.arange(Gc, device=dev)[None, :]
-        w_in = widx < ghi_m[:, None]  # (n, Gc)
-        widx_cl = widx.clamp(max=D - 1)
-        wg_box = gs_box[widx_cl]  # (n, Gc, 4)
-        wg_crowd = gs_crowd[widx_cl] & w_in
-        wg_area = gs_area[widx_cl]
-        lt = torch.maximum(box_m[:, None, :2], wg_box[..., :2])
-        rb = torch.minimum(box_m[:, None, 2:], wg_box[..., 2:])
-        wh = (rb - lt).clamp(min=0.0)
-        inter = wh[..., 0] * wh[..., 1]
-        wg_box_area = (wg_box[..., 2] - wg_box[..., 0]) * (wg_box[..., 3] - wg_box[..., 1])
-        union = area_m[:, None] + wg_box_area - inter
-        denom = torch.where(wg_crowd, area_m[:, None], union)
-        pos_den = denom > 0
-        w_iou = torch.where(pos_den, inter / torch.where(pos_den, denom, torch.ones_like(denom)), torch.zeros_like(inter))
-        wg_ign = (
-            (wg_area[:, None, :] < areas[None, :, 0:1])
-            | (wg_area[:, None, :] > areas[None, :, 1:2])
-            | wg_crowd[:, None, :]
-            | ~w_in[:, None, :]
-        )  # (n, A, Gc)
-
-        # ---- greedy matcher, rank-major. gmatch: (sorted gt, area, threshold), plus
-        # one spare row that takes the writes of dets without a hit
-        gmatch = torch.zeros(((D + 1) * A * T,), dtype=torch.bool, device=dev)
+        counts = _static_bincount(rank_m, minlength=mdet_last + 1)[:mdet_last]
+        glo_c, ghi_c, box_c = glo_sorted[comp], ghi_sorted[comp], d_box[perm]
+        gt_lanes = torch.arange(Gc, device=dev)[None, :]
         lanes = torch.arange(A * T, device=dev).reshape(1, A, T)
-        dm_m = torch.zeros((n_match, A, T), dtype=torch.bool, device=dev)
-        dig_m = torch.zeros_like(dm_m)
-        start = 0
-        for count in per_rank:
-            if count == 0:
-                continue
-            sel = by_rank[start : start + count]
-            start += count
-            wi, win, wcr, wig = w_iou[sel], w_in[sel], wg_crowd[sel], wg_ign[sel]
-            mwin = gmatch[: D * A * T].view(D, A, T)[widx_cl[sel]].permute(0, 2, 3, 1)  # (n, A, T, Gc)
+
+        def window_view(rows, valid=None):
+            """Each of the dets at compacted positions ``rows``: its cell's gt window and
+            the crowd-adjusted IoUs with it (``valid`` masks a chunk's padding)."""
+            glo_m, box_m, area_m = glo_c[rows], box_c[rows], area_c[rows]
+            widx = glo_m[:, None] + gt_lanes
+            win = widx < ghi_c[rows][:, None]  # (n, Gc)
+            if valid is not None:
+                win = win & valid[:, None]
+            widx_cl = widx.clamp(max=D - 1)
+            wg_box = gs_box[widx_cl]  # (n, Gc, 4)
+            wcr = gs_crowd[widx_cl] & win
+            wg_area = gs_area[widx_cl]
+            lt = torch.maximum(box_m[:, None, :2], wg_box[..., :2])
+            rb = torch.minimum(box_m[:, None, 2:], wg_box[..., 2:])
+            # the IoU in float64 from the float32 corners and areas, rounded once: the
+            # products of float32 values and their sums are exact there, so neither a
+            # fused multiply-add nor a compiler's removal of a float32 round trip
+            # changes it (an IoU one unit off can cross a threshold)
+            wh = (rb - lt).clamp(min=0.0).double()
+            inter = wh[..., 0] * wh[..., 1]
+            wg_box_area = (wg_box[..., 2] - wg_box[..., 0]).double() * (wg_box[..., 3] - wg_box[..., 1]).double()
+            area64 = area_m[:, None].double()
+            denom = torch.where(wcr, area64, area64 + wg_box_area - inter)
+            pos_den = denom > 0
+            wi = torch.where(pos_den, (inter / torch.where(pos_den, denom, 1.0)).to(torch.float32), 0.0)
+            wig = (
+                (wg_area[:, None, :] < areas[None, :, 0:1])
+                | (wg_area[:, None, :] > areas[None, :, 1:2])
+                | wcr[:, None, :]
+                | ~win[:, None, :]
+            )  # (n, A, Gc)
+            return glo_m, widx_cl, win, wcr, wi, wig
+
+        def match(gmatch, glo_m, widx_cl, win, wcr, wi, wig):
+            """The greedy matcher for one rank's dets: their hits and ignored hits, and
+            the flat gmatch slots they take (the spare slot where there is no hit)."""
+            mwin = gmatch[: D * A * T].view(D, A, T)[widx_cl].permute(0, 2, 3, 1)  # (n, A, T, Gc)
             clr = wi[:, None, :] >= thrs[None, :, None]  # (n, T, Gc)
             cand = win[:, None, None, :] & (~mwin | wcr[:, None, None, :]) & clr[:, None, :, :]
             cand_ni = cand & ~wig[:, :, None, :]
@@ -234,14 +257,58 @@ def build_mapeval_program(
             vals = torch.where(pool, wi[:, None, None, :], -torch.inf)
             m = Gc - 1 - torch.argmax(vals.flip(-1), dim=-1)  # last argmax: later gt wins ties
             hit = pool.any(-1)  # (n, A, T)
-            target = (glo_m[sel][:, None, None] + m) * (A * T) + lanes
-            gmatch.index_fill_(0, torch.where(hit, target, D * A * T).reshape(-1), True)
-            dm_m[sel] = hit
-            dig_m[sel] = hit & torch.gather(wig[:, :, None, :].expand(-1, -1, T, -1), -1, m[..., None])[..., 0]
-        dm = torch.zeros((D, A, T), dtype=torch.bool, device=dev)
+            taken = torch.where(hit, (glo_m[:, None, None] + m) * (A * T) + lanes, D * A * T).reshape(-1)
+            ign = hit & torch.gather(wig[:, :, None, :].expand(-1, -1, T, -1), -1, m[..., None])[..., 0]
+            return hit, ign, taken
+
+        # ---- greedy matcher, rank-major. gmatch: (sorted gt, area, threshold), plus
+        # one spare row that takes the writes of dets without a hit; dm and dig carry a
+        # spare row for a chunk's padding
+        gmatch = torch.zeros(((D + 1) * A * T,), dtype=torch.bool, device=dev)
+        dm = torch.zeros((D + 1, A, T), dtype=torch.bool, device=dev)
         dig = torch.zeros_like(dm)
-        dm[:n_match] = dm_m
-        dig[:n_match] = dig_m
+        if torch.compiler.is_exporting():
+            # one traced loop, as the JAX package's fori_loop: rank r's run in chunks of
+            # a fixed width, the chunk table and the trip count on the device; the body
+            # is functional, each chunk's window made in it
+            width = min(D, _MATCH_CHUNK)
+            chunks = (counts + (width - 1)) // width
+            chunk_end = torch.cumsum(chunks, 0)
+            slot = torch.arange(mdet_last + -(-D // width), device=dev)
+            r_of = torch.searchsorted(chunk_end, slot, right=True).clamp(max=mdet_last - 1)
+            offsets = torch.cumsum(counts, 0) - counts
+            starts = offsets[r_of] + (slot - (chunk_end - chunks)[r_of]) * width
+            ends = (offsets + counts)[r_of]
+            chunk_lanes = torch.arange(width, device=dev)
+            n_chunks = chunk_end[-1]
+
+            def step(i, gmatch, dm, dig):
+                at = i.reshape(1)
+                idx = starts.index_select(0, at) + chunk_lanes
+                valid = idx < ends.index_select(0, at)
+                sel = by_rank.index_select(0, idx.clamp(max=D - 1))
+                hit, ign, taken = match(gmatch, *window_view(sel, valid))
+                rows = torch.where(valid, sel, D)
+                return i + 1, gmatch.index_fill(0, taken, True), dm.index_put((rows,), hit), dig.index_put((rows,), ign)
+
+            _, gmatch, dm, dig = while_loop(
+                lambda i, *_: i < n_chunks, step, (torch.zeros((), dtype=torch.int64, device=dev), gmatch, dm, dig)
+            )
+        else:
+            # eager: one host read, the number of dets at each rank, sizes the loop; the
+            # windows of all matchable dets (the compacted prefix) are made once
+            per_rank = counts.tolist()
+            view = window_view(torch.arange(sum(per_rank), device=dev))
+            start = 0
+            for count in per_rank:
+                if count:
+                    sel = by_rank[start : start + count]
+                    hit, ign, taken = match(gmatch, *(part[sel] for part in view))
+                    gmatch.index_fill_(0, taken, True)
+                    dm[sel] = hit
+                    dig[sel] = ign
+                start += count
+        dm, dig = dm[:D], dig[:D]
         det_out = (area_c[:, None] < areas[None, :, 0]) | (area_c[:, None] > areas[None, :, 1])
         dig |= ~dm & det_out[:, :, None]  # unmatched dets outside the range: ignored
 
@@ -277,8 +344,8 @@ def build_mapeval_program(
         counted = (gs_valid[:, None] & ~gs_ign).to(torch.float32)
         npig = _segment_sum(counted, gs_lab, K)  # (K, A)
         npig_d = npig[lab_cl]  # (D, A)
-        rc = torch.where(npig_d[:, :, None] > 0, tp / npig_d.clamp(min=1.0)[:, :, None], 0.0)
-        pr = tp / (tp + fp + eps)
+        rc = torch.where(npig_d[:, :, None] > 0, _div(tp, npig_d.clamp(min=1.0)[:, :, None]), 0.0)
+        pr = _div(tp, tp + fp + eps)
         pr_env = _segmented_suffix_max(pr, lab_s, K)  # precision envelope per class
 
         # 101-point interpolation: rc is non-decreasing within a class segment, so
@@ -303,7 +370,7 @@ def build_mapeval_program(
         )  # (K, A, T, M)
         nd_cnt = _segment_sum(sel.to(torch.float32), lab_s, K)  # (K, M)
         valid_cell = npig > 0  # (K, A)
-        rec_raw = torch.where(nd_cnt[:, None, None, :] > 0, tp_tot / npig.clamp(min=1.0)[:, :, None, None], 0.0)
+        rec_raw = torch.where(nd_cnt[:, None, None, :] > 0, _div(tp_tot, npig.clamp(min=1.0)[:, :, None, None]), 0.0)
         recall = torch.where(valid_cell[:, :, None, None], rec_raw, -1.0)  # (K, A, T, M)
         q = torch.where(valid_cell[:, None, :, None], q, -1.0)  # (K, R, A, T)
 
@@ -317,13 +384,13 @@ def build_mapeval_program(
                 block = block[:, :, t_idx : t_idx + 1]
             w = valid_cell[:, a_idx].to(torch.float32)
             cnt = w.sum() * (block.shape[1] * block.shape[2])
-            return torch.where(cnt > 0, (block * w[:, None, None]).sum() / cnt.clamp(min=1.0), -1.0)
+            return torch.where(cnt > 0, _div((block.double() * w.double()[:, None, None]).sum(), cnt.clamp(min=1.0)), -1.0)
 
         def _recall_mean(a_idx: int, m_idx: int) -> torch.Tensor:
             block = recall[:, a_idx, :, m_idx]  # (K, T)
             w = valid_cell[:, a_idx].to(torch.float32)
             cnt = w.sum() * block.shape[1]
-            return torch.where(cnt > 0, (block * w[:, None]).sum() / cnt.clamp(min=1.0), -1.0)
+            return torch.where(cnt > 0, _div((block.double() * w.double()[:, None]).sum(), cnt.clamp(min=1.0)), -1.0)
 
         minus_one = torch.tensor(-1.0, device=dev)
         out: Dict[str, torch.Tensor] = {
@@ -340,8 +407,8 @@ def build_mapeval_program(
         for m_idx, mdet in enumerate(max_detection_thresholds):
             out[f"mar_{mdet}"] = _recall_mean(0, m_idx)
 
-        out["map_per_class"] = torch.where(valid_cell[:, 0], q[:, :, 0, :].sum((1, 2)) / (R * T), -1.0)
-        out["mar_per_class"] = torch.where(valid_cell[:, 0], recall[:, 0, :, lastm].sum(1) / T, -1.0)
+        out["map_per_class"] = torch.where(valid_cell[:, 0], _div(q[:, :, 0, :].double().sum((1, 2)), R * T), -1.0)
+        out["mar_per_class"] = torch.where(valid_cell[:, 0], _div(recall[:, 0, :, lastm].double().sum(1), T), -1.0)
         det_seen = _segment_sum(dvalid.to(torch.int32), torch.where(dvalid, d_lab, K), K)
         gt_seen = _segment_sum(gvalid.to(torch.int32), torch.where(gvalid, g_lab, K), K)
         out["present"] = (det_seen + gt_seen) > 0

@@ -40,8 +40,9 @@ def _block_rows(n: int) -> int:
     return int(min(n, max(64, _PAIR_BLOCK_ELEMS // max(n, 1))))
 
 
-def _block_pair_counts(x: torch.Tensor, y: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
-    """Exact concordant and discordant pair counts of each row block, int64 on the host.
+def _block_pair_counts(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact concordant and discordant pair counts of each row block, int64 on the
+    metric's device.
 
     A pair (i, j) with j > i is concordant when ``sign(x_i - x_j) * sign(y_i - y_j)``
     is 1 and discordant when it is -1; NaN and ties give 0. Per row, the sum of the
@@ -58,18 +59,25 @@ def _block_pair_counts(x: torch.Tensor, y: torch.Tensor) -> Tuple[np.ndarray, np
         diffs.append(prod.sum(1))
         sizes.append(prod.abs_().sum(1))
     pad = (-n) % chunk
-    per_block = [torch.nn.functional.pad(torch.cat(v).to(torch.int64), (0, pad)).view(-1, chunk).sum(1)
-                 for v in (diffs, sizes)]
-    diff, size = torch.stack(per_block).cpu().numpy()
+    diff, size = [torch.nn.functional.pad(torch.cat(v).to(torch.int64), (0, pad)).view(-1, chunk).sum(1)
+                  for v in (diffs, sizes)]
     return (size + diff) // 2, (size - diff) // 2
 
 
 def _pair_counts(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Concordant and discordant pair counts: exact block counts added in float32, in
-    block order."""
-    con_blocks, dis_blocks = _block_pair_counts(x, y)
+    block order. Under ``torch.export`` the fold is a loop on the device whose length,
+    the number of blocks, follows from ``n``; eagerly the same float32 sums run on the
+    host after one read, since the device loop costs a launch a block (256 at 32,768
+    pairs)."""
+    blocks = torch.stack(_block_pair_counts(x, y), dim=1).to(torch.float32)  # (blocks, 2)
+    if torch.compiler.is_exporting():
+        total = torch.zeros((2,), dtype=torch.float32, device=x.device)
+        for i in range(blocks.shape[0]):
+            total = total + blocks[i]
+        return total[0], total[1]
     con, dis = np.float32(0), np.float32(0)
-    for c, d in zip(con_blocks.astype(np.float32), dis_blocks.astype(np.float32)):
+    for c, d in blocks.cpu().numpy():
         con, dis = np.float32(con + c), np.float32(dis + d)
     return (torch.tensor(con, dtype=torch.float32, device=x.device),
             torch.tensor(dis, dtype=torch.float32, device=x.device))

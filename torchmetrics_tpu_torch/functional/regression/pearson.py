@@ -83,11 +83,12 @@ def _pearson_corrcoef_compute(
     num_total: torch.Tensor,
 ) -> torch.Tensor:
     """Correlation from the final moments; the near-zero variance warning reads the
-    host once."""
+    host once, except under ``torch.export`` (as the JAX package skips it while it
+    traces)."""
     var_x = var_x / (num_total - 1)
     var_y = var_y / (num_total - 1)
     corr_xy = corr_xy / (num_total - 1)
-    if bool(((var_x < 1e-6).any() | (var_y < 1e-6).any()).item()):
+    if not torch.compiler.is_exporting() and bool(((var_x < 1e-6).any() | (var_y < 1e-6).any()).item()):
         rank_zero_warn(
             "The variance of predictions or target is close to zero. This can cause instability in Pearson correlation"
             "coefficient, leading to wrong results. Consider re-scaling the input if possible or computing using a"

@@ -48,7 +48,8 @@ and, on a hit, runs the loaded program (the metric's fold, exported and compiled
 AOTInductor) in place of the eager fold; a miss is remembered and the eager path serves
 it. ``precompile`` writes those programs ahead of traffic and ``prefetch_compiled``
 loads them into the in-process memo. With no plane the boundary reads ``aot._ACTIVE``
-once. Not here yet: the serving and streaming planes.
+once. The streaming plane's transforms (``streaming/``) dispatch their steps through the
+same boundary (:meth:`Metric._window_dispatch`). Not here yet: the serving plane.
 ``HostMetric`` is the base of the metrics whose batch contribution is built on the host
 (detection's ragged per-image inputs).
 
@@ -93,6 +94,264 @@ def _to_device(value: Any, device: torch.device) -> Any:
     if isinstance(value, np.ndarray):
         return torch.as_tensor(value, device=device)
     return value
+
+
+# ---------------------------------------------------------------------------
+# Tiered window representation (streaming.SlidingWindow)
+#
+# As in the JAX package: the per-update bucket ring is exact at per-update granularity
+# at O(window) memory; the dual pair and the paned two-stack collapse the window to a
+# constant number of accumulators, and the window boundary then advances in hops
+# (block or pane), so the value is exactly the metric over the trailing ``covered``
+# updates, ``window <= covered < window + hop``. Which form a metric gets follows from
+# its reduce tags (``window_tier``). Every step is branch-free: rotation, eviction,
+# push and flip are ``where``s over 0-d tensors, so the exported program and the eager
+# step are one fold.
+# ---------------------------------------------------------------------------
+
+#: reserved leaves of a SlidingWindow ring: the roll cursor (slot = cursor mod window,
+#: on the device) and the per-slot fill vector; in the dual and two-stack layouts
+#: ``WINDOW_COUNT_KEY`` carries the block or pane counts
+WINDOW_CURSOR_KEY = "__window_cursor"
+WINDOW_COUNT_KEY = "__window_n"
+
+#: reserved leaf of an ExponentialDecay state: the decayed update weight that "mean"
+#: states fold against
+DECAY_WEIGHT_KEY = "__decay_n"
+
+#: reserved leaf-name prefixes of the two-stack layout: each state ``k`` gets the front
+#: suffix-fold stack, the back pane-fold stack and the running fold of the back stack
+WINDOW_FRONT_KEY = "__window_front:"
+WINDOW_BACK_KEY = "__window_back:"
+WINDOW_BAGG_KEY = "__window_bagg:"
+
+#: window tiers, in preference order
+WINDOW_TIERS = ("dual", "two_stack", "ring")
+
+#: fixed two-stack depth: panes per window, whatever the window's length
+WINDOW_STACK_DEPTH = 16
+
+
+def window_tier(metric: "Metric") -> str:
+    """The window representation this metric's reduce tags admit: ``"dual"`` (every
+    tensor reduction ``sum``/``mean``/``None``), ``"two_stack"`` (adds ``max``/``min``
+    and callable semigroup folds) or ``"ring"`` (a custom ``_merge`` or list states)."""
+    if metric._has_custom_merge() or metric._list_state_names:
+        return "ring"
+    tags = set()
+    for fx in metric._reductions.values():
+        if fx == "cat":
+            return "ring"  # a cat tensor state (the wrapper rejects it anyway)
+        tags.add("callable" if callable(fx) else fx)
+    if tags <= {"sum", "mean", None}:
+        return "dual"
+    if tags <= {"sum", "mean", "max", "min", None, "callable"}:
+        return "two_stack"
+    return "ring"
+
+
+def window_stack_geometry(window: int, pane: Optional[int] = None) -> Tuple[int, int]:
+    """``(pane_size, depth)`` of a two-stack window, ``depth * pane_size >= window``;
+    ``pane=1`` is exact per-update sliding, the default keeps depth at
+    :data:`WINDOW_STACK_DEPTH`."""
+    if pane is None:
+        pane = max(1, -(-int(window) // WINDOW_STACK_DEPTH))  # ceil division
+    pane = int(pane)
+    if pane < 1:
+        raise ValueError(f"Expected `pane` >= 1, got {pane}")
+    depth = max(1, -(-int(window) // pane))
+    return pane, depth
+
+
+def _window_init_leaf(default: torch.Tensor, fx: Any) -> torch.Tensor:
+    """The merge-identity start value of one window accumulator: sum and mean leaves
+    start at zero (the default is folded back in once, at fold time), the others at
+    the metric's default. Integer sum and mean leaves accumulate in int64, exact past
+    2**24 (the JAX package promotes them to float32 without x64)."""
+    if fx in ("sum", "mean"):
+        dtype = torch.int64 if not (default.is_floating_point() or default.is_complex()) else default.dtype
+        return torch.zeros(default.shape, dtype=dtype, device=default.device)
+    return default.clone()
+
+
+def window_defaults(metric: "Metric", window: int, tier: str, pane: Optional[int] = None) -> StateDict:
+    """The empty windowed state of one stream: the single definition of each tier's
+    layout. Dual: one packed ``(2, *shape)`` leaf a state (row 0 the expiring block,
+    row 1 the current one) and ``[prev_n, cur_n]``. Two-stack: the current pane, the
+    back aggregate, the ``(depth, *shape)`` front and back stacks and ``[front, back,
+    current pane]``."""
+    defaults_t = metric._tensor_defaults()
+    reductions = metric._reductions
+    device = metric.device
+    st: StateDict = {}
+    if tier == "dual":
+        for k, v in defaults_t.items():
+            init = _window_init_leaf(v, reductions.get(k))
+            st[k] = torch.stack([init, init.clone()])
+        st[WINDOW_COUNT_KEY] = torch.zeros((2,), dtype=torch.float32, device=device)
+    elif tier == "two_stack":
+        _, depth = window_stack_geometry(window, pane)
+        for k, v in defaults_t.items():
+            init = _window_init_leaf(v, reductions.get(k))
+            st[k] = init
+            st[WINDOW_BAGG_KEY + k] = init.clone()
+            st[WINDOW_FRONT_KEY + k] = init[None].repeat((depth,) + (1,) * init.dim())
+            st[WINDOW_BACK_KEY + k] = init[None].repeat((depth,) + (1,) * init.dim())
+        st[WINDOW_COUNT_KEY] = torch.zeros((3,), dtype=torch.float32, device=device)
+    else:
+        raise ValueError(f"window_defaults builds 'dual'/'two_stack' layouts, not {tier!r}")
+    return st
+
+
+def _weighted_mean(a: torch.Tensor, b: torch.Tensor, w_a: Any, w_b: Any) -> torch.Tensor:
+    """:func:`~.parallel.sync.weighted_mean` without a branch on a tensor (the weights'
+    total is one): a total weight of 0 keeps ``a``."""
+    total = w_a + w_b
+    zero = total == 0
+    merged = (w_a * a + w_b * b) / torch.where(zero, torch.ones_like(total), total)
+    return torch.where(zero, a.to(merged.dtype), merged)
+
+
+def _fold_tag(fx: Any, a: torch.Tensor, b: torch.Tensor, w_a: Any, w_b: Any) -> torch.Tensor:
+    """Merge two window accumulators of one state in stream order (``a`` older) under
+    its reduce tag; ``w_*`` are the update counts each side covers (``"mean"`` only)."""
+    if fx == "mean":
+        return _weighted_mean(a, b, w_a, w_b)
+    if fx == "sum":
+        return a + torch.as_tensor(b).to(a.dtype)
+    if fx is None:
+        return a
+    return _sync.pairwise_merge(fx, a, b)
+
+
+def _dual_step(reductions: Dict[str, Any], defaults_t: StateDict, st: StateDict, window: Any,
+               bs_t: StateDict) -> StateDict:
+    """One dual-pair window update: fold the batch into the current block; when the
+    block reaches ``window`` updates, it becomes the expiring block and a fresh one
+    starts. ``window`` is a 0-d tensor, so one program serves every length."""
+    counts = st[WINDOW_COUNT_KEY]
+    cur_n = counts[1]
+    new_n = cur_n + 1.0
+    rotate = new_n >= window
+    out: StateDict = {}
+    for k in defaults_t:
+        pair = st[k]
+        fx = reductions.get(k)
+        b = bs_t.get(k)
+        new_cur = pair[1] if b is None or fx is None else _fold_tag(fx, pair[1], b, cur_n, 1.0).to(pair.dtype)
+        init = _window_init_leaf(defaults_t[k], fx).to(pair.dtype)
+        out[k] = torch.where(rotate, torch.stack([new_cur, init]), torch.stack([pair[0], new_cur]))
+    out[WINDOW_COUNT_KEY] = torch.where(
+        rotate, torch.stack([new_n, torch.zeros_like(new_n)]), torch.stack([counts[0], new_n])
+    )
+    return out
+
+
+def _dual_fold(reductions: Dict[str, Any], defaults_t: StateDict, st: StateDict) -> StateDict:
+    """A dual pair collapsed into one compute-ready state: the metric over the trailing
+    ``prev_n + cur_n`` updates."""
+    counts = st[WINDOW_COUNT_KEY]
+    prev_n, cur_n = counts[0], counts[1]
+    total = prev_n + cur_n
+    out: StateDict = {}
+    for k, d in defaults_t.items():
+        fx = reductions.get(k)
+        pair = st[k]
+        if fx == "sum":
+            out[k] = d.to(pair.dtype) + pair.sum(0)
+        elif fx == "mean":
+            merged = _weighted_mean(pair[0], pair[1], prev_n, cur_n)
+            out[k] = torch.where(total > 0, merged, d.to(merged.dtype)).to(pair.dtype)
+        else:  # None: the local default, as update keeps it
+            out[k] = d
+    return out
+
+
+def _stack_flip(fx: Any, back: torch.Tensor, init: torch.Tensor, pane: Any, depth: int) -> torch.Tensor:
+    """The suffix folds of a full back stack, oldest first: ``depth`` merges."""
+    suffix = init
+    rows: List[torch.Tensor] = []
+    for i in reversed(range(depth)):
+        suffix = _fold_tag(fx, back[i], suffix, pane, (depth - 1 - i) * pane).to(init.dtype)
+        rows.append(suffix)
+    return torch.stack(rows[::-1])
+
+
+def _stack_step(reductions: Dict[str, Any], defaults_t: StateDict, depth: int, st: StateDict, pane: Any,
+                bs_t: StateDict, flip_now: Optional[bool] = None) -> StateDict:
+    """One two-stack (DABA-style) window update: the batch folds into the current pane;
+    a completed pane is pushed onto the back stack and folded into the back aggregate;
+    once the window is full each push evicts the oldest front pane; when the front
+    drains, the flip recomputes the suffix folds of the (then full) back stack.
+
+    Branch-free, as the exported program runs it: the flip's ``depth`` merges are
+    evaluated and selected by ``where``, and the push is a one-hot ``where`` over the
+    ``depth`` rows (there is no dropped out-of-range write in torch). ``flip_now`` is
+    the caller's host-side knowledge of the flip (it follows from the update count,
+    the pane and the depth): with it the eager step evaluates the flip's merges only on
+    the update that flips, with the same result."""
+    counts = st[WINDOW_COUNT_KEY]
+    fc, bc, cc = counts[0], counts[1], counts[2]
+    cc_next = cc + 1.0
+    complete = cc_next >= pane
+    d_f = float(depth)
+    full = (fc + bc) >= d_f
+    flip = complete & full & (fc <= 0.0)
+    evict = complete & full
+    fc_after = torch.where(flip, d_f - 1.0, torch.where(evict, fc - 1.0, fc))
+    bc_base = torch.where(flip, torch.zeros_like(bc), bc)  # panes in the back stack before the push
+    bc_after = torch.where(complete, bc_base + 1.0, bc)
+    cc_after = torch.where(complete, torch.zeros_like(cc_next), cc_next)
+    push = complete & (torch.arange(depth, device=counts.device, dtype=counts.dtype) == bc_base)  # (depth,)
+    out: StateDict = {}
+    for k in defaults_t:
+        fx = reductions.get(k)
+        b = bs_t.get(k)
+        cur = st[k]
+        pane_fold = cur if b is None or fx is None else _fold_tag(fx, cur, b, cc, 1.0).to(cur.dtype)
+        init = _window_init_leaf(defaults_t[k], fx).to(cur.dtype)
+        front, back, agg = st[WINDOW_FRONT_KEY + k], st[WINDOW_BACK_KEY + k], st[WINDOW_BAGG_KEY + k]
+        if flip_now is None:
+            out[WINDOW_FRONT_KEY + k] = torch.where(flip, _stack_flip(fx, back, init, pane, depth), front)
+        else:
+            out[WINDOW_FRONT_KEY + k] = _stack_flip(fx, back, init, pane, depth) if flip_now else front
+        rows = push.reshape((depth,) + (1,) * cur.dim())
+        out[WINDOW_BACK_KEY + k] = torch.where(rows, pane_fold.to(back.dtype)[None], back)
+        agg_base = torch.where(flip, init, agg)
+        pushed = _fold_tag(fx, agg_base, pane_fold, bc_base * pane, cc_next).to(cur.dtype)
+        out[WINDOW_BAGG_KEY + k] = torch.where(complete, pushed, agg)
+        out[k] = torch.where(complete, init, pane_fold)
+    out[WINDOW_COUNT_KEY] = torch.stack([fc_after, bc_after, cc_after])
+    return out
+
+
+def _stack_fold(reductions: Dict[str, Any], defaults_t: StateDict, depth: int, st: StateDict,
+                pane: Any) -> StateDict:
+    """A two-stack window collapsed into one compute-ready state: front suffix fold
+    (oldest panes) then back aggregate then the current partial pane, in stream
+    order."""
+    counts = st[WINDOW_COUNT_KEY]
+    fc, bc, cc = counts[0], counts[1], counts[2]
+    front_n, back_n = fc * pane, bc * pane
+    total = front_n + back_n + cc
+    front_pos = (depth - fc).clamp(0, depth - 1).to(torch.int64).reshape(1)
+    out: StateDict = {}
+    for k, d in defaults_t.items():
+        fx = reductions.get(k)
+        init = _window_init_leaf(d, fx)
+        top = st[WINDOW_FRONT_KEY + k].index_select(0, front_pos)[0]
+        acc = torch.where(fc > 0, top, init.to(top.dtype))
+        acc = _fold_tag(fx, acc, st[WINDOW_BAGG_KEY + k], front_n, back_n)
+        acc = _fold_tag(fx, acc, st[k], front_n + back_n, cc).to(st[k].dtype)
+        if fx == "sum":
+            out[k] = d.to(acc.dtype) + acc
+        elif fx == "mean":
+            out[k] = torch.where(total > 0, acc, d.to(acc.dtype))
+        elif fx is None:
+            out[k] = d
+        else:  # max/min/callable: the default is the merge identity
+            out[k] = acc
+    return out
 
 
 class Metric:
@@ -394,7 +653,8 @@ class Metric:
             roll_back(copy=False)
             raise
 
-    def _dispatch(self, tag: str, args: tuple, kwargs: dict, run: Callable[[Optional[Callable]], Any]) -> Any:
+    def _dispatch(self, tag: str, args: tuple, kwargs: dict, run: Callable[[Optional[Callable]], Any],
+                  tensors: Optional[StateDict] = None, eager: Optional[Callable] = None) -> Any:
         """The tensor path's ``update``/``forward`` boundary: ``run(fold)`` inside the
         metric's profiler range, where ``fold`` is None (the eager fold) or the AOT
         plane's loaded program for this signature. In a telemetry session the dispatch is
@@ -406,26 +666,33 @@ class Metric:
         on-disk cache first: a hit runs the loaded program, a miss is remembered so the
         eager path owns that signature for the rest of the process, and a corrupt entry
         is just a miss. Counters keep ``jit_compiles + jit_cache_hits + aot_cache_hits
-        == dispatches`` exact. With no plane this reads ``aot._ACTIVE`` once."""
+        == dispatches`` exact. With no plane this reads ``aot._ACTIVE`` once.
+
+        A stream transform's update passes the state its program folds as ``tensors``
+        (its window or decayed state, in place of the metric's own) and its eager step
+        as ``eager``; ``fold`` is then a function of that state."""
         label = f"{type(self).__name__}.{tag}"
         plane = _aot._ACTIVE
         slot = fold = None
+        states = self._tensor_states() if tensors is None else tensors
         if plane is not None:
-            slot = plane.lookup_dispatch(self, tag, self._tensor_states(), (args, kwargs))
+            slot = plane.lookup_dispatch(self, tag, states, (args, kwargs))
             if slot is not None and slot.compiled is not None:
-                fold = self._loaded_fold(tag, slot, args, kwargs)
+                fold = (self._loaded_fold(tag, slot, args, kwargs) if tensors is None
+                        else self._loaded_step(slot, args, kwargs, eager))
         rec = _observability._ACTIVE
         if rec is None:
             with _tracing.trace_span(label):
                 out = run(fold)
             if slot is not None and slot.store_pending:
-                plane.store_from_dispatch(self, tag, self._tensor_states(), (args, kwargs), slot)
+                plane.store_from_dispatch(self, tag, states, (args, kwargs), slot)
             return out
         inputs = (args, kwargs)
         sig = slot.signature if slot is not None else rec._signature(inputs)
         harvest = None
         if rec.config.cost_accounting and rec._fresh_signature(self, tag, sig):
-            harvest = _obs_costs.DispatchHarvest(self._state, inputs)
+            # the live dict: the harvest reads the output bytes from it after the call
+            harvest = _obs_costs.DispatchHarvest(self._state if tensors is None else tensors, inputs)
         # a loaded program is opaque to FlopCounterMode: its harvest takes the bytes and
         # the entry's flops, and is not entered around the call
         counting = harvest if harvest is not None and fold is None else contextlib.nullcontext()
@@ -452,12 +719,84 @@ class Metric:
             rec.record_d2h("compute_on_cpu_append", nbytes, metric=self)
         rec.record_state_memory(self)
         if slot is not None and slot.store_pending:
-            plane.store_from_dispatch(self, tag, self._tensor_states(), inputs, slot)
+            plane.store_from_dispatch(self, tag, states, inputs, slot)
         return out
 
     def _tensor_states(self) -> StateDict:
         lists = set(self._list_state_names)
         return {k: v for k, v in self._state.items() if k not in lists}
+
+    def _tensor_defaults(self) -> StateDict:
+        return {k: v for k, v in self._defaults.items() if not isinstance(v, list)}
+
+    # ------------------------------------------------------ windowed programs
+
+    def _check_windowable(self, tier: str) -> None:
+        """Construction-time guards of the constant-memory window tiers, the mirror of
+        what :func:`window_tier` derives."""
+        if self._list_state_names:
+            raise TorchMetricsUserError(
+                f"{type(self).__name__} holds dynamic-length concat states; only the "
+                "'ring' window tier can hold them (bounded host ring)."
+            )
+        if self._has_custom_merge():
+            raise TorchMetricsUserError(
+                f"{type(self).__name__} overrides _merge; an unknown merge cannot be "
+                "folded into constant-size window accumulators — use the 'ring' tier."
+            )
+        allowed = {"sum", "mean", None} if tier == "dual" else {"sum", "mean", "max", "min", None}
+        for name, fx in self._reductions.items():
+            if callable(fx):
+                if tier == "dual":
+                    raise TorchMetricsUserError(
+                        f"{type(self).__name__}.{name} uses a callable reduction; the dual "
+                        "pair folds only sum/mean closed forms — use tier 'two_stack'."
+                    )
+                continue
+            if fx not in allowed:
+                raise TorchMetricsUserError(
+                    f"{type(self).__name__}.{name} uses reduction {fx!r}, which the "
+                    f"{tier!r} window tier cannot fold; use the 'ring' tier."
+                )
+
+    def _check_decayable(self) -> None:
+        """The guards of the ``dupdate`` program: an unknown fold cannot be discounted."""
+        if self._list_state_names:
+            raise TorchMetricsUserError(
+                f"{type(self).__name__} holds dynamic-length concat states; exponential "
+                "decay over an unbounded concatenation is undefined."
+            )
+        if self._has_custom_merge():
+            raise TorchMetricsUserError(
+                f"{type(self).__name__} overrides _merge; a decay factor cannot be "
+                "folded into an unknown merge safely."
+            )
+
+    def _window_dispatch(self, tag: str, wstate: StateDict, wargs: tuple, kwargs: dict,
+                         eager: Callable[[StateDict], Any]) -> Any:
+        """One update of a stream transform's state ``wstate`` (a SlidingWindow's or an
+        ExponentialDecay's) under ``tag`` (``wdual``/``wstack``/``wupdate``/``dupdate``)
+        through :meth:`_dispatch`, so the AOT plane, telemetry and the retry plane apply
+        as to ``update``: ``wargs`` is the program's positional inputs (the window, pane
+        or decay first, as a 0-d tensor, then the batch) and ``eager(state)`` the
+        eager step, which returns the new state without touching ``state``. Under a
+        retry policy every tensor of ``wstate`` is cloned before the first attempt and
+        a retry starts again from a fresh copy of that backup."""
+
+        def run(fold: Optional[Callable]) -> Any:
+            step = fold if fold is not None else eager
+            current = [wstate]
+            rel = self._reliability
+            if rel is None or rel.retry is None:
+                return self._attempt(tag, lambda: step(current[0]))
+            backup = {k: v.clone() for k, v in wstate.items()}
+
+            def restore(exc: BaseException, attempt: int) -> None:
+                current[0] = {k: v.clone() for k, v in backup.items()}
+
+            return self._retrying(tag, lambda: step(current[0]), restore)
+
+        return self._dispatch(tag, wargs, kwargs, run, tensors=wstate, eager=eager)
 
     def _aot_counter(self) -> torch.Tensor:
         """The update count as the program's 0-d float32 ``n``: the tensor the last
@@ -494,6 +833,21 @@ class Metric:
             return self._fold_batch(args, kwargs), None
 
         return fold
+
+    def _loaded_step(self, slot: Any, args: tuple, kwargs: dict, eager: Callable[[StateDict], Any]) -> Callable:
+        """A stream transform's step that runs ``slot``'s loaded program on the state it
+        is given; a call the program refuses demotes the slot and runs ``eager``."""
+        program_args = _aot.program_inputs((args, kwargs), self._device)
+
+        def step(state: StateDict) -> Any:
+            if slot.compiled is not None:
+                try:
+                    return slot.compiled(state, self._aot_counter(), *program_args)
+                except (TypeError, ValueError):
+                    slot.demote()
+            return eager(state)
+
+        return step
 
     def _drop_aot_memo(self) -> None:
         """Forget the loaded programs and the cached counter (a new device, dtype or
@@ -803,14 +1157,31 @@ class Metric:
 
     def _aot_program(self, tag: str) -> torch.nn.Module:
         """The program behind one dispatch tag, as the AOT plane exports it: the
-        metric's fold for ``update``/``forward`` (:class:`_FoldProgram`). Owner-built
-        programs (``"mapeval"``, ``"escore"``) come from the metrics that own them."""
+        metric's fold for ``update``/``forward`` (:class:`_FoldProgram`), and the stream
+        transforms' steps for ``wupdate``/``wdual``/``wstack``/``dupdate``
+        (:class:`_WindowProgram`; ``wstack``'s depth is set by the SlidingWindow that
+        owns it). Owner-built programs (``"mapeval"``, ``"escore"``) come from the
+        metrics that own them."""
         if tag in ("update", "forward"):
             return _FoldProgram(self, tag)
-        raise ValueError(
-            f"Unknown dispatch tag {tag!r} for {type(self).__name__}; expected 'update' or 'forward' "
-            "(the 'mapeval' and 'escore' programs belong to DeviceMeanAveragePrecision and BERTScore)"
-        )
+        if tag == "wdual":
+            self._check_windowable("dual")
+        elif tag == "wstack":
+            self._check_windowable("two_stack")
+            if self.__dict__.get("_wstack_depth") is None:
+                raise TorchMetricsUserError(
+                    "the 'wstack' program is parameterized by its window geometry and is "
+                    "built by its owner (SlidingWindow) first"
+                )
+        elif tag == "dupdate":
+            self._check_decayable()
+        elif tag != "wupdate":
+            raise ValueError(
+                f"Unknown dispatch tag {tag!r} for {type(self).__name__}; expected 'update', 'forward', "
+                "'wupdate', 'wdual', 'wstack' or 'dupdate' (the 'mapeval' and 'escore' programs belong "
+                "to DeviceMeanAveragePrecision and BERTScore)"
+            )
+        return _WindowProgram(self, tag)
 
     def _aot_plane(self, cache_dir: Optional[str]) -> Any:
         if cache_dir is not None:
@@ -1140,6 +1511,91 @@ def _fold_leaf(fx: Any, a: torch.Tensor, b: torch.Tensor, n: torch.Tensor) -> to
     if fx == "mean":
         return (n * a + b) / (n + 1.0)
     return _sync.pairwise_merge(fx, a, b)
+
+
+def _batch_tensors(metric: Metric, args: tuple, kwargs: dict) -> Tuple[StateDict, StateDict]:
+    """``metric``'s batch state split into (tensor states, cat appends)."""
+    lists = set(metric._list_state_names)
+    bs = metric._batch_state(*args, **kwargs)
+    appends = {k: v for k, v in bs.items() if k in lists}
+    return {k: torch.as_tensor(v) for k, v in bs.items() if k not in lists}, appends
+
+
+def window_step(metric: Metric, tag: str, state: StateDict, args: tuple, kwargs: dict,
+                flip_now: Optional[bool] = None) -> Any:
+    """One step of a stream transform's program: ``args[0]`` is the window (``wdual``),
+    the pane (``wstack``) or the decay (``dupdate``) as a 0-d tensor, the rest the
+    batch; ``wupdate`` takes the batch alone. Returns the new state, its keys in the
+    order of ``state`` (a loaded program takes its dict in the order it was exported
+    with), and for ``wupdate`` also the batch's cat appends. Nothing of ``state`` is
+    written."""
+    if tag == "wupdate":
+        new, appends = _window_step(metric, tag, state, args, kwargs, flip_now)
+        return {k: new[k] for k in state}, appends
+    new = _window_step(metric, tag, state, args, kwargs, flip_now)
+    return {k: new[k] for k in state}
+
+
+def _window_step(metric: Metric, tag: str, state: StateDict, args: tuple, kwargs: dict,
+                 flip_now: Optional[bool]) -> Any:
+    reductions = metric._reductions
+    defaults_t = metric._tensor_defaults()
+    if tag == "wupdate":
+        bs_t, appends = _batch_tensors(metric, args, kwargs)
+        cursor, counts = state[WINDOW_CURSOR_KEY], state[WINDOW_COUNT_KEY]
+        slot = torch.remainder(cursor, counts.shape[0]).to(torch.int64).reshape(1)
+        out: StateDict = {}
+        for k, v in state.items():
+            if k in (WINDOW_CURSOR_KEY, WINDOW_COUNT_KEY):
+                continue
+            contrib = bs_t.get(k, defaults_t.get(k))
+            out[k] = v.index_copy(0, slot, contrib.to(device=v.device, dtype=v.dtype).reshape((1,) + v.shape[1:]))
+        out[WINDOW_COUNT_KEY] = counts.index_fill(0, slot, 1.0)
+        out[WINDOW_CURSOR_KEY] = cursor + 1
+        return out, appends
+    param, batch = args[0], args[1:]
+    bs_t, _ = _batch_tensors(metric, batch, kwargs)
+    if tag == "wdual":
+        return _dual_step(reductions, defaults_t, state, param, bs_t)
+    if tag == "wstack":
+        return _stack_step(reductions, defaults_t, metric.__dict__["_wstack_depth"], state, param, bs_t, flip_now)
+    # dupdate: sum leaves scale by the decay before absorbing the batch, mean leaves
+    # fold as a weighted mean against the decayed weight, max/min keep their merge
+    w = state[DECAY_WEIGHT_KEY]
+    out = {}
+    for k, v in state.items():
+        if k == DECAY_WEIGHT_KEY:
+            continue
+        fx = reductions.get(k)
+        b = bs_t.get(k)
+        if fx == "sum":
+            scaled = v * param.to(v.dtype)
+            out[k] = scaled if b is None else scaled + b.to(v.dtype)
+        elif fx == "mean" and b is not None:
+            out[k] = _weighted_mean(v, b, w * param, 1.0).to(v.dtype)
+        elif fx == "max" and b is not None:
+            out[k] = torch.maximum(v, b.to(v.dtype))
+        elif fx == "min" and b is not None:
+            out[k] = torch.minimum(v, b.to(v.dtype))
+        else:  # untouched non-sum leaves and None: kept
+            out[k] = v
+    out[DECAY_WEIGHT_KEY] = w * param + 1.0
+    return out
+
+
+class _WindowProgram(torch.nn.Module):
+    """A stream transform's step as one module (:func:`window_step`, branch-free): what
+    the AOT plane exports for ``wupdate``, ``wdual``, ``wstack`` and ``dupdate``.
+    ``forward(state, n, args, kwargs)``; ``n`` is the calling convention's placeholder
+    (the window's own counts live in its state)."""
+
+    def __init__(self, metric: Metric, tag: str) -> None:
+        super().__init__()
+        self.metric = metric
+        self.tag = tag
+
+    def forward(self, state: StateDict, n: torch.Tensor, args: tuple, kwargs: dict):
+        return window_step(self.metric, self.tag, state, args, kwargs)
 
 
 class HostMetric(Metric):

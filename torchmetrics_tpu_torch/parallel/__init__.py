@@ -1,10 +1,12 @@
 """Sync planes over ``torch.distributed`` (counterpart of ``torchmetrics_tpu/parallel``:
-the coalesced core of ``coalesce.py`` and ``sync.py``, and ``mesh.py``'s
-``runtime_fingerprint`` for the AOT plane's keys; the quantized, asynchronous and mesh
+the coalesced core of ``coalesce.py`` with its dead-rank ledger, ``sync.py``,
+``async_sync.py``'s double-buffered background sync, and ``mesh.py``'s
+``runtime_fingerprint`` for the AOT plane's keys; the quantized sync and the mesh
 helpers are not ported yet)."""
 
 from . import coalesce
-from .coalesce import CoalesceFallback, coalesced_process_sync, collective_counts, reduce_many
+from .async_sync import AsyncSyncHandle
+from .coalesce import CoalesceFallback, clear_dead_ranks, coalesced_process_sync, collective_counts, reduce_many
 from .sync import (
     distributed_available,
     gather_all_arrays,
@@ -18,7 +20,9 @@ from .sync import (
 )
 
 __all__ = [
+    "AsyncSyncHandle",
     "CoalesceFallback",
+    "clear_dead_ranks",
     "coalesce",
     "coalesced_process_sync",
     "collective_counts",

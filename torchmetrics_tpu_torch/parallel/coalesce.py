@@ -51,10 +51,15 @@ histogram rows in a mailbox keyed to the telemetry session's epoch, so that
 ``observability.gather_counters``/``gather_histograms`` right after a sync launch no
 collective of their own.
 
+**The dead-rank ledger.** :func:`dead_ranks` maps a rank to the number of consecutive
+degraded syncs it has been seen dead for, and :func:`clear_dead_ranks` forgets it. Only
+the ledger and its accessors are here: the degraded-sync plane whose tombstone rows
+write it comes with the durability plane, so a sync here leaves it empty.
+
 Left out here, to come with their planes: the quantized buckets (``quantize``, a codec
-in the kind slot, and the quant section after the tails) and the dead-rank and rejoin
-bookkeeping (durability). Every live rank announces alive 1 and epoch 1, so that an
-all-zero row still reads as a tombstone.
+in the kind slot, and the quant section after the tails) and the rejoin bookkeeping
+that writes the dead-rank ledger (durability). Every live rank announces alive 1 and
+epoch 1, so that an all-zero row still reads as a tombstone.
 """
 
 from __future__ import annotations
@@ -94,6 +99,21 @@ _CODE_EMPTY = -1  # zero-update list state: no data, dtype unknown on this rank
 _CODE_UNSUPPORTED = -2
 _CODE_RANK_OVERFLOW = -3
 _CODE_DIM_OVERFLOW = -4  # a dimension does not fit the int32 metadata encoding
+
+
+# rank index -> consecutive degraded syncs it has been seen dead for
+_DEAD_RANKS: Dict[int, int] = {}
+
+
+def dead_ranks() -> Dict[int, int]:
+    """Ranks currently tombstoned by the degraded-sync plane (rank index ->
+    consecutive degraded syncs seen dead)."""
+    return dict(_DEAD_RANKS)
+
+
+def clear_dead_ranks() -> None:
+    """Forget all tombstones (test and soak-run isolation)."""
+    _DEAD_RANKS.clear()
 
 
 class CoalesceFallback(Exception):
