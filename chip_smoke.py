@@ -188,8 +188,8 @@ Phases, one JSON line each, in order:
    counts bit for bit, ratios within 1e-6.
 25. panoptic: ``PanopticQuality`` (with sq and rq) and ``ModifiedPanopticQuality`` on
    COCO-panoptic-shaped segment maps from a seed (133 categories: 80 things, 53 stuff;
-   480x640; 1-30 segments an image; 5% void), a prefix of 32 of val2017's 5,000 images
-   in updates of 16: the states on the card, equal to the CPU port's bit for bit, and
+   480x640; 1-30 segments an image; 5% void), a prefix of 16 of val2017's 5,000 images
+   in two updates of 8: the states on the card, equal to the CPU port's bit for bit, and
    the values (PQ's per class too) equal; update ms and the host's share of it (the
    statistics are host numpy).
 26. retrieval: an MS MARCO passage dev-small re-ranking run from a seed: 6,980 sparse
@@ -316,13 +316,14 @@ Phases, one JSON line each, in order:
    in the port's 4-tap form and through the dense matrices, timed and held together.
    Update and compute ms, peak extra bytes, host reads, a profiled update.
 39-41. text_mt, text_asr, text_qa_sum: the string metrics on seeded stand-ins for the
-   corpora at their published sizes (a Zipf vocabulary of 20,000 pseudo-words, seeded
-   edits): WMT14 en-de newstest2014 (3,003 segments of about 27 tokens, one reference;
-   hypotheses under 30% edits, a fifth with a moved block) through BLEU, SacreBLEU
+   corpora at their published sizes but where ``TEXT_PHASE_SEGMENTS`` cuts them (a Zipf
+   vocabulary of 20,000 pseudo-words, seeded edits): WMT14 en-de newstest2014 (1,024 of
+   its 3,003 segments of about 27 tokens, one reference; hypotheses under 30% edits, a
+   fifth with a moved block) through BLEU, SacreBLEU
    (``13a``, ``intl``, ``char``), chrF, chrF++, TER and EED; LibriSpeech test-clean
    (2,620 utterances of about 20 words at a 5% edit rate) through WER, CER, MER, WIL,
-   WIP and EditDistance; SQuAD v1.1 dev (10,570 questions, 1-3 answers) through SQuAD
-   and CNN/DailyMail test (11,490 summaries of about 56 words in 3-4 highlights)
+   WIP and EditDistance; SQuAD v1.1 dev (4,096 of its 10,570 questions, 1-3 answers)
+   through SQuAD and CNN/DailyMail test (4,096 of its 11,490 summaries of about 56 words)
    through ROUGE-1/2/L/Lsum. Updates of 64; the first ``TEXT_CPU_BATCHES`` updates
    replayed by the CPU port, states bit for bit and values within ``TEXT_RTOL``; the
    tensor states on the card; update and compute ms, and one profiled update of every
@@ -467,6 +468,47 @@ Phases, one JSON line each, in order:
    ``precompile(tags=("wdual",))`` of windowed accuracy writes both codecs; a fresh
    interpreter (``--aot-child ... window``) loads it (one ``"aoti"`` load, no compile),
    its window states after 16 batches equal the eager ones bit for bit. Budget 90 s.
+56. serving (right after phase 55; its first boot starts beside phase 55): the serving
+   plane. (1) The serving demo's spill churn at full width: ``MulticlassAccuracy(10)``
+   tenants, ``ServingConfig(capacity=2048, megabatch_size=512)``, 8,000 tenants over 4
+   rounds of 32 seeded logits from the host: tenants/s through the engine against a
+   naive loop of one metric per tenant (512 tenants), dispatches, padded rows, spills,
+   readmissions, ``tenant_spill_us``; 256 seeded tenants (spilled ones among them) bit
+   for bit against CPU metrics fed the same batches; launch calls of one dispatch equal
+   at 64 and 512 rows (profiled). (2) ``MulticlassConfusionMatrix(10)`` tenants on 2,048
+   of them over 2 rounds: 64 bit for bit against the CPU, launch calls equal at 64 and
+   512 rows (the megabatch's one count). (3) Windowed tenants (``window=64``, the dual
+   tier): 4 tenants over 130 updates equal to ``SlidingWindow(64)``'s window states bit
+   for bit, ``compute_all`` (``vcompute``) equal to ``compute``. (4)
+   ``on_error="quarantine"`` with ``_fault_hook`` failing one tenant of a megabatch of
+   64: that tenant alone quarantined, its 63 peers equal a clean run bit for bit. (5)
+   1,024 journaled tenants over 3 rounds (the default fsync of every append), a snapshot
+   after the first: a fresh engine's ``restore`` plus ``replay_journal`` equal to the
+   uninterrupted engine bit for bit, a second replay applies nothing; the snapshot's
+   bytes and seconds, the journaled feed's seconds. (6) Two boots of
+   ``ServingConfig(aot_cache_dir=..., write_on_miss=True)`` in fresh interpreters
+   (``--aot-child ... serve``): the second's first megabatch loads (hits ≥ 1, misses 0),
+   states equal; first-dispatch ms warm against cold. (7) FID tenants behind the bf16
+   trunk: ``ServingConfig(capacity=4, megabatch_size=4)``, 6 tenants over 3 rounds of 32
+   seeded images (uint8 levels as [0, 1] floats, ``normalize=True``), 128 a dispatch:
+   26 sepconv7 launches a dispatch (the rows fold into the kernel's batch under
+   ``vmap``), every tenant within ``SERVE_FID_RTOL`` relative L2 of a standalone FID on
+   the card and above it against the next tenant's, every ``"int8"`` spill within
+   ``range/510``, spill bytes ``"int8"`` against ``"none"``; the trunk at batch 32 with
+   sepconv7 called through ``sepconv7_rows`` and directly, in alternating pairs after
+   the warm boot has ended (the op's dispatch cost).
+57. quantized_sync: two gloo ranks on the card (``--sync-child ... quantized``) syncing
+   ``{acc, f1, confmat}`` at 65,536 rows, FID's sums at 2,048 features (a fixed
+   projection) and a ``MeanMetric``: exact, ``SyncConfig(codec="bf16")`` and ``"int8"``
+   (integer states bit for bit, float sums within ``quantize.py``'s bounds summed over
+   the ranks, as many collectives recorded and ``all_gather`` calls traced as exact,
+   bytes by ``quantized_payload_model`` and measured); error feedback over 8 syncs (the
+   summed drift within one step); a degraded sync (``DeadRank``: the ledger ``{1: 2}``,
+   two ``degraded_sync`` events) and a rejoin at epoch 2 (``rank_rejoin``, the ledger
+   empty); ``AsyncSyncHandle(sync_config=...)`` and ``ServingEngine.sync_async(
+   sync_config=...)`` equal to blocking quantized syncs bit for bit. Beside them, in an
+   NCCL group of one, a ``SyncConfig`` sync ships exact and gives the local states bit
+   for bit.
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -1261,7 +1303,8 @@ def sync_child(rank: int, world: int, init_method: str, mode: str) -> int:
     """One rank of a two-rank phase: a gloo group on the one card, its half of the data,
     then the values through the real sync (``mode`` "sync": the collection's
     ``compute()``; "flagship": the flagship's sync and finalize; "moments": the moment
-    metrics' ``compute()``). Prints its values as a RESULT line."""
+    metrics' ``compute()``; "quantized": :func:`quant_values`' report). Prints its values
+    as a RESULT line."""
     import datetime
 
     import torch.distributed as dist
@@ -1270,7 +1313,9 @@ def sync_child(rank: int, world: int, init_method: str, mode: str) -> int:
     dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=120))
     try:
-        if mode == "flagship":
+        if mode == "quantized":
+            report = quant_values(rank, world)
+        elif mode == "flagship":
             values, sync_ms = flagship_values(rank, world)
         elif mode == "moments":
             values, sync_ms = moment_values(rank, world)
@@ -1288,8 +1333,9 @@ def sync_child(rank: int, world: int, init_method: str, mode: str) -> int:
             values = coll.compute()  # one coalesced pre-sync over gloo
     finally:
         dist.destroy_process_group()
-    print("RESULT" + json.dumps({"rank": rank, "sync_ms": sync_ms,
-                                 "values": {k: [str(v.dtype), v.cpu().tolist()] for k, v in values.items()}}), flush=True)
+    if mode != "quantized":
+        report = {"sync_ms": sync_ms, "values": {k: [str(v.dtype), v.cpu().tolist()] for k, v in values.items()}}
+    print("RESULT" + json.dumps({"rank": rank, **report}), flush=True)
     return 0
 
 
@@ -1297,6 +1343,12 @@ def run_children(mode: str, world: int = 2, wall_s: int = 300) -> list:
     """Start this script ``world`` times with ``--sync-child`` in ``mode`` (a gloo group
     on the one card, ``GLOO_SOCKET_IFNAME=lo``, a file rendezvous) and return each
     rank's RESULT; a child that fails or outlives ``wall_s`` fails the phase."""
+    return finish_children(start_children(mode, world), wall_s)
+
+
+def start_children(mode: str, world: int = 2) -> tuple:
+    """:func:`run_children`'s start: the children run beside the caller until
+    :func:`finish_children` takes their results."""
     import tempfile
 
     rendezvous = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
@@ -1304,6 +1356,11 @@ def run_children(mode: str, world: int = 2, wall_s: int = 300) -> list:
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), SYNC_CHILD_FLAG, str(rank), str(world),
                                f"file://{rendezvous}/store", mode], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True, env=env) for rank in range(world)]
+    return procs, mode, rendezvous
+
+
+def finish_children(started: tuple, wall_s: int = 300) -> list:
+    procs, mode, rendezvous = started
     results = []
     try:
         for proc in procs:
@@ -2843,8 +2900,9 @@ AOT_CORRUPT_MEMBER = "confmat"
 AOT_CHILD_WALL_S = 240
 # "warm" and "corrupt" boot with the plane on the cache ("corrupt" takes no timings:
 # it runs beside the parent's FID work), "cold" with none; "window" boots the streaming
-# phase's windowed accuracy on the cache
-AOT_CHILD_MODES = ("warm", "cold", "corrupt", "window")
+# phase's windowed accuracy on the cache; "serve" boots the serving phase's engine with
+# ServingConfig(aot_cache_dir=...) (a first boot writes through, a second loads)
+AOT_CHILD_MODES = ("warm", "cold", "corrupt", "window", "serve")
 AOT_SEED = 53
 MAPEVAL_ATOL = 1e-6  # the loaded evaluator against the eager one
 MAPEVAL_CHILD_FLAG = "--mapeval-child"
@@ -2883,6 +2941,10 @@ def aot_child(cache_dir: str, mode: str) -> int:
     time to the first update, steady update ms and launch calls, and the states. The
     modules a first load and a first cost harvest import (Inductor's, the flop counter)
     are imported first and timed apart: about 9 s of Python, the same for every boot."""
+    if mode == "serve":
+        result = serve_child(cache_dir)
+        print("RESULT" + json.dumps({**result, "first_update_done_unix": time.time()}), flush=True)
+        return 0
     clock = time.perf_counter()
     import torch._inductor.package  # noqa: F401
     import torch.utils.flop_counter  # noqa: F401
@@ -3662,6 +3724,802 @@ def streaming_phase(card: str) -> int:
           "async_sync": async_sync, "warm_start": warm, "parts_s": clock_seconds(clock), "seconds": seconds,
           "limit_s": STREAM_PHASE_LIMIT_S, "within_limit": seconds <= STREAM_PHASE_LIMIT_S, "card": card})
     return fid["sepconv7_launches"]
+
+
+# ---------------------------------------------------------------------------
+# the serving plane (slice 22): ServingEngine on the card
+
+SERVE_TENANTS = 8000  # tools/serve_demo.py's spill-churn line: --tenants 8000 --capacity 2048
+SERVE_CAPACITY = 2048
+SERVE_MEGABATCH = 512
+SERVE_ROUNDS = 4
+SERVE_ROWS = 32  # events per tenant batch
+SERVE_CLASSES = 10
+SERVE_SEED = 57
+SERVE_CHECK_TENANTS = 256  # seeded tenants held against standalone CPU metrics, bit for bit
+SERVE_NAIVE_TENANTS = 512  # the naive loop: one standalone metric per tenant
+SERVE_PROBE_MEGABATCHES = (64, 512)  # launch calls per dispatch must be equal at both
+SERVE_CONFMAT_TENANTS = 2048  # the confusion matrix on a prefix of the same traffic
+SERVE_CONFMAT_ROUNDS = 2
+SERVE_WINDOW = 64
+SERVE_WINDOW_TENANTS = 4
+SERVE_WINDOW_UPDATES = 130  # two dual-tier rotations
+SERVE_QUARANTINE_MEGABATCH = 64
+SERVE_QUARANTINE_TENANT = 7
+SERVE_JOURNAL_TENANTS = 1024
+SERVE_JOURNAL_ROUNDS = 3
+SERVE_FID_CAPACITY = 4
+SERVE_FID_TENANTS = 6  # more tenants than slots: they spill
+SERVE_FID_ROUNDS = 3
+SERVE_FID_IMAGES = 32  # per tenant batch: 128 images per dispatch
+# a tenant's FID rows against a standalone FID fed the same batches on the card: the
+# megabatch runs the trunk at batch 128 where the standalone runs 32, and its bf16
+# activations round differently (H100 80GB HBM3, 700 W: 1.7e-4-3.5e-4 relative L2 a
+# state); bit for bit where the trunk is batch-invariant, else within this relative L2
+# per state. A fault that hands a tenant another tenant's rows must read above it: the
+# phase holds every tenant against the next tenant's standalone FID too (2.5e-3-5.2e-3 on
+# the same card) and fails unless each such reading exceeds the limit, which sits near
+# the geometric middle of the two
+SERVE_FID_RTOL = 1e-3
+SERVE_WARM_TENANTS = 512  # the warm-boot children's traffic: one full megabatch
+SERVE_PHASE_LIMIT_S = 75
+
+
+def serve_traffic(tenants: int = SERVE_TENANTS, rounds: int = SERVE_ROUNDS, rows: int = SERVE_ROWS,
+                  classes: int = SERVE_CLASSES, seed: int = SERVE_SEED):
+    """The demo's traffic from a seed, on the host as a metric service receives it:
+    ``(rounds, tenants, rows, classes)`` float32 logits and ``(rounds, tenants, rows)``
+    int32 labels."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((rounds, tenants, rows, classes), dtype=np.float32)
+    labels = rng.integers(0, classes, (rounds, tenants, rows), dtype=np.int32)
+    return logits, labels
+
+
+def serve_accuracy(device=None, classes: int = SERVE_CLASSES):
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+
+    return MulticlassAccuracy(classes, average="micro", validate_args=False, device=device)
+
+
+def serve_confmat(device=None, classes: int = SERVE_CLASSES):
+    from torchmetrics_tpu_torch.classification import MulticlassConfusionMatrix
+
+    return MulticlassConfusionMatrix(classes, validate_args=False, device=device)
+
+
+def serve_feed(engine, logits, labels, tenants=None, rounds=None) -> float:
+    """Round after round, every tenant's batch through ``engine.update``, then a flush;
+    returns the host seconds (the card synchronised at the end)."""
+    rounds = range(logits.shape[0]) if rounds is None else rounds
+    tenants = range(logits.shape[1]) if tenants is None else tenants
+    start = time.perf_counter()
+    for r in rounds:
+        for t in tenants:
+            engine.update(t, logits[r, t], labels[r, t])
+    engine.flush()
+    engine.block_until_ready()
+    return time.perf_counter() - start
+
+
+def serve_hold(label: str, engine, make_reference, logits, labels, tenants, rounds=None) -> int:
+    """Each tenant's rows (resident or spilled) against a standalone metric made by
+    ``make_reference`` fed the same batches: every state bit for bit. Returns how many
+    of the held tenants were spilled."""
+    rounds = range(logits.shape[0]) if rounds is None else rounds
+    spilled = 0
+    for t in tenants:
+        ref = make_reference()
+        for r in rounds:
+            ref.update(torch.from_numpy(logits[r, t]).to(ref.device), torch.from_numpy(labels[r, t]).to(ref.device))
+        state = engine._tenant_state(engine._tenants[t])
+        spilled += engine._tenants[t].spilled is not None
+        for key, want in ref._state.items():
+            if not torch.equal(state[key].cpu().to(want.dtype), want.cpu()):
+                raise AssertionError(f"serving: {label} tenant {t}'s {key} differs from a standalone metric's")
+    return spilled
+
+
+def serve_probe_engine(make, megabatch: int, logits, labels):
+    """An engine of ``megabatch`` slots with one megabatch of distinct tenants queued
+    (admitted, not dispatched): its ``flush()`` is exactly one dispatch."""
+    from torchmetrics_tpu_torch.serving import ServingConfig, ServingEngine
+
+    engine = ServingEngine(make(), ServingConfig(capacity=megabatch, megabatch_size=megabatch, auto_flush=False))
+    for t in range(megabatch):
+        engine.update(t, logits[0, t], labels[0, t])
+    return engine
+
+
+def serve_launch_calls(label: str, make, logits, labels) -> dict:
+    """Launch calls of one dispatch at each probe size (after one warm dispatch of the
+    same engine); they must not depend on the size."""
+    calls = {}
+    for m in SERVE_PROBE_MEGABATCHES:
+        engine = serve_probe_engine(make, m, logits, labels)
+        engine.flush()
+        for t in range(m):
+            engine.update(t, logits[1, t], labels[1, t])
+        events = profile_step(f"serving_{label}_vupdate_{m}", engine.flush)
+        calls[m] = {"kernels": launch_calls(events), "copies": launch_calls(events, "Memcpy")}
+    if len({c["kernels"] for c in calls.values()}) != 1:
+        raise AssertionError(f"serving: {label}'s launch calls per dispatch depend on the megabatch size: {calls}")
+    return calls
+
+
+def serve_churn(card: str) -> dict:
+    """The demo's spill churn at full width: 8,000 tenants, 4 rounds, capacity 2,048,
+    megabatches of 512; tenants/s against the naive loop; 256 seeded tenants (spilled
+    ones among them) against standalone CPU metrics bit for bit; launch calls per
+    dispatch at 64 and 512 rows."""
+    from torchmetrics_tpu_torch.serving import ServingConfig, ServingEngine
+
+    logits, labels = serve_traffic()
+    engine = ServingEngine(serve_accuracy(), ServingConfig(capacity=SERVE_CAPACITY, megabatch_size=SERVE_MEGABATCH))
+    seconds = serve_feed(engine, logits, labels)
+    summary = engine.summary()
+    checked = np.random.default_rng(SERVE_SEED).choice(SERVE_TENANTS, SERVE_CHECK_TENANTS, replace=False)
+    spilled = serve_hold("accuracy", engine, lambda: serve_accuracy(device="cpu"), logits, labels, checked)
+    if not spilled:
+        raise AssertionError("serving: no spilled tenant among the held ones")
+    naive = {t: serve_accuracy() for t in range(SERVE_NAIVE_TENANTS)}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for r in range(SERVE_ROUNDS):
+        for t, metric in naive.items():
+            metric.update(torch.from_numpy(logits[r, t]).cuda(), torch.from_numpy(labels[r, t]).cuda())
+    torch.cuda.synchronize()
+    naive_s = time.perf_counter() - start
+    calls = serve_launch_calls("accuracy", serve_accuracy, logits, labels)
+    return {"tenants": SERVE_TENANTS, "rounds": SERVE_ROUNDS, "capacity": SERVE_CAPACITY,
+            "megabatch": SERVE_MEGABATCH, "seconds": seconds,
+            "tenants_per_s": SERVE_TENANTS * SERVE_ROUNDS / seconds,
+            "naive_tenants_per_s": SERVE_NAIVE_TENANTS * SERVE_ROUNDS / naive_s,
+            **{k: summary[k] for k in ("dispatches", "padded_rows", "spills", "readmissions", "tenant_spill_us",
+                                        "tenants_per_dispatch")},
+            "held_tenants": SERVE_CHECK_TENANTS, "held_spilled": spilled, "states_bitwise": True,
+            "launch_calls_per_dispatch": calls, "resident_bytes": engine.memory()["resident_bytes"]}, logits, labels
+
+
+def serve_confmat_part(logits, labels) -> dict:
+    """MulticlassConfusionMatrix tenants on a prefix of the traffic: the batched count
+    (one count for the whole megabatch), states bit for bit against the CPU, launch
+    calls per dispatch equal at 64 and 512 rows."""
+    from torchmetrics_tpu_torch.serving import ServingConfig, ServingEngine
+
+    engine = ServingEngine(serve_confmat(), ServingConfig(capacity=SERVE_CAPACITY, megabatch_size=SERVE_MEGABATCH))
+    seconds = serve_feed(engine, logits, labels, tenants=range(SERVE_CONFMAT_TENANTS),
+                         rounds=range(SERVE_CONFMAT_ROUNDS))
+    held = np.random.default_rng(SERVE_SEED + 1).choice(SERVE_CONFMAT_TENANTS, 64, replace=False)
+    serve_hold("confmat", engine, lambda: serve_confmat(device="cpu"), logits, labels, held,
+               rounds=range(SERVE_CONFMAT_ROUNDS))
+    return {"tenants": SERVE_CONFMAT_TENANTS, "rounds": SERVE_CONFMAT_ROUNDS, "seconds": seconds,
+            "held_tenants": len(held), "states_bitwise": True,
+            "launch_calls_per_dispatch": serve_launch_calls("confmat", serve_confmat, logits, labels)}
+
+
+def serve_window_part(logits, labels, device=None, updates: int = SERVE_WINDOW_UPDATES,
+                      window: int = SERVE_WINDOW) -> dict:
+    """Windowed tenants (dual tier): each tenant's window rows against a standalone
+    ``SlidingWindow`` fed the same batches, bit for bit; ``compute_all`` through
+    ``vcompute`` against per-tenant ``compute``."""
+    from torchmetrics_tpu_torch.serving import ServingConfig, ServingEngine
+    from torchmetrics_tpu_torch.streaming import SlidingWindow
+
+    engine = ServingEngine(serve_accuracy(device=device), ServingConfig(capacity=2 * SERVE_WINDOW_TENANTS,
+                                                                        megabatch_size=SERVE_WINDOW_TENANTS,
+                                                                        window=window))
+    refs = {t: SlidingWindow(serve_accuracy(device=device), window) for t in range(SERVE_WINDOW_TENANTS)}
+    for i in range(updates):
+        r, block = i % logits.shape[0], i // logits.shape[0]
+        for t in range(SERVE_WINDOW_TENANTS):
+            tenant = t + SERVE_WINDOW_TENANTS * block  # a fresh batch per update
+            engine.update(t, logits[r, tenant], labels[r, tenant])
+            refs[t].update(torch.from_numpy(logits[r, tenant]).to(refs[t].device),
+                           torch.from_numpy(labels[r, tenant]).to(refs[t].device))
+    engine.flush()
+    values = engine.compute_all()
+    for t, ref in refs.items():
+        state = engine._tenant_state(engine._tenants[t])
+        for key, want in ref._wstate.items():
+            if not torch.equal(state[key], want):
+                raise AssertionError(f"serving: windowed tenant {t}'s {key} differs from a SlidingWindow's")
+        if engine.covered_updates(t) != ref.covered_updates():
+            raise AssertionError(f"serving: windowed tenant {t} covers {engine.covered_updates(t)} updates")
+        if not torch.equal(values[t], engine.compute(t)) or not torch.equal(engine.compute(t), ref.compute()):
+            raise AssertionError(f"serving: windowed tenant {t}'s compute_all, compute and the window's differ")
+    summary = engine.summary()
+    return {"window": window, "tier": summary["window_tier"], "tenants": SERVE_WINDOW_TENANTS, "updates": updates,
+            "rotations": summary["window_rotations"], "covered": engine.covered_updates(0),
+            "vcompute_used": engine._vcompute_ok, "states_bitwise": True}
+
+
+def serve_quarantine_part(logits, labels, device=None, megabatch: int = SERVE_QUARANTINE_MEGABATCH) -> dict:
+    """``on_error="quarantine"`` with ``_fault_hook`` raising whenever one tenant is in
+    the megabatch: only that tenant is quarantined, its peers equal a clean run bit for
+    bit."""
+    from torchmetrics_tpu_torch.serving import ServingConfig, ServingEngine
+
+    config = lambda: ServingConfig(capacity=megabatch, megabatch_size=megabatch, on_error="quarantine",
+                                   auto_flush=False)  # noqa: E731
+    faulty, clean = ServingEngine(serve_accuracy(device=device), config()), ServingEngine(serve_accuracy(device=device),
+                                                                                         config())
+
+    def hook(tenant_ids):
+        if SERVE_QUARANTINE_TENANT in tenant_ids:
+            raise RuntimeError("injected tenant fault")
+
+    faulty._fault_hook = hook
+    for engine in (faulty, clean):
+        for t in range(megabatch):
+            engine.update(t, logits[0, t], labels[0, t])
+        engine.flush()
+    roster = faulty.tenants()
+    quarantined = [t for t, row in roster.items() if row["quarantined"]]
+    if quarantined != [SERVE_QUARANTINE_TENANT]:
+        raise AssertionError(f"serving: quarantined tenants {quarantined}")
+    for t in range(megabatch):
+        if t == SERVE_QUARANTINE_TENANT:
+            continue
+        got, want = faulty._tenant_state(faulty._tenants[t]), clean._tenant_state(clean._tenants[t])
+        if not all(torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"serving: quarantine peer {t} differs from the clean run")
+    return {"megabatch": megabatch, "quarantined": quarantined, "peers_bitwise": megabatch - 1,
+            "dispatches": faulty.stats["dispatches"]}
+
+
+def serve_durability_part(logits, labels, device=None, tenants: int = SERVE_JOURNAL_TENANTS,
+                          rounds: int = SERVE_JOURNAL_ROUNDS) -> dict:
+    """A journaled run with a snapshot after its first round; a fresh engine restores
+    the snapshot and replays the journal (exactly once by sequence number): every
+    tenant equals the uninterrupted engine bit for bit."""
+    import tempfile
+
+    from torchmetrics_tpu_torch.serving import ServingConfig, ServingEngine, TrafficJournal
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_serving_durability_")
+    try:
+        config = lambda: ServingConfig(capacity=SERVE_CAPACITY, megabatch_size=SERVE_MEGABATCH,  # noqa: E731
+                                       journal=os.path.join(workdir, "journal"))
+        primary = ServingEngine(serve_accuracy(device=device), config())
+        retained, snap = {}, None
+        start = time.perf_counter()
+        for r in range(rounds):
+            for t in range(tenants):
+                primary.update(t, logits[r, t], labels[r, t])
+                retained[primary._applied_seq] = (logits[r, t], labels[r, t])
+            if r == 0:
+                snap_start = time.perf_counter()
+                snap = primary.snapshot(os.path.join(workdir, "snaps"))
+                snap["seconds"] = time.perf_counter() - snap_start
+        primary.flush()
+        primary.close()
+        feed_s = time.perf_counter() - start - snap["seconds"]
+        standby = ServingEngine(serve_accuracy(device=device), config())
+        start = time.perf_counter()
+        standby.restore(os.path.join(workdir, "snaps"))
+        records = TrafficJournal.read(os.path.join(workdir, "journal"))
+        replayed = standby.replay_journal(records, lambda rec: (retained[rec.seq], {}))
+        standby.flush()
+        recover_s = time.perf_counter() - start
+        for t in range(tenants):
+            got, want = standby._tenant_state(standby._tenants[t]), primary._tenant_state(primary._tenants[t])
+            if not all(torch.equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"serving: restored tenant {t} differs from the uninterrupted engine")
+        if standby.replay_journal(records, lambda rec: (retained[rec.seq], {})) != 0:
+            raise AssertionError("serving: a second replay applied records")
+        standby.close()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"tenants": tenants, "rounds": rounds, "snapshot_bytes": snap["bytes"], "snapshot_s": snap["seconds"],
+            "journal_records": len(records), "replayed": replayed, "restore_replay_s": recover_s,
+            "fsync_every": primary.config.journal_fsync_every, "journaled_feed_s": feed_s, "states_bitwise": True}
+
+
+def serve_fid_engine(extractor, codec: str):
+    from torchmetrics_tpu_torch.serving import ServingConfig, ServingEngine
+
+    return ServingEngine(reliability_fid(extractor), ServingConfig(capacity=SERVE_FID_CAPACITY,
+                                                                   megabatch_size=SERVE_FID_CAPACITY,
+                                                                   spill_codec=codec))
+
+
+def serve_fid_images(device=None):
+    """Every FID tenant batch, ``(rounds, tenants, images, 3, 299, 299)`` uint8 from a
+    seed on the card; each update takes its batch as [0, 1] floats (the template's
+    ``normalize=True`` quantizes them back to uint8 levels)."""
+    gen = torch.Generator(device=device or "cuda").manual_seed(SERVE_SEED + 2)
+    return torch.randint(0, 256, (SERVE_FID_ROUNDS, SERVE_FID_TENANTS, SERVE_FID_IMAGES, 3, 299, 299),
+                         generator=gen, device=device or "cuda", dtype=torch.uint8)
+
+
+def spill_bound_checker(engine) -> list:
+    """Wrap ``engine._spill`` so that every spill's decoded rows are held against the
+    exact rows they encode: within ``range/510`` per element (int8; the single-block
+    bound covers every block). Returns the list it appends each spill's worst ratio to."""
+    from torchmetrics_tpu_torch.parallel import quantize
+
+    ratios = []
+    spill = engine._spill
+
+    def checked(t, cls):
+        raw = {name: cls.stacked[name][t.slot].double().cpu() for name in engine._row_defaults}
+        spill(t, cls)
+        decoded = quantize.decode_spill_state(t.spilled["state"])
+        for name, exact in raw.items():
+            got = torch.from_numpy(np.asarray(decoded[name], np.float64))
+            bound = float(exact.max() - exact.min()) / 510.0 if exact.numel() else 0.0
+            err = float((got - exact).abs().max()) if exact.numel() else 0.0
+            if err > bound * (1 + 1e-6) + 1e-12:
+                raise AssertionError(f"serving: an int8 spill of {name} is {err} off, bound {bound}")
+            ratios.append(err / bound if bound else 0.0)
+
+    engine._spill = checked
+    return ratios
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm().clamp_min(1e-30))
+
+
+def fid_tenant_hold(states: list, refs: list, rtol: float = SERVE_FID_RTOL) -> dict:
+    """Tenant ``t``'s FID states against ``refs[t]``, a standalone FID fed the same
+    batches: integer states equal, float states within ``rtol`` relative L2 (bit for bit
+    where they are). Each tenant is also read against the next tenant's reference, as a
+    fault that hands a tenant another's rows would read: every such float reading must
+    exceed ``rtol``, or the limit could not tell that fault apart."""
+    worst, cross, bitwise = {}, {}, True
+    for t, (state, ref) in enumerate(zip(states, refs)):
+        other = refs[(t + 1) % len(refs)]
+        for key, want in ref.items():
+            got = state[key]
+            if not want.is_floating_point():
+                if not torch.equal(got, want):
+                    raise AssertionError(f"serving: FID tenant {t}'s {key} differs from a standalone FID")
+                continue
+            cross[key] = min(cross.get(key, math.inf), rel_l2(got, other[key]))
+            if torch.equal(got, want):
+                worst.setdefault(key, 0.0)
+                continue
+            bitwise = False
+            worst[key] = max(worst.get(key, 0.0), rel_l2(got, want))
+    if any(v > rtol for v in worst.values()) or any(v <= rtol for v in cross.values()):
+        raise AssertionError(f"serving: FID tenants read {worst} relative L2 off their standalone FIDs and {cross} "
+                             f"off another tenant's, against the limit {rtol}")
+    return {"states_bitwise": bitwise, "rel_l2": worst, "cross_tenant_rel_l2": cross}
+
+
+def trunk_route_ms(extractor, x: torch.Tensor, pairs: int = 20) -> dict:
+    """The trunk's forward on ``x`` ([0, 1] floats) with its 26 sepconv7 convs called
+    directly, as the trunk calls them outside ``vmap``, and through the ``torch.library``
+    op ``sepconv7_rows``, the serving engine's route: the op's dispatch cost. ``pairs``
+    pairs after a warm-up of each, the first of a pair alternating; each route's median
+    and quartiles (ms) and the pairs the op won."""
+    from torchmetrics_tpu_torch.image import _extractors
+
+    direct = _extractors.sepconv7
+    routes = ("sepconv7", "sepconv7_rows")
+
+    def forward(route: str) -> float:
+        _extractors.sepconv7 = getattr(_extractors, route)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        extractor(x, normalize=True)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) * 1e3
+
+    times = {route: [] for route in routes}
+    try:
+        for route in routes:
+            forward(route)
+        for i in range(pairs):
+            for route in routes if i % 2 == 0 else routes[::-1]:
+                times[route].append(forward(route))
+    finally:
+        _extractors.sepconv7 = direct
+    out = {route: {"median": median(t), "quartiles": [float(np.percentile(t, 25)), float(np.percentile(t, 75))]}
+           for route, t in times.items()}
+    out["op_wins"] = sum(b < a for a, b in zip(*times.values()))
+    out["pairs"] = pairs
+    return out
+
+
+def serve_fid_part(card: str, extractor) -> tuple:
+    """FID tenants behind the bf16 trunk (He-scaled seeded weights): capacity 4,
+    megabatches of 4 tenants x 32 images (128 a dispatch), 6 tenants over 3 rounds, so
+    they spill. Exactly 26 sepconv7 launches a dispatch; each tenant of a ``"none"``
+    codec run against a standalone FID fed the same batches on the card; every int8 spill
+    within ``range/510``; spill bytes with ``"int8"`` against ``"none"``."""
+    from torchmetrics_tpu_torch.kernels.sepconv import sepconv7
+
+    images = serve_fid_images()
+    engines = {codec: serve_fid_engine(extractor, codec) for codec in ("none", "int8")}
+    ratios = spill_bound_checker(engines["int8"])
+    launches, per_dispatch, dispatch_ms = 0, [], []
+    for codec, engine in engines.items():
+        for r in range(SERVE_FID_ROUNDS):
+            for t in range(SERVE_FID_TENANTS):
+                before = engine.stats["dispatches"]
+                torch.cuda.synchronize()
+                sepconv7.launches = 0
+                start = time.perf_counter()
+                engine.update(t, images[r, t].float() / 255, r % 2 == 0)
+                if engine.stats["dispatches"] > before:
+                    torch.cuda.synchronize()
+                    per_dispatch.append(sepconv7.launches)
+                    dispatch_ms.append((time.perf_counter() - start) * 1e3)
+                    if codec == "int8":
+                        launches += sepconv7.launches
+        torch.cuda.synchronize()
+        sepconv7.launches = 0
+        engine.flush()
+        if engine.stats["dispatches"] and sepconv7.launches:
+            per_dispatch.append(sepconv7.launches)
+            if codec == "int8":
+                launches += sepconv7.launches
+    if set(per_dispatch) != {SEPCONV_PER_FORWARD}:
+        raise AssertionError(f"serving: FID dispatches launched sepconv7 {per_dispatch} times")
+    if not ratios:
+        raise AssertionError("serving: no FID tenant spilled")
+    exact = engines["none"]
+    refs = []
+    for t in range(SERVE_FID_TENANTS):
+        ref = reliability_fid(extractor)
+        for r in range(SERVE_FID_ROUNDS):
+            ref.update(images[r, t].float() / 255, real=r % 2 == 0)
+        refs.append(ref._state)
+    held = fid_tenant_hold([exact._tenant_state(exact._tenants[t]) for t in range(SERVE_FID_TENANTS)], refs)
+    memory = {codec: engine.memory()["spilled_host_bytes"] for codec, engine in engines.items()}
+    return {"capacity": SERVE_FID_CAPACITY, "tenants": SERVE_FID_TENANTS, "rounds": SERVE_FID_ROUNDS,
+            "images_per_dispatch": SERVE_FID_CAPACITY * SERVE_FID_IMAGES,
+            "sepconv7_per_dispatch": SEPCONV_PER_FORWARD, "dispatches": engines["int8"].stats["dispatches"],
+            "dispatch_ms": median(dispatch_ms) if dispatch_ms else None,
+            **held, "rtol": SERVE_FID_RTOL,
+            "int8_spills": len(ratios), "int8_worst_of_bound": max(ratios),
+            "spilled_host_bytes": memory, "spill_bytes_saved": engines["int8"].stats["spill_bytes_saved"]}, launches
+
+
+def serve_child(cache_dir: str) -> dict:
+    """One boot of ``ServingConfig(aot_cache_dir=..., write_on_miss=True)`` (a fresh
+    interpreter): the first megabatch of the demo's traffic under a telemetry session;
+    the first dispatch's ms (from its dispatch record, so a cold boot's write-through
+    compile, which follows it, is apart), the counters, the plane and the states. The
+    modules a load and a write import are imported first and timed apart, as the other
+    boots' are."""
+    clock = time.perf_counter()
+    import torch._inductor.package  # noqa: F401
+    import torch.utils.flop_counter  # noqa: F401
+
+    imports_s = time.perf_counter() - clock
+    from torchmetrics_tpu_torch import aot
+    from torchmetrics_tpu_torch import observability as obs
+    from torchmetrics_tpu_torch.serving import ServingConfig, ServingEngine
+
+    logits, labels = serve_traffic(tenants=SERVE_WARM_TENANTS, rounds=1)
+    with obs.telemetry_session() as rec:
+        engine = ServingEngine(serve_accuracy(), ServingConfig(capacity=SERVE_CAPACITY, megabatch_size=SERVE_MEGABATCH,
+                                                               aot_cache_dir=cache_dir, write_on_miss=True))
+        start = time.perf_counter()
+        serve_feed(engine, logits, labels)
+        feed_s = time.perf_counter() - start
+        snap = rec.counters.snapshot()
+        dispatches = [e.duration_s * 1e3 for e in rec.events_of("dispatch") if e.tag == "vupdate"]
+    states = {str(t): {k: v.cpu().tolist() for k, v in engine._tenant_state(engine._tenants[t]).items()}
+              for t in range(0, SERVE_WARM_TENANTS, 37)}
+    plane = dict(aot.active_plane().stats)
+    aot.disable()
+    return {"first_dispatch_ms": dispatches[0] if dispatches else None, "feed_s": feed_s, "plane": plane,
+            "imports_s": imports_s,
+            "counters": {k: snap[k] for k in ("dispatches", "jit_compiles", "jit_cache_hits", "aot_cache_hits",
+                                              "aot_cache_misses")}, "states": states}
+
+
+def start_serving_boot() -> tuple:
+    """The serving phase's first (cold) boot, a fresh interpreter on an empty cache; it
+    may start phases ahead of the serving phase (``main`` starts it beside the streaming
+    phase), and :func:`serving_phase` takes its result."""
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_serving_aot_")
+    return workdir, start_aot_child(os.path.join(workdir, "cache"), "serve")
+
+
+def serving_phase(card: str, boot=None) -> int:
+    """The serving plane (phase 56). Returns the sepconv7 launches of the FID tenants'
+    int8 engine, the path's count. ``boot`` is the cold boot :func:`start_serving_boot`
+    started; without one the phase starts it."""
+    from torchmetrics_tpu_torch.image import InceptionV3Features
+
+    started = time.perf_counter()
+    clock = [("start", started)]
+    workdir, cold = boot if boot is not None else start_serving_boot()
+    cache_dir = os.path.join(workdir, "cache")
+    warm = None
+    try:
+        churn, logits, labels = serve_churn(card)
+        clock.append(("churn", time.perf_counter()))
+        cold_result = finish_aot_child(cold)
+        warm = start_aot_child(cache_dir, "serve")  # the second boot runs beside the parts below
+        clock.append(("cold_boot_wait", time.perf_counter()))
+        confmat = serve_confmat_part(logits, labels)
+        clock.append(("confmat", time.perf_counter()))
+        window = serve_window_part(logits, labels)
+        clock.append(("window", time.perf_counter()))
+        quarantine = serve_quarantine_part(logits, labels)
+        clock.append(("quarantine", time.perf_counter()))
+        durability = serve_durability_part(logits, labels)
+        clock.append(("durability", time.perf_counter()))
+        extractor = InceptionV3Features.from_numpy_params(he_scaled(InceptionV3Features._random_params(0)),
+                                                          compute_dtype="bfloat16")
+        fid, launches = serve_fid_part(card, extractor)
+        clock.append(("fid", time.perf_counter()))
+        warm_result = finish_aot_child(warm)
+        clock.append(("warm_boot_wait", time.perf_counter()))
+        fid["trunk_b32_ms"] = trunk_route_ms(extractor, serve_fid_images()[0, 0].float() / 255)
+        clock.append(("trunk_routes", time.perf_counter()))
+    except BaseException:
+        for child in (cold, warm):
+            if child is not None:
+                child[0].kill()
+                child[0].wait()
+        raise
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if warm_result["counters"]["aot_cache_hits"] < 1 or warm_result["counters"]["aot_cache_misses"] != 0 \
+            or warm_result["states"] != cold_result["states"] or cold_result["plane"]["writes"] < 1:
+        raise AssertionError(f"serving: the warm boot gave {warm_result['counters']} (cold wrote "
+                             f"{cold_result['plane']}), states equal {warm_result['states'] == cold_result['states']}")
+    boots = {name: {k: result[k] for k in ("first_dispatch_ms", "feed_s", "imports_s", "counters", "plane",
+                                           "boot_to_first_update_s")}
+             for name, result in (("cold", cold_result), ("warm", warm_result))}
+    seconds = time.perf_counter() - started
+    emit({"phase": "serving", "churn": churn, "confmat": confmat, "window": window, "quarantine": quarantine,
+          "durability": durability, "warm_boot": {**boots, "states_bitwise": True}, "fid": fid,
+          "parts_s": clock_seconds(clock), "seconds": seconds, "limit_s": SERVE_PHASE_LIMIT_S,
+          "within_limit": seconds <= SERVE_PHASE_LIMIT_S, "card": card})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the quantized sync plane (slice 22): two gloo ranks on the card
+
+QUANT_CODECS = ("bf16", "int8")
+QUANT_FEEDBACK_SYNCS = 8
+QUANT_SERVE_TENANTS = 256
+QUANT_PHASE_LIMIT_S = 50
+QUANT_STATE_EPS = 1e-6  # the float32 rounding of a dequantized sum on top of the analytic bound
+
+
+def quant_collection(inputs: dict, device=None):
+    """The phase's states: ``{acc, f1, confmat}`` at 65,536 rows, FID at 2,048 features
+    from a fixed projection (no trunk) and a ``MeanMetric``."""
+    from torchmetrics_tpu_torch import MeanMetric, MetricCollection
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassConfusionMatrix, MulticlassF1Score
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+
+    return MetricCollection({
+        "acc": MulticlassAccuracy(5, average="micro", validate_args=False, device=device),
+        "f1": MulticlassF1Score(5, average="macro", validate_args=False, device=device),
+        "confmat": MulticlassConfusionMatrix(5, validate_args=False, device=device),
+        "fid": FrechetInceptionDistance(feature=ProjectionFeatures(inputs["weight"]), device=device),
+        "mean": MeanMetric(device=device)}, compute_groups=False, device=device)
+
+
+def update_quant(coll, inputs: dict, rank: int, world: int) -> None:
+    rows = rank_slices(TWO_RANK_BATCH, rank, world)
+    for name in ("acc", "f1", "confmat"):
+        coll[name].update(inputs["preds"][rows], inputs["target"][rows])
+    images = rank_slices(TWO_RANK_IMAGES, rank, world)
+    coll["fid"].update(inputs["real"][images], real=True)
+    coll["fid"].update(inputs["fake"][images], real=False)
+    coll["mean"].update(inputs["values"][rank_slices(TWO_RANK_CAT, rank, world)])
+
+
+def quant_bound(codec: str, value: torch.Tensor) -> float:
+    """The per-element error bound of one rank's leaf under ``codec`` (the single-block
+    int8 bound covers every block; bf16 rounds to 8 mantissa bits)."""
+    x = value.double().reshape(-1)
+    if x.numel() == 0:
+        return 0.0
+    return float(x.max() - x.min()) / 510.0 if codec == "int8" else float(x.abs().max()) * 2.0 ** -8
+
+
+def quant_sync_once(states, reductions, sync_config=None, gather=None) -> tuple:
+    """One coalesced sync of ``states`` under a telemetry session: the synced states,
+    the collectives (as recorded, and the ``torch.distributed.all_gather`` calls traced
+    around the sync), the bytes put on the wire and the quant event."""
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch import observability as obs
+    from torchmetrics_tpu_torch.parallel import coalesce
+
+    traced = []
+    all_gather = dist.all_gather
+
+    def counted(*args, **kwargs):
+        traced.append(1)
+        return all_gather(*args, **kwargs)
+
+    dist.all_gather = counted
+    try:
+        with obs.telemetry_session() as rec:
+            out = coalesce.coalesced_process_sync([dict(s) for s in states], reductions, sync_config=sync_config,
+                                                  dist_sync_fn=gather)
+            snap = rec.counters.snapshot()
+            quant = [e.payload for e in rec.events_of("quant")]
+            events = {kind: [dict(e.payload) for e in rec.events_of(kind)] for kind in ("degraded_sync", "rank_rejoin")}
+    finally:
+        dist.all_gather = all_gather
+    return out, {"collectives": snap["sync_collectives"], "all_gathers": len(traced),
+                 "quantized_buckets": snap["quantized_buckets"],
+                 "bytes_saved": snap["sync_bytes_saved"], "quant": quant[0] if quant else None, "events": events}
+
+
+def quant_values(rank: int, world: int) -> dict:
+    """One rank of the quantized-sync phase (gloo, world 2): exact against bf16 and int8
+    buckets, error feedback over 8 syncs, a degraded sync and its rejoin, the async
+    handle and the serving engine's ``sync_async``."""
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.parallel import AsyncSyncHandle, SyncConfig, coalesce, quantized_payload_model
+    from torchmetrics_tpu_torch.parallel.sync import gather_all_arrays
+    from torchmetrics_tpu_torch.reliability import DeadRank
+    from torchmetrics_tpu_torch.serving import ServingConfig, ServingEngine
+
+    inputs = two_rank_inputs()
+    coll = quant_collection(inputs)
+    update_quant(coll, inputs, rank, world)
+    states = [dict(m._state) for m in coll.values()]
+    reductions = [dict(m._reductions) for m in coll.values()]
+    names = list(coll.keys())
+
+    def peers_bound(codec, value) -> float:
+        local = torch.tensor([quant_bound(codec, value)], dtype=torch.float64)
+        rows = [torch.zeros_like(local) for _ in range(world)]
+        dist.all_gather(rows, local)
+        return float(sum(r.item() for r in rows))
+
+    exact, exact_stats = quant_sync_once(states, reductions)
+    out = {"exact_collectives": exact_stats["collectives"], "exact_all_gathers": exact_stats["all_gathers"],
+           "codecs": {}}
+    for codec in QUANT_CODECS:
+        synced, stats = quant_sync_once(states, reductions, SyncConfig(codec=codec))
+        worst = {}
+        for i, name in enumerate(names):
+            for key, want in exact[i].items():
+                got = synced[i][key]
+                if not want.is_floating_point():
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"quantized_sync {codec}: {name}.{key} is not bit for bit")
+                    continue
+                bound = peers_bound(codec, states[i][key]) + QUANT_STATE_EPS
+                err = float((got.double() - want.double()).abs().max())
+                if err > bound:
+                    raise AssertionError(f"quantized_sync {codec}: {name}.{key} is {err} off, bound {bound}")
+                worst[f"{name}.{key}"] = err / bound
+        if (stats["collectives"], stats["all_gathers"]) != (exact_stats["collectives"], exact_stats["all_gathers"]):
+            raise AssertionError(f"quantized_sync {codec}: {stats['collectives']} collectives recorded and "
+                                 f"{stats['all_gathers']} all_gathers traced, exact {exact_stats['collectives']} "
+                                 f"and {exact_stats['all_gathers']}")
+        out["codecs"][codec] = {"model": quantized_payload_model(states, reductions, SyncConfig(codec=codec),
+                                                                 world=world),
+                                "measured": stats["quant"], "collectives": stats["collectives"],
+                                "all_gathers": stats["all_gathers"],
+                                "worst_of_bound": worst}
+    # error feedback: 8 syncs of the same states, the summed drift within one step
+    cfg = SyncConfig(codec="int8")
+    fid = names.index("fid")
+    cum = {k: torch.zeros_like(v, dtype=torch.float64) for k, v in exact[fid].items() if v.is_floating_point()}
+    for _ in range(QUANT_FEEDBACK_SYNCS):
+        synced, _ = quant_sync_once(states, reductions, cfg)
+        for k in cum:
+            cum[k] += synced[fid][k].double()
+    drift = {}
+    for k, total in cum.items():
+        step = peers_bound("int8", states[fid][k]) + QUANT_STATE_EPS * QUANT_FEEDBACK_SYNCS
+        d = float((total - QUANT_FEEDBACK_SYNCS * exact[fid][k].double()).abs().max())
+        if d > step:
+            raise AssertionError(f"quantized_sync: {QUANT_FEEDBACK_SYNCS} syncs of fid.{k} drift {d}, step {step}")
+        drift[k] = d / step
+    out["feedback"] = {"syncs": QUANT_FEEDBACK_SYNCS, "drift_of_step": drift, "residual_norm": cfg.residual_norm()}
+    # a degraded sync: rank 1's rows tombstoned twice, then it rejoins with a new epoch
+    coalesce.clear_dead_ranks()
+    dead = DeadRank(inner=gather_all_arrays, world=world, rank=1)
+    _, first = quant_sync_once(states, reductions, gather=dead)
+    _, second = quant_sync_once(states, reductions, gather=dead)
+    ledger = coalesce.dead_ranks()
+    epoch = coalesce.bump_liveness_epoch() if rank == 1 else coalesce.liveness_epoch()
+    dead.revive()
+    rejoined, third = quant_sync_once(states, reductions, gather=dead)
+    out["degraded"] = {"ledger": {str(k): v for k, v in ledger.items()}, "after_rejoin": coalesce.dead_ranks(),
+                       "degraded_events": len(first["events"]["degraded_sync"]) + len(second["events"]["degraded_sync"]),
+                       "rejoin_events": third["events"]["rank_rejoin"], "epoch": epoch,
+                       "rejoined_bitwise": all(torch.equal(rejoined[i][k], exact[i][k])
+                                               for i in range(len(states)) for k in exact[i])}
+    # async: the handle's quantized commit equals the blocking quantized sync
+    blocking, _ = quant_sync_once(states, reductions, SyncConfig(codec="int8"))
+    handle = AsyncSyncHandle([dict(s) for s in states], reductions, sync_config=SyncConfig(codec="int8"))
+    committed = handle.commit()
+    out["async_bitwise"] = all(torch.equal(committed[i][k], blocking[i][k]) for i in range(len(states))
+                               for k in blocking[i])
+    engine = ServingEngine(serve_accuracy(), ServingConfig(capacity=QUANT_SERVE_TENANTS, megabatch_size=64))
+    logits, labels = serve_traffic(tenants=QUANT_SERVE_TENANTS, rounds=world, seed=SERVE_SEED + 3)
+    serve_feed(engine, logits, labels, rounds=[rank])
+    frozen = [dict(cls.stacked) for cls in engine._classes.values()]
+    reds = [{**{k: "sum" for k in ("tp", "fp", "tn", "fn")}, "__tenant_n": "sum"}]
+    engine_blocking, _ = quant_sync_once([{k: v.clone() for k, v in s.items()} for s in frozen], reds,
+                                         SyncConfig(codec="int8"))
+    (stack,) = engine.sync_async(sync_config=SyncConfig(codec="int8")).commit().values()
+    out["engine_async_bitwise"] = all(torch.equal(stack[k], engine_blocking[0][k]) for k in stack)
+    out["engine_tenant_rows"] = float(stack["__tenant_n"][:QUANT_SERVE_TENANTS].sum())
+    return out
+
+
+def quant_nccl_of_one() -> dict:
+    """In an NCCL group of one: a ``SyncConfig`` sync of the same states ships exact (no
+    quantized bucket) and gives the local values bit for bit."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.parallel import SyncConfig
+
+    inputs = two_rank_inputs()
+    coll = quant_collection(inputs)
+    update_quant(coll, inputs, 0, 1)
+    local = {name: {k: v.clone() for k, v in m._state.items()} for name, m in coll.items(keep_base=True)}
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_quant_nccl_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}/store", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        from torchmetrics_tpu_torch import observability as obs
+
+        with obs.telemetry_session() as rec:
+            coll.sync(distributed_available=lambda: True, sync_config=SyncConfig(codec="int8"))
+            snap = rec.counters.snapshot()
+        bitwise = all(torch.equal(m._state[k], local[name][k]) for name, m in coll.items(keep_base=True)
+                      for k in local[name])
+        coll.unsync()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    if not bitwise or snap["quantized_buckets"] or snap["sync_bytes_saved"]:
+        raise AssertionError(f"quantized_sync: the NCCL group of one gave bitwise {bitwise}, "
+                             f"{snap['quantized_buckets']} quantized buckets")
+    return {"bitwise": True, "quantized_buckets": 0, "collectives": snap["sync_collectives"]}
+
+
+def quantized_sync_phase(card: str, world: int = 2) -> None:
+    """The quantized sync plane (phase 57): two gloo ranks on the card, and an NCCL group
+    of one beside them."""
+    started = time.perf_counter()
+    children = start_children("quantized", world)
+    try:
+        nccl = quant_nccl_of_one()
+    except BaseException:
+        for proc in children[0]:
+            proc.kill()
+            proc.wait()
+        raise
+    results = finish_children(children)
+    for result in results:
+        degraded = result["degraded"]
+        rejoin = degraded["rejoin_events"]
+        if degraded["ledger"] != {"1": 2} or degraded["after_rejoin"] or degraded["degraded_events"] != 2 \
+                or len(rejoin) != 1 or rejoin[0].get("rank") != 1 or rejoin[0].get("epoch") != 2 \
+                or not degraded["rejoined_bitwise"]:
+            raise AssertionError(f"quantized_sync rank {result['rank']}: degraded sync {degraded}")
+        if not (result["async_bitwise"] and result["engine_async_bitwise"]):
+            raise AssertionError(f"quantized_sync rank {result['rank']}: async commits differ from blocking syncs")
+        for codec, row in result["codecs"].items():
+            if row["model"]["shipped_bytes"] >= row["model"]["exact_bytes"] or row["measured"] is None:
+                raise AssertionError(f"quantized_sync {codec}: shipped {row['model']} measured {row['measured']}")
+    seconds = time.perf_counter() - started
+    emit({"phase": "quantized_sync", "world": world, "backend": "gloo", "tensors": "cuda",
+          "ranks": results, "nccl_of_one": nccl, "seconds": seconds, "limit_s": QUANT_PHASE_LIMIT_S,
+          "within_limit": seconds <= QUANT_PHASE_LIMIT_S, "card": card})
 
 
 # ---------------------------------------------------------------------------
@@ -5033,9 +5891,10 @@ PANOPTIC_THINGS = tuple(range(1, 81))  # COCO panoptic: 80 thing and 53 stuff ca
 PANOPTIC_STUFFS = tuple(range(81, 134))
 PANOPTIC_SHAPE = (480, 640)
 # of val2017's 5,000: the JAX algorithm takes ~0.3 s an image, read twice (64 before the
-# streaming phase brought the script near its time limit)
-PANOPTIC_IMAGES = 32
-PANOPTIC_BATCH = 16
+# streaming phase, 32 in updates of 16 before the whole script took 1,122 s with the
+# serving phases, over its 1,080 s aim); two updates, so the second folds into the states
+PANOPTIC_IMAGES = 16
+PANOPTIC_BATCH = 8
 PANOPTIC_CELL = 16
 PANOPTIC_MAX_SEGMENTS = 30
 PANOPTIC_VOID = 0  # in neither set: void
@@ -7238,6 +8097,11 @@ SQUAD_QUESTIONS = 10570  # SQuAD v1.1 dev: 1-3 answers a question
 CNNDM_SUMMARIES = 11490  # CNN/DailyMail test
 CNNDM_WORDS = 56  # mean words of a reference summary (3-4 highlights)
 TEXT_BATCH = 64  # segments an update
+# depth cuts, made when the whole script took 1,122 s with the serving phases (over its
+# 1,080 s aim): the first 1,024 of WMT14's 3,003 segments (EED's and TER's host DP took
+# 40 s) and 4,096 of SQuAD's 10,570 questions and CNN/DM's 11,490 summaries (ROUGE's LCS
+# tables, 17 s); every update is still timed, and the first 128 segments held on the CPU
+TEXT_PHASE_SEGMENTS = {"text_mt": 1024, "text_qa_sum": 4096}
 TEXT_CPU_BATCHES = 2  # the CPU port replays the first 128 segments of each corpus
 ZIPF_WORDS = 20000  # the corpora's vocabulary, drawn by a Zipf law
 ZIPF_EXPONENT = 1.1
@@ -7549,7 +8413,7 @@ def text_phase(card: str, phase: str) -> None:
     port on the CPU and held, compute ms, and one update of each metric profiled as the
     split between the host's string work and the card."""
     clock = [("start", time.perf_counter())]
-    batches = text_phase_batches(phase)
+    batches = text_phase_batches(phase, TEXT_PHASE_SEGMENTS.get(phase, 0))
     clock.append(("corpus", time.perf_counter()))
     metrics = text_metrics(phase)
     run = run_text(metrics, batches, TEXT_CPU_BATCHES)
@@ -7572,6 +8436,7 @@ def text_phase(card: str, phase: str) -> None:
     events = profile_step(f"{phase}_update", lambda: [m.update(*first[n]) for n, m in metrics.items()])
     segments = {name: sum(len(b[0]) for b in batches.get(name, batches.get("*"))) for name in metrics}
     emit({"phase": phase, "segments": segments, "batch": TEXT_BATCH,
+          "reduced": "a prefix of the published corpus" if phase in TEXT_PHASE_SEGMENTS else None,
           "update_ms": {n: {"median": median(t), "sum": sum(t)} for n, t in run["times"].items()},
           "compute_ms_first_second": compute_ms, "values": values, "cpu_segments": TEXT_CPU_BATCHES * TEXT_BATCH,
           "cpu_rel_diff": worst, "rel_limit": TEXT_RTOL, "host_and_card": host_card_split(events),
@@ -8517,7 +9382,16 @@ def main() -> int:
     launches_by_path["observability"] = observability_phase(card)
     launches_by_path["aot"] = aot_phase(card, device_map)
     del device_map
-    launches_by_path["streaming"] = streaming_phase(card)
+    serving_boot = start_serving_boot()  # the serving phase's cold boot runs beside the streaming phase
+    try:
+        launches_by_path["streaming"] = streaming_phase(card)
+    except BaseException:
+        serving_boot[1][0].kill()
+        serving_boot[1][0].wait()
+        shutil.rmtree(serving_boot[0], ignore_errors=True)
+        raise
+    launches_by_path["serving"] = serving_phase(card, serving_boot)
+    quantized_sync_phase(card)
     classification_tower_phase(card)
     curve_data = curves_phase(card)
     tower_tail_phase(card, curve_data)

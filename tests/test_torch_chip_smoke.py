@@ -1787,3 +1787,136 @@ def test_streaming_window_oracle_rehearsal(chip_smoke, monkeypatch):
     window._wstate["tp"] = window._wstate["tp"] + 1
     with pytest.raises(AssertionError, match="window state tp"):
         chip_smoke.hold_window("acc", window, lambda: chip_smoke.stream_members()["acc"], rows)
+
+
+def test_serving_phase_cells_and_child_modes(chip_smoke):
+    """The serving phase's cells: the demo's spill churn (8,000 tenants over 2,048 slots,
+    megabatches of 512, 32 events of 10 classes), FID tenants at 128 images a dispatch
+    over more tenants than slots, windowed tenants past two rotations; the warm boot is
+    an AOT child mode and the quantized phase a sync child mode; the traffic is seeded."""
+    assert (chip_smoke.SERVE_TENANTS, chip_smoke.SERVE_CAPACITY, chip_smoke.SERVE_MEGABATCH) == (8000, 2048, 512)
+    assert (chip_smoke.SERVE_ROUNDS, chip_smoke.SERVE_ROWS, chip_smoke.SERVE_CLASSES) == (4, 32, 10)
+    assert chip_smoke.SERVE_PROBE_MEGABATCHES == (64, 512)
+    assert chip_smoke.SERVE_FID_CAPACITY * chip_smoke.SERVE_FID_IMAGES == 128
+    assert chip_smoke.SERVE_FID_TENANTS > chip_smoke.SERVE_FID_CAPACITY
+    assert chip_smoke.SERVE_WINDOW_UPDATES >= 2 * chip_smoke.SERVE_WINDOW
+    assert chip_smoke.parse_aot_child(["chip_smoke.py", chip_smoke.AOT_CHILD_FLAG, "/tmp/c", "serve"]) \
+        == ("/tmp/c", "serve")
+    a, b = (chip_smoke.serve_traffic(tenants=6, rounds=2) for _ in range(2))
+    assert a[0].shape == (2, 6, 32, 10) and a[0].dtype == np.float32 and a[1].dtype == np.int32
+    assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    assert chip_smoke.QUANT_CODECS == ("bf16", "int8") and chip_smoke.QUANT_FEEDBACK_SYNCS == 8
+
+
+def test_serving_rehearsal_holds_the_cpu_port(chip_smoke):
+    """The churn's checks on the CPU at a small size: spilled and resident tenants equal
+    standalone metrics bit for bit, and a planted difference fails."""
+    from torchmetrics_tpu_torch.serving import ServingConfig, ServingEngine
+
+    logits, labels = chip_smoke.serve_traffic(tenants=12, rounds=3)
+    engine = ServingEngine(chip_smoke.serve_accuracy(device="cpu"), ServingConfig(capacity=4, megabatch_size=4))
+    chip_smoke.serve_feed(engine, logits, labels)
+    make = lambda: chip_smoke.serve_accuracy(device="cpu")  # noqa: E731
+    assert chip_smoke.serve_hold("accuracy", engine, make, logits, labels, range(12)) > 0
+    probe = chip_smoke.serve_probe_engine(make, 4, logits, labels)
+    assert probe.stats["dispatches"] == 0 and probe.flush() == 4 and probe.stats["dispatches"] == 1
+    slot = engine._tenants[0].slot
+    if slot is None:
+        engine._tenants[0].spilled["state"]["tp"] = engine._tenants[0].spilled["state"]["tp"] + 1
+    else:
+        next(iter(engine._classes.values())).stacked["tp"][slot] += 1
+    with pytest.raises(AssertionError, match="tenant 0's tp"):
+        chip_smoke.serve_hold("accuracy", engine, make, logits, labels, [0])
+
+
+def test_serving_window_quarantine_and_durability_rehearsals(chip_smoke):
+    """The windowed, quarantine and durability parts on the CPU at small sizes."""
+    logits, labels = chip_smoke.serve_traffic(tenants=40, rounds=3)
+    window = chip_smoke.serve_window_part(logits, labels, device="cpu", updates=10, window=4)
+    assert window["tier"] == "dual" and window["rotations"] > 0 and window["vcompute_used"]
+    quarantine = chip_smoke.serve_quarantine_part(logits, labels, device="cpu", megabatch=16)
+    assert quarantine["quarantined"] == [chip_smoke.SERVE_QUARANTINE_TENANT] and quarantine["peers_bitwise"] == 15
+    durability = chip_smoke.serve_durability_part(logits, labels, device="cpu", tenants=24, rounds=3)
+    assert durability["replayed"] == 48 and durability["journal_records"] == 72 and durability["snapshot_bytes"] > 0
+
+
+def test_spill_bound_checker_holds_int8_spills(chip_smoke):
+    """The FID part's spill check on float states: every int8 spill of a calibration
+    tenant within ``range/510``."""
+    from torchmetrics_tpu_torch.classification import MulticlassCalibrationError
+    from torchmetrics_tpu_torch.serving import ServingConfig, ServingEngine
+
+    engine = ServingEngine(MulticlassCalibrationError(5, n_bins=64, validate_args=False, device="cpu"),
+                           ServingConfig(capacity=2, megabatch_size=2, spill_codec="int8"))
+    ratios = chip_smoke.spill_bound_checker(engine)
+    rng = np.random.default_rng(3)
+    for t in range(5):
+        engine.update(t, rng.normal(size=(64, 5)).astype(np.float32), rng.integers(0, 5, 64).astype(np.int32))
+    engine.flush()
+    assert ratios and max(ratios) <= 1.0
+
+
+def test_fid_tenant_hold_tells_a_tenant_from_its_peers(chip_smoke):
+    """The FID part's hold on the CPU, on standalone FIDs of seeded uniform-noise images
+    (as the phase feeds its tenants) behind a small fixed projection: states a rounding
+    off their own pass, states handed to the wrong tenant fail, and tenants too alike for
+    the limit to tell apart fail."""
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+
+    gen = torch.Generator().manual_seed(0)
+    features = chip_smoke.ProjectionFeatures(torch.randn((3 * 8 * 8, 64), generator=gen) / 8.0)
+    features.num_features = 64
+    refs = []
+    for _ in range(4):
+        fid = FrechetInceptionDistance(feature=features, device="cpu")
+        fid.update(torch.randint(0, 256, (8, 3, 8, 8), generator=gen, dtype=torch.uint8).float() / 255, real=True)
+        fid.update(torch.randint(0, 256, (8, 3, 8, 8), generator=gen, dtype=torch.uint8).float() / 255, real=False)
+        refs.append(fid._state)
+    rounded = [{k: v * (1 + 1e-4) if v.is_floating_point() else v for k, v in ref.items()} for ref in refs]
+    held = chip_smoke.fid_tenant_hold(rounded, refs)
+    assert not held["states_bitwise"] and max(held["rel_l2"].values()) < chip_smoke.SERVE_FID_RTOL
+    assert min(held["cross_tenant_rel_l2"].values()) > chip_smoke.SERVE_FID_RTOL
+    assert chip_smoke.fid_tenant_hold(refs, refs)["states_bitwise"]
+    with pytest.raises(AssertionError, match="relative L2"):
+        chip_smoke.fid_tenant_hold(refs[1:] + refs[:1], refs)
+    with pytest.raises(AssertionError, match="relative L2"):
+        chip_smoke.fid_tenant_hold([refs[0]] * 4, [refs[0]] * 4)
+
+
+def test_quantized_sync_rehearsal_over_a_replayed_world(chip_smoke):
+    """The quantized phase's sync helper over two replayed ranks on the CPU: the exact
+    and quantized syncs launch as many collectives, the quant event reports its bytes,
+    integer states stay bit for bit and float sums within the per-rank bounds."""
+    import math as _math
+
+    from test_torch_quantized_sync import QuantWorld
+
+    from torchmetrics_tpu_torch.parallel import SyncConfig
+
+    gen = torch.Generator().manual_seed(5)
+    inputs = {"preds": torch.randn((256, 5), generator=gen), "target": torch.randint(0, 5, (256,), generator=gen),
+              "real": torch.rand((64, 3, 32, 32), generator=gen), "fake": torch.rand((64, 3, 32, 32), generator=gen),
+              "weight": torch.randn((3 * 32 * 32, 2048), generator=gen) / _math.sqrt(3 * 32 * 32),
+              "values": torch.randn((128,), generator=gen)}
+    colls = [chip_smoke.quant_collection(inputs, device="cpu") for _ in range(2)]
+    for rank, coll in enumerate(colls):  # update_quant's shares, at this size
+        rows = slice(rank * 128, (rank + 1) * 128)
+        for name in ("acc", "f1", "confmat"):
+            coll[name].update(inputs["preds"][rows], inputs["target"][rows])
+        coll["fid"].update(inputs["real"][rank * 32:(rank + 1) * 32], real=True)
+        coll["fid"].update(inputs["fake"][rank * 32:(rank + 1) * 32], real=False)
+        coll["mean"].update(inputs["values"][rank * 64:(rank + 1) * 64])
+    states = [[dict(m._state) for m in coll.values()] for coll in colls]
+    reds = [dict(m._reductions) for m in colls[0].values()]
+    exact, exact_stats = chip_smoke.quant_sync_once(states[0], reds, gather=QuantWorld(states, reds))
+    for codec in chip_smoke.QUANT_CODECS:
+        configs = [SyncConfig(codec=codec) for _ in range(2)]
+        synced, stats = chip_smoke.quant_sync_once(states[0], reds, configs[0], gather=QuantWorld(states, reds, configs))
+        assert stats["collectives"] == exact_stats["collectives"] and stats["quant"]["shipped_bytes"] > 0
+        for i, (got, want) in enumerate(zip(synced, exact)):
+            for key, value in want.items():
+                if not value.is_floating_point():
+                    assert torch.equal(got[key], value)
+                    continue
+                bound = sum(chip_smoke.quant_bound(codec, s[i][key]) for s in states) + chip_smoke.QUANT_STATE_EPS
+                assert float((got[key].double() - value.double()).abs().max()) <= bound

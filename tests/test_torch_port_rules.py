@@ -435,6 +435,27 @@ def test_the_streaming_modules_are_scanned_and_their_doctests_listed():
         assert ROOT / "torchmetrics_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
 
 
+def test_the_serving_and_quantized_sync_modules_are_scanned_and_their_doctests_listed():
+    for name in ("serving.engine", "serving.durability", "parallel.quantize", "parallel.mesh", "kernels.sepconv"):
+        assert f"torchmetrics_tpu_torch.{name}" in PORT_MODULES
+        assert ROOT / "torchmetrics_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
+    assert ROOT / "torchmetrics_tpu_torch" / "serving" / "__init__.py" in PORT_FILES
+
+
+def test_serving_engine_at_the_default_device_raises_without_cuda(no_cuda):
+    """A template built at the default device raises; the engine's stacks live on the
+    template's device, so an engine never carries on on the CPU by itself."""
+    from torchmetrics_tpu_torch.serving import ServingConfig, ServingEngine
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(MulticlassAccuracy(3, average="micro", validate_args=False), ServingConfig(capacity=2,
+                                                                                                 megabatch_size=2))
+    engine = ServingEngine(MulticlassAccuracy(3, average="micro", validate_args=False, device="cpu"),
+                           ServingConfig(capacity=2, megabatch_size=2))
+    engine.update("t", torch.tensor([[0.5, 0.25, 0.25]]), torch.tensor([0]))
+    assert all(v.device.type == "cpu" for v in next(iter(engine._classes.values())).stacked.values())
+
+
 def test_explicit_cpu_device_runs_without_cuda(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     metric = MulticlassAccuracy(5, device="cpu")

@@ -537,10 +537,34 @@ def test_async_sync_noop_and_contracts():
     mixed["s"].dist_sync_fn = lambda v, g: [v]
     with pytest.raises(TorchMetricsUserError):
         mixed.sync(async_=True, distributed_available=lambda: True)
-    with pytest.raises(NotImplementedError, match="parallel/quantize.py"):
-        coll.sync(async_=True, sync_config=object())
-    with pytest.raises(NotImplementedError, match="parallel/quantize.py"):
-        AsyncSyncHandle([], [], sync_config=object())
+    # the quantized async sync over a simulated two-rank world equals the
+    # JAX package's: integer states bit for bit, float sums within one int8 code step
+    from test_quantized_sync import MultiQuantWorld as JaxMultiWorld
+    from test_torch_quantized_sync import QuantWorld
+
+    from torchmetrics_tpu.parallel import SyncConfig as JSyncConfig
+    from torchmetrics_tpu_torch.parallel import SyncConfig
+
+    port, jax_coll = _feed_coll(_coll(), 6), _feed_coll(_coll(False), 6, port=False)
+    states, jstates = [dict(m._state) for m in port.values()], [dict(m._state) for m in jax_coll.values()]
+    reds, jreds = [dict(m._reductions) for m in port.values()], [dict(m._reductions) for m in jax_coll.values()]
+    cfg, jcfg = [SyncConfig(codec="int8") for _ in range(2)], [JSyncConfig(codec="int8") for _ in range(2)]
+    port.sync(async_=True, sync_config=cfg[0], distributed_available=lambda: True,
+              dist_sync_fn=QuantWorld([states, states], reds, cfg)).commit()
+    jax_coll.sync(async_=True, sync_config=jcfg[0], distributed_available=lambda: True,
+                  dist_sync_fn=JaxMultiWorld([jstates, jstates], jreds, jcfg)).commit()
+    for name, m in port.items(keep_base=True):
+        for key, v in m._state.items():
+            want = jax_coll[name]._state[key]
+            if isinstance(want, list):
+                continue
+            want = np.asarray(want)
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                step = 2 * float(np.abs(want).max()) / 255.0 + 1e-6
+                np.testing.assert_allclose(v.double().numpy(), want, atol=step, rtol=0, err_msg=f"{name}:{key}")
+            elif isinstance(v, torch.Tensor):
+                np.testing.assert_array_equal(v.numpy(), want, err_msg=f"{name}:{key}")
+    assert AsyncSyncHandle([], [], sync_config=SyncConfig(codec="bf16")).commit() == []
 
 
 def test_async_sync_telemetry_overlap_accounting():

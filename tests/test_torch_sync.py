@@ -594,8 +594,26 @@ def test_collection_double_sync_raises_and_async_names_the_streaming_plane():
     port.unsync()
     handle = port.sync(async_=True)  # nothing distributed: the streaming plane's no-op handle
     assert type(handle).__module__ == "torchmetrics_tpu_torch.parallel.async_sync" and handle.commit() == []
-    with pytest.raises(NotImplementedError, match="parallel/quantize.py"):
-        port.sync(async_=True, sync_config=object())
+    # the quantized async sync equals the JAX package's blocking one over the same two
+    # simulated ranks: counts bit for bit, float sums within one int8 code step
+    from test_quantized_sync import MultiQuantWorld as JaxMultiWorld
+    from test_torch_quantized_sync import QuantWorld
+
+    from torchmetrics_tpu.parallel import SyncConfig as JSyncConfig
+    from torchmetrics_tpu_torch.parallel import SyncConfig
+
+    holders = list({id(m._state): m for m in port.values()}.values())  # compute groups share one dict
+    states, reds = [dict(m._state) for m in holders], [dict(m._reductions) for m in holders]
+    cfg = [SyncConfig(codec="int8") for _ in range(2)]
+    port.sync(async_=True, sync_config=cfg[0], distributed_available=lambda: True,
+              dist_sync_fn=QuantWorld([states, states], reds, cfg)).commit()
+    jstates = [{k: jnp.asarray(v.numpy()) for k, v in s.items()} for s in states]
+    jcfg = [JSyncConfig(codec="int8") for _ in range(2)]
+    jout = JC.coalesced_process_sync(jstates, reds, sync_config=jcfg[0],
+                                     dist_sync_fn=JaxMultiWorld([jstates, jstates], reds, jcfg))
+    for m, want in zip(holders, jout):
+        for key, v in m._state.items():
+            np.testing.assert_array_equal(v.numpy(), np.asarray(want[key]), err_msg=key)
 
 
 def test_collection_sync_over_a_simulated_world_like_jax():

@@ -503,7 +503,7 @@ def test_only_the_planes_are_still_missing():
     out = subprocess.run([sys.executable, "-c", _MISSING_NAMES], capture_output=True, text=True, check=True,
                          env={**os.environ, "JAX_PLATFORMS": "cpu"}, timeout=300)
     missing = set(json.loads(out.stdout.strip().splitlines()[-1]))
-    assert missing == {"serving"}
+    assert missing == set()
     from torchmetrics_tpu import aot as jax_aot
     from torchmetrics_tpu import observability as jax_obs
     from torchmetrics_tpu import streaming as jax_streaming
@@ -516,7 +516,15 @@ def test_only_the_planes_are_still_missing():
     assert port_obs.__all__ == jax_obs.__all__
     assert port_aot.__all__ == jax_aot.__all__
     assert port_streaming.__all__ == jax_streaming.__all__
-    assert {"AsyncSyncHandle", "clear_dead_ranks"} <= set(port_parallel.__all__)
+    from torchmetrics_tpu import parallel as jax_parallel
+    from torchmetrics_tpu import serving as jax_serving
+    from torchmetrics_tpu_torch import serving as port_serving
+
+    assert port_serving.__all__ == jax_serving.__all__
+    kept = {"shard_map", "make_data_mesh", "make_2d_mesh", "batch_sharding", "replicated", "reduce_over_axis",
+            "DEFAULT_AXIS"}
+    assert set(port_parallel.__all__) == (set(jax_parallel.__all__) - kept) | {"gather_metadata_vector"}
+    assert {"SyncConfig", "quantized_payload_model"} <= set(port_parallel.__all__)
     assert ttm.multimodal.__all__ == jtm.multimodal.__all__
     assert port_fn.multimodal.__all__ == jax_fn.multimodal.__all__
     assert {"text", "multimodal", "utilities"} <= _public(ttm)

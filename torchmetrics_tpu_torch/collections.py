@@ -32,7 +32,7 @@ from .observability import memory as _obs_memory
 from .observability import tracing as _tracing
 from .parallel import coalesce as _coalesce
 from .parallel import sync as _par_sync
-from .parallel.async_sync import AsyncSyncHandle, _no_quantized_sync
+from .parallel.async_sync import AsyncSyncHandle
 from .reliability.guards import validate_state
 from .utilities.checks import resolve_device
 from .utilities.data import _flatten_dict, allclose
@@ -510,12 +510,13 @@ class MetricCollection:
         member to the synced state, the live (since updated) state parks in the sync
         cache and ``unsync()`` restores it. A failed gather commits nothing.
 
-        ``sync_config`` (the quantized sync, ``parallel/quantize.py``) is not ported
-        yet: anything but ``None`` raises ``NotImplementedError``."""
-        _no_quantized_sync(sync_config)
+        ``sync_config`` (:class:`~torchmetrics_tpu_torch.parallel.SyncConfig`) opts the
+        coalesced sync (blocking or async) into the quantized (bf16/int8) buckets; use
+        one config instance per collection across repeated syncs so its error-feedback
+        residuals fold correctly. The per-member fallback is always exact."""
         if async_:
-            return self._async_sync(**kwargs)
-        if self._coalesced_sync(list(self._modules.values()), **kwargs):
+            return self._async_sync(sync_config=sync_config, **kwargs)
+        if self._coalesced_sync(list(self._modules.values()), sync_config=sync_config, **kwargs):
             return None
         for metric in self._modules.values():
             metric.sync(**kwargs)
@@ -528,6 +529,7 @@ class MetricCollection:
         should_sync: bool = True,
         distributed_available: Optional[Any] = None,
         rebuffer: bool = True,
+        sync_config: Optional[Any] = None,
     ) -> AsyncSyncHandle:
         """Launch the double-buffered background sync (``sync(async_=True)``).
 
@@ -595,7 +597,7 @@ class MetricCollection:
             frozen, [ms[0]._reductions for ms in holders.values()],
             process_group=process_group or metrics[0].process_group,
             dist_sync_fn=dist_sync_fn or metrics[0].dist_sync_fn,
-            retry=retry, committer=committer, label="MetricCollection.sync",
+            retry=retry, committer=committer, label="MetricCollection.sync", sync_config=sync_config,
         )
 
     def _coalesced_sync(
@@ -605,6 +607,7 @@ class MetricCollection:
         process_group: Optional[Any] = None,
         should_sync: bool = True,
         distributed_available: Optional[Any] = None,
+        sync_config: Optional[Any] = None,
     ) -> bool:
         """Coalesced multi-metric sync. Returns True when this call handled the sync
         (the no-op where nothing is distributed included) and False when the caller
@@ -643,6 +646,7 @@ class MetricCollection:
                 [ms[0]._state for ms in holders.values()], [ms[0]._reductions for ms in holders.values()],
                 process_group=process_group or metrics[0].process_group,
                 dist_sync_fn=dist_sync_fn or metrics[0].dist_sync_fn,
+                sync_config=sync_config,
             )
 
         def count_attempt(exc: BaseException, attempt_no: int) -> None:

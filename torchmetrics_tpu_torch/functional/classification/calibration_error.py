@@ -24,6 +24,7 @@ import torch
 
 from ...utilities.checks import _as_tensor
 from ...utilities.compute import _safe_divide, normalize_logits_if_needed
+from ...utilities.data import _batched, rows_bincount
 from ...utilities.enums import ClassificationTaskNoMultilabel
 from .precision_recall_curve import _binary_precision_recall_curve_tensor_validation
 from .stat_scores import _ignore_weights, _multiclass_stat_scores_tensor_validation
@@ -49,6 +50,8 @@ def _binned_stats_update(
     index = (torch.searchsorted(boundaries, confidences.contiguous(), right=True) - 1).clamp(0, n - 1)
 
     def segment_sum(values: torch.Tensor) -> torch.Tensor:
+        if _batched(values) or _batched(index):  # the serving engine's rows, under vmap
+            return rows_bincount(index, values, n).to(torch.float32)
         return torch.zeros(n, dtype=torch.float64, device=values.device).index_add_(0, index, values).to(torch.float32)
 
     return (segment_sum(w * confidences.to(torch.float64)), segment_sum(w * accuracies.to(torch.float64)),

@@ -28,8 +28,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..functional.image._resize import resize_bilinear_antialias, resize_bilinear_tf1
-from ..kernels.sepconv import sepconv7
+from ..kernels.sepconv import sepconv7, sepconv7_rows
 from ..utilities.checks import resolve_device
+from ..utilities.data import _batched
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _SEP_AXIS = {(1, 7): "W", (7, 1): "H"}  # the kernel's axis for each separable kernel shape
@@ -71,7 +72,11 @@ class BasicConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.sep_axis is not None:
-            y = sepconv7(x, self.w.flatten(2), self.sep_axis)
+            # under the serving engine's vmap the rows fold into one launch (sepconv7_rows);
+            # outside it the direct call, whose CPU reference FlopCounterMode sees (the
+            # op's dispatch would hide it)
+            conv = sepconv7_rows if _batched(x) else sepconv7
+            y = conv(x, self.w.flatten(2), self.sep_axis)
         else:
             y = F.conv2d(x, self.w, stride=self.stride, padding=self.padding)
         return F.relu(y + self.b[None, :, None, None])

@@ -110,6 +110,16 @@ class FrechetInceptionDistance(Metric):
             "features_cov_sum": f.T @ f,
             "features_num_samples": torch.tensor(f.shape[0], dtype=torch.int32, device=self.device),
         }
+        if isinstance(real, torch.Tensor):
+            # a tensor flag (the serving engine's stacked rows, under vmap): a select per
+            # side in place of the host branch, the same values
+            flag = real.to(device=self.device, dtype=torch.bool)
+            out = {}
+            for k, v in stats.items():
+                zero = torch.zeros_like(v)
+                out[f"real_{k}"] = torch.where(flag, v, zero)
+                out[f"fake_{k}"] = torch.where(flag, zero, v)
+            return out
         this, other = _SIDES if bool(real) else _SIDES[::-1]
         out = {f"{this}_{k}": v for k, v in stats.items()}
         out.update({f"{other}_{k}": torch.zeros_like(v) for k, v in stats.items()})

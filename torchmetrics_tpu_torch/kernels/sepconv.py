@@ -4,6 +4,11 @@ The Hopper port of ``tools/exp_sepconv.py:make_pallas_sepconv``. The kernel is
 ``torchmetrics_tpu_torch/csrc/sepconv7.cu``; its header states the bound and the design.
 ``sepconv7_reference`` is the plain PyTorch version of the same arithmetic: the wrapper
 uses it for CPU tensors only, and on a CUDA tensor it launches the kernel or raises.
+
+``sepconv7_rows`` is the same conv as a ``torch.library`` op with a ``torch.func.vmap``
+batching rule: the serving engine's megabatch runs the trunk under ``vmap`` over its
+tenant rows, and the rule folds the rows into the conv's batch axis, so one launch serves
+every row (a ctypes launch cannot take a batched tensor's ``data_ptr``).
 """
 
 from __future__ import annotations
@@ -109,3 +114,31 @@ def sepconv7(x: torch.Tensor, w: torch.Tensor, axis: str) -> torch.Tensor:
 
 
 sepconv7.launches = 0
+
+
+@torch.library.custom_op("torchmetrics_tpu_torch::sepconv7_rows", mutates_args=())
+def sepconv7_rows(x: torch.Tensor, w: torch.Tensor, axis: str) -> torch.Tensor:
+    """:func:`sepconv7` as an op that batches under ``torch.func.vmap`` (one launch for
+    every vmapped row); outside ``vmap`` it is :func:`sepconv7`."""
+    return sepconv7(x.contiguous(), w.contiguous(), axis)
+
+
+@sepconv7_rows.register_fake
+def _(x: torch.Tensor, w: torch.Tensor, axis: str) -> torch.Tensor:
+    return x.new_empty((x.shape[0], w.shape[0], x.shape[2], x.shape[3]))
+
+
+@sepconv7_rows.register_vmap
+def _(info, in_dims, x, w, axis):
+    """Rows of a vmapped ``x (rows, B, C, H, W)`` fold into one ``(rows·B, C, H, W)``
+    launch. Batched weights (never the trunk's: its weights are buffers) take one launch
+    a row."""
+    rows = info.batch_size
+    x_dim, w_dim = in_dims[0], in_dims[1]
+    if w_dim is not None:
+        xs = x.movedim(x_dim, 0) if x_dim is not None else x.expand(rows, *x.shape)
+        ws = w.movedim(w_dim, 0)
+        return torch.stack([sepconv7_rows(xs[r], ws[r], axis) for r in range(rows)]), 0
+    xs = x.movedim(x_dim, 0)
+    out = sepconv7_rows(xs.reshape((-1,) + tuple(xs.shape[2:])), w, axis)
+    return out.reshape((rows, xs.shape[1]) + tuple(out.shape[1:])), 0

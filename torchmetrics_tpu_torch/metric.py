@@ -49,7 +49,8 @@ AOTInductor) in place of the eager fold; a miss is remembered and the eager path
 it. ``precompile`` writes those programs ahead of traffic and ``prefetch_compiled``
 loads them into the in-process memo. With no plane the boundary reads ``aot._ACTIVE``
 once. The streaming plane's transforms (``streaming/``) dispatch their steps through the
-same boundary (:meth:`Metric._window_dispatch`). Not here yet: the serving plane.
+same boundary (:meth:`Metric._window_dispatch`), and so do the serving engine's megabatch
+programs (``vupdate``, ``vwupdate``, ``vcompute``, ``vwcompute``; :meth:`Metric._tenant_dispatch`).
 ``HostMetric`` is the base of the metrics whose batch contribution is built on the host
 (detection's ragged per-image inputs).
 
@@ -130,6 +131,15 @@ WINDOW_TIERS = ("dual", "two_stack", "ring")
 
 #: fixed two-stack depth: panes per window, whatever the window's length
 WINDOW_STACK_DEPTH = 16
+
+#: reserved leaf name of the per-row update-count vector a serving stack carries beside
+#: the real tensor states (``serving/``): the stacked analogue of the update count
+TENANT_COUNT_KEY = "__tenant_n"
+
+#: reserved leaf-name prefix of the quantized sync plane's error-feedback residuals
+#: (``parallel/quantize.py`` keys them ``prefix + "<state_idx>:<leaf_name>"``); equal to
+#: ``parallel.quantize.RESIDUAL_KEY_PREFIX``, as the JAX package pins it
+QUANT_RESIDUAL_KEY = "__quant_err:"
 
 
 def window_tier(metric: "Metric") -> str:
@@ -798,6 +808,114 @@ class Metric:
 
         return self._dispatch(tag, wargs, kwargs, run, tensors=wstate, eager=eager)
 
+    # ------------------------------------------------------ tenant programs
+
+    def _check_servable(self) -> None:
+        if self._list_state_names:
+            raise TorchMetricsUserError(
+                f"{type(self).__name__} holds dynamic-length concat states and cannot be "
+                "served from a stacked pytree; use a binned/static-shape variant."
+            )
+
+    def _get_vupdate_fn(self) -> Callable:
+        """The megabatch program behind the serving engine's stacked dispatch
+        (``serving/``): one call updates many logical metric states held as a stack.
+
+        Calling convention (the JAX package's): ``fn(stacked, n_scalar, idx, args,
+        kwargs)``, where ``stacked`` maps every tensor-state name to a ``(rows,
+        *state_shape)`` tensor plus the :data:`TENANT_COUNT_KEY` per-row update counts,
+        ``idx`` is the ``(M,)`` row address of each megabatch entry and ``args``/``kwargs``
+        are the entries' batches stacked along a leading ``M`` axis. It gathers the
+        addressed rows, runs the single-metric fold (``_FoldProgram``, running-mean
+        weights included) on every row under ``torch.func.vmap`` and writes the rows
+        back in place (``index_copy_``); rows ``idx`` does not address are untouched, and
+        the padding rows address the scratch row. Returns ``stacked``. The launches do
+        not depend on ``M``: every op of the fold batches (the confusion matrix's count
+        through ``utilities.data.rows_bincount``, sepconv7 through ``sepconv7_rows``).
+        ``n_scalar`` is the calling convention's placeholder."""
+        self._check_servable()
+
+        def fn(stacked, n_scalar, idx, args, kwargs):
+            rows, n_rows = _gather_rows(stacked, idx)
+            new_rows, new_n = _tenant_update_rows(self, rows, n_rows, args, kwargs)
+            return _scatter_rows(stacked, idx, new_rows, new_n, in_place=True)
+
+        return fn
+
+    def _get_vwupdate_fn(self, tier: str, depth: int = 0) -> Callable:
+        """The windowed megabatch program behind ``ServingEngine(window=...)``:
+        ``fn(stacked, n_scalar, wparam, idx, args, kwargs)``, like ``vupdate`` with each
+        row's dual or two-stack window step (``wparam`` the window for the dual tier,
+        the pane for the two-stack tier, a 0-d tensor). One metric instance backs one
+        geometry."""
+        self._check_servable()
+        self._check_windowable(tier)
+        self._serve_geometry(tier, depth)
+
+        def fn(stacked, n_scalar, wparam, idx, args, kwargs):
+            rows, n_rows = _gather_rows(stacked, idx)
+            new_rows, new_n = _tenant_window_rows(self, tier, int(depth), rows, n_rows, wparam, args, kwargs)
+            return _scatter_rows(stacked, idx, new_rows, new_n, in_place=True)
+
+        return fn
+
+    def _get_vcompute_fn(self) -> Callable:
+        """The batch compute behind ``ServingEngine.compute_all``: ``fn(stacked,
+        n_scalar, *args, **kwargs)`` computes every row of the stack in one vmapped call
+        (the trailing batch args only carry the shape class's signature). It reads the
+        stack and writes nothing. A compute that reads the host cannot vmap and raises."""
+        self._check_servable()
+        if not self._jittable_compute:
+            raise TorchMetricsUserError(
+                f"{type(self).__name__}.compute runs on host and cannot vmap; "
+                "per-tenant compute falls back to eager slicing."
+            )
+
+        def fn(stacked, n_scalar, *args, **kwargs):
+            return _tenant_compute_rows(self, stacked)
+
+        return fn
+
+    def _get_vwcompute_fn(self, tier: str, depth: int = 0) -> Callable:
+        """``vcompute`` for windowed stacks: ``fn(stacked, n_scalar, wparam, *args,
+        **kwargs)`` folds each row's window and computes it in one vmapped call."""
+        if not self._jittable_compute:
+            raise TorchMetricsUserError(
+                f"{type(self).__name__}.compute runs on host and cannot vmap; "
+                "per-tenant compute falls back to eager slicing."
+            )
+        self._check_windowable(tier)
+        self._serve_geometry(tier, depth)
+
+        def fn(stacked, n_scalar, wparam, *args, **kwargs):
+            return _tenant_compute_rows(self, stacked, tier, int(depth), wparam)
+
+        return fn
+
+    def _serve_geometry(self, tier: str, depth: int) -> None:
+        """Record the windowed-serving geometry the ``vwupdate``/``vwcompute`` programs
+        are built for (``_aot_program`` exports that one)."""
+        geometry = self.__dict__.get("_serve_window")
+        if geometry is not None and geometry != (tier, int(depth)):
+            raise TorchMetricsUserError(
+                "one metric instance can back only one windowed-serving geometry "
+                f"(built {geometry}, requested {(tier, depth)})."
+            )
+        self.__dict__["_serve_window"] = (tier, int(depth))
+
+    def _tenant_dispatch(self, tag: str, stacked: StateDict, args: tuple, kwargs: dict,
+                         eager: Callable[[StateDict], Any]) -> Any:
+        """One serving-engine program call through :meth:`_dispatch` (AOT plane,
+        telemetry): ``args``/``kwargs`` are the program's inputs after ``(stacked, n)``
+        and ``eager(stacked)`` the eager call. A loaded program returns a new stack in
+        place of the eager program's in-place write."""
+
+        def run(fold: Optional[Callable]) -> Any:
+            step = fold if fold is not None else eager
+            return self._attempt(tag, lambda: step(stacked))
+
+        return self._dispatch(tag, args, kwargs, run, tensors=stacked, eager=eager)
+
     def _aot_counter(self) -> torch.Tensor:
         """The update count as the program's 0-d float32 ``n``: the tensor the last
         loaded update returned while the count still matches, else a new one."""
@@ -954,10 +1072,14 @@ class Metric:
         process_group: Optional[Any] = None,
         should_sync: bool = True,
         distributed_available: Optional[Callable] = None,
+        sync_config: Optional[Any] = None,
     ) -> None:
         """Replace the local states with the states synced across processes
         (``parallel.process_sync``); ``unsync`` restores the local ones. The synced
-        states come back on the metric's device."""
+        states come back on the metric's device. ``sync_config``
+        (:class:`~torchmetrics_tpu_torch.parallel.SyncConfig`) opts this sync into the
+        quantized (bf16/int8) buckets; keep one config instance per metric across
+        repeated syncs so its error-feedback residuals fold correctly."""
         if self._is_synced and should_sync:
             raise TorchMetricsUserError("The Metric has already been synced.")
         if not should_sync or not (distributed_available or self.distributed_available_fn)():
@@ -975,6 +1097,7 @@ class Metric:
                     self._reductions,
                     process_group=process_group or self.process_group,
                     dist_sync_fn=dist_sync_fn or self.dist_sync_fn,
+                    sync_config=sync_config,
                 ),
             )
         if rec is not None:
@@ -1157,10 +1280,12 @@ class Metric:
 
     def _aot_program(self, tag: str) -> torch.nn.Module:
         """The program behind one dispatch tag, as the AOT plane exports it: the
-        metric's fold for ``update``/``forward`` (:class:`_FoldProgram`), and the stream
+        metric's fold for ``update``/``forward`` (:class:`_FoldProgram`), the stream
         transforms' steps for ``wupdate``/``wdual``/``wstack``/``dupdate``
         (:class:`_WindowProgram`; ``wstack``'s depth is set by the SlidingWindow that
-        owns it). Owner-built programs (``"mapeval"``, ``"escore"``) come from the
+        owns it) and the serving engine's ``vupdate``/``vwupdate``/``vcompute``/
+        ``vwcompute`` (:class:`_TenantProgram`; the windowed ones take the geometry of
+        the engine that built them). Owner-built programs (``"mapeval"``, ``"escore"``) come from the
         metrics that own them."""
         if tag in ("update", "forward"):
             return _FoldProgram(self, tag)
@@ -1175,11 +1300,22 @@ class Metric:
                 )
         elif tag == "dupdate":
             self._check_decayable()
+        elif tag in ("vupdate", "vcompute"):
+            self._check_servable()
+            return _TenantProgram(self, tag)
+        elif tag in ("vwupdate", "vwcompute"):
+            geometry = self.__dict__.get("_serve_window")
+            if geometry is None:
+                raise TorchMetricsUserError(
+                    f"the {tag!r} program is parameterized by its window geometry and is "
+                    "built by its owner (ServingEngine(window=)) first"
+                )
+            return _TenantProgram(self, tag, *geometry)
         elif tag != "wupdate":
             raise ValueError(
                 f"Unknown dispatch tag {tag!r} for {type(self).__name__}; expected 'update', 'forward', "
-                "'wupdate', 'wdual', 'wstack' or 'dupdate' (the 'mapeval' and 'escore' programs belong "
-                "to DeviceMeanAveragePrecision and BERTScore)"
+                "'wupdate', 'wdual', 'wstack', 'dupdate', 'vupdate', 'vwupdate', 'vcompute' or 'vwcompute' "
+                "(the 'mapeval' and 'escore' programs belong to DeviceMeanAveragePrecision and BERTScore)"
             )
         return _WindowProgram(self, tag)
 
@@ -1596,6 +1732,117 @@ class _WindowProgram(torch.nn.Module):
 
     def forward(self, state: StateDict, n: torch.Tensor, args: tuple, kwargs: dict):
         return window_step(self.metric, self.tag, state, args, kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Tenant rows (serving/): the megabatch programs over a stack of metric states
+# ---------------------------------------------------------------------------
+
+
+def _vmap_rows(fn: Callable, *trees: Any) -> Any:
+    """``torch.func.vmap`` of ``fn`` over dim 0 of every tensor leaf of ``trees``; other
+    leaves (None, strings) pass unbatched."""
+    in_dims = tuple(
+        torch.utils._pytree.tree_map(lambda leaf: 0 if isinstance(leaf, torch.Tensor) else None, tree)
+        for tree in trees
+    )
+    return torch.func.vmap(fn, in_dims=in_dims)(*trees)
+
+
+def _gather_rows(stacked: StateDict, idx: torch.Tensor) -> Tuple[StateDict, torch.Tensor]:
+    rows = {k: v.index_select(0, idx) for k, v in stacked.items() if k != TENANT_COUNT_KEY}
+    return rows, stacked[TENANT_COUNT_KEY].index_select(0, idx)
+
+
+def _scatter_rows(stacked: StateDict, idx: torch.Tensor, new_rows: StateDict, new_n: torch.Tensor,
+                  in_place: bool) -> StateDict:
+    """The rows written back at ``idx``: in place for the eager program (the serving
+    engine copies the stack first where it must roll back), out of place for the
+    exported one. The padding rows all address the scratch row, whose value is unused."""
+    if in_place:
+        for k, v in new_rows.items():
+            stacked[k].index_copy_(0, idx, v.to(stacked[k].dtype))
+        stacked[TENANT_COUNT_KEY].index_copy_(0, idx, new_n.to(stacked[TENANT_COUNT_KEY].dtype))
+        return stacked
+    out = {k: v.index_copy(0, idx, new_rows[k].to(v.dtype)) for k, v in stacked.items() if k != TENANT_COUNT_KEY}
+    out[TENANT_COUNT_KEY] = stacked[TENANT_COUNT_KEY].index_copy(0, idx, new_n.to(stacked[TENANT_COUNT_KEY].dtype))
+    return out
+
+
+def _tenant_update_rows(metric: Metric, rows: StateDict, n_rows: torch.Tensor, args: tuple, kwargs: dict):
+    """Every row's single-metric fold (the ``update`` program's), vmapped."""
+    fold = _FoldProgram(metric, "update")
+
+    def per_row(state, n, a, kw):
+        new, _appends, n_next = fold(state, n, a, kw)
+        return {k: new[k] for k in state}, n_next
+
+    return _vmap_rows(per_row, rows, n_rows, args, kwargs)
+
+
+def _tenant_window_rows(metric: Metric, tier: str, depth: int, rows: StateDict, n_rows: torch.Tensor,
+                        wparam: torch.Tensor, args: tuple, kwargs: dict):
+    """Every row's dual or two-stack window step, vmapped."""
+    reductions = metric._reductions
+    defaults_t = metric._tensor_defaults()
+
+    def per_row(state, n, a, kw):
+        bs_t, _ = _batch_tensors(metric, a, kw)
+        if tier == "dual":
+            new = _dual_step(reductions, defaults_t, state, wparam, bs_t)
+        else:
+            new = _stack_step(reductions, defaults_t, depth, state, wparam, bs_t)
+        return {k: new[k] for k in state}, n + 1.0
+
+    return _vmap_rows(per_row, rows, n_rows, args, kwargs)
+
+
+def _tenant_compute_rows(metric: Metric, stacked: StateDict, tier: Optional[str] = None, depth: int = 0,
+                         wparam: Any = None) -> Any:
+    """Every row's value (its window folded first when windowed), vmapped."""
+    states = {k: v for k, v in stacked.items() if k != TENANT_COUNT_KEY}
+    reductions = metric._reductions
+    defaults_t = metric._tensor_defaults()
+
+    def per_row(state):
+        if tier == "dual":
+            state = _dual_fold(reductions, defaults_t, state)
+        elif tier == "two_stack":
+            state = _stack_fold(reductions, defaults_t, depth, state, wparam)
+        return metric._compute(state)
+
+    return _vmap_rows(per_row, states)
+
+
+class _TenantProgram(torch.nn.Module):
+    """A serving-engine program as one module, what the AOT plane exports for
+    ``vupdate``, ``vwupdate``, ``vcompute`` and ``vwcompute``: ``forward(stacked, n,
+    args, kwargs)`` with ``args`` the tag's inputs after ``(stacked, n)``. The update
+    programs return the new stack (rows written out of place), the compute programs
+    every row's value."""
+
+    def __init__(self, metric: Metric, tag: str, tier: Optional[str] = None, depth: int = 0) -> None:
+        super().__init__()
+        self.metric = metric
+        self.tag = tag
+        self.tier = tier
+        self.depth = depth
+
+    def forward(self, stacked: StateDict, n: torch.Tensor, args: tuple, kwargs: dict):
+        m = self.metric
+        if self.tag == "vcompute":
+            return _tenant_compute_rows(m, stacked)
+        if self.tag == "vwcompute":
+            return _tenant_compute_rows(m, stacked, self.tier, self.depth, args[0])
+        if self.tag == "vupdate":
+            idx, a, kw = args
+            rows, n_rows = _gather_rows(stacked, idx)
+            new_rows, new_n = _tenant_update_rows(m, rows, n_rows, a, kw)
+        else:
+            wparam, idx, a, kw = args
+            rows, n_rows = _gather_rows(stacked, idx)
+            new_rows, new_n = _tenant_window_rows(m, self.tier, self.depth, rows, n_rows, wparam, a, kw)
+        return _scatter_rows(stacked, idx, new_rows, new_n, in_place=False)
 
 
 class HostMetric(Metric):

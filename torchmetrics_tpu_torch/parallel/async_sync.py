@@ -26,9 +26,8 @@ residual wait is paid at the commit barrier.
 
 On the card the thread's collectives run on NCCL's stream and its bucket copies on the
 device's current stream, beside the caller's updates, which write only the live side.
-
-The quantized buckets (``sync_config``, a ``SyncConfig`` of ``parallel/quantize.py``)
-are not ported yet: a handle given one raises ``NotImplementedError``.
+With a ``sync_config`` the thread also quantizes the frozen buckets, so the codec's cost
+overlaps the updates as the gather's latency does.
 """
 
 from __future__ import annotations
@@ -45,14 +44,6 @@ from . import sync as _sync
 
 StateDict = Dict[str, Any]
 Reduction = Union[str, Callable, None]
-
-
-def _no_quantized_sync(sync_config: Any) -> None:
-    if sync_config is not None:
-        raise NotImplementedError(
-            "sync_config= (the quantized sync plane, parallel/quantize.py) is not ported yet; "
-            "sync without it"
-        )
 
 
 class AsyncSyncHandle:
@@ -72,8 +63,10 @@ class AsyncSyncHandle:
             propagate from ``commit()`` with nothing recorded as committed.
         label: telemetry identity for the ``async_sync`` event.
         noop: build an already-completed empty handle (nothing to sync).
-        sync_config: the quantized sync's config; not ported yet, anything but
-            ``None`` raises ``NotImplementedError``.
+        sync_config: an optional :class:`~torchmetrics_tpu_torch.parallel.SyncConfig`:
+            the worker quantizes the frozen buckets in the background. Its residuals
+            commit from the worker only after every bucket gathered; a failed or
+            per-leaf-fallback attempt leaves them untouched.
     """
 
     def __init__(
@@ -88,8 +81,8 @@ class AsyncSyncHandle:
         noop: bool = False,
         sync_config: Optional[Any] = None,
     ) -> None:
-        _no_quantized_sync(sync_config)
         self.label = label
+        self._sync_config = sync_config
         self._committer = committer
         self._states = [{k: (list(v) if isinstance(v, list) else v) for k, v in s.items()} for s in states]
         self._reductions = [dict(r) for r in reductions]
@@ -123,7 +116,8 @@ class AsyncSyncHandle:
     def _attempt(self) -> List[StateDict]:
         try:
             return _coalesce.coalesced_process_sync(
-                self._states, self._reductions, process_group=self._process_group, dist_sync_fn=self._dist_sync_fn
+                self._states, self._reductions, process_group=self._process_group,
+                dist_sync_fn=self._dist_sync_fn, sync_config=self._sync_config,
             )
         except _coalesce.CoalesceFallback:
             # every rank decodes the same gathered metadata, so a fleet falls back together

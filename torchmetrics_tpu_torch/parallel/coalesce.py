@@ -39,27 +39,33 @@ and fold there. Gathers use the list form ``dist.all_gather``, which every torch
 version has (``all_gather_into_tensor`` is deprecated in newer ones).
 
 **The metadata row.** ``[magic, version, n_leaves, n_counter_fields, alive, epoch]``,
-then per leaf ``[dtype_code, ndim, d0..d7, kind]``, then the telemetry tails: the
-active session's counter vector (``len(COUNTER_FIELDS)`` values) and its fleet
-histogram vector, each value as two 31-bit int32 halves, zeros when no session is on.
-The row equals the JAX package's int for int. An all-zero row is a tombstone, the row
-a rank that died mid-collective leaves behind: the plan marks that rank dead and the
-bucket folds cover the survivors only.
+then per leaf ``[dtype_code, ndim, d0..d7, kind | codec << 1]``, then the telemetry
+tails: the active session's counter vector (``len(COUNTER_FIELDS)`` values) and its
+fleet histogram vector, each value as two 31-bit int32 halves, zeros when no session is
+on; with an enabled ``SyncConfig`` (``parallel/quantize.py``) a quant section follows,
+one fixed-length record per quantizable dtype (``[codec, n_blocks]`` plus, for int8,
+the bucket's block scales and zeros as float32 bit patterns). The row equals the JAX
+package's int for int (format v11). An all-zero row is a tombstone, the row a rank
+that died mid-collective leaves behind: the plan marks that rank dead and the bucket
+folds cover the survivors only.
+
+**Quantized buckets.** A bucket in which some rank announced a codec ships as a byte
+stream: exact leaves as their raw bytes, quantized leaves as their codec payloads, each
+rank's segment decoded with that rank's own announced codes and scales. A world of one
+never quantizes.
 
 **The fleet mailbox.** A sync over the real transport leaves every rank's counter and
 histogram rows in a mailbox keyed to the telemetry session's epoch, so that
 ``observability.gather_counters``/``gather_histograms`` right after a sync launch no
 collective of their own.
 
-**The dead-rank ledger.** :func:`dead_ranks` maps a rank to the number of consecutive
-degraded syncs it has been seen dead for, and :func:`clear_dead_ranks` forgets it. Only
-the ledger and its accessors are here: the degraded-sync plane whose tombstone rows
-write it comes with the durability plane, so a sync here leaves it empty.
-
-Left out here, to come with their planes: the quantized buckets (``quantize``, a codec
-in the kind slot, and the quant section after the tails) and the rejoin bookkeeping
-that writes the dead-rank ledger (durability). Every live rank announces alive 1 and
-epoch 1, so that an all-zero row still reads as a tombstone.
+**Degraded sync and rejoin.** Every live rank announces alive 1 and its liveness epoch
+(:func:`liveness_epoch`; a restarted process calls :func:`bump_liveness_epoch`), so an
+all-zero row can only be a tombstone. After a sync has committed, the dead-rank ledger
+(:func:`dead_ranks`: rank -> consecutive degraded syncs seen dead) counts each
+tombstoned rank, drops a rank whose row came back alive (a rejoin: its whole accumulator
+was part of that very gather, so nothing is counted twice), and the telemetry session
+records the degraded sync and each rejoin. :func:`clear_dead_ranks` forgets the ledger.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ from .. import observability as _observability
 from ..observability.counters import COUNTER_FIELDS
 from ..observability.histograms import FLEET_VECTOR_LEN as _HIST_VEC_LEN
 from ..reliability.retry import TRANSIENT, classify_exception
+from . import quantize as _quantize
 
 Reduction = Union[str, Callable, None]
 
@@ -88,10 +95,9 @@ GATHER_DTYPES = (
 _MAGIC = 0x436F414C  # "CoAL"
 _VERSION = 11
 _HEADER_LEN = 6  # [magic, version, n_leaves, n_counter_fields, alive, epoch]
-_LEAF_REC_LEN = 2 + _MAX_RANK + 1  # [dtype_code, ndim, d0..d7, kind]
+_LEAF_REC_LEN = 2 + _MAX_RANK + 1  # [dtype_code, ndim, d0..d7, kind | codec << 1]
 _KIND_TENSOR = 0
 _KIND_LIST = 1
-_EPOCH = 1  # liveness epoch every live rank announces (no rejoin bookkeeping yet)
 
 # dtype sentinels announced inside the metadata collective: every rank completes the
 # exchange, sees the same sentinel and raises (or falls back) together
@@ -101,8 +107,23 @@ _CODE_RANK_OVERFLOW = -3
 _CODE_DIM_OVERFLOW = -4  # a dimension does not fit the int32 metadata encoding
 
 
+# this process's liveness epoch, announced in every metadata row: a process that
+# restarts bumps it, so its peers can tell a rejoin from a rank that never died
+_LIVENESS: Dict[str, int] = {"epoch": 1}
 # rank index -> consecutive degraded syncs it has been seen dead for
 _DEAD_RANKS: Dict[int, int] = {}
+
+
+def liveness_epoch() -> int:
+    """This process's current liveness epoch (starts at 1)."""
+    return _LIVENESS["epoch"]
+
+
+def bump_liveness_epoch() -> int:
+    """Announce a fresh liveness epoch (a restarted or failed-over process calls this so
+    its peers see its rows as a new incarnation)."""
+    _LIVENESS["epoch"] += 1
+    return _LIVENESS["epoch"]
 
 
 def dead_ranks() -> Dict[int, int]:
@@ -162,12 +183,35 @@ def _prepare_leaves(
 
 
 def build_local_metadata(
-    states: Sequence[Dict[str, Any]], reductions_list: Sequence[Mapping[str, Reduction]]
+    states: Sequence[Dict[str, Any]],
+    reductions_list: Sequence[Mapping[str, Reduction]],
+    counters_vector: Optional[Sequence[int]] = None,
+    hist_vector: Optional[Sequence[int]] = None,
+    sync_config: Optional[Any] = None,
 ) -> np.ndarray:
-    """This rank's metadata row: the shapes and dtypes of its leaves as one int32
-    vector. Its length depends only on the leaf table, so the collective needs no shape
-    exchange of its own."""
-    return _encode_metadata(_prepare_leaves(states, reductions_list))
+    """This rank's metadata row: the shapes and dtypes of its leaves, the telemetry
+    tails and, with an enabled ``sync_config``, the quant section announcing this rank's
+    per-leaf codecs and per-bucket block scales, as one int32 vector. Its length depends
+    only on the leaf table and the codec, so the collective needs no shape exchange."""
+    leaves = _prepare_leaves(states, reductions_list)
+    return _encode_metadata(leaves, counters_vector, hist_vector, _make_qctx(leaves, sync_config))
+
+
+def _make_qctx(leaves: Sequence[_Leaf], sync_config: Optional[Any]) -> Optional[_quantize.QuantContext]:
+    if sync_config is None or not getattr(sync_config, "enabled", False):
+        return None
+    return _quantize.QuantContext(sync_config, leaves)
+
+
+def _quant_record_lens(qctx: Optional[_quantize.QuantContext]) -> List[int]:
+    """Quant-section record lengths: a fixed layout, one record per dtype of
+    ``quantize.QUANT_SECTION_DTYPES`` (``[codec, n_blocks]`` plus the reserved
+    ``(scale, zero)`` slot pairs for int8) whether or not this rank holds leaves of that
+    dtype, so the row's length is the same on every rank."""
+    if qctx is None:
+        return []
+    per = 2 + (2 * _quantize.BUCKET_SCALE_SLOTS if qctx.config.codec == "int8" else 0)
+    return [per] * len(_quantize.QUANT_SECTION_DTYPES)
 
 
 def _pack_halves(dest: np.ndarray, values: Sequence[int]) -> None:
@@ -187,13 +231,16 @@ def _encode_metadata(
     leaves: Sequence[_Leaf],
     counters_vector: Optional[Sequence[int]] = None,
     hist_vector: Optional[Sequence[int]] = None,
+    qctx: Optional[_quantize.QuantContext] = None,
 ) -> np.ndarray:
     n_fields = len(COUNTER_FIELDS)
-    vec = np.zeros(_HEADER_LEN + len(leaves) * _LEAF_REC_LEN + 2 * n_fields + 2 * _HIST_VEC_LEN, np.int32)
+    quant_lens = _quant_record_lens(qctx)
+    vec = np.zeros(
+        _HEADER_LEN + len(leaves) * _LEAF_REC_LEN + 2 * n_fields + 2 * _HIST_VEC_LEN + sum(quant_lens), np.int32)
     vec[0], vec[1], vec[2], vec[3] = _MAGIC, _VERSION, len(leaves), n_fields
     # a live rank always announces alive=1 and its epoch, so an all-zero row can only
     # be a dead rank's tombstone
-    vec[4], vec[5] = 1, _EPOCH
+    vec[4], vec[5] = 1, _LIVENESS["epoch"]
     for i, leaf in enumerate(leaves):
         rec = vec[_HEADER_LEN + i * _LEAF_REC_LEN :]
         if leaf.array is None:
@@ -211,7 +258,9 @@ def _encode_metadata(
                 rec[1] = arr.ndim
                 for d, s in enumerate(arr.shape):
                     rec[2 + d] = s
-        rec[2 + _MAX_RANK] = _KIND_LIST if leaf.is_list else _KIND_TENSOR
+        kind = _KIND_LIST if leaf.is_list else _KIND_TENSOR
+        codec = qctx.leaf_code(i) if qctx is not None else 0
+        rec[2 + _MAX_RANK] = kind | (codec << 1)
     tail_at = _HEADER_LEN + len(leaves) * _LEAF_REC_LEN
     if counters_vector is not None:
         vals = [int(v) for v in counters_vector]
@@ -223,6 +272,18 @@ def _encode_metadata(
         if len(vals) != _HIST_VEC_LEN:
             raise ValueError(f"histogram vector must have {_HIST_VEC_LEN} entries, got {len(vals)}")
         _pack_halves(vec[tail_at + 2 * n_fields : tail_at + 2 * n_fields + 2 * _HIST_VEC_LEN], vals)
+    if qctx is not None:
+        at = tail_at + 2 * n_fields + 2 * _HIST_VEC_LEN
+        slots = _quantize.BUCKET_SCALE_SLOTS
+        for dt, rec_len in zip(_quantize.QUANT_SECTION_DTYPES, quant_lens):
+            vec[at] = qctx.config.codec_code
+            vec[at + 1] = sum(qctx.bucket_blocks.get(dt, []))
+            if qctx.config.codec == "int8":
+                scales = qctx.bucket_scales.get(dt, np.zeros((0,), np.float32))
+                zeros = qctx.bucket_zeros.get(dt, np.zeros((0,), np.float32))
+                vec[at + 2 : at + 2 + len(scales)] = _quantize.f32_bits(scales)
+                vec[at + 2 + slots : at + 2 + slots + len(zeros)] = _quantize.f32_bits(zeros)
+            at += rec_len
     return vec
 
 
@@ -239,6 +300,16 @@ class _LeafPlan:
 
 
 @dataclasses.dataclass
+class _QuantPlan:
+    """Every rank's decoded quant announcements (``parallel/quantize.py``)."""
+
+    codec: str  # the configured codec's name, agreed by every rank
+    leaf_codes: List[List[int]]  # [leaf][rank] announced codec code
+    # dtype -> per-rank (n_blocks used, scales f32, zeros f32)
+    bucket_scales: Dict[torch.dtype, List[Tuple[int, np.ndarray, np.ndarray]]]
+
+
+@dataclasses.dataclass
 class _WorldPlan:
     world: int
     leaf_plans: List[_LeafPlan]
@@ -248,11 +319,13 @@ class _WorldPlan:
     epochs: List[int]  # 0 for dead ranks
     counter_rows: List[List[int]]  # per-rank counter vectors from the row tails
     hist_rows: List[List[int]]  # per-rank fleet histogram vectors, same tails
+    quant: Optional[_QuantPlan] = None
 
 
-def _decode_rows(rows: Sequence[Any], n_leaves: int) -> List[Optional[np.ndarray]]:
+def _decode_rows(rows: Sequence[Any], n_leaves: int, quant_len: int = 0) -> List[Optional[np.ndarray]]:
     decoded: List[Optional[np.ndarray]] = []
-    expect_len = _HEADER_LEN + n_leaves * _LEAF_REC_LEN + 2 * len(COUNTER_FIELDS) + 2 * _HIST_VEC_LEN
+    expect_len = (_HEADER_LEN + n_leaves * _LEAF_REC_LEN + 2 * len(COUNTER_FIELDS) + 2 * _HIST_VEC_LEN
+                  + quant_len)
     for row in rows:
         arr = np.asarray(row).ravel()
         if arr.size != expect_len or not np.issubdtype(arr.dtype, np.integer):
@@ -273,11 +346,15 @@ def _decode_rows(rows: Sequence[Any], n_leaves: int) -> List[Optional[np.ndarray
     return decoded
 
 
-def _plan_from_rows(rows: Sequence[Any], leaves: Sequence[_Leaf]) -> _WorldPlan:
-    decoded = _decode_rows(rows, len(leaves))
+def _plan_from_rows(rows: Sequence[Any], leaves: Sequence[_Leaf],
+                    qctx: Optional[_quantize.QuantContext] = None) -> _WorldPlan:
+    quant_lens = _quant_record_lens(qctx)
+    decoded = _decode_rows(rows, len(leaves), sum(quant_lens))
     world = len(decoded)
     leaf_plans: List[_LeafPlan] = []
     buckets: Dict[torch.dtype, List[int]] = {}
+    leaf_codes: List[List[int]] = []
+    cfg_code = qctx.config.codec_code if qctx is not None else 0
     for i, leaf in enumerate(leaves):
         # a dead rank's leaves decode as empty contributors (count 0, the leaf's own
         # kind), so padding totals and bucket offsets stay defined
@@ -289,12 +366,17 @@ def _plan_from_rows(rows: Sequence[Any], leaves: Sequence[_Leaf]) -> _WorldPlan:
             for row in decoded
         ]
         kinds = {int(r[2 + _MAX_RANK]) & 1 for r in recs}
+        leaf_codes.append([int(r[2 + _MAX_RANK]) >> 1 for r in recs])
         if kinds != {_KIND_LIST if leaf.is_list else _KIND_TENSOR}:
             raise CoalesceFallback("ranks disagree on the leaf kind table")
-        # the slot's upper bits are the JAX package's codec announcement: with no
-        # quantized buckets here, anything but 0 is a row this world cannot produce
-        if any(int(r[2 + _MAX_RANK]) >> 1 for r in recs):
-            raise CoalesceFallback("leaf record carries an impossible codec announcement")
+        # a codec announcement must be one this world could have produced: the
+        # configured codec on a float32/float64 leaf with data, 0 everywhere else; a
+        # corrupt row falls back to the exact per-leaf plane on every rank together
+        for code, r in zip(leaf_codes[-1], recs):
+            quantizable = (cfg_code != 0 and 0 <= int(r[0]) < len(GATHER_DTYPES)
+                           and GATHER_DTYPES[int(r[0])] in (torch.float32, torch.float64))
+            if code not in ((0, cfg_code) if quantizable else (0,)):
+                raise CoalesceFallback("leaf record carries an impossible codec announcement")
         codes = sorted({int(r[0]) for r in recs})
         if _CODE_DIM_OVERFLOW in codes:
             # the per-leaf plane's int64 shape vector can express this: fall back
@@ -341,13 +423,49 @@ def _plan_from_rows(rows: Sequence[Any], leaves: Sequence[_Leaf]) -> _WorldPlan:
     epochs = [0 if row is None else int(row[5]) for row in decoded]
     tail_at = _HEADER_LEN + len(leaves) * _LEAF_REC_LEN
     hist_at = tail_at + 2 * len(COUNTER_FIELDS)
-    end = hist_at + 2 * _HIST_VEC_LEN
+    quant_at = hist_at + 2 * _HIST_VEC_LEN
     # a dead rank contributes zero telemetry, like a rank without a session
     counter_rows = [[0] * len(COUNTER_FIELDS) if row is None else unpack_halves(row[tail_at:hist_at])
                     for row in decoded]
-    hist_rows = [[0] * _HIST_VEC_LEN if row is None else unpack_halves(row[hist_at:end]) for row in decoded]
+    hist_rows = [[0] * _HIST_VEC_LEN if row is None else unpack_halves(row[hist_at:quant_at]) for row in decoded]
+    quant = None
+    if qctx is not None:
+        quant = _QuantPlan(qctx.config.codec, leaf_codes, _decode_quant_section(decoded, quant_at, qctx))
     return _WorldPlan(world=world, leaf_plans=leaf_plans, buckets=buckets, alive=alive, epochs=epochs,
-                      counter_rows=counter_rows, hist_rows=hist_rows)
+                      counter_rows=counter_rows, hist_rows=hist_rows, quant=quant)
+
+
+def _decode_quant_section(decoded: Sequence[Optional[np.ndarray]], quant_at: int,
+                          qctx: _quantize.QuantContext) -> Dict[torch.dtype, List[Tuple[int, np.ndarray, np.ndarray]]]:
+    """Every rank's per-dtype ``(n_blocks, scales, zeros)`` from the fixed quant
+    section; a dead rank has no quantized segments."""
+    bucket_scales: Dict[torch.dtype, List[Tuple[int, np.ndarray, np.ndarray]]] = {}
+    slots = _quantize.BUCKET_SCALE_SLOTS if qctx.config.codec == "int8" else 0
+    rec_len = 2 + 2 * slots
+    empty = np.zeros((0,), np.float32)
+    for row in decoded:
+        if row is None:
+            for dt in _quantize.QUANT_SECTION_DTYPES:
+                bucket_scales.setdefault(dt, []).append((0, empty, empty))
+            continue
+        at = quant_at
+        for dt in _quantize.QUANT_SECTION_DTYPES:
+            code = int(row[at])
+            if code not in (0, qctx.config.codec_code):
+                raise CoalesceFallback("quant record carries an unknown codec code")
+            n_blocks = int(row[at + 1])
+            if not 0 <= n_blocks <= slots:  # bf16 records carry no blocks
+                raise CoalesceFallback("quant record carries an invalid block count")
+            if slots:
+                scales = _quantize.bits_f32(row[at + 2 : at + 2 + n_blocks])
+                zeros = _quantize.bits_f32(row[at + 2 + slots : at + 2 + slots + n_blocks])
+            else:
+                scales = zeros = empty
+            bucket_scales.setdefault(dt, []).append((n_blocks, scales, zeros))
+            at += rec_len
+        if at != row.size:
+            raise CoalesceFallback("quant section does not match the fixed layout")
+    return bucket_scales
 
 
 def build_bucket_payload(
@@ -355,12 +473,20 @@ def build_bucket_payload(
     reductions_list: Sequence[Mapping[str, Reduction]],
     bucket_index: int,
     metadata_rows: Sequence[Any],
+    sync_config: Optional[Any] = None,
 ) -> torch.Tensor:
     """This rank's padded flat payload for bucket ``bucket_index`` under the gathered
-    ``metadata_rows``: the replay API with which a test fake plays each rank of a world."""
+    ``metadata_rows``: the replay API with which a test fake plays each rank of a world.
+    With an enabled ``sync_config`` it is the quantized byte stream the rank would ship
+    (its scales match what ``build_local_metadata`` announced while the config's
+    residual store is unchanged)."""
     leaves = _prepare_leaves(states, reductions_list)
-    plan = _plan_from_rows(metadata_rows, leaves)
-    return _local_bucket_flat(leaves, plan, list(plan.buckets)[bucket_index])
+    qctx = _make_qctx(leaves, sync_config)
+    plan = _plan_from_rows(metadata_rows, leaves, qctx)
+    dtype = list(plan.buckets)[bucket_index]
+    if _bucket_quantized(plan, dtype):
+        return _local_bucket_bytes(leaves, plan, dtype, qctx)
+    return _local_bucket_flat(leaves, plan, dtype)
 
 
 def _leaves_device(leaves: Sequence[_Leaf]) -> torch.device:
@@ -377,6 +503,88 @@ def _local_bucket_flat(leaves: Sequence[_Leaf], plan: _WorldPlan, dtype: torch.d
     if pad:
         flat = torch.cat([flat, torch.zeros((pad,), dtype=dtype, device=device)])
     return flat
+
+
+def _bucket_quantized(plan: _WorldPlan, dtype: torch.dtype) -> bool:
+    """Whether a bucket ships as a quantized byte stream: some rank announced a codec
+    for one of its leaves, and there is more than one rank (a world of one skips the
+    codec: a lossy round trip with nobody to ship to would be pure error)."""
+    if plan.quant is None or plan.world <= 1:
+        return False
+    return any(code != 0 for li in plan.buckets[dtype] for code in plan.quant.leaf_codes[li])
+
+
+def _bucket_byte_totals(plan: _WorldPlan, dtype: torch.dtype) -> List[int]:
+    """Per-rank wire bytes of a quantized bucket (metadata only)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return [
+        sum(plan.leaf_plans[li].counts[r] * _quantize.codec_width(plan.quant.leaf_codes[li][r], itemsize)
+            for li in plan.buckets[dtype])
+        for r in range(plan.world)
+    ]
+
+
+def _local_bucket_bytes(leaves: Sequence[_Leaf], plan: _WorldPlan, dtype: torch.dtype,
+                        qctx: _quantize.QuantContext) -> torch.Tensor:
+    """This rank's byte-stream payload of a quantized bucket: exact leaves as their raw
+    bytes (bit for bit), quantized leaves as their codec payloads, zero-padded to the
+    world's largest byte total."""
+    device = _leaves_device(leaves)
+    parts = []
+    for li in plan.buckets[dtype]:
+        leaf = leaves[li]
+        if leaf.array is None:
+            continue
+        if qctx.leaf_code(li) == 0:
+            parts.append(_quantize.to_bytes(leaf.array.to(device=device, dtype=dtype)))
+        else:
+            parts.append(qctx.payloads[li].to(device))
+    flat = torch.cat(parts) if parts else torch.zeros((0,), dtype=torch.uint8, device=device)
+    pad = max(_bucket_byte_totals(plan, dtype)) - int(flat.shape[0])
+    if pad:
+        flat = torch.cat([flat, torch.zeros((pad,), dtype=torch.uint8, device=device)])
+    return flat
+
+
+def _decode_bucket_rows(plan: _WorldPlan, dtype: torch.dtype,
+                        rows_b: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
+    """Per-(rank, leaf) tensors of one quantized bucket: each rank's segment decodes
+    under that rank's own announced codes and scales (exact segments bitcast back bit
+    for bit, int8 segments through the rank's block scales split by the allocation its
+    encoder ran)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    leaf_idxs = plan.buckets[dtype]
+    out: List[List[torch.Tensor]] = [[] for _ in leaf_idxs]
+    for r in range(plan.world):
+        if not plan.alive[r]:
+            continue  # tombstoned rank: its row is zeros, the survivors fold on
+        row = rows_b[r].to(torch.uint8)
+        n_blocks_r, scales_r, zeros_r = plan.quant.bucket_scales[dtype][r]
+        q_counts = [plan.leaf_plans[li].counts[r] for li in leaf_idxs
+                    if plan.quant.leaf_codes[li][r] == _quantize.CODEC_INT8]
+        blocks = _quantize.allocate_blocks(q_counts, _quantize.BUCKET_SCALE_SLOTS)
+        if q_counts and sum(blocks) != n_blocks_r:
+            raise CoalesceFallback("quant scales do not match the announced block count")
+        offset = scale_off = qi = 0
+        for j, li in enumerate(leaf_idxs):
+            lp = plan.leaf_plans[li]
+            n = lp.counts[r]
+            code = plan.quant.leaf_codes[li][r]
+            width = _quantize.codec_width(code, itemsize)
+            seg = row[offset : offset + n * width]
+            offset += n * width
+            if code == _quantize.CODEC_BF16:
+                arr = _quantize.from_bytes(seg, n, torch.bfloat16).to(dtype)
+            elif code == _quantize.CODEC_INT8:
+                nb = blocks[qi]
+                arr = _quantize.block_dequantize(seg, scales_r[scale_off : scale_off + nb],
+                                                 zeros_r[scale_off : scale_off + nb], n, dtype)
+                scale_off += nb
+                qi += 1
+            else:
+                arr = _quantize.from_bytes(seg, n, dtype)
+            out[j].append(arr.reshape(lp.dims[r]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -431,23 +639,34 @@ def coalesced_process_sync(
     reductions_list: Sequence[Mapping[str, Reduction]],
     process_group: Any = None,
     dist_sync_fn: Optional[Callable] = None,
+    sync_config: Optional[Any] = None,
 ) -> List[Dict[str, Any]]:
     """Synchronize one or many state dicts across processes with one metadata
     collective plus one padded all-gather per dtype bucket.
 
+    ``sync_config`` (:class:`~torchmetrics_tpu_torch.parallel.SyncConfig`) opts the
+    eligible float buckets into the quantized byte-stream format: the same collectives,
+    compressed payloads, the codecs and scales riding the metadata collective.
+    Error-feedback residuals commit only after every bucket gathered.
+
     Returns new state dicts; the inputs are untouched, so a caller commits all of them
     or none. Raises :class:`CoalesceFallback` when the gathered metadata is unusable;
-    the caller then runs the per-leaf plane.
+    the caller then runs the per-leaf plane (always exact).
     """
     from . import sync as _sync  # sync.py imports this module at its top
 
     leaves = _prepare_leaves(states, reductions_list)
+    if sync_config is not None and dist_sync_fn is None and not _sync.distributed_available():
+        # one process with the real transport: the world-of-one bypass would discard
+        # the encoding anyway, so skip its cost (replay fakes keep theirs)
+        sync_config = None
+    qctx = _make_qctx(leaves, sync_config)
     rec = _observability._ACTIVE
     counters_vec = hist_vec = None
     if rec is not None and dist_sync_fn is None:
         counters_vec = rec.counters.counts_vector()
         hist_vec = rec.histograms.fleet_vector()
-    meta = _encode_metadata(leaves, counters_vec, hist_vec)
+    meta = _encode_metadata(leaves, counters_vec, hist_vec, qctx)
     gather = _make_gather(process_group, dist_sync_fn)
     try:
         rows = _gather_metadata(gather, meta, process_group, real=dist_sync_fn is None)
@@ -462,12 +681,22 @@ def coalesced_process_sync(
         raise
     if rec is not None:  # counted at launch: a fallback keeps its collectives
         rec.counters.record_sync_collectives(1)
-    plan = _plan_from_rows(rows, leaves)
+    plan = _plan_from_rows(rows, leaves, qctx)
     if dist_sync_fn is None:
         _deposit_fleet_rows(plan, rec)
     per_leaf_gathered: List[Optional[List[torch.Tensor]]] = [None] * len(leaves)
+    quant_stats = {"buckets": 0, "raw_bytes": 0, "shipped_bytes": 0}
     for dtype, leaf_idxs in plan.buckets.items():
-        flat = _local_bucket_flat(leaves, plan, dtype)
+        quantized = _bucket_quantized(plan, dtype)
+        if quantized:
+            flat = _local_bucket_bytes(leaves, plan, dtype, qctx)
+            quant_stats["buckets"] += 1
+            quant_stats["shipped_bytes"] += int(flat.numel())
+            quant_stats["raw_bytes"] += max(
+                sum(plan.leaf_plans[li].counts[r] for li in leaf_idxs) for r in range(plan.world)
+            ) * torch.empty((), dtype=dtype).element_size()
+        else:
+            flat = _local_bucket_flat(leaves, plan, dtype)
         rows_b = gather(flat)  # one collective serves every leaf of this dtype
         if rec is not None:
             rec.counters.record_sync_collectives(1)
@@ -475,6 +704,11 @@ def coalesced_process_sync(
             rec.record_gather_payload("coalesced", flat.numel() * flat.element_size())
         if len(rows_b) != plan.world:
             raise CoalesceFallback("bucket gather returned a different world size than the metadata")
+        if quantized:
+            for j, gathered in enumerate(_decode_bucket_rows(plan, dtype, rows_b)):
+                li = leaf_idxs[j]
+                per_leaf_gathered[li] = (per_leaf_gathered[li] or []) + gathered
+            continue
         for r in range(plan.world):
             if not plan.alive[r]:
                 continue  # tombstoned rank: its row is zeros, the survivors fold on
@@ -488,6 +722,19 @@ def coalesced_process_sync(
                 if per_leaf_gathered[li] is None:
                     per_leaf_gathered[li] = []
                 per_leaf_gathered[li].append(seg)
+    if qctx is not None:
+        # every bucket gathered: the sync succeeded and the residuals may commit (a
+        # failure above left the store untouched, so a retry quantizes from the same base)
+        commit_stats = qctx.commit(plan.world)
+        if rec is not None and quant_stats["buckets"]:
+            rec.record_quant(
+                "coalesced_sync", sync_config.codec,
+                buckets=quant_stats["buckets"],
+                leaves=commit_stats["leaves_quantized"],
+                raw_bytes=quant_stats["raw_bytes"],
+                shipped_bytes=quant_stats["shipped_bytes"] + 4 * sum(_quant_record_lens(qctx)),
+                feedback_norm=sync_config.residual_norm(),
+            )
     outs = [dict(s) for s in states]
     for leaf, gathered in zip(leaves, per_leaf_gathered):
         if gathered is None:
@@ -499,6 +746,21 @@ def coalesced_process_sync(
             outs[leaf.state_idx][leaf.name] = _sync._fold_gathered(gathered, leaf.fx)
     if rec is not None:
         rec.counters.record_coalesced(sum(1 for g in per_leaf_gathered if g is not None))
+    # liveness bookkeeping last: only a sync that fully committed may mark ranks dead
+    # or reconcile a rejoin (a failed gather retries from scratch)
+    dead = [r for r in range(plan.world) if not plan.alive[r]]
+    rejoined = [r for r in range(plan.world) if plan.alive[r] and r in _DEAD_RANKS]
+    for r in dead:
+        _DEAD_RANKS[r] = _DEAD_RANKS.get(r, 0) + 1
+    for r in rejoined:
+        # the rejoined rank's whole accumulator was part of this gather, so its missed
+        # contribution just reconciled: nothing is counted twice
+        _DEAD_RANKS.pop(r, None)
+    if rec is not None:
+        if dead:
+            rec.record_degraded_sync("coalesced_sync", dead, plan.world)
+        for r in rejoined:
+            rec.record_rank_rejoin("coalesced_sync", r, plan.epochs[r])
     return outs
 
 
@@ -634,13 +896,59 @@ def reduce_many(
     return outs
 
 
+def quantized_payload_model(
+    states: Sequence[Dict[str, Any]],
+    reductions_list: Sequence[Mapping[str, Reduction]],
+    sync_config: Optional[Any] = None,
+    world: int = 2,
+) -> Dict[str, int]:
+    """Deterministic byte model of one sync over ``world`` identical ranks: what the
+    exact plane would ship against what the quantized plane ships (payload plus scale
+    metadata), in total and over the codec-eligible leaves alone. Metadata math and the
+    scale computation only, no communication."""
+    leaves = _prepare_leaves(states, reductions_list)
+    qctx = _make_qctx(leaves, sync_config)
+    meta = _encode_metadata(leaves, None, None, qctx)
+    plan = _plan_from_rows([meta] * max(1, int(world)), leaves, qctx)
+    out: Dict[str, int] = {
+        "buckets": len(plan.buckets), "quantized_buckets": 0, "leaves_quantized": 0,
+        "exact_bytes": 0, "shipped_bytes": 0, "quant_meta_bytes": 0,
+        "eligible_exact_bytes": 0, "eligible_shipped_bytes": 0,
+    }
+    for dtype, leaf_idxs in plan.buckets.items():
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        exact = max(sum(plan.leaf_plans[li].counts[r] for li in leaf_idxs) for r in range(plan.world)) * itemsize
+        out["exact_bytes"] += exact
+        if _bucket_quantized(plan, dtype):
+            out["quantized_buckets"] += 1
+            out["shipped_bytes"] += max(_bucket_byte_totals(plan, dtype))
+        else:
+            out["shipped_bytes"] += exact
+    if qctx is not None and plan.world > 1:
+        out["quant_meta_bytes"] = 4 * sum(_quant_record_lens(qctx))
+        out["shipped_bytes"] += out["quant_meta_bytes"]
+        for dt in qctx.bucket_order:
+            quant_lis = [li for li in qctx.bucket_leaves[dt] if qctx.leaf_code(li) != 0]
+            blocks = dict(zip(quant_lis, qctx.bucket_blocks[dt]))
+            for li in quant_lis:
+                code = qctx.leaf_code(li)
+                arr = leaves[li].array
+                out["leaves_quantized"] += 1
+                out["eligible_exact_bytes"] += arr.numel() * arr.element_size()
+                out["eligible_shipped_bytes"] += arr.numel() * _quantize.codec_width(code, arr.element_size())
+                if code == _quantize.CODEC_INT8:
+                    out["eligible_shipped_bytes"] += 8 * blocks[li]
+    return out
+
+
 def collective_counts(
     states: Sequence[Dict[str, Any]], reductions_list: Sequence[Mapping[str, Reduction]]
 ) -> Dict[str, int]:
     """Static collective-count model of a sync of these states: how many collectives
     each plane launches, coalesced and per leaf. No communication happens here. The
     ``in_graph_*`` keys keep the JAX package's names for the bucketed reduction over a
-    group (:func:`reduce_many`)."""
+    group (:func:`reduce_many`). A quantized sync launches as many: its codecs and scales
+    ride the metadata row."""
     in_graph_buckets: set = set()
     process_buckets: set = set()
     n_leaves = 0

@@ -201,13 +201,16 @@ def process_sync(
     reductions: Mapping[str, Reduction],
     process_group: Any = None,
     dist_sync_fn: Optional[Callable] = None,
+    sync_config: Optional[Any] = None,
 ) -> Dict[str, Any]:
     """Synchronize a state dict across processes.
 
     ``dist_sync_fn`` is the injection seam: ``fn(value, group) -> list_of_values``. The
     coalesced plane runs first; when the gathered metadata cannot be decoded (an
     injected gather that rewrites values), every rank sees the same rows and falls
-    back to the per-leaf plane together.
+    back to the per-leaf plane together. ``sync_config``
+    (:class:`~torchmetrics_tpu_torch.parallel.SyncConfig`) opts the coalesced plane into
+    the quantized (bf16/int8) buckets; the per-leaf fallback is always exact.
     """
     rec = _observability._ACTIVE
     if rec is not None:
@@ -215,7 +218,8 @@ def process_sync(
     with _tracing.trace_span("process_sync"):
         try:
             return _coalesce.coalesced_process_sync(
-                [state], [reductions], process_group=process_group, dist_sync_fn=dist_sync_fn
+                [state], [reductions], process_group=process_group, dist_sync_fn=dist_sync_fn,
+                sync_config=sync_config,
             )[0]
         except _coalesce.CoalesceFallback:
             return _process_sync_per_leaf(state, reductions, process_group, dist_sync_fn)

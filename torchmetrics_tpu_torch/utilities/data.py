@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Any, Callable, List, Optional, Sequence, Union
 
 import torch
 
@@ -101,7 +101,7 @@ def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch
     else:
         key = _total_order_key(prob_tensor) if prob_tensor.is_floating_point() else prob_tensor
         idx = torch.sort(key, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
-    return mask.scatter_(dim, idx, 1)
+    return mask.scatter(dim, idx, 1)  # out of place: vmap batches it (the in-place form falls back per row)
 
 
 def _bincount_2d(
@@ -120,7 +120,10 @@ def _bincount_2d(
     y = y.reshape(-1).long()
     keep = (x >= 0) & (x < nx) & (y >= 0) & (y < ny)
     fused = torch.where(keep, x * ny + y, nx * ny)
-    bincount = _static_bincount if torch.compiler.is_exporting() else torch.bincount
+    if _batched(fused) or (weights is not None and _batched(weights)):
+        bincount = rows_bincount  # under torch.func.vmap: one count for every row at once
+    else:
+        bincount = _static_bincount if torch.compiler.is_exporting() else torch.bincount
     if weights is None:
         counts = bincount(fused, minlength=nx * ny + 1)[: nx * ny]
         return counts.reshape(nx, ny).to(torch.int32)
@@ -139,6 +142,40 @@ def _static_bincount(fused: torch.Tensor, weights: Optional[torch.Tensor] = None
         return torch.zeros(minlength, dtype=torch.int64, device=fused.device).index_add_(
             0, fused, torch.ones_like(fused))
     return torch.zeros(minlength, dtype=weights.dtype, device=fused.device).index_add_(0, fused, weights)
+
+
+def _batched(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a ``torch.func.vmap`` batched tensor (the serving engine's rows)."""
+    return torch._C._functorch.is_batchedtensor(x)
+
+
+@torch.library.custom_op("torchmetrics_tpu_torch::rows_bincount", mutates_args=())
+def rows_bincount(fused: torch.Tensor, weights: Optional[torch.Tensor] = None, minlength: int = 0) -> torch.Tensor:
+    """``torch.bincount`` of indices known to lie in ``[0, minlength)`` that batches under
+    ``torch.func.vmap``: the serving engine's megabatch counts every tenant row in one
+    launch (``torch.bincount`` has no batching rule and would run once per row, and an
+    ``index_add_`` into fresh zeros cannot take batched values). The counts equal
+    :func:`_static_bincount`'s, row by row."""
+    return _static_bincount(fused, weights, minlength)
+
+
+@rows_bincount.register_fake
+def _(fused: torch.Tensor, weights: Optional[torch.Tensor] = None, minlength: int = 0) -> torch.Tensor:
+    return fused.new_empty((minlength,), dtype=torch.int64 if weights is None else weights.dtype)
+
+
+@rows_bincount.register_vmap
+def _(info: Any, in_dims: tuple, fused: torch.Tensor, weights: Optional[torch.Tensor] = None, minlength: int = 0):
+    """The batching rule: row ``r``'s indices move up by ``r * minlength``, and one
+    ``index_add_`` counts the whole megabatch, whatever its row count."""
+    rows = info.batch_size
+    f = fused.movedim(in_dims[0], 0) if in_dims[0] is not None else fused.expand(rows, *fused.shape)
+    offset = torch.arange(rows, device=f.device, dtype=f.dtype).reshape((rows,) + (1,) * (f.dim() - 1))
+    flat = (f + offset * minlength).reshape(-1)
+    if weights is not None:
+        w = weights.movedim(in_dims[1], 0) if in_dims[1] is not None else weights.expand(rows, *weights.shape)
+        weights = w.reshape(-1)
+    return _static_bincount(flat, weights, rows * minlength).reshape(rows, minlength), 0
 
 
 _JAX_DTYPES = {torch.int64: torch.int32, torch.float64: torch.float32, torch.complex128: torch.complex64}
