@@ -509,6 +509,40 @@ Phases, one JSON line each, in order:
    sync_config=...)`` equal to blocking quantized syncs bit for bit. Beside them, in an
    NCCL group of one, a ``SyncConfig`` sync ships exact and gives the local states bit
    for bit.
+58. chaos: ``run_soak`` on the card. ``bench.py``'s ``production_soak`` (seed 23, 24
+   tenants, 120 steps, capacity 8, megabatches of 4, int8 spill, bf16 sync, 40 tenants/s,
+   one fault of every kind) twice: the counter, history, fault-ledger, reconciliation and
+   digest blocks equal run to run, no unrecovered fault, exact reconciliation, every kind
+   injected and resolved. ``durable_failover`` (seed 31, a snapshot every 30 steps, the
+   kill at step 70, fsync every record): state parity and degraded-sync parity 1.0, RPO 0
+   records, the final digest equal to an uninterrupted run on the card, its RTO. Both
+   configs' blocks equal the port's on the CPU (``--chaos-child``). The soak at the
+   serving phase's geometry (8,000
+   tenants, 64 events a step, churn of 256 every 30 steps, capacity 2,048, megabatches of
+   512, int8 spill, bf16 sync, 320 tenants/s): no unrecovered fault, exact reconciliation;
+   tenants/s, update p50/p99 µs, shed rate, spills and readmissions; one megabatch
+   dispatch and one sync epoch of a short soak on that geometry profiled, each read from
+   the soak's own profiler range (launch calls, idle share).
+59. fleet: ``run_fleet_soak`` and ``FleetController`` on the card. ``bench.py``'s
+   ``fleet_failover`` (seed 37, 3 hosts, ``host-1`` killed at step 40, a join at step 80,
+   capacity 12, snapshots every 20 steps, fsync every record) twice: blocks equal run to
+   run and to the CPU child's, fleet-failover and migration parity 1.0, RPO 0, no batch
+   counted twice; ``migration_us`` and the failover's RTO, both from the report's
+   ``timing``. The same schedule on the chaos phase's 8,000-tenant traffic over 3 hosts of
+   2,048 slots and megabatches of 512:
+   per-tenant parity 1.0 against the uninterrupted single-host reference; tenants adopted
+   and migrated, RTO, ``migration_us``. FID tenants behind the bf16 trunk over 3 hosts
+   (capacity 4, 32 images a batch, 9 tenants, 3 rounds): two tenants migrate after the
+   first round onto ``host-1``, which is killed after the second and failed over past its
+   lease; each migrated tenant's digest equal before and after its move, every tenant
+   within ``SERVE_FID_RTOL`` of an uninterrupted engine fed the same batches and above it
+   against the next tenant's; the fleet's sepconv7 launches count in the kernels line's
+   ``launches_by_path["fleet"]``.
+   Phases 58 and 59 run in a child on the card (``--soak-child``) and the CPU's published
+   soaks in another (``--chaos-child``), both started before phase 54 (aot), so they run
+   beside phases 54-57; their lines print after phase 57, when the children are collected.
+   The card and the host are shared meanwhile: the times of phases 54-59 are not those of
+   a process alone on the card (``SOAK_CHILD_BESIDE``, in phases 58 and 59's lines).
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -609,7 +643,7 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_step(label: str, step, tries: int = 4, extra=None) -> list:
+def profile_step(label: str, step, tries: int = 4, extra=None, within=None) -> list:
     """Run ``step`` once under ``torch.profiler``: device time by kernel name, the
     sepconv7 launches' share of it, and the device's idle share of the step's wall time
     (the wall time less the union of the spans in which a kernel, copy or set ran).
@@ -625,7 +659,9 @@ def profile_step(label: str, step, tries: int = 4, extra=None) -> list:
     made each, and when, in ms after the step's first launch). Where no trace holds a
     device event of the step, the device time comes from CUDA events around one more
     call, and the busy time and idle share are null. Returns the step's events of the
-    reported trace; ``extra(events)`` adds keys to the line."""
+    reported trace; ``extra(events)`` adds keys to the line. ``within`` names a host range
+    that the step opens (a soak's sync epoch): then only the last such range counts, with
+    its own wall time (:func:`range_events`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -644,6 +680,8 @@ def profile_step(label: str, step, tries: int = 4, extra=None) -> list:
                 torch.cuda.synchronize()
             wall_us = (time.perf_counter() - start) * 1e6
         events = step_events(prof.events())
+        if within is not None:
+            events, wall_us = range_events(events, within)
         spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                        if e.device_type == DeviceType.CUDA)
         launches = [e for e in events if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name]
@@ -695,6 +733,22 @@ def step_events(events) -> list:
         (e.device_type == DeviceType.CPU and begin <= e.time_range.start and e.time_range.end <= end)
         or (e.device_type == DeviceType.CUDA and e.time_range.start >= after
             and not getattr(e, "is_user_annotation", False) and e.name != PROFILE_RANGE))]
+
+
+def range_events(events, name: str) -> tuple:
+    """The last host range named ``name`` among a step's events: the host events inside
+    it and the device events of the launches and copies made there (matched by
+    correlation id); and the range's wall time in µs."""
+    from torch.autograd import DeviceType
+
+    marks = [e for e in events if e.name == name and e.device_type == DeviceType.CPU]
+    if not marks:
+        raise AssertionError(f"profile: no host range named {name} in the step")
+    begin, end = marks[-1].time_range.start, marks[-1].time_range.end
+    inside = [e for e in events if e.device_type == DeviceType.CPU and e is not marks[-1]
+              and begin <= e.time_range.start and e.time_range.end <= end]
+    made = {e.id for e in inside}
+    return inside + [e for e in events if e.device_type == DeviceType.CUDA and e.id in made], end - begin
 
 
 def lost_launches(events, launches, shown: int = 8) -> dict:
@@ -4024,12 +4078,12 @@ def serve_fid_engine(extractor, codec: str):
                                                                    spill_codec=codec))
 
 
-def serve_fid_images(device=None):
+def serve_fid_images(device=None, tenants: int = SERVE_FID_TENANTS):
     """Every FID tenant batch, ``(rounds, tenants, images, 3, 299, 299)`` uint8 from a
     seed on the card; each update takes its batch as [0, 1] floats (the template's
     ``normalize=True`` quantizes them back to uint8 levels)."""
     gen = torch.Generator(device=device or "cuda").manual_seed(SERVE_SEED + 2)
-    return torch.randint(0, 256, (SERVE_FID_ROUNDS, SERVE_FID_TENANTS, SERVE_FID_IMAGES, 3, 299, 299),
+    return torch.randint(0, 256, (SERVE_FID_ROUNDS, tenants, SERVE_FID_IMAGES, 3, 299, 299),
                          generator=gen, device=device or "cuda", dtype=torch.uint8)
 
 
@@ -4521,6 +4575,451 @@ def quantized_sync_phase(card: str, world: int = 2) -> None:
           "ranks": results, "nccl_of_one": nccl, "seconds": seconds, "limit_s": QUANT_PHASE_LIMIT_S,
           "within_limit": seconds <= QUANT_PHASE_LIMIT_S, "card": card})
 
+
+# ---------------------------------------------------------------------------
+# the chaos and fleet planes (slice 23): run_soak, run_fleet_soak and FleetController on
+# the card
+
+CHAOS_CHILD_FLAG = "--chaos-child"
+SOAK_CHILD_FLAG = "--soak-child"
+SOAK_CHILD_WALL_S = 900
+SOAK_CHILD_BESIDE = ("aot", "streaming", "serving", "quantized_sync")  # the phases the children run beside
+CHAOS_PUBLISHED = ("production_soak", "durable_failover", "fleet_failover")  # bench.py's soak configs
+# the serving phase's geometry (8,000 tenants, batches of 32 events over 10 classes, 2,048
+# slots, megabatches of 512) under the chaos plane's traffic: 64 events a step, Zipf
+# popularity, bursts, a quarter of the slots' worth of tenants churned every 30 steps
+CHAOS_SCALE_TRAFFIC = {"seed": 23, "tenants": SERVE_TENANTS, "steps": 120, "base_rate": 64.0,
+                       "shape_classes": (SERVE_ROWS,), "num_classes": SERVE_CLASSES, "churn_every": 30,
+                       "churn_count": 256}
+CHAOS_SCALE_SOAK = {"capacity": SERVE_CAPACITY, "megabatch_size": SERVE_MEGABATCH, "spill_codec": "int8",
+                    "sync_codec": "bf16", "max_tenants_per_sec": 320.0}
+CHAOS_PHASE_LIMIT_S = 90
+CHAOS_PROFILE_STEPS = 4  # the profiled soak's steps (259 events); its dispatches pad to 512 rows all the same
+FLEET_HOSTS = 3
+FLEET_FID_TENANTS = 9
+FLEET_FID_MIGRATED = 2
+FLEET_FID_KILLED = "host-1"  # the migration's destination, killed a round later
+FLEET_LEASE = {"suspect_after": 2.0, "dead_after": 5.0}  # virtual seconds; the FID fleet ticks 1 s a round
+FLEET_PHASE_LIMIT_S = 120
+SOAK_BLOCKS = ("counters", "history", "faults", "reconciliation", "state_digest")
+
+
+def soak_config(name: str, root=None):
+    """``bench.py``'s published soak configs as the port's ``SoakConfig``:
+    ``production_soak`` (:1318-1347), ``durable_failover`` (:1372-1410) and
+    ``fleet_failover`` (:1439-1484); ``"scale"`` is the serving phase's geometry under
+    the chaos traffic, and ``"fleet_scale"`` the fleet's schedule on it. ``root`` is the
+    durability directory of those that need one."""
+    from torchmetrics_tpu_torch.chaos import FaultSchedule, FaultSpec, SoakConfig, TrafficConfig
+
+    fleet_faults = FaultSchedule([FaultSpec(step=40, kind="host_loss", target="host-1"),
+                                  FaultSpec(step=80, kind="host_join")])
+    if name == "production_soak":
+        return SoakConfig(traffic=TrafficConfig(seed=23, tenants=24, steps=120), capacity=8, megabatch_size=4,
+                          spill_codec="int8", sync_codec="bf16", max_tenants_per_sec=40.0)
+    if name == "durable_failover":
+        return SoakConfig(traffic=TrafficConfig(seed=31, tenants=24, steps=120), capacity=8, megabatch_size=4,
+                          spill_codec="none", max_tenants_per_sec=40.0, durability_dir=root, snapshot_every=30,
+                          failover_at=70, journal_fsync_every=1)
+    if name == "fleet_failover":
+        return SoakConfig(traffic=TrafficConfig(seed=37, tenants=24, steps=120), faults=fleet_faults, capacity=12,
+                          megabatch_size=4, spill_codec="none", durability_dir=root, snapshot_every=20,
+                          journal_fsync_every=1, fleet_hosts=FLEET_HOSTS)
+    if name == "scale":
+        return SoakConfig(traffic=TrafficConfig(**CHAOS_SCALE_TRAFFIC), **CHAOS_SCALE_SOAK)
+    if name == "fleet_scale":
+        return SoakConfig(traffic=TrafficConfig(**CHAOS_SCALE_TRAFFIC), faults=fleet_faults,
+                          capacity=SERVE_CAPACITY, megabatch_size=SERVE_MEGABATCH, spill_codec="none",
+                          durability_dir=root, snapshot_every=20, journal_fsync_every=1, fleet_hosts=FLEET_HOSTS)
+    raise ValueError(f"no soak config {name!r}")
+
+
+def run_soak_quietly(config, device=None):
+    """``run_soak`` with its SLO-breach and retry warnings silenced (they are the point)."""
+    import warnings
+
+    from torchmetrics_tpu_torch.chaos import run_soak
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return run_soak(config, device=device)
+
+
+def soak_blocks(report) -> dict:
+    """The blocks a soak must repeat and the CPU's run must equal (counters, history,
+    fault ledger, reconciliation, final state digest), through JSON as the child's
+    travel."""
+    return json.loads(json.dumps({**{block: getattr(report, block) for block in SOAK_BLOCKS[:-1]},
+                                  "state_digest": report.config["state_digest"]}, sort_keys=True))
+
+
+def hold_soak_blocks(label: str, got: dict, want: dict) -> None:
+    """Every block equal; a difference names its block and first keys."""
+    for block in SOAK_BLOCKS:
+        a, b = got[block], want[block]
+        if a == b:
+            continue
+        if isinstance(a, dict) and isinstance(b, dict):
+            keys = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+            raise AssertionError(f"{label}: {block} differs at {keys[:8]}: "
+                                 f"{[(k, a.get(k), b.get(k)) for k in keys[:3]]}"[:2000])
+        raise AssertionError(f"{label}: {block} differs: {str(a)[:400]} against {str(b)[:400]}")
+
+
+def check_soak(label: str, report) -> None:
+    if report.counters["unrecovered_faults"] != 0 or not report.reconciliation["exact"]:
+        raise AssertionError(f"chaos: {label} left {report.counters['unrecovered_faults']} faults unrecovered, "
+                             f"reconciliation {report.reconciliation}")
+
+
+def check_fleet(label: str, report) -> None:
+    c = report.counters
+    if (c["fleet_failover_parity"], c["migration_parity"], c["failover_rpo_records"], c["double_counted_batches"],
+            c["unrecovered_faults"]) != (1.0, 1.0, 0, 0, 0) or not report.reconciliation["exact"]:
+        raise AssertionError(f"fleet: {label} gave {c}, reconciliation {report.reconciliation}")
+
+
+def chaos_child() -> int:
+    """``--chaos-child``: the three published soaks on the CPU, the card's reference;
+    prints a RESULT line of their blocks."""
+    import tempfile
+
+    torch.set_num_threads(2)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_chaos_cpu_")
+    try:
+        out = {name: soak_blocks(run_soak_quietly(soak_config(name, os.path.join(workdir, name)), device="cpu"))
+               for name in CHAOS_PUBLISHED}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print("RESULT" + json.dumps(out), flush=True)
+    return 0
+
+
+def soak_child() -> int:
+    """``--soak-child``: the chaos and fleet phases' work on the card, in a fresh
+    interpreter that runs beside earlier phases; prints a RESULT line of both phases'
+    lines, their published soaks' blocks and the FID fleet's sepconv7 launches."""
+    card = card_line()
+    chaos, chaos_blocks = chaos_card(card)
+    fleet, fleet_blocks, launches = fleet_card(card)
+    print("RESULT" + json.dumps({"chaos": chaos, "fleet": fleet, "blocks": {**chaos_blocks, **fleet_blocks},
+                                 "launches": launches}), flush=True)
+    return 0
+
+
+def start_child(flag: str):
+    """Start this script with ``flag`` (``--chaos-child``, ``--soak-child``); it is killed
+    at exit if nothing has collected it."""
+    import atexit
+
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), flag],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(proc.kill)
+    return proc, flag, time.perf_counter()
+
+
+def finish_child(started) -> tuple:
+    """The child's RESULT, its seconds and its other JSON lines (a profile line is
+    printed where the child ran it); a child that fails or outlives
+    ``SOAK_CHILD_WALL_S`` fails the phase."""
+    proc, flag, start = started
+    try:
+        text, _ = proc.communicate(timeout=SOAK_CHILD_WALL_S)
+    finally:
+        proc.kill()
+        proc.wait()
+    lines = [line for line in text.splitlines() if line.startswith("RESULT")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"the {flag} child failed (exit {proc.returncode}): {text[-3000:]}")
+    emitted = [line for line in text.splitlines() if line.startswith('{"phase"')]
+    return json.loads(lines[-1][len("RESULT"):]), time.perf_counter() - start, emitted
+
+
+def start_soak_children() -> tuple:
+    """The chaos and fleet phases' two children: their card work and the CPU's published
+    soaks. ``main`` starts them before the aot phase, so they run beside the phases up
+    to :func:`chaos_fleet_phases`, which takes their results."""
+    return start_child(SOAK_CHILD_FLAG), start_child(CHAOS_CHILD_FLAG)
+
+
+def chaos_published(workdir: str, device=None) -> dict:
+    """``production_soak`` twice and ``durable_failover`` beside its uninterrupted
+    reference, on ``device``: the blocks equal run to run, no unrecovered fault, exact
+    reconciliation, every kind of the default schedule injected and resolved in the
+    ledger (recovered, or the tenant fault quarantined); the failover's state parity and
+    degraded-sync parity 1.0, RPO 0 records, and its final digest the reference's."""
+    import dataclasses
+
+    from torchmetrics_tpu_torch.chaos import default_fault_schedule
+
+    runs, seconds = [], []
+    for _ in range(2):
+        start = time.perf_counter()
+        runs.append(run_soak_quietly(soak_config("production_soak"), device=device))
+        seconds.append(time.perf_counter() - start)
+    first = runs[0]
+    hold_soak_blocks("chaos: production_soak run to run", soak_blocks(runs[1]), soak_blocks(first))
+    check_soak("production_soak", first)
+    ledger = {r["kind"]: r["outcome"] for r in first.faults}
+    kinds = {s.kind for s in default_fault_schedule(first.config["steps"])}
+    if set(ledger) != kinds or any(o not in ("recovered", "quarantined") for o in ledger.values()) \
+            or ledger["tenant_fault"] != "quarantined":
+        raise AssertionError(f"chaos: production_soak's ledger is {ledger}")
+    config = soak_config("durable_failover", os.path.join(workdir, "durable"))
+    start = time.perf_counter()
+    durable = run_soak_quietly(config, device=device)
+    seconds.append(time.perf_counter() - start)
+    reference = run_soak_quietly(dataclasses.replace(config, durability_dir=None, snapshot_every=None,
+                                                     failover_at=None), device=device)
+    check_soak("durable_failover", durable)
+    c = durable.counters
+    if (c["failovers"], c["failover_state_parity"], c["failover_rpo_records"], c["degraded_sync_parity"]) \
+            != (1, 1.0, 0, 1.0) or durable.config["state_digest"] != reference.config["state_digest"]:
+        raise AssertionError(f"chaos: durable_failover gave {c}, digest equal to the uninterrupted run: "
+                             f"{durable.config['state_digest'] == reference.config['state_digest']}")
+    keys = ("events", "admitted", "shed", "shed_rate", "faults_injected", "recovered_faults",
+            "quarantined_faults", "unrecovered_faults", "engine_spills", "engine_readmissions")
+    return {"production_soak": first, "durable_failover": durable, "summary": {
+        "production_soak": {**{k: first.counters[k] for k in keys}, "ledger": ledger,
+                            "tenants_per_s": first.timing["tenants_per_sec"],
+                            "update_p50_us": first.timing["update_p50_us"],
+                            "update_p99_us": first.timing["update_p99_us"], "seconds": seconds[:2],
+                            "run_to_run_equal": True},
+        "durable_failover": {**{k: c[k] for k in ("replayed_records", "journal_records", "journal_fsyncs",
+                                                  "snapshots", "failover_rpo_records", "failover_state_parity",
+                                                  "degraded_sync_parity")},
+                             "failover_rto_ms": durable.timing["failover_rto_ms"], "seconds": seconds[2],
+                             "digest_equals_uninterrupted": True}}}
+
+
+def chaos_scale(device=None, traffic=None, soak=None) -> dict:
+    """The chaos soak at the serving phase's geometry (``CHAOS_SCALE_TRAFFIC``,
+    ``CHAOS_SCALE_SOAK``, the default fault schedule): no unrecovered fault, exact
+    reconciliation; its throughput, latencies, shedding and spills."""
+    from torchmetrics_tpu_torch.chaos import SoakConfig, TrafficConfig
+
+    config = SoakConfig(traffic=TrafficConfig(**(traffic or CHAOS_SCALE_TRAFFIC)), **(soak or CHAOS_SCALE_SOAK))
+    start = time.perf_counter()
+    report = run_soak_quietly(config, device=device)
+    seconds = time.perf_counter() - start
+    check_soak("the scale soak", report)
+    c, t = report.counters, report.timing
+    return {**{k: c[k] for k in ("events", "admitted", "shed", "shed_rate", "tenants", "epochs", "faults_injected",
+                                 "recovered_faults", "quarantined_faults", "unrecovered_faults")},
+            **{k: c[f"engine_{k}"] for k in ("dispatches", "tenant_rows", "padded_rows", "spills", "readmissions")},
+            "ledger": {r["kind"]: r["outcome"] for r in report.faults},
+            "tenants_per_s": t["tenants_per_sec"], "update_p50_us": t["update_p50_us"],
+            "update_p99_us": t["update_p99_us"], "elapsed_s": t["elapsed_s"], "seconds": seconds}
+
+
+def chaos_epoch_profile() -> dict:
+    """One megabatch dispatch and one sync epoch of the soak under the profiler
+    (``profile_step`` lines ``chaos_megabatch_dispatch`` and ``chaos_sync_epoch``): a
+    short ``run_soak`` on the scale soak's geometry, ``CHAOS_PROFILE_STEPS`` steps with no
+    fault armed, of which the last ``ServingEngine.dispatch`` range and the last
+    ``soak.sync_epoch`` range (the closing epoch) are read."""
+    import dataclasses
+
+    from torchmetrics_tpu_torch.chaos import FaultSchedule
+    from torchmetrics_tpu_torch.chaos.soak import SYNC_EPOCH_RANGE
+    from torchmetrics_tpu_torch.serving.engine import DISPATCH_RANGE
+
+    scale = soak_config("scale")
+    config = dataclasses.replace(scale, traffic=dataclasses.replace(scale.traffic, steps=CHAOS_PROFILE_STEPS),
+                                 faults=FaultSchedule([]))
+    out = {}
+    for label, within in (("chaos_megabatch_dispatch", DISPATCH_RANGE), ("chaos_sync_epoch", SYNC_EPOCH_RANGE)):
+        events = profile_step(label, lambda: run_soak_quietly(config), within=within)
+        out[label] = {"launch_calls": launch_calls(events), "copies": launch_calls(events, "Memcpy")}
+    return out
+
+
+def chaos_card(card: str) -> tuple:
+    """The chaos phase's work on the card: the published soaks, the soak at the serving
+    geometry and its two profiles. Returns the phase's line and the published soaks'
+    blocks."""
+    import tempfile
+
+    started = time.perf_counter()
+    clock = [("start", started)]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    try:
+        published = chaos_published(workdir)
+        clock.append(("published", time.perf_counter()))
+        scale = chaos_scale()
+        clock.append(("scale", time.perf_counter()))
+        profiled = chaos_epoch_profile()
+        clock.append(("profiles", time.perf_counter()))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.perf_counter() - started
+    line = {"phase": "chaos", **published["summary"], "scale": scale, "scale_profiles": profiled,
+            "parts_s": clock_seconds(clock), "seconds": seconds, "limit_s": CHAOS_PHASE_LIMIT_S,
+            "within_limit": seconds <= CHAOS_PHASE_LIMIT_S, "card": card}
+    return line, {name: soak_blocks(published[name]) for name in ("production_soak", "durable_failover")}
+
+
+def fleet_soak(config, label: str, device=None) -> tuple:
+    """One fleet soak, its parity gates held; its failovers' RTO and its migrations'
+    time from the report's ``timing``."""
+    start = time.perf_counter()
+    report = run_soak_quietly(config, device=device)
+    seconds = time.perf_counter() - start
+    check_fleet(label, report)
+    c = report.counters
+    return report, {**{k: c[k] for k in ("events", "admitted", "tenants", "hosts_joined", "host_failovers",
+                                          "adopted_tenants", "tenant_migrations", "parked_batches",
+                                          "replayed_records", "snapshots", "journal_fsyncs", "fleet_failover_parity",
+                                          "migration_parity", "failover_rpo_records", "double_counted_batches")},
+                    "rto_ms": report.timing["failover_rto_ms"], "migration_us": report.timing["migration_us"],
+                    "seconds": seconds}
+
+
+def hold_migrated(before: dict, after: dict, out: dict) -> None:
+    """Each migrated tenant's digest after its move equal to the one before it."""
+    changed = [t for t in before if after[t] != before[t]]
+    if changed or out["parity_failures"] or out["moved"] != len(before):
+        raise AssertionError(f"fleet: migrated tenants {changed} changed their digests ({out})")
+
+
+def fleet_fid_part(make_fid, images: torch.Tensor, workdir: str) -> tuple:
+    """FID tenants behind a ``FleetController`` of ``FLEET_HOSTS`` hosts (capacity and
+    megabatch ``SERVE_FID_CAPACITY``, the journal fsyncing every record) on a virtual
+    clock. ``images`` is ``(rounds, tenants, n, 3, H, W)`` uint8; each round serves every
+    tenant's batch ([0, 1] floats, real on even rounds) and ticks the clock a second.
+    After the first round ``FLEET_FID_MIGRATED`` tenants migrate onto
+    ``FLEET_FID_KILLED``; after the second that host dies and the clock runs past its
+    lease, so the survivors adopt its tenants from its snapshot and journal tail. Each
+    migrated tenant's digest is equal before and after its move; every tenant is held by
+    :func:`fid_tenant_hold` against an uninterrupted engine fed the same batches.
+    Returns the part's line and the sepconv7 launches of the fleet's run."""
+    from torchmetrics_tpu_torch.fleet import FleetController, LeaseConfig, tenant_state_digest
+    from torchmetrics_tpu_torch.kernels.sepconv import sepconv7
+    from torchmetrics_tpu_torch.serving import ServingConfig, ServingEngine
+
+    rounds, tenants = images.shape[:2]
+    config = ServingConfig(capacity=SERVE_FID_CAPACITY, megabatch_size=SERVE_FID_CAPACITY, journal_fsync_every=1)
+    clock = {"t": 0.0}
+    fleet = FleetController(make_fid, os.path.join(workdir, "fid_fleet"), hosts=FLEET_HOSTS, serving=config,
+                            lease=LeaseConfig(**FLEET_LEASE), clock=lambda: clock["t"])
+    cuda = images.is_cuda
+    line = {"hosts": FLEET_HOSTS, "tenants": tenants, "rounds": rounds, "images_per_batch": images.shape[2]}
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+        sepconv7.launches = 0
+        start = time.perf_counter()
+        for r in range(rounds):
+            for t in range(tenants):
+                fleet.serve(t, images[r, t].float() / 255, r % 2 == 0)
+            clock["t"] += 1.0
+            fleet.heartbeat_all()
+            if r == 0:
+                owners = fleet.tenants()
+                movers = sorted(t for t, h in owners.items() if h != FLEET_FID_KILLED)[:FLEET_FID_MIGRATED]
+                before = {t: tenant_state_digest(fleet.engines()[owners[t]], t) for t in movers}
+                moved_at = time.perf_counter()
+                out = fleet.migrate(movers, FLEET_FID_KILLED)
+                line["migrate_s"] = time.perf_counter() - moved_at
+                hold_migrated(before, {t: tenant_state_digest(fleet.engines()[FLEET_FID_KILLED], t)
+                                       for t in movers}, out)
+                line.update(migrated=movers, migrated_from=sorted({owners[t] for t in movers}))
+            if r == 1:
+                line["killed_tenants"] = sorted(t for t, h in fleet.tenants().items() if h == FLEET_FID_KILLED)
+                fleet.kill_host(FLEET_FID_KILLED)
+                failed, ticks = [], 0
+                while not failed:
+                    clock["t"] += 1.0
+                    fleet.heartbeat_all()
+                    killed_at = time.perf_counter()
+                    failed = fleet.poll()
+                    ticks += 1
+                line.update(failover_s=time.perf_counter() - killed_at, lease_ticks=ticks)
+        fleet.flush()
+        if cuda:
+            torch.cuda.synchronize()
+        launches = sepconv7.launches
+        line["seconds"] = time.perf_counter() - start
+        owners, engines = fleet.tenants(), fleet.engines()
+        states = [{k: v for k, v in engines[owners[t]].state_dict(t).items() if not k.startswith("_")}
+                  for t in range(tenants)]
+        line.update(stats={k: fleet.stats[k] for k in ("migrated_tenants", "failovers", "adopted_tenants",
+                                                          "failover_replayed", "rpo_records", "served")},
+                    owners={str(t): owners[t] for t in range(tenants)})
+    finally:
+        fleet.close()
+    if line["stats"]["rpo_records"] != 0 or line["stats"]["failovers"] != 1 or not line["killed_tenants"]:
+        raise AssertionError(f"fleet: the FID fleet's failover gave {line['stats']}")
+    reference = ServingEngine(make_fid(), ServingConfig(capacity=SERVE_FID_CAPACITY,
+                                                        megabatch_size=SERVE_FID_CAPACITY))
+    for r in range(rounds):
+        for t in range(tenants):
+            reference.update(t, images[r, t].float() / 255, r % 2 == 0)
+    refs = [{k: v for k, v in reference.state_dict(t).items() if not k.startswith("_")} for t in range(tenants)]
+    line.update(fid_tenant_hold(states, refs), rtol=SERVE_FID_RTOL, sepconv7_launches=launches)
+    return line, launches
+
+
+def fleet_card(card: str) -> tuple:
+    """The fleet phase's work on the card: the published fleet soak twice, the fleet
+    soak at the serving geometry and the FID fleet. Returns the phase's line, the
+    published soak's blocks and the FID fleet's sepconv7 launches."""
+    import tempfile
+
+    from torchmetrics_tpu_torch.image import InceptionV3Features
+
+    started = time.perf_counter()
+    clock = [("start", started)]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        runs = [fleet_soak(soak_config("fleet_failover", os.path.join(workdir, f"published_{i}")), "fleet_failover")
+                for i in range(2)]
+        hold_soak_blocks("fleet: fleet_failover run to run", soak_blocks(runs[1][0]), soak_blocks(runs[0][0]))
+        clock.append(("published", time.perf_counter()))
+        _, scale = fleet_soak(soak_config("fleet_scale", os.path.join(workdir, "scale")), "the scale fleet")
+        clock.append(("scale", time.perf_counter()))
+        extractor = InceptionV3Features.from_numpy_params(he_scaled(InceptionV3Features._random_params(0)),
+                                                          compute_dtype="bfloat16")
+        fid, launches = fleet_fid_part(lambda: reliability_fid(extractor), serve_fid_images(tenants=FLEET_FID_TENANTS),
+                                       workdir)
+        clock.append(("fid", time.perf_counter()))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if launches == 0 or launches % SEPCONV_PER_FORWARD:
+        raise AssertionError(f"fleet: the FID fleet launched sepconv7 {launches} times")
+    seconds = time.perf_counter() - started
+    line = {"phase": "fleet", "fleet_failover": {**runs[0][1], "seconds": [run[1]["seconds"] for run in runs],
+                                                 "run_to_run_equal": True},
+            "scale": scale, "fid": fid, "parts_s": clock_seconds(clock), "seconds": seconds,
+            "limit_s": FLEET_PHASE_LIMIT_S, "within_limit": seconds <= FLEET_PHASE_LIMIT_S, "card": card}
+    return line, {"fleet_failover": soak_blocks(runs[0][0])}, launches
+
+
+def chaos_fleet_phases(card: str, children=None) -> int:
+    """The chaos and fleet planes (phases 58 and 59): their card work from the
+    ``--soak-child`` (:func:`chaos_card`, :func:`fleet_card`), every published soak's
+    blocks held against the CPU's from the ``--chaos-child``. ``children`` are
+    :func:`start_soak_children`'s (the phases start them without). Returns the FID
+    fleet's sepconv7 launches, the path's count."""
+    children = children if children is not None else start_soak_children()
+    started = time.perf_counter()
+    try:
+        result, card_s, emitted = finish_child(children[0])
+        cpu, cpu_s, _ = finish_child(children[1])
+    finally:
+        for proc, _, _ in children:
+            proc.kill()
+            proc.wait()
+    for line in emitted:
+        print(line, flush=True)
+    for name in CHAOS_PUBLISHED:
+        hold_soak_blocks(f"{name} on the card against the CPU", result["blocks"][name], cpu[name])
+    children_s = {"card_child_s": card_s, "cpu_child_s": cpu_s, "waited_s": time.perf_counter() - started,
+                  "beside": list(SOAK_CHILD_BESIDE)}
+    emit({**result["chaos"], "blocks_equal_cpu": True, **children_s})
+    result["fleet"]["fleet_failover"]["blocks_equal_cpu"] = True
+    emit({**result["fleet"], **children_s})
+    return result["launches"]
 
 # ---------------------------------------------------------------------------
 # exact match, Jaccard, MCC, Cohen's kappa; the curve family
@@ -9352,6 +9851,10 @@ def main() -> int:
         return aot_child(*aot_child_args)
     if sys.argv[1:2] == [MAPEVAL_CHILD_FLAG]:
         return mapeval_child(sys.argv[2])
+    if sys.argv[1:2] == [CHAOS_CHILD_FLAG]:
+        return chaos_child()
+    if sys.argv[1:2] == [SOAK_CHILD_FLAG]:
+        return soak_child()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -9380,6 +9883,7 @@ def main() -> int:
     collection_groups_phase(card)
     launches_by_path["reliability"] = reliability_phase(card)
     launches_by_path["observability"] = observability_phase(card)
+    soak_children = start_soak_children()  # the chaos and fleet phases run beside the phases up to theirs
     launches_by_path["aot"] = aot_phase(card, device_map)
     del device_map
     serving_boot = start_serving_boot()  # the serving phase's cold boot runs beside the streaming phase
@@ -9392,6 +9896,7 @@ def main() -> int:
         raise
     launches_by_path["serving"] = serving_phase(card, serving_boot)
     quantized_sync_phase(card)
+    launches_by_path["fleet"] = chaos_fleet_phases(card, soak_children)
     classification_tower_phase(card)
     curve_data = curves_phase(card)
     tower_tail_phase(card, curve_data)

@@ -569,6 +569,32 @@ def test_step_events_keep_the_steps_range_and_the_device_work_after_the_pause(ch
         chip_smoke.step_events([mark, mark])
 
 
+def test_range_events_keep_the_last_named_range_and_the_device_work_it_launched(chip_smoke):
+    """Within a step, a named host range (a soak's sync epoch) counts by its last
+    occurrence: the host events inside it, the device events whose correlation id is one
+    of theirs, and its own wall time; a step without the range fails."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def event(kind, name, start_us, end_us, ident=0):
+        return SimpleNamespace(device_type=kind, name=name, id=ident,
+                               time_range=SimpleNamespace(start=start_us, end=end_us))
+
+    first = event(DeviceType.CPU, "soak.sync_epoch", 100.0, 200.0)
+    before = [event(DeviceType.CPU, "cudaLaunchKernel", 110.0, 112.0, 1), event(DeviceType.CUDA, "k1", 120.0, 130.0, 1)]
+    last = event(DeviceType.CPU, "soak.sync_epoch", 300.0, 450.0)
+    inside = [event(DeviceType.CPU, "aten::add", 305.0, 320.0, 2),
+              event(DeviceType.CPU, "cudaLaunchKernel", 310.0, 312.0, 3),
+              event(DeviceType.CPU, "cudaMemcpyAsync", 330.0, 340.0, 4)]
+    device = [event(DeviceType.CUDA, "k3", 315.0, 460.0, 3), event(DeviceType.CUDA, "Memcpy HtoD", 341.0, 345.0, 4)]
+    after = [event(DeviceType.CPU, "cudaLaunchKernel", 455.0, 457.0, 5), event(DeviceType.CUDA, "k5", 458.0, 470.0, 5)]
+    kept, wall_us = chip_smoke.range_events([first, *before, last, *inside, *device, *after], "soak.sync_epoch")
+    assert kept == [*inside, *device] and wall_us == 150.0
+    with pytest.raises(AssertionError, match="no host range named soak.sync_epoch"):
+        chip_smoke.range_events([*before, *after], "soak.sync_epoch")
+
+
 def test_largest_rel_diff_reads_nan_by_place_and_zero_as_absolute(chip_smoke):
     a = torch.tensor([1.0, 0.0, float("nan")])
     assert chip_smoke.largest_rel_diff(a, a) == 0.0
@@ -1920,3 +1946,115 @@ def test_quantized_sync_rehearsal_over_a_replayed_world(chip_smoke):
                     continue
                 bound = sum(chip_smoke.quant_bound(codec, s[i][key]) for s in states) + chip_smoke.QUANT_STATE_EPS
                 assert float((got[key].double() - value.double()).abs().max()) <= bound
+
+
+def test_chaos_and_fleet_phase_geometry_and_published_configs(chip_smoke, tmp_path):
+    """The phases' configs as they build them: ``bench.py``'s three published soaks
+    field for field, the scale soak on the serving phase's geometry, the fleet's schedule
+    on it, and the CPU child's mode."""
+    c = chip_smoke.soak_config("production_soak")
+    assert (c.traffic.seed, c.traffic.tenants, c.traffic.steps, c.capacity, c.megabatch_size, c.spill_codec,
+            c.sync_codec, c.max_tenants_per_sec, c.faults) == (23, 24, 120, 8, 4, "int8", "bf16", 40.0, None)
+    d = chip_smoke.soak_config("durable_failover", str(tmp_path))
+    assert (d.traffic.seed, d.spill_codec, d.snapshot_every, d.failover_at, d.journal_fsync_every,
+            d.durability_dir) == (31, "none", 30, 70, 1, str(tmp_path))
+    f = chip_smoke.soak_config("fleet_failover", str(tmp_path))
+    assert (f.traffic.seed, f.fleet_hosts, f.capacity, f.megabatch_size, f.snapshot_every, f.journal_fsync_every,
+            f.spill_codec) == (37, 3, 12, 4, 20, 1, "none")
+    assert [(s.step, s.kind, s.target) for s in f.faults] == [(40, "host_loss", "host-1"), (80, "host_join", None)]
+    s = chip_smoke.soak_config("scale")
+    assert (s.traffic.tenants, s.traffic.shape_classes, s.traffic.num_classes, s.capacity, s.megabatch_size) == (
+        chip_smoke.SERVE_TENANTS, (chip_smoke.SERVE_ROWS,), chip_smoke.SERVE_CLASSES, chip_smoke.SERVE_CAPACITY,
+        chip_smoke.SERVE_MEGABATCH)
+    assert (s.traffic.seed, s.traffic.steps, s.traffic.base_rate, s.traffic.churn_every, s.traffic.churn_count,
+            s.spill_codec, s.sync_codec, s.max_tenants_per_sec) == (23, 120, 64.0, 30, 256, "int8", "bf16", 320.0)
+    fs = chip_smoke.soak_config("fleet_scale", str(tmp_path))
+    assert fs.traffic == s.traffic and fs.faults.specs == f.faults.specs
+    assert (fs.fleet_hosts, fs.capacity, fs.megabatch_size, fs.snapshot_every) == (3, 2048, 512, 20)
+    assert chip_smoke.CHAOS_PUBLISHED == ("production_soak", "durable_failover", "fleet_failover")
+    assert (chip_smoke.FLEET_FID_TENANTS, chip_smoke.FLEET_FID_MIGRATED) == (9, 2)
+    assert chip_smoke.CHAOS_PHASE_LIMIT_S == 90 and chip_smoke.FLEET_PHASE_LIMIT_S == 120
+    with pytest.raises(ValueError, match="no soak config"):
+        chip_smoke.soak_config("nope")
+
+
+def test_the_soak_children_are_modes_of_the_script(chip_smoke, monkeypatch):
+    """``--chaos-child`` (the CPU's reference) runs where there is no card;
+    ``--soak-child`` is the phases' card work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for flag, name in ((chip_smoke.CHAOS_CHILD_FLAG, "chaos_child"), (chip_smoke.SOAK_CHILD_FLAG, "soak_child")):
+        monkeypatch.setattr(chip_smoke.sys, "argv", ["chip_smoke.py", flag])
+        monkeypatch.setattr(chip_smoke, name, lambda: 7)
+        assert chip_smoke.main() == 7
+
+
+def _small_soaks(chip_smoke, monkeypatch):
+    """The published configs at a third of their traffic (the schedules unchanged)."""
+    import dataclasses
+
+    full = chip_smoke.soak_config
+    monkeypatch.setattr(chip_smoke, "soak_config", lambda name, root=None: dataclasses.replace(
+        full(name, root), traffic=dataclasses.replace(full(name, root).traffic, base_rate=1.5, tenants=12)))
+
+
+def test_chaos_rehearsal_holds_its_gates_and_a_batch_folded_twice_fails(chip_smoke, monkeypatch, tmp_path):
+    """The chaos phase's soaks on the CPU at a small size pass their gates; a run in which
+    one admitted batch folds twice differs from the clean run's blocks and fails."""
+    from torchmetrics_tpu_torch.serving import ServingEngine
+
+    _small_soaks(chip_smoke, monkeypatch)
+    published = chip_smoke.chaos_published(str(tmp_path), device="cpu")
+    assert published["summary"]["production_soak"]["unrecovered_faults"] == 0
+    assert published["summary"]["durable_failover"]["failover_state_parity"] == 1.0
+    traffic = dict(chip_smoke.CHAOS_SCALE_TRAFFIC, tenants=64, steps=40, base_rate=6.0, churn_count=8)
+    soak = dict(chip_smoke.CHAOS_SCALE_SOAK, capacity=16, megabatch_size=8, max_tenants_per_sec=24.0)
+    scale = chip_smoke.chaos_scale(device="cpu", traffic=traffic, soak=soak)
+    assert scale["unrecovered_faults"] == 0 and scale["spills"] > 0 and 0 < scale["shed_rate"] < 1
+    clean = chip_smoke.soak_blocks(published["production_soak"])
+    update, folded = ServingEngine.update, []
+
+    def twice(self, tenant_id, *args, **kwargs):
+        ok = update(self, tenant_id, *args, **kwargs)
+        if ok and not folded:
+            folded.append(tenant_id)
+            update(self, tenant_id, *args, **kwargs)
+        return ok
+
+    monkeypatch.setattr(ServingEngine, "update", twice)
+    planted = chip_smoke.run_soak_quietly(chip_smoke.soak_config("production_soak"), device="cpu")
+    with pytest.raises(AssertionError, match="counters differs"):
+        chip_smoke.hold_soak_blocks("chaos", chip_smoke.soak_blocks(planted), clean)
+
+
+def test_fleet_rehearsal_holds_its_gates_and_a_flipped_migrated_leaf_fails(chip_smoke, monkeypatch, tmp_path):
+    """The fleet phase's soaks and its FID fleet on the CPU at a small size (a fixed
+    projection for the trunk) pass their gates; a migrated tenant whose leaf flips on its
+    new host fails the part."""
+    from torchmetrics_tpu_torch.fleet import FleetController
+
+    _small_soaks(chip_smoke, monkeypatch)
+    report, line = chip_smoke.fleet_soak(chip_smoke.soak_config("fleet_failover", str(tmp_path / "f")), "fleet",
+                                         device="cpu")
+    assert line["fleet_failover_parity"] == 1.0 and line["host_failovers"] == 1
+    assert line["rto_ms"] == report.timing["failover_rto_ms"] > 0  # the soak times its failover itself
+    gen = torch.Generator().manual_seed(0)
+    features = chip_smoke.ProjectionFeatures(torch.randn((3 * 8 * 8, 64), generator=gen) / 8.0)
+    features.num_features = 64
+    images = torch.randint(0, 256, (3, chip_smoke.FLEET_FID_TENANTS, 8, 3, 8, 8), generator=gen, dtype=torch.uint8)
+    make = lambda: chip_smoke.reliability_fid(features, device="cpu")  # noqa: E731
+    fid, launches = chip_smoke.fleet_fid_part(make, images, str(tmp_path / "fid"))
+    assert launches == 0 and fid["stats"]["failovers"] == 1 and fid["stats"]["migrated_tenants"] == 2
+    assert fid["killed_tenants"] and set(fid["migrated"]) <= set(fid["killed_tenants"])
+    assert max(fid["rel_l2"].values()) <= chip_smoke.SERVE_FID_RTOL
+    migrate = FleetController.migrate
+
+    def flipped(self, tenants, dst, _stage_hook=None):
+        out = migrate(self, tenants, dst, _stage_hook)
+        t = self._hosts[dst].engine._tenants[tenants[0]]
+        name = sorted(t.spilled["state"])[0]
+        t.spilled["state"][name] = t.spilled["state"][name] + 1
+        return out
+
+    monkeypatch.setattr(FleetController, "migrate", flipped)
+    with pytest.raises(AssertionError, match="changed their digests"):
+        chip_smoke.fleet_fid_part(make, images, str(tmp_path / "planted"))

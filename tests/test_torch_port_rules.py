@@ -456,6 +456,42 @@ def test_serving_engine_at_the_default_device_raises_without_cuda(no_cuda):
     assert all(v.device.type == "cpu" for v in next(iter(engine._classes.values())).stacked.values())
 
 
+def test_the_chaos_and_fleet_modules_are_scanned_and_their_doctests_listed():
+    for name in ("chaos.traffic", "chaos.schedule", "chaos.soak", "fleet.placement", "fleet.membership",
+                 "fleet.controller"):
+        assert f"torchmetrics_tpu_torch.{name}" in PORT_MODULES
+        assert ROOT / "torchmetrics_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
+    for package in ("chaos", "fleet"):
+        assert ROOT / "torchmetrics_tpu_torch" / package / "__init__.py" in PORT_FILES
+
+
+def test_run_soak_at_the_default_device_raises_without_cuda(no_cuda, tmp_path):
+    """The soaks build their metrics themselves: at the default device they raise where
+    there is no CUDA, before any traffic; ``device="cpu"`` runs. A fleet's hosts take
+    the device of the metric its factory builds."""
+    import warnings
+
+    from torchmetrics_tpu_torch.chaos import FaultSchedule, SoakConfig, TrafficConfig, run_fleet_soak, run_soak
+    from torchmetrics_tpu_torch.fleet import FleetController
+
+    small = SoakConfig(traffic=TrafficConfig(seed=1, tenants=4, steps=12), faults=FaultSchedule([]), capacity=4,
+                       megabatch_size=2, sync_every=6)
+    fleet = SoakConfig(traffic=TrafficConfig(seed=1, tenants=4, steps=12), capacity=4, megabatch_size=2,
+                       durability_dir=str(tmp_path / "fleet"), fleet_hosts=2)
+    for call in (lambda: run_soak(small), lambda: run_soak(fleet), lambda: run_fleet_soak(fleet),
+                 lambda: FleetController(lambda: MulticlassAccuracy(3), root=str(tmp_path / "fc"), hosts=2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        report = run_soak(small, device="cpu")
+    assert report.counters["unrecovered_faults"] == 0 and report.counters["admitted"] > 0
+    assert "device" not in report.counters and "device" not in report.config
+    fc = FleetController(lambda: MulticlassAccuracy(3, device="cpu"), root=str(tmp_path / "fc"), hosts=2)
+    assert all(e._device == torch.device("cpu") for e in fc.engines().values())
+    fc.close()
+
+
 def test_explicit_cpu_device_runs_without_cuda(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     metric = MulticlassAccuracy(5, device="cpu")

@@ -491,10 +491,11 @@ print(json.dumps(sorted((public(jtm) - public(ttm)) | (public(jf) - public(pf)))
 """
 
 
-def test_only_the_planes_are_still_missing():
+def test_nothing_of_the_jax_package_is_missing():
     """``dir()`` of both packages as a user's fresh import gives it: in a new interpreter,
     since other tests import submodules (``chaos``, ``fleet``) that then show in
-    ``dir()``."""
+    ``dir()``. Every subpackage of the JAX package has its counterpart, the planes'
+    ``__all__`` equal to the JAX package's."""
     import json
     import os
     import subprocess
@@ -521,6 +522,17 @@ def test_only_the_planes_are_still_missing():
     from torchmetrics_tpu_torch import serving as port_serving
 
     assert port_serving.__all__ == jax_serving.__all__
+    from torchmetrics_tpu import chaos as jax_chaos
+    from torchmetrics_tpu import fleet as jax_fleet
+    from torchmetrics_tpu_torch import chaos as port_chaos
+    from torchmetrics_tpu_torch import fleet as port_fleet
+
+    assert port_chaos.__all__ == jax_chaos.__all__
+    assert port_fleet.__all__ == jax_fleet.__all__
+    import pathlib
+
+    packages = lambda root: {p.parent.name for p in pathlib.Path(root).glob("*/__init__.py")}  # noqa: E731
+    assert packages(jtm.__path__[0]) <= packages(ttm.__path__[0])
     kept = {"shard_map", "make_data_mesh", "make_2d_mesh", "batch_sharding", "replicated", "reduce_over_axis",
             "DEFAULT_AXIS"}
     assert set(port_parallel.__all__) == (set(jax_parallel.__all__) - kept) | {"gather_metadata_vector"}

@@ -23,7 +23,8 @@ Three pieces, all fed from **snapshots** so the hot path is never touched:
 
 The prefix, the sample names and the help text are the JAX package's, byte for
 byte (its ``jit_*`` help included), so one scraper reads both packages alike.
-``/fleetz`` answers ``{"fleet": false}`` until the fleet plane is ported.
+``/fleetz`` serves the live ``fleet.FleetController``'s ``telemetry()`` rollup, and
+``{"fleet": false}`` while no controller is live.
 
 Everything degrades gracefully with no active session: the renderer emits the
 ``telemetry_enabled 0`` gauge and whatever a passed-in recorder holds; the

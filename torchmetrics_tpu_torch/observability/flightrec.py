@@ -196,7 +196,7 @@ class FlightRecorder(Sink):
     def _fleet_seating() -> Optional[Dict[str, Any]]:
         """Per-host tenant rosters from the live controller, if any."""
         try:
-            from ..fleet import controller as _fleet  # the fleet plane is not ported yet
+            from ..fleet import controller as _fleet  # lazy: the recorder imports without the fleet
         except Exception:
             return None
         fc = _fleet.active_controller()

@@ -69,8 +69,11 @@ def _fsync_write(path_dir: str, final: str, payload: bytes) -> None:
 
 
 def _array_blob(arr: np.ndarray) -> bytes:
+    """One section in ``.npy`` form. ``np.require`` keeps a 0-d leaf 0-d, where the JAX
+    package's ``np.ascontiguousarray`` writes it as shape ``(1,)``; every other section is
+    the JAX package's bytes."""
     buf = io.BytesIO()
-    np.lib.format.write_array(buf, np.ascontiguousarray(arr), allow_pickle=False)
+    np.lib.format.write_array(buf, np.require(arr, requirements="C"), allow_pickle=False)
     return buf.getvalue()
 
 

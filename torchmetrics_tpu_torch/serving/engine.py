@@ -27,6 +27,8 @@ the card stay there. Stacks live on the template's device.
 PyTorch donates no buffer: the eager program writes the addressed rows into the stack
 in place (``index_copy_``). ``on_error="quarantine"`` copies the stack before every
 megabatch and restores the copy on failure; a loaded (AOT) program returns a new stack.
+Each megabatch dispatch, the copy included, runs inside a ``torch.profiler`` range named
+``DISPATCH_RANGE``.
 
 Around the hot path: admission with LRU spill of cold tenants' rows to host memory
 (optionally compressed by the quantized sync plane's codecs, ``spill_codec``) and
@@ -64,6 +66,7 @@ from ..metric import (
     window_tier,
 )
 from ..observability import spans as _spans
+from ..observability import tracing as _tracing
 from ..parallel import quantize as _quantize
 from ..utilities.exceptions import StateCorruptionError, TorchMetricsUserError
 from . import durability as _durability
@@ -71,6 +74,7 @@ from . import durability as _durability
 StateDict = Dict[str, Any]
 
 _ON_ERROR_MODES = ("raise", "quarantine")
+DISPATCH_RANGE = "ServingEngine.dispatch"  # the profiler range of one megabatch dispatch
 # a Python scalar leaf of a batch stacks into a tensor of the AOT plane's dtype for it
 # (a scalar enters a program as a value)
 _SCALAR_DTYPES = _aot._SCALAR_DTYPES
@@ -604,7 +608,8 @@ class ServingEngine:
         t.last_touch = next(self._touch)
         cls.touch(t)
         if self.config.auto_flush and len(cls.queue) >= self.config.megabatch_size:
-            self._dispatch_chunk(cls)
+            with _tracing.trace_span(DISPATCH_RANGE):
+                self._dispatch_chunk(cls)
         return True
 
     def flush(self) -> int:
@@ -614,7 +619,8 @@ class ServingEngine:
         self.stats["flushes"] += 1
         for cls in self._classes.values():
             while cls.queue:
-                served += self._dispatch_chunk(cls)
+                with _tracing.trace_span(DISPATCH_RANGE):
+                    served += self._dispatch_chunk(cls)
         return served
 
     # ---------------------------------------------------------------- dispatch
@@ -712,8 +718,7 @@ class ServingEngine:
         for i, (tid, args, kwargs) in enumerate(entries):
             idx[i] = self._tenants[tid].slot
             batches.append((args, kwargs))
-        batches.extend([cls.pad_example] * (m - real))
-        mb_args, mb_kwargs = self._stack_batches(batches)
+        mb_args, mb_kwargs = self._stack_batches(batches, cls.pad_example, m - real)
         idx_dev = torch.from_numpy(idx).to(self._device)
         if self._fault_hook is not None:
             self._fault_hook([tid for tid, _, _ in entries])
@@ -758,14 +763,19 @@ class ServingEngine:
             if self._wtier is not None:
                 rec.counters.record_window_rolls(real, rotations)
 
-    def _stack_batches(self, batches: List[Tuple[tuple, dict]]) -> Tuple[tuple, dict]:
-        """Every leaf stacked along a new leading axis and on the engine's device: host
-        leaves stack on the host and upload in one copy per leaf, card leaves stack on
-        the card, Python scalars become tensors (``_SCALAR_DTYPES``)."""
+    def _stack_batches(self, batches: List[Tuple[tuple, dict]], pad: Tuple[tuple, dict],
+                       pads: int) -> Tuple[tuple, dict]:
+        """Every leaf of ``batches`` and then ``pads`` copies of ``pad`` stacked along a
+        new leading axis and on the engine's device: host leaves stack on the host and
+        upload in one copy per leaf, card leaves stack on the card, Python scalars become
+        tensors (``_SCALAR_DTYPES``). The pad is flattened once, not once a row (a
+        quarantine re-drive pads a single batch to the whole megabatch)."""
         flat = [pytree.tree_flatten(b) for b in batches]
         spec = flat[0][1]
+        pad_leaves = pytree.tree_flatten(pad)[0]
         stacked = []
-        for leaves in zip(*(f[0] for f in flat)):
+        for leaves, pad_leaf in zip(zip(*(f[0] for f in flat)), pad_leaves):
+            leaves = leaves + (pad_leaf,) * pads
             first = leaves[0]
             if isinstance(first, torch.Tensor):
                 stacked.append(torch.stack(leaves).to(self._device))
@@ -967,6 +977,31 @@ class ServingEngine:
             cls.free.append(t.slot)
         del self._tenants[tenant_id]
 
+    def _host_rows(self, tenants: List[_Tenant]) -> List[Optional[Tuple[Dict[str, np.ndarray], float]]]:
+        """Each tenant's state rows on the host (window layout) and its row count; None
+        for a tenant with no state. A spilled tenant decodes its host copy; resident rows
+        come down in one gather and one copy a leaf a shape class, not a copy a leaf a
+        tenant (the snapshot's and the fleet's reads)."""
+        by_class: Dict[str, List[int]] = {}
+        for t in tenants:
+            if t.spilled is None and t.slot is not None:
+                by_class.setdefault(t.shape_key, []).append(t.slot)
+        resident: Dict[Tuple[str, int], Tuple[Dict[str, np.ndarray], float]] = {}
+        for key, slots in by_class.items():
+            stacked = self._classes[key].stacked
+            idx = torch.tensor(slots, dtype=torch.int64, device=self._device)
+            host = {name: _host(stacked[name].index_select(0, idx)) for name in (*self._row_defaults, TENANT_COUNT_KEY)}
+            for i, slot in enumerate(slots):
+                resident[(key, slot)] = ({name: host[name][i] for name in self._row_defaults},
+                                         float(host[TENANT_COUNT_KEY][i]))
+        out: List[Optional[Tuple[Dict[str, np.ndarray], float]]] = []
+        for t in tenants:
+            if t.spilled is not None:
+                out.append((_quantize.decode_spill_state(t.spilled["state"]), float(t.spilled["count"])))
+            else:
+                out.append(resident.get((t.shape_key, t.slot)))
+        return out
+
     def state_dict(self, tenant_id: Hashable) -> Dict[str, Any]:
         """One tenant's checkpoint, shaped like ``Metric.state_dict`` (tensors on the
         engine's device, the update count and the saved-state count), so it loads into
@@ -1041,7 +1076,9 @@ class ServingEngine:
         store = _durability.SnapshotStore(directory)
         sections: Dict[str, np.ndarray] = {}
         tenants_meta: List[Dict[str, Any]] = []
-        for i, (tid, t) in enumerate(self._tenants.items()):
+        tenants = list(self._tenants.items())
+        rows = self._host_rows([t for _, t in tenants])
+        for i, ((tid, t), row) in enumerate(zip(tenants, rows)):
             entry: Dict[str, Any] = {
                 "id": _durability.encode_tenant_id(tid),
                 "shape_key": t.shape_key,
@@ -1051,14 +1088,10 @@ class ServingEngine:
                 "error": t.error,
                 "state": False,
             }
-            if t.slot is not None or t.spilled is not None:
-                state = self._tenant_state(t)
+            if row is not None:
+                state, entry["count"] = row
                 for name in self._row_defaults:
-                    sections[f"t{i}/{name}"] = _host(state[name])
-                if t.spilled is not None:
-                    entry["count"] = float(t.spilled["count"])
-                else:
-                    entry["count"] = float(self._classes[t.shape_key].stacked[TENANT_COUNT_KEY][t.slot])
+                    sections[f"t{i}/{name}"] = state[name]
                 entry["state"] = True
             tenants_meta.append(entry)
         meta = {
