@@ -64,7 +64,7 @@ Phases, one JSON line each, in order:
 12. map_device: ``DeviceMeanAveragePrecision(capacity=524288, num_classes=80,
    gt_group_cap=32)`` (31.5 MB of state) on the same images: update ms, ``compute()`` ms
    and its device time; every summary value within 1e-4 of map_host's.
-13. flagship: the flagship step (``Flagship``, the port's ``_flagship_step_fn``) at full
+13. flagship: the flagship step (``torchmetrics_tpu_torch.entry.Flagship``) at full
    width in an NCCL group of one process: per step 65,536 classification rows over 5
    classes, 32 detection images and 32 real and 32 fake 299x299 images through the bf16
    trunk, 157 steps to fill the COCO-size accumulator; step ms, the sync's ms and
@@ -543,6 +543,25 @@ Phases, one JSON line each, in order:
    beside phases 54-57; their lines print after phase 57, when the children are collected.
    The card and the host are shared meanwhile: the times of phases 54-59 are not those of
    a process alone on the card (``SOAK_CHILD_BESIDE``, in phases 58 and 59's lines).
+60. entry_points (runs right after phase 14): the package's entry points
+   (``torchmetrics_tpu_torch.entry``, the counterpart of ``__graft_entry__.py``).
+   ``entry()`` on the card, its integer states equal to the CPU port's bit for bit and its
+   values within 1e-6; ``_flagship_step_fn(1)`` in an NCCL group of one process, equal to
+   the step with no group (and acc, f1 and map to the CPU's), its sync timed by
+   ``flagship_sync_latency_ms``; ``dryrun_multichip(1)`` over NCCL and
+   ``dryrun_multichip(2, backend="gloo")`` with both ranks on the card, each rank's synced
+   values equal to one process's step over the whole batch. Beside them every command-line
+   entry point runs as a child ``python -m`` on the card (its default device) and the same
+   command with ``--device cpu``: the serve demo at its defaults, with ``--chaos 7`` and
+   with ``--fleet 3``; the soak with ``--seed 7 --trace``, then ``--replay`` of that trace,
+   with a failover (``--snapshot-every 30 --failover-at 70``) and over 3 hosts
+   (``--kill-host host-1@40 --join-host @80``); the health server (``--port 0 --demo
+   --flush-to``), its four endpoints fetched over the loopback and 200 ``/metricsz``
+   scrapes timed while its demo loop runs; the three examples. Each exits 0, and its
+   deterministic keys (counters, dispatches, spills, digests, parity, RPO, endpoint
+   status codes, the examples' numbers) equal the CPU run's. It prints the serve demo's
+   tenants/s against the naive loop, the soaks' RTO and the scrapes' p50 and p99; the
+   children run together, so those times are not those of a process alone on the host.
 
 Phases 5-7 hold every result against the same port on the CPU on the same tensors:
 counts (tp/fp/tn/fn, confusion matrices) equal bit for bit, ratios within 1e-6. Their
@@ -571,6 +590,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1662,77 +1682,6 @@ def map_device_phase(card: str, preds, target, host_values: dict):
     return metric, result
 
 
-def flagship_classification(num_classes: int = 5, device=None):
-    """The flagship's ``{acc, f1}`` pure collection."""
-    from torchmetrics_tpu_torch import MetricCollection
-    from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassF1Score
-
-    return MetricCollection({
-        "acc": MulticlassAccuracy(num_classes, average="micro", validate_args=False, device=device),
-        "f1": MulticlassF1Score(num_classes, average="macro", validate_args=False, device=device),
-    }, device=device).as_pure()
-
-
-class Flagship:
-    """The port's flagship eval step, mirroring ``__graft_entry__._flagship_step_fn``:
-    the ``{acc, f1}`` pure collection, the padded detection accumulator and FID behind
-    the ``extractor`` the caller passes in. ``update`` folds one batch into the states;
-    ``sync`` reduces them over the process group (``PureCollection.reduce``, then
-    ``PaddedDetectionAccumulator.gather``, then FID's reduction; without a group, a
-    world of one, only the gather's process axis is added); ``finalize`` computes the
-    values, mAP by ``MeanAveragePrecision`` on the gathered rows."""
-
-    def __init__(self, extractor, capacity_images: int, max_det: int, max_gt: int, num_classes: int = 5,
-                 device=None) -> None:
-        from torchmetrics_tpu_torch.detection import PaddedDetectionAccumulator
-        from torchmetrics_tpu_torch.image import FrechetInceptionDistance
-
-        self.device = device
-        self.cls_pure = flagship_classification(num_classes, device)
-        self.det_acc = PaddedDetectionAccumulator(capacity_images, max_det, max_gt, device=device)
-        self.fid = FrechetInceptionDistance(feature=extractor, normalize=True, device=device)
-
-    def init(self) -> dict:
-        return {"cls": self.cls_pure.init(), "det": self.det_acc.init(), "fid": self.fid.init_state()}
-
-    def update(self, states: dict, preds, target, det_batch, imgs_real, imgs_fake) -> dict:
-        fid = self.fid.update_state(states["fid"], imgs_real, True)
-        return {"cls": self.cls_pure.update(states["cls"], preds, target),
-                "det": self.det_acc.update(states["det"], *det_batch),
-                "fid": self.fid.update_state(fid, imgs_fake, False)}
-
-    def sync(self, states: dict, group=None) -> dict:
-        import torch.distributed as dist
-
-        if not dist.is_initialized():
-            return {"cls": states["cls"], "det": self.det_acc.gather(states["det"]), "fid": states["fid"]}
-        return {"cls": self.cls_pure.reduce(states["cls"], group), "det": self.det_acc.gather(states["det"], group),
-                "fid": self.fid.reduce_state(states["fid"], group)}
-
-    def expected_collectives(self, states: dict) -> int:
-        """The collectives ``sync`` runs, by ``collective_counts``: one per (reduction
-        class x dtype) bucket of each of its three reductions."""
-        from torchmetrics_tpu_torch.detection.sharded import _stacked
-        from torchmetrics_tpu_torch.parallel import collective_counts
-
-        cls_states = list(states["cls"].values())
-        cls_reds = [m._reductions for m in self.cls_pure._metrics.values()]
-        det = {k: _stacked for k in states["det"]}
-        return sum(collective_counts(s, r)["in_graph_coalesced"] for s, r in (
-            (cls_states, cls_reds), ([states["det"]], [det]), ([states["fid"]], [self.fid._reductions])))
-
-    def finalize(self, synced: dict) -> dict:
-        from torchmetrics_tpu_torch.detection import MeanAveragePrecision
-
-        values = dict(self.cls_pure.compute(synced["cls"]))
-        # the rows are already gathered: the metric must not sync them again
-        map_metric = MeanAveragePrecision(class_metrics=False, device=self.device, sync_on_compute=False)
-        map_metric.update(*self.det_acc.to_lists(synced["det"]))
-        values["map"] = map_metric.compute()["map"]
-        values["fid"] = self.fid.compute_state(synced["fid"])
-        return values
-
-
 def fid_state_diff(label: str, got: dict, want: dict) -> dict:
     """A FID state against a reference one: the sample counts equal, the feature sums and
     cross-product sums within ``TRUNK_BF16_L2`` relative L2. Returns the sums' differences."""
@@ -1759,6 +1708,7 @@ def flagship_phase(card: str, preds, target, host_map: float) -> int:
     from torch.autograd import DeviceType
 
     from torchmetrics_tpu_torch.detection import MeanAveragePrecision, pack_detection_batch
+    from torchmetrics_tpu_torch.entry import Flagship, flagship_classification
     from torchmetrics_tpu_torch.image import FrechetInceptionDistance, InceptionV3Features
     from torchmetrics_tpu_torch.kernels.sepconv import sepconv7
 
@@ -1861,6 +1811,7 @@ def flagship_values(rank: int, world: int):
     it at ``world=1``), synced over the current group and finalized: the values and the
     sync's median ms."""
     from torchmetrics_tpu_torch.detection import pack_detection_batch
+    from torchmetrics_tpu_torch.entry import Flagship
 
     inputs = flagship_two_rank_inputs()
     images = TWO_RANK_DET_IMAGES // world
@@ -1905,6 +1856,348 @@ def flagship_two_ranks_phase(card: str, world: int = 2) -> None:
           "fid_images_per_side": TWO_RANK_IMAGES, "sync_ms": {f"rank{r['rank']}": r["sync_ms"] for r in results},
           **{k: float(want[k]) for k in ("acc", "f1", "map", "fid")}, "fid_rel_diff": worst_fid, "fid_rtol": FID_RTOL,
           "card": card})
+
+
+# ---------------------------------------------------------------------------
+# entry_points: the package's entry points, its CLIs and its examples
+# ---------------------------------------------------------------------------
+
+ENTRY_PHASE_LIMIT_S = 90
+ENTRY_CLI_WALL_S = 300
+ENTRY_SCRAPES = 200
+ENTRY_ENDPOINTS = ("/healthz", "/metricsz", "/costz", "/sloz")
+ENTRY_DEMO = "torchmetrics_tpu_torch.serving.demo"
+ENTRY_SOAK = "torchmetrics_tpu_torch.chaos"
+ENTRY_HEALTH = "torchmetrics_tpu_torch.observability.health_server"
+ENTRY_EXAMPLES = "torchmetrics_tpu_torch.examples."
+DEMO_CLOCK_KEYS = ("boot_first_round_s", "tenants_per_sec", "naive_tenants_per_sec", "speedup_vs_naive")
+SOAK_CLI_BLOCKS = ("counters", "history", "faults", "reconciliation")
+EXAMPLE_ATOL = 1e-6  # the examples' counts and ratios, card against CPU
+EXAMPLE_FID_RTOL = 1e-3  # the example's FID (about 0.06) is a difference of traces near 1: float32 sums in another order
+
+
+def entry_cli_commands(workdir: str) -> dict:
+    """Each CLI run of the phase: label -> the arguments after ``python -m``."""
+    return {
+        "serve_demo": [ENTRY_DEMO],
+        "serve_demo_chaos": [ENTRY_DEMO, "--chaos", "7"],
+        "serve_demo_fleet": [ENTRY_DEMO, "--fleet", "3"],
+        "soak_trace": [ENTRY_SOAK, "--seed", "7", "--trace", f"{workdir}/s7.trace"],
+        "soak_replay": [ENTRY_SOAK, "--replay", f"{workdir}/s7.trace"],
+        "soak_failover": [ENTRY_SOAK, "--seed", "7", "--durability-dir", f"{workdir}/failover",
+                          "--snapshot-every", "30", "--failover-at", "70"],
+        "soak_fleet": [ENTRY_SOAK, "--seed", "7", "--durability-dir", f"{workdir}/fleet", "--hosts", "3",
+                       "--kill-host", "host-1@40", "--join-host", "@80"],
+        "example_distributed_eval_loop": [ENTRY_EXAMPLES + "distributed_eval_loop"],
+        "example_fid_clipscore": [ENTRY_EXAMPLES + "fid_clipscore_custom_extractor"],
+        "example_checkpoint_resume": [ENTRY_EXAMPLES + "checkpoint_resume"],
+        "health_server": [ENTRY_HEALTH, "--port", "0", "--demo", "--flush-interval", "0.5",
+                          "--flush-to", f"{workdir}/metrics.prom"],
+    }
+
+
+class EntryClis:
+    """Every CLI run of the phase on one side, the card (no ``--device``: the default)
+    or the CPU (``--device cpu``), each a child ``python -m`` from the repository root
+    with its output in files under ``workdir``. ``soak_replay`` starts once
+    ``soak_trace`` has written its trace (atomically, before its soak)."""
+
+    def __init__(self, workdir: str, cpu: bool) -> None:
+        os.makedirs(workdir, exist_ok=True)
+        self.workdir, self.cpu = workdir, cpu
+        self.commands = entry_cli_commands(workdir)
+        self.env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+        self.procs, self.started, self.ended, self.files = {}, {}, {}, {}
+        for label in self.commands:
+            if label != "soak_replay":
+                self.start(label)
+        threading.Thread(target=self.replay_when_traced, daemon=True).start()
+
+    def replay_when_traced(self) -> None:
+        """Start ``soak_replay`` as soon as ``soak_trace``'s trace exists; never, if the
+        trace run ends without one (the phase then fails at ``finish``)."""
+        trace = os.path.join(self.workdir, "s7.trace")
+        while not os.path.exists(trace):
+            if self.procs["soak_trace"].poll() is not None and not os.path.exists(trace):
+                return
+            time.sleep(0.1)
+        self.start("soak_replay")
+
+    def start(self, label: str) -> None:
+        args = self.commands[label] + (["--device", "cpu"] if self.cpu else [])
+        out = open(os.path.join(self.workdir, f"{label}.out"), "w", encoding="utf-8")
+        err = open(os.path.join(self.workdir, f"{label}.err"), "w", encoding="utf-8")
+        self.files[label] = (out, err)
+        self.started[label] = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", *args], stdout=out, stderr=err, env=self.env,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.procs[label] = proc
+
+        def reap() -> None:  # the run's seconds to its exit, whenever the phase collects it
+            proc.wait()
+            self.ended[label] = time.perf_counter() - self.started[label]
+
+        threading.Thread(target=reap, daemon=True).start()
+
+    def text(self, label: str, stream: str = "out") -> str:
+        with open(os.path.join(self.workdir, f"{label}.{stream}"), encoding="utf-8") as fh:
+            return fh.read()
+
+    def finish(self, deadline: float) -> dict:
+        """Every run but the health server's, polled to its end: label -> exit code,
+        seconds from its start to its exit, and report (the whole output's JSON, or an
+        example's last line). A run past the deadline, or that exits with another code
+        than 0, fails the phase."""
+        labels = [label for label in self.commands if label != "health_server"]
+        while not all(label in self.ended for label in labels):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"entry_points: {sorted(set(labels) - set(self.ended))} ran past the wall limit")
+            time.sleep(0.1)
+        out = {}
+        for label in labels:
+            rc = self.procs[label].returncode
+            if rc != 0:
+                raise AssertionError(f"entry_points: {label} ({'cpu' if self.cpu else 'card'}) exited {rc}: "
+                                     f"{self.text(label, 'err')[-3000:]}")
+            text = self.text(label)
+            report = json.loads(text.strip().splitlines()[-1] if label.startswith("example") else text)
+            out[label] = {"rc": rc, "seconds": self.ended[label], "report": report}
+        return out
+
+    def close(self) -> None:
+        for label, proc in self.procs.items():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            for fh in self.files[label]:
+                fh.close()
+
+
+def cli_deterministic(label: str, report: dict) -> dict:
+    """The keys of a CLI's report that do not read a clock."""
+    if label.startswith("serve_demo"):
+        out = {k: v for k, v in report.items() if k not in DEMO_CLOCK_KEYS}
+        out["engine"] = {k: v for k, v in out["engine"].items() if k != "tenant_spill_us"}
+        return out
+    if label.startswith("soak"):
+        return {**{k: report[k] for k in SOAK_CLI_BLOCKS}, "state_digest": report["config"]["state_digest"]}
+    raise KeyError(label)
+
+
+def hold_example(label: str, got: dict, want: dict) -> float:
+    """An example's numbers on the card against the CPU's: the confusion matrix equal,
+    FID within ``EXAMPLE_FID_RTOL`` relative, the rest within ``EXAMPLE_ATOL``. Returns
+    the largest difference (FID's relative)."""
+    worst = 0.0
+
+    def walk(path: str, a, b) -> None:
+        nonlocal worst
+        if isinstance(b, dict):
+            if set(a) != set(b):
+                raise AssertionError(f"entry_points: {label}{path} keys {sorted(a)}, the CPU's {sorted(b)}")
+            for k in b:
+                walk(f"{path}.{k}", a[k], b[k])
+        elif path.endswith("confmat") or isinstance(b, (bool, str, int)):
+            if a != b:
+                raise AssertionError(f"entry_points: {label}{path} {a}, the CPU's {b}")
+        else:
+            diff = float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
+            limit = EXAMPLE_ATOL
+            if path == ".fid":
+                diff, limit = diff / abs(b), EXAMPLE_FID_RTOL
+            if not diff <= limit:
+                raise AssertionError(f"entry_points: {label}{path} {a}, the CPU's {b}")
+            worst = max(worst, diff)
+
+    walk("", got, want)
+    return worst
+
+
+def http_get(url: str) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read().decode()
+
+
+def health_check(clis: EntryClis, deadline: float, scrapes: int = 0) -> dict:
+    """The health server's endpoints once its demo loop shows in ``/metricsz``: each
+    endpoint's status code, ``scrapes`` timed ``/metricsz`` fetches (p50 and p99 ms),
+    the flushed scrape file, then SIGINT and exit 0."""
+    import signal
+
+    proc = clis.procs["health_server"]
+    while "listening on http://" not in clis.text("health_server"):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"entry_points: the health server did not start: {clis.text('health_server', 'err')[-2000:]}")
+        time.sleep(0.2)
+    base = clis.text("health_server").split("listening on ")[1].split()[0]
+    while "MulticlassAccuracy" not in http_get(base + "/metricsz")[1]:
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError("entry_points: the health server's demo loop never showed in /metricsz")
+        time.sleep(0.2)
+    out = {"status": {path: http_get(base + path)[0] for path in ENTRY_ENDPOINTS + ("/no-such-endpoint",)}}
+    times = []
+    for _ in range(scrapes):
+        start = time.perf_counter()
+        status, _ = http_get(base + "/metricsz")
+        times.append((time.perf_counter() - start) * 1e3)
+        if status != 200:
+            raise AssertionError(f"entry_points: a /metricsz scrape answered {status}")
+    if times:
+        times.sort()
+        out["scrape_ms"] = {"p50": times[len(times) // 2], "p99": times[min(len(times) - 1, int(0.99 * len(times)))],
+                            "max": times[-1], "scrapes": len(times)}
+    proc.send_signal(signal.SIGINT)
+    proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    if proc.returncode != 0:
+        raise AssertionError(f"entry_points: the health server exited {proc.returncode} on SIGINT")
+    if "MulticlassAccuracy" not in open(os.path.join(clis.workdir, "metrics.prom"), encoding="utf-8").read():
+        raise AssertionError("entry_points: the health server flushed no scrape file")
+    return out
+
+
+def entry_on_card() -> dict:
+    """``entry()`` on the card against ``entry(device="cpu")``."""
+    from torchmetrics_tpu_torch.entry import entry
+
+    fn, args = entry()
+    if any(a.device.type != "cuda" for a in args[1:]):
+        raise AssertionError("entry_points: entry() made its inputs off the card")
+    states, values = fn(*args)
+    cpu_fn, cpu_args = entry(device="cpu")
+    cpu_states, cpu_values = cpu_fn(*cpu_args)
+    for name, leaves in cpu_states.items():
+        for leaf, want in leaves.items():
+            got = states[name][leaf].cpu()
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"entry_points: entry()'s {name}.{leaf} differs from the CPU's")
+    return {"max_ratio_diff": hold_against_cpu("entry_points entry()", values, cpu_values),
+            **{k: float(values[k]) for k in ("acc", "f1")}}
+
+
+def flagship_nccl_of_one() -> dict:
+    """``_flagship_step_fn(1)`` in an NCCL group of one process against the same step
+    with no group, and against the CPU's."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.entry import FID_RTOL, _flagship_step_fn, flagship_sync_latency_ms
+
+    step, args, finalize = _flagship_step_fn(1)
+    alone = {k: float(v) for k, v in finalize(step(*args)).items()}
+    step, args, finalize = _flagship_step_fn(1, device="cpu")
+    cpu = {k: float(v) for k, v in finalize(step(*args)).items()}
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}/store", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        step, args, finalize = _flagship_step_fn(1)
+        values = {k: float(v) for k, v in finalize(step(*args)).items()}
+        sync_ms = flagship_sync_latency_ms(step)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    if values != alone:
+        raise AssertionError(f"entry_points: the flagship in an NCCL group of one {values}, with no group {alone}")
+    for key in ("acc", "f1", "map"):
+        if values[key] != cpu[key]:
+            raise AssertionError(f"entry_points: the flagship's {key} {values[key]}, the CPU's {cpu[key]}")
+    fid_diff = abs(values["fid"] - cpu["fid"]) / abs(cpu["fid"])
+    if not fid_diff <= FID_RTOL:
+        raise AssertionError(f"entry_points: the flagship's FID {values['fid']}, the CPU's {cpu['fid']}")
+    return {**values, "sync_ms": sync_ms, "fid_rel_diff_vs_cpu": fid_diff}
+
+
+def entry_dryrun(n: int, backend=None) -> dict:
+    from torchmetrics_tpu_torch.entry import dryrun_multichip
+
+    start = time.perf_counter()
+    result = dryrun_multichip(n, backend=backend)
+    return {"ranks": n, "backend": result["backend"], "seconds": time.perf_counter() - start,
+            "fid_rel_diff": result["fid_rel_diff"], **{k: result["unsharded"]["flagship"][k] for k in ("acc", "map")}}
+
+
+def entry_points_phase(card: str, mapeval_child=None) -> None:
+    """``mapeval_child``, the map_device phase's child, may still run beside this phase;
+    the health line's ``beside`` says whether it ran beside the timed scrapes."""
+    import tempfile
+
+    started = time.perf_counter()
+    deadline = time.monotonic() + ENTRY_CLI_WALL_S
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_entry_clis_")
+    sides = {}
+    try:
+        sides["card"] = EntryClis(os.path.join(workdir, "card"), cpu=False)
+        sides["cpu"] = EntryClis(os.path.join(workdir, "cpu"), cpu=True)
+        parts = {}
+
+        def timed(name: str, call):
+            start = time.perf_counter()
+            result = call()
+            parts[name] = time.perf_counter() - start
+            return result
+
+        out = {"entry": timed("entry", entry_on_card), "flagship_nccl_of_one": timed("flagship", flagship_nccl_of_one),
+               "dryrun_nccl": timed("dryrun_nccl", lambda: entry_dryrun(1)),
+               "dryrun_gloo_shared_card": timed("dryrun_gloo", lambda: entry_dryrun(2, backend="gloo"))}
+        runs = timed("clis", lambda: {side: clis.finish(deadline) for side, clis in sides.items()})
+        # the health servers alone are left; the CPU's stops first, so the card's scrapes
+        # run beside nothing of this phase but the server's own demo loop
+        mapeval_running = mapeval_child is not None and mapeval_child.poll() is None
+        health = timed("health", lambda: {side: health_check(sides[side], deadline,
+                                                             ENTRY_SCRAPES if side == "card" else 0)
+                                          for side in ("cpu", "card")})
+        mapeval_running = mapeval_running or (mapeval_child is not None and mapeval_child.poll() is None)
+        if health["card"]["status"] != health["cpu"]["status"]:
+            raise AssertionError(f"entry_points: the health server answered {health['card']['status']} on the card, "
+                                 f"{health['cpu']['status']} on the CPU")
+    finally:
+        for clis in sides.values():
+            clis.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    worst = {}
+    for label, run in runs["card"].items():
+        want = runs["cpu"][label]["report"]
+        if label.startswith("example"):  # the loop's ranks and backend differ by side; its values may not
+            drop = ("ranks", "backend")
+            worst[label] = hold_example(label, {k: v for k, v in run["report"].items() if k not in drop},
+                                        {k: v for k, v in want.items() if k not in drop})
+        elif cli_deterministic(label, run["report"]) != cli_deterministic(label, want):
+            raise AssertionError(f"entry_points: {label}'s report on the card differs from the CPU's")
+    card_runs = {label: run["report"] for label, run in runs["card"].items()}
+    for label in ("serve_demo_chaos", "serve_demo_fleet"):
+        block = card_runs[label]["chaos" if label.endswith("chaos") else "fleet"]
+        if block["unrecovered"]:
+            raise AssertionError(f"entry_points: {label} left a fault unrecovered")
+    failover = card_runs["soak_failover"]["counters"]
+    if failover.get("failover_state_parity") != 1.0 or failover.get("failover_rpo_records") != 0:
+        raise AssertionError(f"entry_points: soak_failover's parity or RPO: {failover}")
+    emit({"phase": "entry_points", **out,
+          "clis": {label: {"card_s": run["seconds"], "cpu_s": runs["cpu"][label]["seconds"], "exit": run["rc"]}
+                   for label, run in runs["card"].items()},
+          "examples_worst_diff": worst, "health_status": health["card"]["status"], "part_s": parts,
+          "seconds": time.perf_counter() - started, "limit_s": ENTRY_PHASE_LIMIT_S, "card": card})
+    demo = card_runs["serve_demo"]
+    emit({"phase": "entry_points_serve_demo", "tenants": demo["tenants"], "steps": demo["steps"],
+          **{k: demo[k] for k in ("tenants_per_sec", "naive_tenants_per_sec", "speedup_vs_naive",
+                                  "boot_first_round_s")},
+          "dispatches": demo["engine"]["dispatches"], "chaos": card_runs["serve_demo_chaos"]["chaos"]["hint"],
+          "fleet_parity": card_runs["serve_demo_fleet"]["fleet"]["fleet_failover_parity"], "card": card})
+    emit({"phase": "entry_points_soak",
+          **{label: {**card_runs[label]["timing"], "unrecovered": card_runs[label]["counters"]["unrecovered_faults"]}
+             for label in ("soak_trace", "soak_replay", "soak_failover", "soak_fleet")}, "card": card})
+    emit({"phase": "entry_points_health", **health["card"], "beside": ["mapeval_child"] if mapeval_running else [],
+          "card": card})
+    if time.perf_counter() - started > ENTRY_PHASE_LIMIT_S:
+        print(f"entry_points: {time.perf_counter() - started:.1f} s, past its {ENTRY_PHASE_LIMIT_S} s budget",
+              file=sys.stderr)
 
 
 # ---------------------------------------------------------------------------
@@ -9879,6 +10172,7 @@ def main() -> int:
     device_map = start_mapeval(*map_device_phase(card, preds, target, host_values))
     launches_by_path = {"fid": launches["bfloat16"], "flagship": flagship_phase(card, preds, target, host_values["map"])}
     flagship_two_ranks_phase(card)
+    entry_points_phase(card, device_map["child"])
     launches_by_path["generative"] = generative_phase(card)
     collection_groups_phase(card)
     launches_by_path["reliability"] = reliability_phase(card)

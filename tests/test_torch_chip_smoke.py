@@ -233,6 +233,7 @@ def test_flagship_rehearsal_and_its_collective_prediction(chip_smoke):
     import numpy as np
 
     from torchmetrics_tpu_torch.detection import pack_detection_batch
+    from torchmetrics_tpu_torch.entry import Flagship
 
     preds, target = chip_smoke.coco_scale_dataset(np.random.default_rng(1), 40, n_det=20)
 
@@ -240,7 +241,7 @@ def test_flagship_rehearsal_and_its_collective_prediction(chip_smoke):
         return imgs.reshape(imgs.shape[0], -1)[:, :16].float()
 
     extractor.num_features = 16
-    flagship = chip_smoke.Flagship(extractor, 40, 20, 16, device="cpu")
+    flagship = Flagship(extractor, 40, 20, 16, device="cpu")
     gen = torch.Generator().manual_seed(0)
     states = flagship.init()
     for p, t in zip(chip_smoke.batches_of(preds, 8), chip_smoke.batches_of(target, 8)):
@@ -2058,3 +2059,30 @@ def test_fleet_rehearsal_holds_its_gates_and_a_flipped_migrated_leaf_fails(chip_
     monkeypatch.setattr(FleetController, "migrate", flipped)
     with pytest.raises(AssertionError, match="changed their digests"):
         chip_smoke.fleet_fid_part(make, images, str(tmp_path / "planted"))
+
+
+def test_entry_points_hold_only_what_reads_no_clock(chip_smoke):
+    """The entry_points phase's comparisons: a serve demo's or a soak's report without
+    its clock readings, and an example's numbers (the confusion matrix exactly, FID
+    within ``EXAMPLE_FID_RTOL`` relative, the rest within ``EXAMPLE_ATOL``)."""
+    demo = {"tenants": 8, "tenants_per_sec": 10.0, "naive_tenants_per_sec": 2.0, "speedup_vs_naive": 5.0,
+            "boot_first_round_s": 1.0, "engine": {"dispatches": 3, "tenant_spill_us": 17}}
+    slow = {**demo, "tenants_per_sec": 1.0, "engine": {"dispatches": 3, "tenant_spill_us": 99}}
+    assert chip_smoke.cli_deterministic("serve_demo", demo) == chip_smoke.cli_deterministic("serve_demo", slow)
+    assert chip_smoke.cli_deterministic("serve_demo", demo) != chip_smoke.cli_deterministic(
+        "serve_demo_chaos", {**slow, "engine": {"dispatches": 4, "tenant_spill_us": 99}})
+    soak = {"counters": {"events": 5}, "history": [], "faults": [], "reconciliation": {"exact": True},
+            "config": {"state_digest": "ab", "replayed": False}, "timing": {"elapsed_s": 1.0}}
+    replay = {**soak, "config": {"state_digest": "ab", "replayed": True}, "timing": {"elapsed_s": 9.0}}
+    assert chip_smoke.cli_deterministic("soak_replay", replay) == chip_smoke.cli_deterministic("soak_trace", soak)
+    with pytest.raises(KeyError):
+        chip_smoke.cli_deterministic("health_server", {})
+    want = {"values": {"acc": 0.5, "confmat": [[1.0, 0.0], [0.0, 1.0]]}, "fid": 0.06, "truncated_rejected": True}
+    near = {"values": {"acc": 0.5 + 5e-7, "confmat": [[1.0, 0.0], [0.0, 1.0]]}, "fid": 0.06 * (1 + 5e-4),
+            "truncated_rejected": True}
+    assert chip_smoke.hold_example("example", near, want) == pytest.approx(5e-4)
+    for bad in ({**near, "fid": 0.06 * 1.01}, {**near, "truncated_rejected": False},
+                {**near, "values": {"acc": 0.5, "confmat": [[0.0, 1.0], [0.0, 1.0]]}},
+                {**near, "values": {"acc": 0.51, "confmat": [[1.0, 0.0], [0.0, 1.0]]}}):
+        with pytest.raises(AssertionError):
+            chip_smoke.hold_example("example", bad, want)

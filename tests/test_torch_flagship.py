@@ -5,7 +5,8 @@ package, on the CPU.
   updates and the clamped overflow (XLA's ``dynamic_update_slice`` clamps the start to
   ``capacity - batch``) equal the JAX accumulator's bit for bit, and ``to_lists`` gives
   back the inputs.
-- The flagship (``chip_smoke.Flagship``, the port's ``__graft_entry__._flagship_step_fn``)
+- The flagship (``torchmetrics_tpu_torch.entry.Flagship``, the parts of the port's
+  ``_flagship_step_fn``)
   finalized over the JAX flagship's whole input, against ``_flagship_step_fn(mesh, 8)``
   on the conftest CPU mesh: ``acc``, ``f1`` and ``map`` equal, ``fid`` within 1e-4
   relative (the projection's float32 products and the covariance sums round differently
@@ -20,7 +21,6 @@ package, on the CPU.
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
 import pathlib
@@ -44,14 +44,6 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = {"device": "cpu"}
 FID_RTOL = 1e-4
 WORKER_WALL_S = 120
-
-
-@pytest.fixture(scope="module")
-def chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 def _synth_batch(rng, n_imgs, n_det=(2, 6), n_gt=(1, 5), classes=4):
@@ -139,8 +131,9 @@ def _jax_toy_projection(pixels: int, feature_dim: int = 16) -> np.ndarray:
     return np.array(jax.random.normal(jax.random.PRNGKey(7), (pixels, feature_dim), jnp.float32))
 
 
-def test_flagship_finalize_matches_the_jax_flagship_on_the_cpu_mesh(chip_smoke):
+def test_flagship_finalize_matches_the_jax_flagship_on_the_cpu_mesh():
     from __graft_entry__ import _flagship_step_fn
+    from torchmetrics_tpu_torch.entry import Flagship
 
     mesh = jax.make_mesh((NUM_DEVICES,), ("dp",))
     step, args, finalize = _flagship_step_fn(mesh, NUM_DEVICES)
@@ -153,7 +146,7 @@ def test_flagship_finalize_matches_the_jax_flagship_on_the_cpu_mesh(chip_smoke):
         return imgs.reshape(imgs.shape[0], -1).float() @ proj
 
     extractor.num_features = proj.shape[1]
-    flagship = chip_smoke.Flagship(extractor, capacity_images=det_batch[3].shape[0], max_det=8, max_gt=6, **CPU)
+    flagship = Flagship(extractor, capacity_images=det_batch[3].shape[0], max_det=8, max_gt=6, **CPU)
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
     states = flagship.update(flagship.init(), t(preds), t(target), tuple(t(a) for a in det_batch), t(imgs_real),
                              t(imgs_fake))
@@ -192,8 +185,9 @@ _SHARED = textwrap.dedent(
                 "proj": rng.normal(size=(192, 16)).astype(np.float32)}
 
 
-    def flagship_values(chip_smoke, rank, world):
+    def flagship_values(rank, world):
         from torchmetrics_tpu_torch.detection import pack_detection_batch
+        from torchmetrics_tpu_torch.entry import Flagship
 
         data = whole_input()
         proj = torch.from_numpy(data["proj"])
@@ -203,7 +197,7 @@ _SHARED = textwrap.dedent(
 
         extractor.num_features = 16
         images = 16 // world
-        flagship = chip_smoke.Flagship(extractor, images, 6, 4, device="cpu")
+        flagship = Flagship(extractor, images, 6, 4, device="cpu")
         rows, imgs = slice(rank * 64 // world, (rank + 1) * 64 // world), slice(rank * images, (rank + 1) * images)
         det = pack_detection_batch(data["det"][0][imgs], data["det"][1][imgs], 6, 4, device="cpu")
         t = torch.from_numpy
@@ -222,33 +216,30 @@ _SHARED = textwrap.dedent(
 
 _WORKER = textwrap.dedent(
     """
-    import datetime, importlib.util, json, sys
+    import datetime, json, sys
 
     import torch.distributed as dist
 
-    rank, world, init, root = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+    rank, world, init = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=60))
-    spec = importlib.util.spec_from_file_location("chip_smoke", root + "/chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
     from flagship_shared import flagship_values
 
-    values = flagship_values(chip_smoke, rank, world)
+    values = flagship_values(rank, world)
     dist.destroy_process_group()
     print("RESULT" + json.dumps({"rank": rank, "values": values}), flush=True)
     """
 )
 
 
-def test_flagship_over_two_gloo_ranks_equals_a_world_of_one(tmp_path, chip_smoke):
+def test_flagship_over_two_gloo_ranks_equals_a_world_of_one(tmp_path):
     (tmp_path / "worker.py").write_text(_WORKER)
     (tmp_path / "flagship_shared.py").write_text(_SHARED)
     env = {k: v for k, v in os.environ.items() if not k.startswith(("XLA_", "JAX_"))}
     env.update(PYTHONPATH=os.pathsep.join([str(ROOT), str(tmp_path), env.get("PYTHONPATH", "")]),
                GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
     init = f"file://{tmp_path / 'rendezvous'}"
-    procs = [subprocess.Popen([sys.executable, str(tmp_path / "worker.py"), str(r), "2", init, str(ROOT)],
+    procs = [subprocess.Popen([sys.executable, str(tmp_path / "worker.py"), str(r), "2", init],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env) for r in range(2)]
     outs = []
     try:
@@ -264,7 +255,7 @@ def test_flagship_over_two_gloo_ranks_equals_a_world_of_one(tmp_path, chip_smoke
             proc.wait()
     namespace: dict = {}
     exec(_SHARED, namespace)
-    want = namespace["flagship_values"](chip_smoke, 0, 1)  # no group here: a world of one
+    want = namespace["flagship_values"](0, 1)  # no group here: a world of one
     assert 0.0 < want["map"] <= 1.0
     data = namespace["whole_input"]()
     whole = MeanAveragePrecision(**CPU)  # rank 1 of 2 left out its last image

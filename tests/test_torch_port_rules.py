@@ -23,9 +23,9 @@ import torch
 import torchmetrics_tpu_torch
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.classification import MulticlassAccuracy
-from torchmetrics_tpu_torch import (audio, classification, clustering, detection, functional, image, multimodal,
-                                    nominal, regression, retrieval, segmentation, shape, text, utilities, video,
-                                    wrappers)
+from torchmetrics_tpu_torch import (audio, classification, clustering, detection, entry, functional, image,
+                                    multimodal, nominal, regression, retrieval, segmentation, shape, text, utilities,
+                                    video, wrappers)
 from torchmetrics_tpu_torch.image import (
     FrechetInceptionDistance,
     InceptionScore,
@@ -128,6 +128,11 @@ def _toy_extractor(imgs):
         lambda: segmentation.MeanIoU(),
         lambda: functional.retrieval_reciprocal_rank([0.5, 0.25], [1, 0]),
         lambda: functional.hausdorff_distance(np.zeros((1, 2, 4, 4), np.int64), np.zeros((1, 2, 4, 4), np.int64), 2),
+        lambda: entry.entry(),
+        lambda: entry._flagship_step_fn(1),
+        lambda: entry.dryrun_multichip(1),
+        lambda: entry.dryrun_multichip(2, backend="gloo"),
+        lambda: entry.sharded_values(1),
     ],
     ids=["metric", "extractor", "extractor_from_params", "fid", "collection", "resolve_none", "resolve_cuda",
          "accumulator", "pack", "map", "map_device_backend", "device_map", "iou", "giou", "diou", "ciou",
@@ -135,7 +140,8 @@ def _toy_extractor(imgs):
          "functional_auroc", "calibration", "hinge", "ranking_loss", "fairness", "eer", "logauc", "recall_at_precision",
          "functional_sensitivity_at_specificity", "bootstrapper", "minmax_on_cuda", "running", "feature_share",
          "feature_share_on_cuda", "panoptic_quality", "functional_panoptic_quality", "retrieval_ndcg",
-         "lazy_mean_iou", "functional_reciprocal_rank", "functional_hausdorff"],
+         "lazy_mean_iou", "functional_reciprocal_rank", "functional_hausdorff", "entry", "flagship_step_fn",
+         "dryrun_multichip", "dryrun_multichip_gloo", "sharded_values"],
 )
 def test_default_device_raises_without_cuda(no_cuda, build):
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -490,6 +496,32 @@ def test_run_soak_at_the_default_device_raises_without_cuda(no_cuda, tmp_path):
     fc = FleetController(lambda: MulticlassAccuracy(3, device="cpu"), root=str(tmp_path / "fc"), hosts=2)
     assert all(e._device == torch.device("cpu") for e in fc.engines().values())
     fc.close()
+
+
+ENTRY_POINT_MODULES = ("entry", "serving.demo", "chaos.__main__", "observability.health_server",
+                       "examples.distributed_eval_loop", "examples.fid_clipscore_custom_extractor",
+                       "examples.checkpoint_resume")
+CLI_MODULES = ENTRY_POINT_MODULES[1:]
+
+
+def test_the_entry_point_modules_are_scanned_and_their_doctests_listed():
+    for name in ENTRY_POINT_MODULES:
+        assert f"torchmetrics_tpu_torch.{name}" in PORT_MODULES
+        assert ROOT / "torchmetrics_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
+    assert ROOT / "torchmetrics_tpu_torch" / "examples" / "__init__.py" in PORT_FILES
+
+
+@pytest.mark.parametrize("name", CLI_MODULES)
+def test_cli_at_the_default_device_exits_without_cuda(no_cuda, name, capsys, tmp_path):
+    """Each ``python -m`` entry point's ``main`` with no ``--device``: exit status 2 and a
+    message naming the missing card, before any work (the soak's trace is not written)."""
+    module = importlib.import_module(f"torchmetrics_tpu_torch.{name}")
+    argv = ["--trace", str(tmp_path / "t.trace")] if name == "chaos.__main__" else []
+    with pytest.raises(SystemExit) as exc:
+        module.main(argv)
+    assert exc.value.code == 2
+    assert "no CUDA device is available; pass --device cpu" in capsys.readouterr().err
+    assert not (tmp_path / "t.trace").exists()
 
 
 def test_explicit_cpu_device_runs_without_cuda(no_cuda):

@@ -23,6 +23,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
+def cli_device(parser: Any, value: Optional[str]) -> torch.device:
+    """The ``--device`` of a command-line entry point: the card when None. Without CUDA
+    the command exits with status 2 and a message naming the missing card, as
+    :func:`resolve_device` raises; it never carries on on the CPU by itself."""
+    try:
+        return resolve_device(value)
+    except RuntimeError:
+        parser.exit(2, f"{parser.prog}: no CUDA device is available; pass --device cpu to run on the CPU\n")
+
+
 def _as_tensor(x: Any) -> torch.Tensor:
     """A tensor stays where it is; anything else becomes a tensor on the default device
     (``resolve_device(None)``), so nothing runs on the CPU unless asked."""
